@@ -1,0 +1,68 @@
+"""The port stands alone: m6anet_tpu_torch and chip_smoke.py import neither
+JAX nor the JAX package (m6anet_tpu), whose name the port's starts with."""
+import os
+import re
+import subprocess
+import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = os.path.join(REPO, "m6anet_tpu_torch")
+
+_PROBE = r"""
+import sys
+import numpy as np
+import torch
+import m6anet_tpu_torch
+from m6anet_tpu_torch.cli import main  # noqa: F401
+from m6anet_tpu_torch.inference import engine
+from m6anet_tpu_torch.models import load_model
+from m6anet_tpu_torch.constants import DEFAULT_MODEL_CONFIG, DEFAULT_MODEL_WEIGHTS
+from m6anet_tpu_torch.ops import fused_infer_kernel as fik
+import tomllib
+
+with open(DEFAULT_MODEL_CONFIG, "rb") as f:
+    model = load_model(tomllib.load(f), DEFAULT_MODEL_WEIGHTS)
+rng = np.random.default_rng(0)
+X = torch.from_numpy(rng.normal(size=(256, 9)).astype(np.float32))
+K = torch.from_numpy(rng.integers(0, 66, size=(256, 3)).astype(np.int8))
+offsets = torch.tensor([0, 100, 0, 0], dtype=torch.int32)
+counts = torch.tensor([100, 120, 0, 0], dtype=torch.int32)
+p, site_p, mod_ratio = fik.fused_inference_t(
+    fik.prepare_fused_params_t(model), X, K, None, offsets, counts, 0.5
+)
+assert p.shape == (256,) and site_p.shape == (4,) and bool(torch.isfinite(site_p).all())
+bad = sorted(
+    name for name in sys.modules
+    if name == "jax" or name.startswith(("jax.", "jaxlib"))
+    or name == "m6anet_tpu" or name.startswith("m6anet_tpu.")
+)
+print("LOADED:" + ",".join(bad))
+"""
+
+
+def test_import_and_cpu_forward_load_no_jax():
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run(
+        [sys.executable, "-c", _PROBE], cwd=REPO, env=env, capture_output=True, text=True, timeout=120
+    )
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert "LOADED:\n" in proc.stdout, proc.stdout
+
+
+def _sources():
+    for root, _, files in os.walk(PORT):
+        for name in files:
+            if name.endswith(".py"):
+                yield os.path.join(root, name)
+    yield os.path.join(REPO, "chip_smoke.py")
+
+
+def test_sources_never_name_jax_or_the_jax_package():
+    pattern = re.compile(r"\bimport jax\b|\bfrom jax\b|\bm6anet_tpu(?!_torch)")
+    offenders = []
+    for path in _sources():
+        with open(path, encoding="utf-8") as f:
+            for lineno, line in enumerate(f, 1):
+                if pattern.search(line):
+                    offenders.append(f"{os.path.relpath(path, REPO)}:{lineno}: {line.strip()}")
+    assert not offenders, "\n".join(offenders)
