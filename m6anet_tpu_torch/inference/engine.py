@@ -13,9 +13,15 @@ values at 16 decimal places.  The final batch is always flushed (the
 reference's ``(it+1) % save_per_batch`` condition can drop it —
 reference: m6anet/utils/inference_utils.py:47).
 
-Backends: ``cuda_fused`` runs the whole step as the hand-written kernel of
-``ops/fused_infer_kernel.py``; ``torch`` runs the model's modules and the
-plain site ops (the counterpart of the JAX package's ``xla`` backend).
+Backends (the JAX package's ``pallas_fused``, ``pallas`` and ``xla``):
+``cuda_fused`` runs the whole step as the hand-written kernel of
+``ops/fused_infer_kernel.py``; ``cuda`` runs only the per-read encoder as a
+kernel (``ops/encoder_kernel.py``) and the plain site ops;
+``torch`` runs the model's modules and the plain site ops.  With the MC site
+method (``method="mc"``) both CUDA backends take the site probability from
+the kernel of ``ops/mc_kernel.py``, and ``torch`` from
+``site_ops.site_probability_mc``; the two draw different numbers for one
+seed, as the JAX package's backends do.
 """
 from __future__ import annotations
 
@@ -32,7 +38,7 @@ import torch
 from ..data.batching import DEFAULT_READ_CAPACITY, DEFAULT_SITE_CAPACITY, SiteBatch, pack_sites
 from ..data.dataset import SiteDataset
 from ..models.mil import MILModel
-from ..ops import fused_infer_kernel, site_ops
+from ..ops import encoder_kernel, fused_infer_kernel, mc_kernel, random, site_ops
 from ..ops.site_ops import derive_site_ids  # noqa: F401  (part of this module's API)
 from ..utils.logging import get_logger
 from ..utils.profiling import StageTimer
@@ -40,7 +46,9 @@ from ..utils.profiling import StageTimer
 SITE_HEADER = "transcript_id,transcript_position,n_reads,probability_modified,kmer,mod_ratio\n"
 INDIV_HEADER = "transcript_id,transcript_position,read_index,probability_modified\n"
 
-BACKENDS = ("auto", "torch", "cuda_fused")
+BACKENDS = ("auto", "torch", "cuda_fused", "cuda")
+METHODS = ("exact", "mc")
+CUDA_BACKENDS = ("cuda_fused", "cuda")
 PRECISIONS = ("auto", "f32")
 
 
@@ -92,8 +100,8 @@ def resolve_backend(
 ) -> Tuple[str, str]:
     """Resolve 'auto' backend/precision: the fused CUDA kernel on a card,
     the torch modules on the CPU.  The torch modules run on the card only
-    when asked for by name: 'auto' (like 'cuda_fused') raises on a card for
-    an architecture the kernel does not cover."""
+    when asked for by name: 'auto' (like 'cuda_fused' and 'cuda') raises on
+    a card for an architecture the kernels do not cover."""
     if backend not in BACKENDS:
         raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
     if precision not in PRECISIONS:
@@ -103,11 +111,11 @@ def resolve_backend(
         )
     if backend == "auto":
         backend = "cuda_fused" if device.type == "cuda" else "torch"
-    elif backend == "cuda_fused" and device.type != "cuda":
-        raise ValueError("backend 'cuda_fused' needs device 'cuda'; use --backend torch on the CPU")
-    if backend == "cuda_fused" and not fused_backend_supported(model):
+    elif backend in CUDA_BACKENDS and device.type != "cuda":
+        raise ValueError(f"backend {backend!r} needs device 'cuda'; use --backend torch on the CPU")
+    if backend in CUDA_BACKENDS and not fused_backend_supported(model):
         raise ValueError(
-            "the fused CUDA kernel supports only the production architecture "
+            "the CUDA kernels support only the production architecture "
             "(the packaged m6anet.toml config); run this model config with "
             "--backend torch (its own kernels wait for ROADMAP.md, Queue 1 "
             "'Generic model path')"
@@ -125,35 +133,69 @@ def make_infer_step(
     n_samples: int = 20,
     method: str = "exact",
     backend: str = "torch",
+    n_iterations: int = 1000,
+    seed: int = 0,
 ):
     """Build the per-batch device function
     ``step(features, kmer_ids, offsets, counts) -> (p, site_p, mod_ratio)``
-    on tensors already on the model's device.  ``kmer_ids`` may be int8."""
-    if method != "exact":
-        raise ValueError(
-            f"site_proba method {method!r} is not ported yet; only 'exact' runs "
-            "(the MC method is ROADMAP.md, Queue 1 'MC site method')"
-        )
+    on tensors already on the model's device.  ``kmer_ids`` may be int8.
+
+    ``method="mc"`` replaces the exact site probability with the sampled
+    estimator over ``n_iterations`` iterations drawn from ``seed``.  On the
+    CUDA backends its draws ``U`` are made once here and stay on the device
+    for every batch (as the JAX engine passes one key to every step), and
+    every site count must be <= ``mc_kernel.MAX_SITE_READS``."""
+    if method not in METHODS:
+        raise ValueError(f"site_proba method must be one of {METHODS}, got {method!r}")
+    if backend not in ("torch",) + CUDA_BACKENDS:
+        raise ValueError(f"backend must be 'torch', 'cuda_fused' or 'cuda', got {backend!r}")
+    if method == "mc" and n_iterations < 1:
+        raise ValueError(f"num_iterations must be >= 1, got {n_iterations}")
+    if backend == "torch":
+        key = random.key_from_seed(seed)
+
+        def step(features, kmer_ids, offsets, counts):
+            site_ids = site_ops.derive_site_ids(offsets, counts, features.shape[0], site_capacity)
+            p = model.per_read_probability({"X": features, "kmer": kmer_ids})
+            if method == "mc":
+                site_p = site_ops.site_probability_mc(p, offsets, counts, key, n_iterations, n_samples)
+            else:
+                site_p = site_ops.site_probability_exact(p, site_ids, counts, site_capacity, n_samples)
+            mod_ratio = site_ops.mod_ratio_exact(p, site_ids, counts, site_capacity, threshold)
+            return p, site_p, mod_ratio
+
+        return step
+
+    fp = fused_infer_kernel.prepare_fused_params_t(model)
+    if method == "mc":
+        u = torch.from_numpy(random.shared_draws(seed, n_iterations, n_samples)).to(fp.packed.device)
+
+        def mc_site_p(p, offsets, counts):
+            return mc_kernel.site_probability_mc_cuda(p, offsets, counts, u, n_iterations, n_samples)
+
     if backend == "cuda_fused":
-        fp = fused_infer_kernel.prepare_fused_params_t(model)
 
         def fused_step(features, kmer_ids, offsets, counts):
-            return fused_infer_kernel.fused_inference_t(
+            p, site_p, mod_ratio = fused_infer_kernel.fused_inference_t(
                 fp, features, kmer_ids, None, offsets, counts, threshold, n_samples
             )
+            if method == "mc":
+                site_p = mc_site_p(p, offsets, counts)
+            return p, site_p, mod_ratio
 
         return fused_step
-    if backend != "torch":
-        raise ValueError(f"backend must be 'torch' or 'cuda_fused', got {backend!r}")
 
-    def step(features, kmer_ids, offsets, counts):
+    def encoder_step(features, kmer_ids, offsets, counts):
+        p = encoder_kernel.fused_read_probability(fp, features, kmer_ids)
         site_ids = site_ops.derive_site_ids(offsets, counts, features.shape[0], site_capacity)
-        p = model.per_read_probability({"X": features, "kmer": kmer_ids})
-        site_p = site_ops.site_probability_exact(p, site_ids, counts, site_capacity, n_samples)
+        if method == "mc":
+            site_p = mc_site_p(p, offsets, counts)
+        else:
+            site_p = site_ops.site_probability_exact(p, site_ids, counts, site_capacity, n_samples)
         mod_ratio = site_ops.mod_ratio_exact(p, site_ids, counts, site_capacity, threshold)
         return p, site_p, mod_ratio
 
-    return step
+    return encoder_step
 
 
 def _write_batch(batch: SiteBatch, p, site_p, mod_ratio, f_site, f_indiv):
@@ -239,6 +281,8 @@ def run_inference(
     read_proba_threshold: float,
     method: str = "exact",
     n_samples: int = 20,
+    num_iterations: int = 1000,
+    seed: int = 0,
     read_capacity: int = DEFAULT_READ_CAPACITY,
     site_capacity: int = DEFAULT_SITE_CAPACITY,
     pipeline_depth: int = 2,
@@ -256,6 +300,9 @@ def run_inference(
     both CSVs are truncated to the last fully-written site and the dataset's
     already-scored prefix is skipped.  ``write_indiv=False`` writes only
     data.site_proba.csv, and per-read probabilities never leave the device.
+    ``method="mc"`` samples the site probability (``num_iterations``
+    iterations from ``seed``); its values depend only on the seed and each
+    site's reads, not on how sites fall into batches.
 
     At most ``pipeline_depth`` batches are in flight: a new batch is
     dispatched only after the oldest beyond that bound is written.  Rows are
@@ -267,7 +314,14 @@ def run_inference(
     log = get_logger("m6anet_tpu_torch.inference")
     model.to(device).eval()
     backend, precision = resolve_backend(model, backend, precision, device, log=log)
-    launches_before = fused_infer_kernel.launch_count
+    # every kernel wrapper's launch count, by the TPU kernel it ports
+    kernels = {
+        "fused_inference_t": (fused_infer_kernel, "launch_count"),
+        "fused_read_probability": (encoder_kernel, "launch_count"),
+        "site_probability_mc": (mc_kernel, "launch_count"),
+        "fused_inference": (fused_infer_kernel, "fused_inference_launch_count"),
+    }
+    launches_before = {name: getattr(*counter) for name, counter in kernels.items()}
 
     # capacity validation at run setup, not mid-run from the packer (the
     # reference streams any site size — m6anet/utils/data_utils.py:226-229 —
@@ -280,8 +334,18 @@ def run_inference(
             "sites at dataprep time with --readcount_max"
         )
 
+    if (
+        method == "mc" and backend in CUDA_BACKENDS
+        and max_reads is not None and max_reads > mc_kernel.MAX_SITE_READS
+    ):
+        raise ValueError(
+            f"the dataset has a site with {max_reads} reads, above the "
+            f"{mc_kernel.MAX_SITE_READS} the MC kernel holds; cap sites at "
+            "dataprep time with --readcount_max, or use --backend torch"
+        )
     step = make_infer_step(
-        model, site_capacity, read_proba_threshold, n_samples, method, backend
+        model, site_capacity, read_proba_threshold, n_samples, method, backend,
+        n_iterations=num_iterations, seed=seed,
     )
 
     site_path = os.path.join(out_dir, "data.site_proba.csv")
@@ -364,7 +428,7 @@ def run_inference(
                 n_batches += 1
         while inflight:
             drain()
-    launches = {"fused_inference_t": fused_infer_kernel.launch_count - launches_before}
+    launches = {name: getattr(*counter) - launches_before[name] for name, counter in kernels.items()}
     log.info("inference stages: %s", timer.summary())
     log.info("batches dispatched: %d", n_batches)
     log.info("kernel launches: %s", json.dumps(launches))

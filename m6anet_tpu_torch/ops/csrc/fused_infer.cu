@@ -3,6 +3,13 @@
 //
 // Replaces: m6anet_tpu/ops/fused_infer_kernel.py:397 (fused_inference_t)
 //
+// Its entry points also serve two more TPU kernels of the same function:
+//   fused_infer_launch  m6anet_tpu/ops/fused_infer_kernel.py:134
+//                       (fused_inference: the same contract given site ids;
+//                       its wrapper derives the offsets from the counts)
+//   read_prob_launch    m6anet_tpu/ops/encoder_kernel.py:207
+//                       (fused_read_probability: phase A alone)
+//
 // What it computes, for a batch packed by data/batching.py::pack_sites
 // (site s owns the contiguous reads [offsets[s], offsets[s] + counts[s]);
 // padding reads sit past sum(counts) and padding sites have count 0):
@@ -245,6 +252,17 @@ int fused_infer_launch(const float* features, const int8_t* kmer_ids,
     err = cudaGetLastError();
   }
   return static_cast<int>(err);
+}
+
+// Phase A alone: per-read p, on `stream` (the encoder-only entry point,
+// replacing m6anet_tpu/ops/encoder_kernel.py:207 fused_read_probability).
+// Returns the CUDA error code of the launch (0 = success).
+int read_prob_launch(const float* features, const int8_t* kmer_ids,
+                     const float* weights, float* p, int64_t n_reads,
+                     void* stream_ptr) {
+  if (n_reads <= 0) return static_cast<int>(cudaSuccess);
+  return static_cast<int>(launch_read_prob(features, kmer_ids, weights, n_reads, p,
+                                           static_cast<cudaStream_t>(stream_ptr)));
 }
 
 const char* fused_infer_error_string(int code) {

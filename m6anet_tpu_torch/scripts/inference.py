@@ -2,12 +2,13 @@
 
 The flags of the JAX package's ``inference`` command (reference:
 m6anet/scripts/inference.py), with ``--device {cuda,cpu}`` (default cuda),
-``--backend {auto,torch,cuda_fused}`` and ``--precision {auto,f32}``.
-Flags whose path is not ported yet stop the parse with the ROADMAP.md item
-that will bring it; that includes --num_iterations and --seed, which only
-the MC site method reads.  --batch_size and --save_per_batch, the
-reference's own flags, are accepted for compatibility and do nothing:
-batching is capacity-based and results are always flushed.
+``--backend {auto,torch,cuda_fused,cuda}`` and ``--precision {auto,f32}``.
+``--site_proba_method mc`` samples the site probability over
+``--num_iterations`` iterations drawn from ``--seed``.  Flags whose path is
+not ported yet stop the parse with the ROADMAP.md item that will bring it.
+--batch_size and --save_per_batch, the reference's own flags, are accepted
+for compatibility and do nothing: batching is capacity-based and results
+are always flushed.
 """
 from __future__ import annotations
 
@@ -26,7 +27,7 @@ from ..constants import (
     PRETRAINED_CONFIGS,
 )
 from ..data.batching import DEFAULT_READ_CAPACITY, DEFAULT_SITE_CAPACITY
-from ..inference.engine import BACKENDS, PRECISIONS
+from ..inference.engine import BACKENDS, METHODS, PRECISIONS
 
 # default batch capacities (reads, sites) per device type: big batches on the
 # card amortize each step's launch and copies
@@ -50,16 +51,6 @@ class _NotPorted(argparse.Action):
         )
 
 
-class _SiteMethod(argparse.Action):
-    def __call__(self, parser, namespace, values, option_string=None):
-        if values == "mc":
-            parser.error(
-                "--site_proba_method mc is not ported to m6anet_tpu_torch yet "
-                "(ROADMAP.md, Queue 1 'MC site method')"
-            )
-        setattr(namespace, self.dest, values)
-
-
 def argparser():
     parser = ArgumentParser(formatter_class=ArgumentDefaultsHelpFormatter, add_help=False)
     parser.add_argument("--input_dir", nargs="+", required=True,
@@ -81,20 +72,17 @@ def argparser():
     parser.add_argument("--n_processes", default=25, type=int,
                         help="host threads parsing data.json payloads (the native "
                              "parser releases the GIL).")
-    parser.add_argument("--num_iterations", type=int, action=_NotPorted,
-                        roadmap_item="MC site method",
-                        help="mc mode only; not ported yet.")
+    parser.add_argument("--num_iterations", default=1000, type=int,
+                        help="number of sampling iterations (mc mode only).")
     parser.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                         help="device to run on; 'cuda' fails when no card is "
                              "usable instead of falling back to the CPU.")
-    parser.add_argument("--seed", type=int, action=_NotPorted, roadmap_item="MC site method",
-                        help="mc mode only; not ported yet.")
+    parser.add_argument("--seed", default=0, type=int, help="random seed for mc sampling.")
     parser.add_argument("--read_proba_threshold", default=DEFAULT_READ_THRESHOLD, type=float,
                         help="probability threshold for a read to be considered modified.")
-    parser.add_argument("--site_proba_method", default="exact", choices=["exact", "mc"],
-                        action=_SiteMethod,
-                        help="exact = closed-form noisy-OR expectation; mc is not "
-                             "ported yet.")
+    parser.add_argument("--site_proba_method", default="exact", choices=METHODS,
+                        help="exact = closed-form noisy-OR expectation; mc = "
+                             "emulation of the reference's sampling estimator.")
     parser.add_argument("--read_capacity", default=None, type=int,
                         help="reads per device batch (static shape); default "
                              "1048576 on cuda, 65536 on cpu.")
@@ -105,8 +93,10 @@ def argparser():
                         help="minimum reads for a site to be scored.")
     parser.add_argument("--backend", default="auto", choices=BACKENDS,
                         help="auto = the fused CUDA kernel on cuda, the torch "
-                             "modules on cpu; other architectures run on cuda "
-                             "only with an explicit --backend torch.")
+                             "modules on cpu; cuda = the encoder kernel alone, "
+                             "site statistics in plain PyTorch; other "
+                             "architectures run on cuda only with an explicit "
+                             "--backend torch.")
     parser.add_argument("--precision", default="auto", choices=PRECISIONS,
                         help="auto = f32 (parity mode; TF32 off).")
     parser.add_argument("--resume", default=False, action="store_true",
@@ -167,6 +157,8 @@ def main(args):
         args.out_dir,
         read_proba_threshold=threshold,
         method=args.site_proba_method,
+        num_iterations=args.num_iterations,
+        seed=args.seed,
         read_capacity=args.read_capacity or read_cap,
         site_capacity=args.site_capacity or site_cap,
         backend=args.backend,

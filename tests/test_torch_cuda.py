@@ -1,5 +1,6 @@
-"""Card-only tests of the port: the CUDA kernel against its plain version,
-and the engine on the card against the engine on the CPU.
+"""Card-only tests of the port: the CUDA kernels and their entry points
+against their plain versions, and the engine on the card against the engine
+on the CPU.
 
 They skip where no NVIDIA card is usable.  The file imports neither JAX nor
 the JAX package, so on a machine without JAX run it without the suite's
@@ -23,6 +24,7 @@ from m6anet_tpu_torch.constants import (
 from m6anet_tpu_torch.data.dataset import build_dataset
 from m6anet_tpu_torch.inference.engine import run_inference
 from m6anet_tpu_torch.models import load_model
+from m6anet_tpu_torch.ops import encoder_kernel, mc_kernel, random
 from m6anet_tpu_torch.ops import fused_infer_kernel as fik
 
 DATA_DIR = os.path.join(os.path.dirname(__file__), "data")
@@ -120,3 +122,93 @@ def test_engine_on_the_card_matches_cpu_and_repeats_bit_for_bit(cuda_device, tmp
             a = np.loadtxt(tmp_path / "a" / name, delimiter=",", skiprows=1, usecols=col)
             b = np.loadtxt(tmp_path / other / name, delimiter=",", skiprows=1, usecols=col)
             np.testing.assert_allclose(a, b, rtol=0, atol=atol)
+
+
+def test_entry_points_match_plain(cuda_device):
+    """fused_read_probability (phase A alone) and fused_inference (site ids
+    given) against their plain versions, each counting its own launches."""
+    fp = fik.prepare_fused_params_t(_model().to(cuda_device))
+    X, K, offsets, counts = (torch.from_numpy(a).to(cuda_device) for a in _ragged_batch())
+    before = encoder_kernel.launch_count, fik.fused_inference_launch_count, fik.launch_count
+    p = encoder_kernel.fused_read_probability(fp, X, K)
+    torch.testing.assert_close(p, encoder_kernel.fused_read_probability_plain(fp, X, K), rtol=0, atol=1e-6)
+    full = fik.fused_inference_t(fp, X, K, None, offsets, counts, DEFAULT_READ_THRESHOLD)
+    assert torch.equal(p, full[0])  # the same phase A
+    site_ids = torch.full((X.shape[0],), counts.numel(), dtype=torch.int32, device=cuda_device)
+    n_real = int(counts.sum())
+    site_ids[:n_real] = torch.repeat_interleave(
+        torch.arange(counts.numel(), device=cuda_device, dtype=torch.int32), counts.long())
+    got = fik.fused_inference(fp, X, K, site_ids, counts, DEFAULT_READ_THRESHOLD)
+    want = fik.fused_inference_plain(fp, X, K, site_ids, counts, DEFAULT_READ_THRESHOLD)
+    torch.testing.assert_close(got[0], want[0], rtol=0, atol=1e-6)
+    torch.testing.assert_close(got[1], want[1], rtol=0, atol=1e-5)
+    assert all(torch.equal(a, b) for a, b in zip(got, full))  # offsets from the counts
+    after = encoder_kernel.launch_count, fik.fused_inference_launch_count, fik.launch_count
+    assert [b - a for a, b in zip(before, after)] == [1, 1, 1]
+    with pytest.raises(ValueError, match="dense layout"):  # as on the CPU
+        fik.fused_inference(fp, X, K, site_ids.flip(0).contiguous(), counts, DEFAULT_READ_THRESHOLD)
+    assert fik.fused_inference_launch_count == after[1]
+
+
+def test_mc_kernel_matches_plain_and_repeats(cuda_device):
+    rng = np.random.default_rng(5)
+    n_sites = 300
+    counts = rng.integers(2, 200, size=n_sites).astype(np.int32)
+    counts[:7] = [1, 128, 129, 1000, 1024, 0, 20000]  # 20,000: 80 KB of shared memory
+    counts[-20:] = 0  # padding sites
+    offsets = np.concatenate([[0], np.cumsum(counts)[:-1]]).astype(np.int32)
+    offsets[counts == 0] = 0
+    p = rng.uniform(0, 0.3, size=int(counts.sum()) + 100).astype(np.float32)
+    p[offsets[8]] = 1.0  # the -1e4 clamp
+    p, offsets, counts = (torch.from_numpy(a).to(cuda_device) for a in (p, offsets, counts))
+    for n_iters in (300, 1500):
+        u = torch.from_numpy(random.shared_draws(3, n_iters)).to(cuda_device)
+        before = mc_kernel.launch_count
+        got = mc_kernel.site_probability_mc_cuda(p, offsets, counts, u, n_iters)
+        again = mc_kernel.site_probability_mc_cuda(p, offsets, counts, u, n_iters)
+        want = mc_kernel.site_probability_mc_plain(p, offsets, counts, u, n_iters)
+        torch.cuda.synchronize()
+        assert mc_kernel.launch_count == before + 2
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
+        assert torch.equal(got, again)
+        assert bool((got[counts == 0] == 0).all()) and bool(torch.isfinite(got).all())
+    cap = mc_kernel.MAX_SITE_READS
+    big = torch.tensor([cap + 1], dtype=torch.int32, device=cuda_device)
+    zero = torch.zeros(1, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match=f"above the {cap}"):
+        mc_kernel.site_probability_mc_cuda(torch.rand(cap + 1, device=cuda_device), zero, big, u, 1500)
+    with pytest.raises(ValueError, match="u has shape"):
+        mc_kernel.site_probability_mc_cuda(p, offsets, counts, u[:, :100], 1500)
+
+
+def test_engine_mc_and_encoder_backend_on_the_card(cuda_device, tmp_path):
+    """MC through the MC kernel: repeats and rebatching give the same bytes;
+    the cuda backend (encoder kernel + order-free site statistics) repeats
+    bit for bit and agrees with the fused kernel."""
+    thr = PRETRAINED_CONFIGS["HCT116_RNA002"][1]
+    mc = dict(method="mc", num_iterations=500, seed=4)
+    before = mc_kernel.launch_count
+    run_inference(_model(), _dataset(), str(tmp_path / "mc_a"), thr, **mc)
+    assert mc_kernel.launch_count == before + 1
+    run_inference(_model(), _dataset(), str(tmp_path / "mc_b"), thr, read_capacity=1024, site_capacity=8, **mc)
+    before = mc_kernel.launch_count, encoder_kernel.launch_count
+    run_inference(_model(), _dataset(), str(tmp_path / "mc_cuda"), thr, backend="cuda", **mc)
+    assert (mc_kernel.launch_count, encoder_kernel.launch_count) == (before[0] + 1, before[1] + 1)
+    for name in ("data.site_proba.csv", "data.indiv_proba.csv"):
+        want = (tmp_path / "mc_a" / name).read_bytes()
+        assert (tmp_path / "mc_b" / name).read_bytes() == want
+    a = np.loadtxt(tmp_path / "mc_a" / "data.site_proba.csv", delimiter=",", skiprows=1, usecols=3)
+    b = np.loadtxt(tmp_path / "mc_cuda" / "data.site_proba.csv", delimiter=",", skiprows=1, usecols=3)
+    np.testing.assert_allclose(a, b, rtol=0, atol=1e-5)
+
+    before = encoder_kernel.launch_count
+    run_inference(_model(), _dataset(), str(tmp_path / "enc_a"), thr, backend="cuda")
+    assert encoder_kernel.launch_count == before + 1
+    run_inference(_model(), _dataset(), str(tmp_path / "enc_b"), thr, backend="cuda")
+    run_inference(_model(), _dataset(), str(tmp_path / "fused"), thr)
+    for name in ("data.site_proba.csv", "data.indiv_proba.csv"):
+        assert (tmp_path / "enc_a" / name).read_bytes() == (tmp_path / "enc_b" / name).read_bytes()
+    for name, atol in (("data.indiv_proba.csv", 0), ("data.site_proba.csv", 1e-5)):
+        a = np.loadtxt(tmp_path / "enc_a" / name, delimiter=",", skiprows=1, usecols=3)
+        b = np.loadtxt(tmp_path / "fused" / name, delimiter=",", skiprows=1, usecols=3)
+        np.testing.assert_allclose(a, b, rtol=0, atol=atol)

@@ -1,11 +1,12 @@
 """The port's inference engine and CLI on the CPU.
 
 Held three ways on the demo data: against the golden CSVs at the reference
-suite's tolerances (indiv 1e-5, mod_ratio 1e-6, site 1e-2), against the JAX
-engine's CSVs on the same data (indiv 1e-6, site 1e-5 — the port sums
-1 - p in f64 — and mod_ratio equal), and through analogs of the JAX engine's
-own tests (resume, empty input, small batches, site-only output, oversized
-sites)."""
+suite's tolerances (indiv 1e-5, mod_ratio 1e-6, site 1e-2; 1.5e-2 for the
+MC method, as tests/test_inference.py), against the JAX engine's CSVs on the
+same data (indiv 1e-6, site 1e-5 — the port sums 1 - p in f64 — and
+mod_ratio equal), and through analogs of the JAX engine's own tests (resume,
+empty input, small batches, site-only output, oversized sites, MC
+determinism)."""
 import os
 import subprocess
 import sys
@@ -30,6 +31,7 @@ from m6anet_tpu_torch.data.dataset import build_dataset
 from m6anet_tpu_torch.inference import engine
 from m6anet_tpu_torch.inference.engine import run_inference
 from m6anet_tpu_torch.models import load_model
+from m6anet_tpu_torch.ops import mc_kernel, random, site_ops
 
 DATA_DIR = os.path.join(os.path.dirname(__file__), "data")
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -258,8 +260,14 @@ def test_backend_resolution():
         engine.resolve_backend(model, "cuda_fused", "auto", cpu)
     with pytest.raises(ValueError, match="ROADMAP.md"):
         engine.resolve_backend(model, "auto", "bf16", cuda)
-    with pytest.raises(ValueError, match="ROADMAP.md"):
-        engine.make_infer_step(model, 16, THRESHOLD, method="mc")
+    with pytest.raises(ValueError, match="exact.*mc"):
+        engine.make_infer_step(model, 16, THRESHOLD, method="sampled")
+    # the encoder-kernel backend: a card and the production architecture
+    assert engine.resolve_backend(model, "cuda", "auto", cuda) == ("cuda", "f32")
+    with pytest.raises(ValueError, match="backend 'cuda' needs device 'cuda'"):
+        engine.resolve_backend(model, "cuda", "auto", cpu)
+    with pytest.raises(ValueError, match="--backend torch"):
+        engine.resolve_backend(narrow, "cuda", "auto", cuda)
 
 
 def test_default_device_without_a_card_raises(tmp_path, monkeypatch):
@@ -278,13 +286,14 @@ def test_default_device_without_a_card_raises(tmp_path, monkeypatch):
 @pytest.mark.parametrize(
     "flags",
     [
-        ["--site_proba_method", "mc"],
+        # the MC flags parse now; the unported flag after them still stops
+        ["--site_proba_method", "mc", "--columnar"],
         ["--columnar"],
         ["--concat_shards"],
         ["--distributed"],
         ["--host_shard", "0", "2"],
-        ["--num_iterations", "100"],
-        ["--seed", "1"],
+        ["--num_iterations", "100", "--distributed"],
+        ["--seed", "1", "--concat_shards"],
     ],
 )
 def test_unported_flags_fail_at_parse_time(flags, tmp_path, capsys):
@@ -321,6 +330,127 @@ def test_cli_subprocess_on_cpu(port_out, tmp_path):
     assert proc.returncode == 0, proc.stderr[-2000:]
     assert "backend=torch" in proc.stderr
     assert "batches dispatched: 1" in proc.stderr
-    assert 'kernel launches: {"fused_inference_t": 0}' in proc.stderr
+    assert ('kernel launches: {"fused_inference_t": 0, "fused_read_probability": 0, '
+            '"site_probability_mc": 0, "fused_inference": 0}') in proc.stderr
     for name in ("data.site_proba.csv", "data.indiv_proba.csv"):
         assert (out / name).read_bytes() == (port_out / name).read_bytes()
+
+
+def test_cli_accepts_the_mc_flags_and_the_cuda_backend(tmp_path):
+    from m6anet_tpu_torch.cli import main
+    from m6anet_tpu_torch.scripts.inference import argparser
+
+    base = ["--input_dir", DATA_DIR, "--out_dir", str(tmp_path)]
+    args = argparser().parse_args(base)
+    assert (args.site_proba_method, args.num_iterations, args.seed, args.backend) == ("exact", 1000, 0, "auto")
+    args = argparser().parse_args(
+        base + ["--site_proba_method", "mc", "--num_iterations", "50", "--seed", "3", "--backend", "cuda"])
+    assert (args.site_proba_method, args.num_iterations, args.seed, args.backend) == ("mc", 50, 3, "cuda")
+    # the run: the seed reaches the engine (same bytes as the Python entry point)
+    main(["inference", *base, "--device", "cpu", "--site_proba_method", "mc", "--num_iterations", "50",
+          "--seed", "3", "--n_processes", "2"])
+    _run(tmp_path / "direct", method="mc", num_iterations=50, seed=3)
+    for name in ("data.site_proba.csv", "data.indiv_proba.csv"):
+        assert (tmp_path / name).read_bytes() == (tmp_path / "direct" / name).read_bytes()
+    # --backend cuda needs the card
+    with pytest.raises(ValueError, match="needs device 'cuda'"):
+        main(["inference", *base, "--device", "cpu", "--backend", "cuda"])
+
+
+@pytest.fixture(scope="module")
+def port_mc_out(tmp_path_factory):
+    out = tmp_path_factory.mktemp("port_mc")
+    _run(out, method="mc", num_iterations=100, seed=7)
+    return out
+
+
+def test_mc_matches_jax_engine(port_mc_out, tmp_path, production_model):
+    """The torch backend's MC against the JAX engine's xla backend, same
+    seed: the same draws, so site 1e-5 (f32 sums in another order)."""
+    model, params = production_model
+    _, thr, norm = JAX_PRETRAINED["HCT116_RNA002"]
+    ds = jax_build_dataset(DATA_DIR, min_reads=DEFAULT_MIN_READS, norm_path=norm, mode="Inference")
+    jax_run_inference(model, params, ds, str(tmp_path), read_proba_threshold=thr, backend="xla",
+                      method="mc", num_iterations=100, seed=7)
+    _compare(
+        port_mc_out,
+        pd.read_csv(tmp_path / "data.indiv_proba.csv"),
+        pd.read_csv(tmp_path / "data.site_proba.csv"),
+        indiv_atol=1e-6, site_atol=1e-5, mod_ratio_atol=0,
+    )
+
+
+def test_mc_matches_golden(tmp_path, golden_indiv_proba, golden_site_proba):
+    """MC sampling at 2,000 iterations against the golden CSVs (made with the
+    reference's own MC), at tests/test_inference.py:61's tolerance."""
+    _run(tmp_path, method="mc", num_iterations=2000)
+    _compare(tmp_path, pd.read_csv(golden_indiv_proba), pd.read_csv(golden_site_proba),
+             indiv_atol=1e-5, site_atol=1.5e-2, mod_ratio_atol=1e-6)
+
+
+def test_mc_deterministic_and_placement_invariant(port_mc_out, tmp_path):
+    """Same seed gives the same bytes (tests/test_inference.py:78); other
+    batching gives the same draws per site, so the same values up to the
+    order of the f32 sums, which torch picks by the batch's site count;
+    another seed moves the site values."""
+    _run(tmp_path / "again", method="mc", num_iterations=100, seed=7)
+    for name in ("data.site_proba.csv", "data.indiv_proba.csv"):
+        assert (tmp_path / "again" / name).read_bytes() == (port_mc_out / name).read_bytes()
+    _run(tmp_path / "small", method="mc", num_iterations=100, seed=7, read_capacity=1024, site_capacity=8)
+    small = pd.read_csv(tmp_path / "small" / "data.site_proba.csv")
+    want = pd.read_csv(port_mc_out / "data.site_proba.csv")
+    assert (small[KEYS_S].values == want[KEYS_S].values).all()
+    np.testing.assert_allclose(small.probability_modified, want.probability_modified, rtol=0, atol=1e-6)
+    _run(tmp_path / "other", method="mc", num_iterations=100, seed=8)
+    a = pd.read_csv(port_mc_out / "data.site_proba.csv").probability_modified
+    b = pd.read_csv(tmp_path / "other" / "data.site_proba.csv").probability_modified
+    assert (a != b).sum() > 50
+
+
+@pytest.mark.parametrize("backend", ["cuda_fused", "cuda"])
+@pytest.mark.parametrize("method", ["exact", "mc"])
+def test_cuda_backend_steps_on_cpu_tensors(backend, method):
+    """The CUDA backends' per-batch steps, run on CPU tensors (each wrapper
+    then takes its plain version), agree with the torch backend's step: p
+    1e-6, mod_ratio equal, exact site_p 1e-5; the MC site_p is the MC
+    kernel's function over the shared draws of the seed."""
+    model = _model().eval()
+    batch = next(iter(pack_sites(_dataset().iter_sites(), read_capacity=4096, site_capacity=64)))
+    args = [torch.from_numpy(a) for a in (batch.features, batch.kmer_ids, batch.offsets, batch.counts)]
+    kw = dict(method=method, n_iterations=300, seed=5)
+    with torch.no_grad():
+        got = engine.make_infer_step(model, 64, THRESHOLD, 20, backend=backend, **kw)(*args)
+        want = engine.make_infer_step(model, 64, THRESHOLD, 20, backend="torch", **kw)(*args)
+    torch.testing.assert_close(got[0], want[0], rtol=0, atol=1e-6)
+    torch.testing.assert_close(got[2], want[2], rtol=0, atol=0)
+    if method == "exact":
+        torch.testing.assert_close(got[1], want[1], rtol=0, atol=1e-5)
+    else:
+        u = torch.from_numpy(random.shared_draws(5, 300))
+        mc = mc_kernel.site_probability_mc_plain(got[0], args[2], args[3], u, 300)
+        torch.testing.assert_close(got[1], mc, rtol=0, atol=0)
+        # the two backends draw differently; both estimate the closed form
+        exact = site_ops.site_probability_exact(
+            got[0], site_ops.derive_site_ids(args[2], args[3], 4096, 64), args[3], 64)
+        real = args[3] > 0
+        assert float((got[1] - exact)[real].abs().max()) < 5e-2
+        assert float((want[1] - exact)[real].abs().max()) < 5e-2
+
+
+def test_mc_read_window_is_checked_before_the_launch():
+    """On the CUDA backends a site above the reads the MC kernel holds in
+    shared memory fails the step before the kernel launches, naming
+    --backend torch (the JAX engine's check, engine.py:572-577, names
+    --backend xla)."""
+    model = _model().eval()
+    step = engine.make_infer_step(model, 4, THRESHOLD, 20, "mc", "cuda_fused", n_iterations=10)
+    big = mc_kernel.MAX_SITE_READS + 1
+    rng = np.random.default_rng(2)
+    features = torch.from_numpy(rng.normal(size=(big + 8, 9)).astype(np.float32))
+    kmer = torch.from_numpy(rng.integers(0, 66, size=(big + 8, 3)).astype(np.int8))
+    offsets = torch.tensor([0, 3, 0, 0], dtype=torch.int32)
+    counts = torch.tensor([3, big, 0, 0], dtype=torch.int32)
+    before = mc_kernel.launch_count
+    with torch.no_grad(), pytest.raises(ValueError, match=f"{big} reads.*--backend torch"):
+        step(features, kmer, offsets, counts)
+    assert mc_kernel.launch_count == before
