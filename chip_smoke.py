@@ -9,15 +9,22 @@ plain PyTorch version:
 
   1. device      require CUDA, print the card's name and power limit, TF32 off
   2. build       compile every ops/csrc/*.cu kernel (one nvcc each, in parallel)
-  3. small       fused_inference_t vs plain on a small ragged batch
+  3. small       fused_inference_t vs plain on a small ragged batch, and on
+                 batches whose read count ends phase A's tile raggedly (1, 2,
+                 3, 255, 257, one tile +- 1 and 4097 reads)
   4. full        fused_inference_t vs plain at the production batch
-                 (1,048,576 reads / 16,384 sites), and two launches bit-identical
+                 (1,048,576 reads / 16,384 sites), and two launches
+                 bit-identical; placement: p of batch[k:] is p[k:] of the
+                 whole batch, bit for bit, for k = 1, 3, 129
   5. e2e         the inference CLI on tests/data (default device, --backend
                  auto) against the golden CSVs, with the kernel's launches as
                  the run reports them; the other three pretrained models once
-  6. timing      kernel, plain version and bound at the production batch
-  7. entries     fused_read_probability and fused_inference vs plain, small
-                 and at the production batch, repeats bit-identical
+  6. timing      kernel, plain version and bound at the production batch;
+                 phase A's registers and spills (ptxas) and the SM clock
+                 read right after the timing
+  7. entries     fused_read_probability and fused_inference vs plain, small,
+                 on the ragged tails of phase 3 and at the production batch,
+                 repeats bit-identical
   8. MC small    the MC kernel vs plain on a ragged batch: counts 1, 128, 129,
                  1000 and 20,000 (80 KB of shared memory), padding sites, a
                  read with p = 1, 1,500 iterations (two chunks of draws)
@@ -52,6 +59,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 WORK_DIR = os.path.join(ROOT, "build", "chip_smoke")
 THRESHOLD = 0.033379376  # HCT116_RNA002's read threshold
 P_ATOL, SITE_ATOL = 1e-6, 1e-5
+PLACEMENT_SHIFTS = (1, 3, 129)
 GOLDEN_ATOL = {"indiv": 1e-5, "mod_ratio": 1e-6, "site": 1e-2}
 MC_SITE_GOLDEN_ATOL = 1.5e-2  # the MC method's (tests/test_inference.py:61)
 MC_ATOL = 1e-6  # MC kernel vs plain: the same f32 draws, sums over t in f64
@@ -160,6 +168,19 @@ def compare(fik, fp, batch, label):
     if not identical:
         fail(f"{label}: two launches differ")
     return max(err_p, err_site, err_mr)
+
+
+def check_placement(fik, enc, fp, batch):
+    """p of batch[k:] (phase A alone) equals p[k:] of the whole batch
+    (the fused step), bit for bit: a read's p does not depend on where it
+    sits in the tile."""
+    features, kmer, offsets, counts = (torch.from_numpy(a).cuda() for a in batch)
+    p = fik.fused_inference_t(fp, features, kmer, None, offsets, counts, THRESHOLD)[0]
+    same = {k: torch.equal(enc.fused_read_probability(fp, features[k:], kmer[k:]), p[k:])
+            for k in PLACEMENT_SHIFTS}
+    log(f"[placement] p of batch[k:] == p[k:] of the batch, bit for bit: {same}")
+    if not all(same.values()):
+        fail("placement: a read's p depends on its place in the batch")
 
 
 def compare_entries(fik, enc, site_ops, fp, batch, label):
@@ -374,11 +395,17 @@ def main():
         model = load_model(tomllib.load(f), PRETRAINED_CONFIGS["HCT116_RNA002"][0]).cuda()
     fp = fik.prepare_fused_params_t(model)
 
-    # ---- 3. small ragged batch, 4. production batch
+    # ---- 3. small ragged batch and ragged tails, 4. production batch
     rng = np.random.default_rng(0)
-    compare(fik, fp, make_batch(rng, 4096, 128, small_count(rng)), "small")
+    tile = fik.read_tile_reads()
+    log(f"[tails] phase A takes {tile} reads per block and tile")
+    max_err = compare(fik, fp, make_batch(rng, 4096, 128, small_count(rng)), "small")
+    tails = fik.ragged_tail_batches(tile)  # own seed: the batches below do not depend on them
+    for batch in tails:
+        max_err = max(max_err, compare(fik, fp, batch, f"tail {batch[0].shape[0]}"))
     full_batch = make_batch(rng, 1 << 20, 16384, production_count(rng))
-    max_err = compare(fik, fp, full_batch, "full")
+    max_err = max(max_err, compare(fik, fp, full_batch, "full"))
+    check_placement(fik, enc, fp, full_batch)
 
     # ---- 5. main path end to end, through the CLI
     shutil.rmtree(WORK_DIR, ignore_errors=True)
@@ -409,7 +436,13 @@ def main():
     kernel_ms = time_ms(lambda: fik.fused_inference_t(fp, *args))
     plain_ms = time_ms(lambda: fik.fused_inference_t_plain(fp, *args))
     split = device_split_ms(lambda: fik.fused_inference_t(fp, *args))
+    sm_clock = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip()
+    phase_a = _build.ptxas_usage(built["fused_infer"][0], "read_prob_kernel")
     log(f"[timing] device time per step by kernel (torch.profiler, ms): {split or 'not measured'}")
+    log(f"[timing] SM clock right after: {sm_clock}; phase A (read_prob_kernel) ptxas: {phase_a}")
     n_reads, n_sites = features.shape[0], counts.shape[0]
     flops = n_reads * FLOP_PER_READ + 3 * int(counts.sum())
     bytes_moved = (
@@ -433,12 +466,16 @@ def main():
         "library_note": "no single PyTorch call computes the encoder and the per-site reductions",
         "launches_per_batch": launches["fused_inference_t"] / n_batches,
         "path": "inference, exact (phase 5)",
+        "device_ms": split,
+        "phase_a_ptxas": phase_a,
+        "sm_clock_after_timing": sm_clock,
     }]
 
     # ---- 7. the entry points of fused_infer.cu for TPU kernels #3 and #4
     entry_errs = compare_entries(fik, enc, site_ops, fp, make_batch(rng, 4096, 128, small_count(rng)), "entries small")
-    full_errs = compare_entries(fik, enc, site_ops, fp, full_batch, "entries full")
-    entry_errs = {k: max(entry_errs[k], full_errs[k]) for k in entry_errs}
+    for batch in [*tails, full_batch]:
+        errs = compare_entries(fik, enc, site_ops, fp, batch, f"entries {batch[0].shape[0]}")
+        entry_errs = {k: max(entry_errs[k], errs[k]) for k in entry_errs}
 
     # ---- 8. MC small ragged batch, 9. MC at the production batch
     mc_errs = []
@@ -552,6 +589,7 @@ def main():
             "bound_ms": bound_ms, "bound_share": bound_ms / kernel_ms,
             "reads_per_s": n_reads / kernel_ms * 1e3, "demo_cli_wall_s": cli_wall,
             "mc_ms": mc_ms, "mc_sites_per_s": n_sites / mc_ms * 1e3, "mc_iters": MC_ITERS,
+            "sm_clock_after_timing": sm_clock,
             "mc_demo_cli_wall_s": mc_wall, "mc_demo_path": mc_path,
             "cuda_backend_demo_cli_wall_s": enc_wall, "cuda_backend_demo_path": enc_path,
             "card": smi,

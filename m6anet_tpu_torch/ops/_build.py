@@ -17,6 +17,7 @@ from __future__ import annotations
 import glob
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -41,26 +42,32 @@ class BuildError(RuntimeError):
     pass
 
 
-def _target(source: str, command: Sequence[str]) -> str:
+def _target(source: str, command: Sequence[str], out_dir: str) -> str:
     with open(source, "rb") as f:
         digest = hashlib.sha256(f.read() + "\0".join(command).encode()).hexdigest()[:16]
     stem = os.path.splitext(os.path.basename(source))[0]
-    return os.path.join(BUILD_DIR, f"lib{stem}_{digest}.so")
+    return os.path.join(out_dir, f"lib{stem}_{digest}.so")
 
 
-def build_shared_libraries(jobs: Sequence[Tuple[str, Sequence[str]]]) -> List[str]:
-    """Compile each ``(source, command)`` job into a shared library, all
-    compilers running at once; return the library paths in job order.
+def build_shared_libraries(
+    jobs: Sequence[Tuple[str, Sequence[str]]], out_dir: str = BUILD_DIR
+) -> List[str]:
+    """Compile each ``(source, command)`` job into a shared library in
+    ``out_dir``, all compilers running at once; return the library paths in
+    job order.
 
     ``command`` is the compiler and its flags; the source and ``-o`` target
-    are appended.  Libraries already built are reused."""
+    are appended.  Libraries already built are reused, and jobs that give
+    the same library (the same source bytes and command) share one
+    compiler."""
     outs, running = [], []
     for source, command in jobs:
-        out = _target(source, command)
+        out = _target(source, command, out_dir)
+        started = out in outs
         outs.append(out)
-        if os.path.exists(out):
+        if started or os.path.exists(out):
             continue
-        os.makedirs(BUILD_DIR, exist_ok=True)
+        os.makedirs(out_dir, exist_ok=True)
         tmp = f"{out}.{os.getpid()}.{threading.get_ident()}.tmp"
         proc = subprocess.Popen(
             [*command, source, "-o", tmp],
@@ -132,3 +139,32 @@ def cuda_library(name: str) -> str:
     if path is None:
         path = build_cuda([name])[name][0]
     return path
+
+
+def ptxas_usage(library: str, kernel: str) -> Dict[str, int]:
+    """Registers, spill bytes and static shared memory that ptxas reported
+    for the entry point whose (mangled) name contains ``kernel``, from the
+    ``<library>.log`` kept beside a library built here."""
+    with open(library + ".log") as f:
+        log = f.read()
+    usage: Dict[str, int] = {}
+    current = None
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '([^']+)'", line)
+        if entry:
+            current = entry.group(1)
+            continue
+        if current is None or kernel not in current:
+            continue
+        for key, pattern in (
+            ("registers", r"Used (\d+) registers"),
+            ("smem_bytes", r"(\d+) bytes smem"),
+            ("spill_store_bytes", r"(\d+) bytes spill stores"),
+            ("spill_load_bytes", r"(\d+) bytes spill loads"),
+        ):
+            found = re.search(pattern, line)
+            if found:
+                usage[key] = int(found.group(1))
+    if "registers" not in usage:
+        raise BuildError(f"no ptxas report for an entry point named like {kernel!r} in {library}.log")
+    return usage

@@ -31,24 +31,45 @@
 // per-site phase reads p once more (4 B per read) and is negligible.
 //
 // What this design does about it:
-//  * Phase A, one thread per read (grid-stride).  All ~30 KB of weights are
-//    staged in shared memory once per block and read as warp-uniform float4
-//    broadcasts, so every FFMA takes its weight from a broadcast load with
-//    no bank conflicts.  For each of the 150 hidden units the thread forms
-//    h1_k from its 15 inputs in registers and folds it at once into 32
-//    register accumulators of layer 2: h1 never leaves registers, and the
-//    only device-memory traffic is the inputs once and p once.  The k-mer
-//    embedding is a direct table read with the int8 id (no one-hot).  The
-//    loop order is fixed, so p is deterministic.
+//  * Phase A, R reads per thread (register blocking over reads, R =
+//    kReadTile), grid-stride over tiles of kReadThreads * R reads.  All
+//    ~30 KB of weights are staged in shared memory once per block and read
+//    as warp-uniform float4 broadcasts (no bank conflicts).  For each of
+//    the 150 hidden units a thread loads W1'/b1' row k (4 LDS.128) and
+//    W2's fan-out of unit k (8 LDS.128) once and uses them for all R of
+//    its reads: it forms h1_k of each read from that read's 15 inputs in
+//    registers and folds it at once into the read's 32 register
+//    accumulators of layer 2.  h1 never leaves registers, and the only
+//    device-memory traffic is the inputs once and p once.  The k-mer
+//    embedding is a direct table read with the int8 id (no one-hot).
+//  * What held the one-read-per-thread design to ~41% of the bound: every
+//    weight it loaded fed one read, so 12 shared loads shared the issue
+//    slots with 49 FP32 instructions per hidden unit; layer 1 was one
+//    chain of 15 dependent FMAs per thread; and at ~100 registers only 16
+//    warps fit on an SM (25% occupancy) to hide that chain.  With R reads a
+//    thread issues the same 12 loads per 49 * R FP32 instructions and runs R
+//    independent layer-1 chains, so latency is hidden inside the thread
+//    instead of by more warps; the price is R * (15 inputs + 32
+//    accumulators) registers.
+//  * Each read keeps the exact operation sequence of the one-read design
+//    (layer 1: W1'[k,0] * x0, then fmaf in input order, + b1', relu;
+//    layer 2: fmaf in k order; head: fmaf in j order, + b3, 1 / (1 +
+//    expf(-z))), so p is bit-identical to it and deterministic.  Threads
+//    take reads base + t + j * kReadThreads, so each of a warp's loads
+//    covers 32 neighbouring reads; past the end of the batch a thread
+//    computes the last read again and does not store it.
 //  * Phase B, one warp per site.  Lanes walk the site's span in a fixed
 //    stride, accumulate sum(1 - p) in f64 and the hit count in int, and a
 //    fixed-shape shuffle tree combines them: no float atomics, so repeat
 //    runs are bit-identical.  (The f64 sum makes the site mean independent
 //    of the summation order; the plain PyTorch version sums in f64 too.)
 //    The power is the binary exponentiation XLA uses for an integer power.
-//  * Tensor cores (a 150x15 and a 32x150 product per read would suit
-//    wgmma in TF32 only at a loss of parity), TMA staging of the read
-//    stream and fusing the two phases into one launch are left for later.
+//  * Tensor cores wait for the reduced-precision modes: Hopper's take f32
+//    operands only as TF32, and even a 3xTF32 split would change every
+//    read's rounding, which the 1e-6 per-read parity with the plain
+//    version and the JAX package does not allow.  TMA staging of the read
+//    stream (6% of the bound) and fusing the two phases into one launch are
+//    left for later.
 //
 // Built by ops/_build.py: nvcc -gencode arch=compute_90a,code=sm_90a -O3,
 // without --use_fast_math (expf and f32 division stay IEEE-accurate).
@@ -84,78 +105,111 @@ constexpr int kWeights = 7400;
 static_assert(kOffW2 % 4 == 0 && kWeights % 4 == 0, "float4 alignment");
 static_assert(kIn + 1 == kW1Stride, "W1B row holds 15 weights and a bias");
 
+// Phase A's tiling: kReadTile reads per thread (R), kReadThreads threads per
+// block, kReadMinBlocks blocks per SM asked of __launch_bounds__ (which caps
+// a thread's registers at 65536 / (threads * blocks)), and the unrolling of
+// the hidden-unit loop.  scripts/sweep_read_tile.py re-derives them: it
+// builds copies of this file with these four lines rewritten and times each
+// on the card.  Measured for R = 1 to 4 on an H100 SXM: R = 2 at 256 threads
+// takes 126 registers with no spills and keeps 16 warps on an SM, and ran
+// fastest; R = 3 and 4 (168 to 241 registers) fit only 8 to 10 warps on an
+// SM and lost more to the latency of the shared loads than they saved in
+// issue.
+constexpr int kReadTile = 2;
 constexpr int kReadThreads = 256;
+constexpr int kReadMinBlocks = 2;
+constexpr int kReadUnroll = 1;
 constexpr int kSiteThreads = 256;  // 8 warps: 8 sites per block
 
 // kmer_ids are int8 ids in [0, 66); the Python wrapper checks the range
-__global__ void __launch_bounds__(kReadThreads, 2)
+__global__ void __launch_bounds__(kReadThreads, kReadMinBlocks)
 read_prob_kernel(const float* __restrict__ features,
                  const int8_t* __restrict__ kmer_ids,
                  const float* __restrict__ weights, int64_t n_reads,
                  float* __restrict__ p_out) {
   __shared__ __align__(16) float w[kWeights];
-  for (int i = threadIdx.x; i < kWeights / 4; i += blockDim.x) {
+  for (int i = threadIdx.x; i < kWeights / 4; i += kReadThreads) {
     reinterpret_cast<float4*>(w)[i] = reinterpret_cast<const float4*>(weights)[i];
   }
   __syncthreads();
 
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t r = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-       r < n_reads; r += stride) {
-    float x[kIn];
-    const float* f = features + r * kFeat;
+  constexpr int R = kReadTile;
+  constexpr int64_t kTile = static_cast<int64_t>(kReadThreads) * R;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kTile;
+  for (int64_t base = static_cast<int64_t>(blockIdx.x) * kTile; base < n_reads; base += stride) {
+    float x[R][kIn];
 #pragma unroll
-    for (int i = 0; i < kFeat; ++i) x[i] = __ldg(f + i);
+    for (int j = 0; j < R; ++j) {
+      const int64_t want = base + threadIdx.x + static_cast<int64_t>(j) * kReadThreads;
+      const int64_t r = want < n_reads ? want : n_reads - 1;  // a valid read; not stored
+      const float* f = features + r * kFeat;
 #pragma unroll
-    for (int j = 0; j < kPos; ++j) {
-      const int k = static_cast<int>(kmer_ids[r * kPos + j]);
-      x[kFeat + kEmb * j] = w[kOffEmb + kEmb * k];
-      x[kFeat + kEmb * j + 1] = w[kOffEmb + kEmb * k + 1];
+      for (int i = 0; i < kFeat; ++i) x[j][i] = __ldg(f + i);
+#pragma unroll
+      for (int q = 0; q < kPos; ++q) {
+        const int k = static_cast<int>(kmer_ids[r * kPos + q]);
+        x[j][kFeat + kEmb * q] = w[kOffEmb + kEmb * k];
+        x[j][kFeat + kEmb * q + 1] = w[kOffEmb + kEmb * k + 1];
+      }
     }
 
-    float acc[kH2];
+    float acc[R][kH2];
 #pragma unroll
-    for (int j = 0; j < kH2; ++j) acc[j] = 0.f;
+    for (int j = 0; j < R; ++j) {
+#pragma unroll
+      for (int i = 0; i < kH2; ++i) acc[j][i] = 0.f;
+    }
 
-#pragma unroll 2
+#pragma unroll (kReadUnroll)
     for (int k = 0; k < kH1; ++k) {
       const float4* row = reinterpret_cast<const float4*>(w + kOffW1B + k * kW1Stride);
       const float4 a = row[0], b = row[1], c = row[2], d = row[3];
-      float h = a.x * x[0];
-      h = fmaf(a.y, x[1], h);
-      h = fmaf(a.z, x[2], h);
-      h = fmaf(a.w, x[3], h);
-      h = fmaf(b.x, x[4], h);
-      h = fmaf(b.y, x[5], h);
-      h = fmaf(b.z, x[6], h);
-      h = fmaf(b.w, x[7], h);
-      h = fmaf(c.x, x[8], h);
-      h = fmaf(c.y, x[9], h);
-      h = fmaf(c.z, x[10], h);
-      h = fmaf(c.w, x[11], h);
-      h = fmaf(d.x, x[12], h);
-      h = fmaf(d.y, x[13], h);
-      h = fmaf(d.z, x[14], h);
-      h = fmaxf(h + d.w, 0.f);  // + b1'[k], relu
+      float h[R];
+#pragma unroll
+      for (int j = 0; j < R; ++j) {
+        const float* in = x[j];
+        float t = a.x * in[0];
+        t = fmaf(a.y, in[1], t);
+        t = fmaf(a.z, in[2], t);
+        t = fmaf(a.w, in[3], t);
+        t = fmaf(b.x, in[4], t);
+        t = fmaf(b.y, in[5], t);
+        t = fmaf(b.z, in[6], t);
+        t = fmaf(b.w, in[7], t);
+        t = fmaf(c.x, in[8], t);
+        t = fmaf(c.y, in[9], t);
+        t = fmaf(c.z, in[10], t);
+        t = fmaf(c.w, in[11], t);
+        t = fmaf(d.x, in[12], t);
+        t = fmaf(d.y, in[13], t);
+        t = fmaf(d.z, in[14], t);
+        h[j] = fmaxf(t + d.w, 0.f);  // + b1'[k], relu
+      }
       const float4* fan = reinterpret_cast<const float4*>(w + kOffW2 + k * kH2);
 #pragma unroll
       for (int q = 0; q < kH2 / 4; ++q) {
         const float4 v = fan[q];
-        acc[4 * q] = fmaf(v.x, h, acc[4 * q]);
-        acc[4 * q + 1] = fmaf(v.y, h, acc[4 * q + 1]);
-        acc[4 * q + 2] = fmaf(v.z, h, acc[4 * q + 2]);
-        acc[4 * q + 3] = fmaf(v.w, h, acc[4 * q + 3]);
+#pragma unroll
+        for (int j = 0; j < R; ++j) {
+          acc[j][4 * q] = fmaf(v.x, h[j], acc[j][4 * q]);
+          acc[j][4 * q + 1] = fmaf(v.y, h[j], acc[j][4 * q + 1]);
+          acc[j][4 * q + 2] = fmaf(v.z, h[j], acc[j][4 * q + 2]);
+          acc[j][4 * q + 3] = fmaf(v.w, h[j], acc[j][4 * q + 3]);
+        }
       }
     }
 
-    float z = 0.f;
 #pragma unroll
-    for (int j = 0; j < kH2; ++j) {
-      z = fmaf(w[kOffW3 + j], fmaxf(acc[j] + w[kOffB2 + j], 0.f), z);
+    for (int j = 0; j < R; ++j) {
+      float z = 0.f;
+#pragma unroll
+      for (int i = 0; i < kH2; ++i) {
+        z = fmaf(w[kOffW3 + i], fmaxf(acc[j][i] + w[kOffB2 + i], 0.f), z);
+      }
+      z += w[kOffB3];
+      const int64_t r = base + threadIdx.x + static_cast<int64_t>(j) * kReadThreads;
+      if (r < n_reads) p_out[r] = 1.f / (1.f + expf(-z));
     }
-    z += w[kOffB3];
-    const float p = 1.f / (1.f + expf(-z));
-    p_out[r] = p;
   }
 }
 
@@ -219,7 +273,8 @@ cudaError_t launch_read_prob(const float* features, const int8_t* kmer_ids,
         &per_sm, read_prob_kernel, kReadThreads, 0);
   }
   if (err != cudaSuccess) return err;
-  const int64_t needed = (n_reads + kReadThreads - 1) / kReadThreads;
+  constexpr int64_t kTile = static_cast<int64_t>(kReadThreads) * kReadTile;
+  const int64_t needed = (n_reads + kTile - 1) / kTile;
   const int64_t resident = static_cast<int64_t>(sms) * (per_sm > 0 ? per_sm : 1);
   const int grid = static_cast<int>(needed < resident ? needed : resident);
   read_prob_kernel<<<grid, kReadThreads, 0, stream>>>(features, kmer_ids, weights, n_reads, p);
@@ -264,6 +319,10 @@ int read_prob_launch(const float* features, const int8_t* kmer_ids,
   return static_cast<int>(launch_read_prob(features, kmer_ids, weights, n_reads, p,
                                            static_cast<cudaStream_t>(stream_ptr)));
 }
+
+// Reads one block of phase A takes per tile (threads x reads per thread):
+// the tile whose ragged edge the tests and chip_smoke.py exercise.
+int read_prob_tile_reads(void) { return kReadThreads * kReadTile; }
 
 const char* fused_infer_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -24,6 +24,7 @@ import ctypes
 import threading
 from typing import NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -154,10 +155,40 @@ def kernel_lib() -> ctypes.CDLL:
             )
             lib.read_prob_launch.restype = ctypes.c_int
             lib.read_prob_launch.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64, ctypes.c_void_p]
+            lib.read_prob_tile_reads.restype = ctypes.c_int
+            lib.read_prob_tile_reads.argtypes = []
             lib.fused_infer_error_string.restype = ctypes.c_char_p
             lib.fused_infer_error_string.argtypes = [ctypes.c_int]
             _lib = lib
     return _lib
+
+
+def read_tile_reads() -> int:
+    """Reads one block of the kernel's phase A takes per tile (threads per
+    block x reads per thread); builds the kernel if needed."""
+    return int(kernel_lib().read_prob_tile_reads())
+
+
+def ragged_tail_batches(tile: int, seed: int = 1):
+    """``pack_sites`` batches whose read counts end phase A's tile of
+    ``tile`` reads raggedly: 1, 2, 3, 255, 257, tile - 1, tile + 1 and 4097
+    reads.  Each is sites of 1 to 8 reads, then n // 8 padding reads and two
+    padding sites, as numpy ``(features, kmer_ids, offsets, counts)`` drawn
+    from ``seed``: the cases on which the card tests and ``chip_smoke.py``
+    hold the kernel against its plain version."""
+    rng = np.random.default_rng(seed)
+    batches = []
+    for n in sorted({1, 2, 3, 255, 257, tile - 1, tile + 1, 4097}):
+        counts, left = [], n - n // 8
+        while left > 0:
+            counts.append(min(left, int(rng.integers(1, 9))))
+            left -= counts[-1]
+        counts = np.array(counts + [0, 0], np.int32)
+        offsets = np.where(counts > 0, np.cumsum(counts) - counts, 0).astype(np.int32)
+        features = rng.normal(size=(n, N_FEATURES)).astype(np.float32)
+        kmer_ids = rng.integers(0, VOCAB, size=(n, N_POSITIONS)).astype(np.int8)
+        batches.append((features, kmer_ids, offsets, counts))
+    return batches
 
 
 def check_tensor(name: str, t: torch.Tensor, dtypes, shape, device: torch.device) -> None:

@@ -150,6 +150,40 @@ def test_entry_points_match_plain(cuda_device):
     assert fik.fused_inference_launch_count == after[1]
 
 
+def test_ragged_tails_of_the_read_tile(cuda_device):
+    """Read counts that end phase A's tile raggedly: every entry point
+    against its plain version, and repeats bit for bit."""
+    fp = fik.prepare_fused_params_t(_model().to(cuda_device))
+    tile = fik.read_tile_reads()
+    for batch in fik.ragged_tail_batches(tile):
+        X, K, offsets, counts = (torch.from_numpy(a).to(cuda_device) for a in batch)
+        n = X.shape[0]
+        args = (X, K, None, offsets, counts, DEFAULT_READ_THRESHOLD)
+        got = fik.fused_inference_t(fp, *args)
+        again = fik.fused_inference_t(fp, *args)
+        want = fik.fused_inference_t_plain(fp, *args)
+        torch.testing.assert_close(got[0], want[0], rtol=0, atol=1e-6)
+        torch.testing.assert_close(got[1], want[1], rtol=0, atol=1e-5)
+        assert all(torch.equal(a, b) for a, b in zip(got, again)), n
+        p = encoder_kernel.fused_read_probability(fp, X, K)
+        assert torch.equal(p, got[0]), n
+        site_ids = torch.full((n,), counts.numel(), dtype=torch.int32, device=cuda_device)
+        site_ids[: int(counts.sum())] = torch.repeat_interleave(
+            torch.arange(counts.numel(), device=cuda_device, dtype=torch.int32), counts.long())
+        entry = fik.fused_inference(fp, X, K, site_ids, counts, DEFAULT_READ_THRESHOLD)
+        assert all(torch.equal(a, b) for a, b in zip(entry, got)), n
+
+
+def test_a_reads_p_does_not_depend_on_its_place(cuda_device):
+    """p of batch[k:] is p[k:] of the whole batch, bit for bit: the tile
+    couples no reads."""
+    fp = fik.prepare_fused_params_t(_model().to(cuda_device))
+    X, K, offsets, counts = (torch.from_numpy(a).to(cuda_device) for a in _ragged_batch())
+    p = fik.fused_inference_t(fp, X, K, None, offsets, counts, DEFAULT_READ_THRESHOLD)[0]
+    for k in (1, 3, 129):
+        assert torch.equal(encoder_kernel.fused_read_probability(fp, X[k:], K[k:]), p[k:]), k
+
+
 def test_mc_kernel_matches_plain_and_repeats(cuda_device):
     rng = np.random.default_rng(5)
     n_sites = 300

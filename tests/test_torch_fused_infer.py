@@ -253,6 +253,73 @@ def test_derive_site_ids_matches_jax_and_packer():
     assert n_batches > 3  # multiple packings exercised
 
 
+def _kernel_constants():
+    """The ``constexpr int`` constants of csrc/fused_infer.cu, evaluated."""
+    import ast
+    import operator
+    import re
+
+    path = os.path.join(os.path.dirname(fik.__file__), "csrc", "fused_infer.cu")
+    ops = {ast.Add: operator.add, ast.Sub: operator.sub, ast.Mult: operator.mul}
+    values = {}
+
+    def value(node):
+        if isinstance(node, ast.Constant):
+            return node.value
+        if isinstance(node, ast.Name):
+            return values[node.id]
+        return ops[type(node.op)](value(node.left), value(node.right))
+
+    with open(path) as f:
+        for name, expr in re.findall(r"^constexpr int (\w+) = ([^;]+);", f.read(), re.M):
+            values[name] = value(ast.parse(expr, mode="eval").body)
+    return values
+
+
+def test_packed_weight_layout_matches_the_kernel(models):
+    """The weight image prepare_fused_params_t packs sits where the kernel
+    reads it: offsets and row strides from the .cu's constants."""
+    _, port = models
+    c = _kernel_constants()
+    fp = fik.prepare_fused_params_t(port)
+    w = fp.packed
+    assert c["kWeights"] == fik.PACKED_WEIGHTS == w.numel()
+    assert (c["kH1"], c["kH2"], c["kVocab"], c["kEmb"]) == (fik.HIDDEN1, fik.HIDDEN2, fik.VOCAB, fik.EMB_DIM)
+    n_in = fik.N_FEATURES + fik.N_POSITIONS * fik.EMB_DIM
+    w1b = w[c["kOffW1B"] : c["kOffW1B"] + fik.HIDDEN1 * c["kW1Stride"]].reshape(fik.HIDDEN1, c["kW1Stride"])
+    assert torch.equal(w1b[:, :n_in], fp.w1t) and torch.equal(w1b[:, n_in], fp.b1t[:, 0])
+    emb = w[c["kOffEmb"] : c["kOffEmb"] + fik.VOCAB * c["kEmb"]].reshape(fik.VOCAB, c["kEmb"])
+    assert torch.equal(emb, fp.embt.t())
+    w2 = w[c["kOffW2"] : c["kOffW2"] + fik.HIDDEN1 * c["kH2"]].reshape(fik.HIDDEN1, c["kH2"])
+    assert torch.equal(w2, fp.w2t.t())  # row k: hidden unit k's fan-out
+    assert torch.equal(w[c["kOffB2"] : c["kOffB2"] + fik.HIDDEN2], fp.b2t[:, 0])
+    assert torch.equal(w[c["kOffW3"] : c["kOffW3"] + fik.HIDDEN2], fp.w3t[0])
+    assert w[c["kOffB3"]] == fp.b3t[0, 0]
+    assert not w[c["kOffB3"] + 1 :].any()  # zero padding to a multiple of 4
+    assert c["kOffW2"] % 4 == 0 and c["kW1Stride"] % 4 == 0  # float4 rows
+
+
+def test_ragged_tail_batches_end_the_tile_raggedly(models):
+    """The tail cases the card checks run on: read counts around the .cu's
+    tile, pack_sites-shaped with padding reads and sites, and through the
+    plain version equal to the model path."""
+    _, port = models
+    c = _kernel_constants()
+    tile = c["kReadThreads"] * c["kReadTile"]
+    batches = fik.ragged_tail_batches(tile)
+    assert [b[0].shape[0] for b in batches] == sorted({1, 2, 3, 255, 257, tile - 1, tile + 1, 4097})
+    fp = fik.prepare_fused_params_t(port)
+    for X, K, offsets, counts in batches:
+        n = X.shape[0]
+        assert counts.sum() == n - n // 8 and list(counts[-2:]) == [0, 0]
+        assert (offsets[:-2] == np.cumsum(counts[:-2]) - counts[:-2]).all()
+        p, site_p, _ = fik.fused_inference_t(fp, *_t(X, K), None, *_t(offsets, counts), DEFAULT_READ_THRESHOLD)
+        with torch.no_grad():
+            p_ref = port.per_read_probability({"X": torch.from_numpy(X), "kmer": torch.from_numpy(K)})
+        torch.testing.assert_close(p, p_ref, rtol=0, atol=1e-6)
+        assert (site_p[-2:] == 1.0).all()  # padding sites
+
+
 @pytest.mark.parametrize("bad_id", [-1, 66])
 def test_out_of_range_kmer_ids_raise(models, bad_id):
     """Both the wrapper and the plain version refuse an id outside [0, 66)
