@@ -25,21 +25,32 @@ plain PyTorch version:
   7. entries     fused_read_probability and fused_inference vs plain, small,
                  on the ragged tails of phase 3 and at the production batch,
                  repeats bit-identical
-  8. MC small    the MC kernel vs plain on a ragged batch: counts 1, 128, 129,
-                 1000 and 20,000 (80 KB of shared memory), padding sites, a
-                 read with p = 1, 1,500 iterations (two chunks of draws)
+  8. MC small    the MC kernel vs plain on mc_kernel.ragged_mc_batch (a site
+                 at the 57,344-read cap, three of 25,000 reads in a row,
+                 counts 1-40, around a bank's width and 1, 128, 129, 1000,
+                 1024, 20,000, count-0 sites between real ones, a read with
+                 p = 1) at 1,500 iterations (two chunks of draws) and 257
+                 (one iteration more than a block has threads)
   9. MC full     the MC kernel vs plain at the production batch (p from the
-                 fused kernel), 1,000 iterations, two launches bit-identical
+                 fused kernel), 1,000 iterations; in both phases two
+                 launches bit-identical, one checking the sites on the
+                 device and one from host arrays, as the engine calls it
  10. MC e2e      the CLI with --site_proba_method mc --num_iterations 2000
                  (default device and backend) against the golden CSVs, and
                  the CLI with --backend cuda (the encoder kernel alone), each
                  with its kernels' launches as its run reports them
  11. timing      the MC kernel and the two entry points: kernel, plain
-                 version and bound at the production batch
+                 version and bound at the production batch; the MC wrapper
+                 both ways (sites checked on the device, with a host sync,
+                 and from the host arrays), mc_site_kernel's ptxas usage and
+                 the SM clock; in a line of their own, the floors of mc.cu's
+                 design at this batch (models counted from the batch, the
+                 SASS and the card's maximum SM clock, not timings)
 
 Any failure exits nonzero.  The last line is the
-``{"ok": true, "device": {...}}`` result; before it come the kernels' JSON
-line, a timing line and the card's ``nvidia-smi`` name and power limit.
+``{"ok": true, "device": {...}}`` result; before it come the MC floors' JSON
+line, the kernels' JSON line (measured values and each kernel's bound), a
+timing line and the card's ``nvidia-smi`` name and power limit.
 """
 from __future__ import annotations
 
@@ -215,25 +226,11 @@ def compare_entries(fik, enc, site_ops, fp, batch, label):
     return {"fused_read_probability": err_read, "fused_inference": max(err_p, err_site)}
 
 
-def mc_small_batch(rng):
-    """A ragged MC batch: counts 1, 128, 129, 1000 and 20,000 (above the
-    48 KB of shared memory a block gets without opting in), a site whose
-    only read has p = 1 (the -1e4 clamp), short sites, then padding sites
-    (count 0) and padding reads."""
-    counts = [1, 128, 129, 1000, 20000, 1] + [int(c) for c in rng.integers(2, 60, size=200)] + [0] * 16
-    counts = np.array(counts, np.int32)
-    offsets = np.zeros_like(counts)
-    offsets[1:] = np.cumsum(counts)[:-1]
-    offsets[counts == 0] = 0
-    p = rng.uniform(0.0, 0.3, size=int(counts.sum()) + 64).astype(np.float32)
-    p[offsets[5]] = 1.0
-    return p, offsets, counts
-
-
-def compare_mc(mck, p, offsets, counts, u, n_iters, label):
-    """The MC kernel vs its plain version, and two launches bit-identical."""
+def compare_mc(mck, p, offsets, counts, host_sites, u, n_iters, label):
+    """The MC kernel vs its plain version, and two launches bit-identical:
+    one checking the sites on the device, one from the host arrays."""
     got = mck.site_probability_mc_cuda(p, offsets, counts, u, n_iters)
-    again = mck.site_probability_mc_cuda(p, offsets, counts, u, n_iters)
+    again = mck.site_probability_mc_cuda(p, offsets, counts, u, n_iters, host_sites=host_sites)
     want = mck.site_probability_mc_plain(p, offsets, counts, u, n_iters)
     torch.cuda.synchronize()
     err = float((got - want).abs().max())
@@ -252,8 +249,9 @@ def compare_mc(mck, p, offsets, counts, u, n_iters, label):
 
 
 def device_split_ms(fn, reps=5):
-    """Device time per call of each CUDA kernel ``fn`` runs, from
-    torch.profiler; empty when the profiler sees no device activity."""
+    """Device time per launch of each CUDA kernel ``fn`` runs, from
+    torch.profiler (its total over the launches the profiler recorded, which
+    may be fewer than ``reps``); empty when it sees no device activity."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -266,7 +264,7 @@ def device_split_ms(fn, reps=5):
     for event in prof.key_averages():
         us = getattr(event, "device_time_total", 0)
         if us > 0:
-            split[event.key[:70]] = us / reps / 1e3
+            split[event.key[:70]] = us / max(event.count, 1) / 1e3
     return split
 
 
@@ -360,10 +358,9 @@ def main():
     # ---- 1. device
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: chip_smoke.py needs an NVIDIA card")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
+    from m6anet_tpu_torch.scripts import _sweep
+
+    smi = _sweep.smi("name,power.limit")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     kind = torch.cuda.get_device_name(0)
@@ -436,12 +433,9 @@ def main():
     kernel_ms = time_ms(lambda: fik.fused_inference_t(fp, *args))
     plain_ms = time_ms(lambda: fik.fused_inference_t_plain(fp, *args))
     split = device_split_ms(lambda: fik.fused_inference_t(fp, *args))
-    sm_clock = subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip()
+    sm_clock = _sweep.smi("clocks.sm")
     phase_a = _build.ptxas_usage(built["fused_infer"][0], "read_prob_kernel")
-    log(f"[timing] device time per step by kernel (torch.profiler, ms): {split or 'not measured'}")
+    log(f"[timing] device time per launch by kernel (torch.profiler, ms): {split or 'not measured'}")
     log(f"[timing] SM clock right after: {sm_clock}; phase A (read_prob_kernel) ptxas: {phase_a}")
     n_reads, n_sites = features.shape[0], counts.shape[0]
     flops = n_reads * FLOP_PER_READ + 3 * int(counts.sum())
@@ -479,12 +473,15 @@ def main():
 
     # ---- 8. MC small ragged batch, 9. MC at the production batch
     mc_errs = []
-    p_s, off_s, cnt_s = (torch.from_numpy(a).cuda() for a in mc_small_batch(rng))
-    u_small = torch.from_numpy(prng.shared_draws(0, 1500)).cuda()
-    mc_errs.append(compare_mc(mck, p_s, off_s, cnt_s, u_small, 1500, "MC small"))
+    ragged = mck.ragged_mc_batch()
+    p_s, off_s, cnt_s = (torch.from_numpy(a).cuda() for a in ragged)
+    for n_iters in (1500, 257):
+        u_small = torch.from_numpy(prng.shared_draws(0, n_iters)).cuda()
+        mc_errs.append(compare_mc(mck, p_s, off_s, cnt_s, ragged[1:], u_small, n_iters, f"MC small T={n_iters}"))
     p_full = fik.fused_inference_t(fp, *args)[0]
     u_full = torch.from_numpy(prng.shared_draws(0, MC_ITERS)).cuda()
-    mc_errs.append(compare_mc(mck, p_full, offsets, counts, u_full, MC_ITERS, "MC full"))
+    full_sites = full_batch[2:]  # offsets and counts on the host
+    mc_errs.append(compare_mc(mck, p_full, offsets, counts, full_sites, u_full, MC_ITERS, "MC full"))
 
     # ---- 10. the MC path and the encoder-kernel path end to end
     os.makedirs(WORK_DIR)
@@ -506,21 +503,38 @@ def main():
     shutil.rmtree(WORK_DIR, ignore_errors=True)
 
     # ---- 11. timing of the MC kernel and the two entry points
-    mc_ms = time_ms(lambda: mck.site_probability_mc_cuda(p_full, offsets, counts, u_full, MC_ITERS))
+    def mc_call(host_sites=None):
+        return mck.site_probability_mc_cuda(p_full, offsets, counts, u_full, MC_ITERS, host_sites=host_sites)
+
+    mc_ms = time_ms(lambda: mc_call(full_sites))  # as the engine calls it
+    mc_device_checks_ms = time_ms(mc_call)
     mc_plain_ms = time_ms(lambda: mck.site_probability_mc_plain(p_full, offsets, counts, u_full, MC_ITERS), reps=5)
-    mc_split = device_split_ms(lambda: mck.site_probability_mc_cuda(p_full, offsets, counts, u_full, MC_ITERS))
-    log(f"[timing] MC device time per call by kernel (torch.profiler, ms): {mc_split or 'not measured'}")
+    mc_split = device_split_ms(lambda: mc_call(full_sites))
+    mc_clock = _sweep.smi("clocks.sm")
+    mc_ptxas = _build.ptxas_usage(built["mc"][0], "mc_site_kernel")
+    mc_window = _sweep.draw_window(_sweep.sass_instructions(built["mc"][0], "mc_site_kernel"))
+    log(f"[timing] MC device time per launch by kernel (torch.profiler, ms): {mc_split or 'not measured'}")
+    log(f"[timing] MC wrapper call: {mc_ms:.4f} ms with host arrays, {mc_device_checks_ms:.4f} ms checking "
+        f"on the device; SM clock right after: {mc_clock}; mc_site_kernel ptxas: {mc_ptxas}; "
+        f"draws' SASS: {mc_window}")
     real = counts > 0
     n_real_sites, n_real_reads = int(real.sum()), int(counts.sum())
     mc_ops = n_real_sites * MC_ITERS * (20 + 1) + n_real_reads
     mc_bytes = 4 * n_real_reads + 4 * u_full.numel() + 8 * n_sites + 4 * n_sites
     mc_op_ms, mc_byte_ms = mc_ops / peak_flops * 1e3, mc_bytes / peak_bw * 1e3
-    sm_mhz = float(subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
-        capture_output=True, text=True, check=True,
-    ).stdout.split()[0])
+    # the floors of mc.cu's design: models, printed apart from the timings
+    hz = _sweep.max_sm_hz()
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    gather_ms = n_real_sites * MC_ITERS * 20 / (32 * sms * sm_mhz * 1e6) * 1e3
+    draws = n_real_sites * MC_ITERS * mck.SAMPLES
+    passes, gathers = _sweep.gather_passes(full_batch[3], prng.shared_draws(0, MC_ITERS))
+    log(json.dumps({"mc_floors": {
+        "kernel": "mc_site_kernel", "draws": draws, "sms": sms, "max_sm_clock_hz": hz,
+        "shared_memory_gather_ms": draws / (32 * sms * hz) * 1e3,
+        "gather_passes_per_warp_load": passes / gathers,
+        "shared_memory_gather_with_conflicts_ms": passes / (sms * hz) * 1e3,
+        "instructions_per_draw": mc_window and mc_window["instructions_per_draw"],
+        "issue_floor_ms": _sweep.issue_floor_ms(draws, mc_window, sms, hz),
+    }}))
     kernels.append({
         "name": "site_probability_mc",
         "route": "cuda",
@@ -536,8 +550,10 @@ def main():
         "library_note": "no single PyTorch call computes the sampled noisy-OR",
         "launches_per_batch": mc_launches["site_probability_mc"] / mc_batches,
         "path": f"inference --site_proba_method mc --num_iterations {MC_E2E_ITERS} (phase 10)",
-        "shared_memory_gather_ms": gather_ms,
+        "ms_device_checks": mc_device_checks_ms,
         "device_ms": mc_split,
+        "mc_site_kernel_ptxas": mc_ptxas,
+        "sm_clock_after_timing": mc_clock,
     })
 
     site_ids = site_ops.derive_site_ids(offsets, counts, n_reads, n_sites)

@@ -137,24 +137,33 @@ def make_infer_step(
     seed: int = 0,
 ):
     """Build the per-batch device function
-    ``step(features, kmer_ids, offsets, counts) -> (p, site_p, mod_ratio)``
+    ``step(features, kmer_ids, offsets, counts, host_sites=None) -> (p, site_p, mod_ratio)``
     on tensors already on the model's device.  ``kmer_ids`` may be int8.
+    ``host_sites`` is ``(offsets, counts)`` as the numpy arrays the tensors
+    were copied from; the MC kernel's wrapper then checks the sites on the
+    host, with no host sync.
 
     ``method="mc"`` replaces the exact site probability with the sampled
     estimator over ``n_iterations`` iterations drawn from ``seed``.  On the
     CUDA backends its draws ``U`` are made once here and stay on the device
-    for every batch (as the JAX engine passes one key to every step), and
-    every site count must be <= ``mc_kernel.MAX_SITE_READS``."""
+    for every batch (as the JAX engine passes one key to every step),
+    every site count must be <= ``mc_kernel.MAX_SITE_READS``, and
+    ``n_samples`` must be the kernel's ``mc_kernel.SAMPLES``."""
     if method not in METHODS:
         raise ValueError(f"site_proba method must be one of {METHODS}, got {method!r}")
     if backend not in ("torch",) + CUDA_BACKENDS:
         raise ValueError(f"backend must be 'torch', 'cuda_fused' or 'cuda', got {backend!r}")
     if method == "mc" and n_iterations < 1:
         raise ValueError(f"num_iterations must be >= 1, got {n_iterations}")
+    if method == "mc" and backend in CUDA_BACKENDS and n_samples != mc_kernel.SAMPLES:
+        raise ValueError(
+            f"the MC kernel draws {mc_kernel.SAMPLES} reads per iteration, got "
+            f"n_samples={n_samples}; use backend 'torch'"
+        )
     if backend == "torch":
         key = random.key_from_seed(seed)
 
-        def step(features, kmer_ids, offsets, counts):
+        def step(features, kmer_ids, offsets, counts, host_sites=None):
             site_ids = site_ops.derive_site_ids(offsets, counts, features.shape[0], site_capacity)
             p = model.per_read_probability({"X": features, "kmer": kmer_ids})
             if method == "mc":
@@ -170,26 +179,28 @@ def make_infer_step(
     if method == "mc":
         u = torch.from_numpy(random.shared_draws(seed, n_iterations, n_samples)).to(fp.packed.device)
 
-        def mc_site_p(p, offsets, counts):
-            return mc_kernel.site_probability_mc_cuda(p, offsets, counts, u, n_iterations, n_samples)
+        def mc_site_p(p, offsets, counts, host_sites):
+            return mc_kernel.site_probability_mc_cuda(
+                p, offsets, counts, u, n_iterations, n_samples, host_sites=host_sites
+            )
 
     if backend == "cuda_fused":
 
-        def fused_step(features, kmer_ids, offsets, counts):
+        def fused_step(features, kmer_ids, offsets, counts, host_sites=None):
             p, site_p, mod_ratio = fused_infer_kernel.fused_inference_t(
                 fp, features, kmer_ids, None, offsets, counts, threshold, n_samples
             )
             if method == "mc":
-                site_p = mc_site_p(p, offsets, counts)
+                site_p = mc_site_p(p, offsets, counts, host_sites)
             return p, site_p, mod_ratio
 
         return fused_step
 
-    def encoder_step(features, kmer_ids, offsets, counts):
+    def encoder_step(features, kmer_ids, offsets, counts, host_sites=None):
         p = encoder_kernel.fused_read_probability(fp, features, kmer_ids)
         site_ids = site_ops.derive_site_ids(offsets, counts, features.shape[0], site_capacity)
         if method == "mc":
-            site_p = mc_site_p(p, offsets, counts)
+            site_p = mc_site_p(p, offsets, counts, host_sites)
         else:
             site_p = site_ops.site_probability_exact(p, site_ids, counts, site_capacity, n_samples)
         mod_ratio = site_ops.mod_ratio_exact(p, site_ids, counts, site_capacity, threshold)
@@ -419,6 +430,7 @@ def run_inference(
                 p, site_p, mod_ratio = step(
                     to_device(batch.features), to_device(kmer),
                     to_device(batch.offsets), to_device(batch.counts),
+                    host_sites=(batch.offsets, batch.counts),
                 )
                 outputs = (p, site_p, mod_ratio) if write_indiv else (site_p, mod_ratio)
                 # CSV rendering needs only sites/offsets/counts: drop the

@@ -18,13 +18,24 @@ Hopper kernel in ``csrc/mc.cu`` and counts the launch in ``launch_count``;
 on a CPU tensor it runs :func:`site_probability_mc_plain`, the same function
 in plain PyTorch.  There is no fallback from one to the other.  The kernel
 file's header states its bound on the card and its design.
+
+The wrapper checks the sites before it launches (a count above
+``MAX_SITE_READS``, a span outside ``p``) and needs the largest count.  From
+the device tensors that costs a host sync; a caller that holds the same
+offsets and counts as numpy arrays (the engine does) passes them as
+``host_sites``, and the check runs on the host without touching the device.
+Those arrays must be the exact source of the device tensors.  If they are
+not, the kernel still loads and stores nothing outside ``p`` and its staging:
+a site whose count exceeds what the launch was sized for, or whose span
+leaves ``p``, gives NaN.
 """
 from __future__ import annotations
 
 import ctypes
 import threading
-from typing import Optional
+from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from .fused_infer_kernel import check_tensor
@@ -32,21 +43,30 @@ from .fused_infer_kernel import check_tensor
 # launches of the CUDA kernel in this process
 launch_count = 0
 
-# reads of one site: 224 KB of f32 values, within the 227 KB of shared
-# memory one block may opt into on sm_90
+# reads of one site: 224 KB of f32 values (with the copy of the last one
+# the kernel stages), within the 227 KB of shared memory one block may opt
+# into on sm_90
 MAX_SITE_READS = 56 * 1024
+# draws per iteration, which the kernel holds in registers (kSamples)
+SAMPLES = 20
 # elements of the plain version's (n_samples, n_iters, sites) gather per site chunk
 _PLAIN_CHUNK = 1 << 24
 
 
-def _check_sites(offsets: torch.Tensor, counts: torch.Tensor, n_reads: int) -> int:
+def _check_sites(offsets, counts, n_reads: int) -> int:
     """Raise on a count above ``MAX_SITE_READS`` or a span outside ``p``;
-    return the largest count (one host sync on the card)."""
-    if not counts.numel():
+    return the largest count.  ``offsets`` and ``counts`` are tensors (one
+    host sync on the card) or numpy arrays (no device access)."""
+    if not len(counts):
         return 0
-    real = counts > 0
-    outside = real & ((offsets < 0) | (offsets.long() + counts.long() > n_reads))
-    biggest, n_outside = torch.stack([counts.max().long(), outside.sum()]).tolist()
+    if isinstance(counts, torch.Tensor):
+        real = counts > 0
+        outside = real & ((offsets < 0) | (offsets.long() + counts.long() > n_reads))
+        biggest, n_outside = torch.stack([counts.max().long(), outside.sum()]).tolist()
+    else:
+        offsets, counts = np.asarray(offsets, np.int64), np.asarray(counts, np.int64)
+        outside = (counts > 0) & ((offsets < 0) | (offsets + counts > n_reads))
+        biggest, n_outside = int(counts.max()), int(outside.sum())
     if biggest > MAX_SITE_READS:
         raise ValueError(
             f"a site has {biggest} reads, above the {MAX_SITE_READS} the MC "
@@ -90,6 +110,33 @@ def site_probability_mc_plain(
     return torch.where(counts > 0, site_p, torch.zeros_like(site_p))
 
 
+def ragged_mc_batch(seed: int = 5):
+    """A pack_sites-shaped MC batch ``(p, offsets, counts)`` (numpy) with
+    the cases the kernel must take: counts 1, 32, 33 and 64, 65 (around a
+    bank's width), 128, 129, 1000, 1024 and 20,000, one at exactly
+    ``MAX_SITE_READS``, a run with counts 1-40, three sites of 25,000 reads
+    in a row (more than one block's shared memory holds at once), a site
+    whose only read has p = 1 (the -1e4 clamp), count-0 sites between real
+    ones and padding sites and reads at the end.  Its own seed, so it draws
+    nothing from a caller's generator."""
+    rng = np.random.default_rng(seed)
+    head = [1, 128, 129, 1000, 1024, 0, 20000, 1, 32, 33, 64, 65, MAX_SITE_READS, 0]
+    tail = rng.integers(2, 200, size=200)
+    tail[::25] = 0
+    counts = np.array(head + list(range(1, 41)) + [0] + [25000] * 3 + list(tail) + [0] * 16, np.int32)
+    offsets = np.zeros_like(counts)
+    offsets[1:] = np.cumsum(counts)[:-1]
+    offsets[counts == 0] = 0
+    p = rng.uniform(0.0, 0.3, size=int(counts.sum()) + 100).astype(np.float32)
+    p[offsets[7]] = 1.0
+    return p, offsets, counts
+
+
+# mc_site_launch(p, offsets, counts, u, site_p, n_sites, n_reads, n_iters,
+# n_samples, max_count, stream)
+LAUNCH_ARGTYPES = [ctypes.c_void_p] * 5 + [
+    ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+]
 _lib_lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 
@@ -102,9 +149,7 @@ def _kernel_lib() -> ctypes.CDLL:
 
             lib = ctypes.CDLL(cuda_library("mc"))
             lib.mc_site_launch.restype = ctypes.c_int
-            lib.mc_site_launch.argtypes = [ctypes.c_void_p] * 5 + [
-                ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-            ]
+            lib.mc_site_launch.argtypes = LAUNCH_ARGTYPES
             lib.mc_error_string.restype = ctypes.c_char_p
             lib.mc_error_string.argtypes = [ctypes.c_int]
             _lib = lib
@@ -117,25 +162,43 @@ def site_probability_mc_cuda(
     counts: torch.Tensor,  # (S,) i32 reads per site, 0 = padding site
     u: torch.Tensor,  # (n_samples, n_iters) f32 shared draws
     n_iters: int,
-    n_samples: int = 20,
+    n_samples: int = SAMPLES,
+    host_sites: Optional[Tuple[np.ndarray, np.ndarray]] = None,
 ) -> torch.Tensor:
     """MC site probabilities (S,), 0 for count-0 sites.  CPU tensors run the
-    plain version; CUDA tensors launch the kernel.  Both raise when a count
-    exceeds ``MAX_SITE_READS``."""
+    plain version; CUDA tensors launch the kernel, which draws ``SAMPLES``
+    reads per iteration.  Both raise when a count exceeds ``MAX_SITE_READS``
+    or a span leaves ``p``.  ``host_sites``, the numpy arrays ``offsets``
+    and ``counts`` were copied from, moves that check to the host: no host
+    sync.  On the card a site that differs from them so that the launch
+    cannot take it gives NaN (see the module docstring)."""
     global launch_count
+    n_sites = counts.shape[0]
+    max_count = None
+    if host_sites is not None:
+        host_offsets, host_counts = host_sites
+        if np.shape(host_offsets) != (n_sites,) or np.shape(host_counts) != (n_sites,):
+            raise ValueError(
+                f"host_sites have shapes {np.shape(host_offsets)} and {np.shape(host_counts)}, "
+                f"expected ({n_sites},) like counts"
+            )
+        max_count = _check_sites(host_offsets, host_counts, p.shape[0])
     if p.device.type == "cpu":
         return site_probability_mc_plain(p, offsets, counts, u, n_iters, n_samples)
     if p.device.type != "cuda":
         raise ValueError(f"site_probability_mc_cuda runs on cpu or cuda, got {p.device}")
     device = p.device
-    n_sites = counts.shape[0]
     check_tensor("p", p, (torch.float32,), (p.shape[0],), device)
     check_tensor("offsets", offsets, (torch.int32,), (n_sites,), device)
     check_tensor("counts", counts, (torch.int32,), (n_sites,), device)
     check_tensor("u", u, (torch.float32,), (n_samples, n_iters), device)
-    if n_iters < 1 or n_samples < 0:
-        raise ValueError(f"need n_iters >= 1 and n_samples >= 0, got {n_iters}, {n_samples}")
-    max_count = _check_sites(offsets, counts, p.shape[0])
+    if n_iters < 1 or n_samples != SAMPLES:
+        raise ValueError(
+            f"the MC kernel takes n_iters >= 1 and n_samples == {SAMPLES}, got {n_iters}, "
+            f"{n_samples}; use --backend torch"
+        )
+    if max_count is None:
+        max_count = _check_sites(offsets, counts, p.shape[0])
 
     lib = _kernel_lib()
     site_p = torch.empty(n_sites, dtype=torch.float32, device=device)
@@ -143,7 +206,7 @@ def site_probability_mc_cuda(
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.mc_site_launch(
             p.data_ptr(), offsets.data_ptr(), counts.data_ptr(), u.data_ptr(), site_p.data_ptr(),
-            n_sites, int(n_iters), int(n_samples), max_count, stream,
+            n_sites, p.shape[0], int(n_iters), int(n_samples), max_count, stream,
         )
     if err != 0:
         raise RuntimeError(f"mc kernel launch failed: {lib.mc_error_string(err).decode()}")

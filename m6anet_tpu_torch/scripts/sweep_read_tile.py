@@ -28,14 +28,11 @@ a file.  Needs one NVIDIA card and nvcc.
 from __future__ import annotations
 
 import argparse
-import collections
 import ctypes
 import json
 import os
-import re
 import shutil
 import statistics
-import subprocess
 import sys
 import tempfile
 import tomllib
@@ -47,6 +44,7 @@ from ..constants import DEFAULT_MODEL_CONFIG, PRETRAINED_CONFIGS
 from ..models import load_model
 from ..ops import _build
 from ..ops import fused_infer_kernel as fik
+from ._sweep import sass_counts, sass_instructions, smi, time_interleaved, variant_source
 
 # (reads per thread, threads per block, blocks per SM, hidden-unit unroll)
 VARIANTS = [
@@ -61,39 +59,6 @@ FLOP_PER_READ = 2 * (15 * 150 + 150 * 32 + 32)
 OPCODES = ("LDS", "FFMA", "FMUL", "FADD", "FMNMX", "LDG", "STG")
 READS = 1 << 20  # the production batch
 REPS = 30  # timed launches per build and round
-
-
-def variant_source(text: str, values) -> str:
-    for name, value in zip(CONSTANTS, values):
-        text, n = re.subn(rf"constexpr int {name} = \d+;", f"constexpr int {name} = {value};", text)
-        if n != 1:
-            raise SystemExit(f"fused_infer.cu has no single line 'constexpr int {name} = ...;'")
-    return text
-
-
-def sass_counts(library: str) -> dict:
-    """Static count of read_prob_kernel's SASS instructions by opcode (the
-    mnemonic before its first dot), or an empty dict without cuobjdump."""
-    tool = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
-    if not os.path.exists(tool):
-        return {}
-    out = subprocess.run([tool, "-sass", library], capture_output=True, text=True).stdout
-    counts, inside = collections.Counter(), False
-    for line in out.splitlines():
-        if "Function :" in line:
-            inside = "read_prob_kernel" in line
-            continue
-        op = re.match(r"\s+/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9]*)(\.[A-Z0-9.]*)?", line)
-        if inside and op:
-            counts[op.group(1) + (".128" if op.group(2) and ".128" in op.group(2) else "")] += 1
-    return {op: n for op, n in sorted(counts.items()) if op.split(".")[0] in OPCODES}
-
-
-def smi(query: str) -> str:
-    return subprocess.run(
-        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
 
 
 def main(argv=None) -> int:
@@ -127,7 +92,7 @@ def main(argv=None) -> int:
         for values in VARIANTS:
             path = os.path.join(tmp, "fused_infer_r{}_t{}_b{}_u{}.cu".format(*values))
             with open(path, "w") as f:
-                f.write(variant_source(text, values))
+                f.write(variant_source(text, CONSTANTS, values, "fused_infer.cu"))
             builds.append((dict(zip(CONSTANTS, values)), path))
         command = [_build.nvcc_path(), *_build.NVCC_FLAGS]
         libs = _build.build_shared_libraries([(path, command) for _, path in builds], out_dir=tmp)
@@ -152,9 +117,10 @@ def main(argv=None) -> int:
             rows.append({
                 "build": label, "launch": launch,
                 "ptxas": _build.ptxas_usage(lib_path, "read_prob_kernel"),
-                "sass": sass_counts(lib_path), "p": p.clone(),
+                "sass": sass_counts(sass_instructions(lib_path, "read_prob_kernel"), OPCODES, (".128",)),
+                "p": p.clone(),
                 "max_abs_err_vs_plain": float((p - p_plain).abs().max()),
-                "finite": bool(torch.isfinite(p).all()), "times": [],
+                "finite": bool(torch.isfinite(p).all()),
             })
         checked_in = next(r["p"] for r in rows if r["build"] == "as checked in")
         reference = rows[0]["p"] if args.reference else None
@@ -163,23 +129,9 @@ def main(argv=None) -> int:
             if reference is not None:
                 row["bit_identical_to_reference"] = torch.equal(row["p"], reference)
 
-        flush = torch.empty(1 << 30, dtype=torch.uint8, device="cuda")
-        clocks = []
-        for order in (rows, rows[::-1]):  # two rounds, the second in reverse
-            for row in order:
-                launch = row["launch"]
-                for _ in range(3):
-                    launch()
-                for _ in range(REPS):
-                    flush.zero_()
-                    start = torch.cuda.Event(enable_timing=True)
-                    end = torch.cuda.Event(enable_timing=True)
-                    start.record()
-                    launch()
-                    end.record()
-                    end.synchronize()
-                    row["times"].append(start.elapsed_time(end))
-            clocks.append(smi("clocks.sm"))
+        times, clocks = time_interleaved([row["launch"] for row in rows], REPS)
+        for row, row_times in zip(rows, times):
+            row["times"] = row_times
 
         bound_ms = READS * FLOP_PER_READ / F32_FLOPS * 1e3
         results = []

@@ -184,35 +184,121 @@ def test_a_reads_p_does_not_depend_on_its_place(cuda_device):
         assert torch.equal(encoder_kernel.fused_read_probability(fp, X[k:], K[k:]), p[k:]), k
 
 
+def _permute_sites(p, offsets, counts, order):
+    """The batch with its sites in ``order`` (site i is old site order[i]),
+    reads laid out again back to back, padding reads kept at the end."""
+    parts, new_offsets, cursor = [], np.zeros_like(offsets), 0
+    for i, s in enumerate(order):
+        c = int(counts[s])
+        parts.append(p[offsets[s] : offsets[s] + c])
+        new_offsets[i] = cursor if c > 0 else 0
+        cursor += c
+    parts.append(p[cursor:])
+    return np.concatenate(parts), new_offsets, counts[order]
+
+
 def test_mc_kernel_matches_plain_and_repeats(cuda_device):
-    rng = np.random.default_rng(5)
-    n_sites = 300
-    counts = rng.integers(2, 200, size=n_sites).astype(np.int32)
-    counts[:7] = [1, 128, 129, 1000, 1024, 0, 20000]  # 20,000: 80 KB of shared memory
-    counts[-20:] = 0  # padding sites
-    offsets = np.concatenate([[0], np.cumsum(counts)[:-1]]).astype(np.int32)
-    offsets[counts == 0] = 0
-    p = rng.uniform(0, 0.3, size=int(counts.sum()) + 100).astype(np.float32)
-    p[offsets[8]] = 1.0  # the -1e4 clamp
+    """mc_kernel.ragged_mc_batch (a site at the cap, three of 25,000 reads in
+    a row, counts 1-40 and around a bank's width, count-0 sites between real
+    ones, a read with p = 1) at iteration counts below, at and above one
+    thread's and one block's draws: the kernel within 1e-6 of the plain
+    version, repeats and a reordering of the sites bit for bit."""
+    p, offsets, counts = mc_kernel.ragged_mc_batch()
+    order = np.roll(np.arange(len(counts)), 37)
+    moved = _permute_sites(p, offsets, counts, order)
     p, offsets, counts = (torch.from_numpy(a).to(cuda_device) for a in (p, offsets, counts))
-    for n_iters in (300, 1500):
+    moved = [torch.from_numpy(a).to(cuda_device) for a in moved]
+    for n_iters in (1, 255, 257, 1000, 1500, 2000):
         u = torch.from_numpy(random.shared_draws(3, n_iters)).to(cuda_device)
         before = mc_kernel.launch_count
         got = mc_kernel.site_probability_mc_cuda(p, offsets, counts, u, n_iters)
         again = mc_kernel.site_probability_mc_cuda(p, offsets, counts, u, n_iters)
+        elsewhere = mc_kernel.site_probability_mc_cuda(*moved, u, n_iters)
         want = mc_kernel.site_probability_mc_plain(p, offsets, counts, u, n_iters)
         torch.cuda.synchronize()
-        assert mc_kernel.launch_count == before + 2
+        assert mc_kernel.launch_count == before + 3
         torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
-        assert torch.equal(got, again)
+        assert torch.equal(got, again), n_iters
+        assert torch.equal(elsewhere, got[torch.from_numpy(order).to(cuda_device)]), n_iters
         assert bool((got[counts == 0] == 0).all()) and bool(torch.isfinite(got).all())
     cap = mc_kernel.MAX_SITE_READS
     big = torch.tensor([cap + 1], dtype=torch.int32, device=cuda_device)
     zero = torch.zeros(1, dtype=torch.int32, device=cuda_device)
-    with pytest.raises(ValueError, match=f"above the {cap}"):
-        mc_kernel.site_probability_mc_cuda(torch.rand(cap + 1, device=cuda_device), zero, big, u, 1500)
+    host = (np.zeros(1, np.int32), np.array([cap + 1], np.int32))
+    for host_sites in (None, host):  # the device check and the host check
+        with pytest.raises(ValueError, match=f"above the {cap}"):
+            mc_kernel.site_probability_mc_cuda(
+                torch.rand(cap + 1, device=cuda_device), zero, big, u, 2000, host_sites=host_sites)
+        with pytest.raises(ValueError, match="reach outside p"):
+            mc_kernel.site_probability_mc_cuda(
+                torch.rand(cap, device=cuda_device), zero + 1, big - 1, u, 2000,
+                host_sites=None if host_sites is None else (host[0] + 1, host[1] - 1))
     with pytest.raises(ValueError, match="u has shape"):
-        mc_kernel.site_probability_mc_cuda(p, offsets, counts, u[:, :100], 1500)
+        mc_kernel.site_probability_mc_cuda(p, offsets, counts, u[:, :100], 2000)
+    with pytest.raises(ValueError, match="n_samples == 20"):
+        mc_kernel.site_probability_mc_cuda(p, offsets, counts, u[:7].contiguous(), 2000, 7)
+
+
+def test_mc_kernel_gives_nan_for_sites_the_launch_cannot_take(cuda_device):
+    """host_sites that are not the source of the tensors on the card: a site
+    longer than the launch was sized for, or whose span leaves p, gives NaN
+    with no fault, and every other site keeps its value bit for bit."""
+    rng = np.random.default_rng(21)
+    counts = np.full(40, 10, np.int32)
+    counts[7] = 50
+    offsets = (np.cumsum(counts) - counts).astype(np.int32)
+    p = rng.uniform(0.0, 0.3, size=int(counts.sum())).astype(np.float32)
+    host_counts = counts.copy()
+    host_counts[7] = 10  # the launch is sized for 10 reads a site
+    moved = offsets.copy()
+    moved[3] = len(p) - 5  # on the card, site 3's span leaves p
+    def t(a):
+        return torch.from_numpy(a).to(cuda_device)
+
+    u = t(random.shared_draws(6, 1000))
+    got = mc_kernel.site_probability_mc_cuda(t(p), t(moved), t(counts), u, 1000, host_sites=(offsets, host_counts))
+    want = mc_kernel.site_probability_mc_cuda(t(p), t(offsets), t(counts), u, 1000, host_sites=(offsets, counts))
+    torch.cuda.synchronize()
+    bad = torch.zeros(40, dtype=torch.bool, device=cuda_device)
+    bad[[3, 7]] = True
+    assert bool(got[bad].isnan().all())
+    assert torch.equal(got[~bad], want[~bad])
+
+
+def test_engine_mc_step_makes_no_host_sync(cuda_device, monkeypatch):
+    """The engine's MC step hands the MC wrapper the batch's host offsets
+    and counts, so the wrapper checks them without a device-to-host sync:
+    under set_sync_debug_mode("error") any sync inside it raises, as it does
+    for the check on the device tensors."""
+    from m6anet_tpu_torch.inference import engine
+
+    real = mc_kernel.site_probability_mc_cuda
+    seen = []
+
+    def no_sync(*args, **kwargs):
+        seen.append(kwargs.get("host_sites") is not None)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return real(*args, **kwargs)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    monkeypatch.setattr(mc_kernel, "site_probability_mc_cuda", no_sync)
+    model = _model().to(cuda_device).eval()
+    X, K, offsets, counts = _ragged_batch()
+    step = engine.make_infer_step(model, len(counts), DEFAULT_READ_THRESHOLD, 20, "mc", "cuda_fused",
+                                  n_iterations=1000, seed=2)
+    args = [torch.from_numpy(a).to(cuda_device) for a in (X, K, offsets, counts)]
+    before = mc_kernel.launch_count
+    with torch.no_grad():
+        got = step(*args, host_sites=(offsets, counts))[1]
+        with pytest.raises(RuntimeError, match="synchroniz"):
+            step(*args)
+        monkeypatch.undo()
+        want = step(*args)[1]
+    assert seen == [True, False] and mc_kernel.launch_count == before + 2
+    assert torch.equal(got, want)
 
 
 def test_engine_mc_and_encoder_backend_on_the_card(cuda_device, tmp_path):

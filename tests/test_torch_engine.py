@@ -419,8 +419,12 @@ def test_cuda_backend_steps_on_cpu_tensors(backend, method):
     args = [torch.from_numpy(a) for a in (batch.features, batch.kmer_ids, batch.offsets, batch.counts)]
     kw = dict(method=method, n_iterations=300, seed=5)
     with torch.no_grad():
-        got = engine.make_infer_step(model, 64, THRESHOLD, 20, backend=backend, **kw)(*args)
+        step = engine.make_infer_step(model, 64, THRESHOLD, 20, backend=backend, **kw)
+        got = step(*args)
         want = engine.make_infer_step(model, 64, THRESHOLD, 20, backend="torch", **kw)(*args)
+        # the engine's call, with the batch's host offsets and counts
+        hosted = step(*args, host_sites=(batch.offsets, batch.counts))
+    assert all(torch.equal(a, b) for a, b in zip(got, hosted))
     torch.testing.assert_close(got[0], want[0], rtol=0, atol=1e-6)
     torch.testing.assert_close(got[2], want[2], rtol=0, atol=0)
     if method == "exact":
@@ -435,6 +439,17 @@ def test_cuda_backend_steps_on_cpu_tensors(backend, method):
         real = args[3] > 0
         assert float((got[1] - exact)[real].abs().max()) < 5e-2
         assert float((want[1] - exact)[real].abs().max()) < 5e-2
+
+
+def test_cuda_backends_take_the_mc_kernels_samples():
+    """The MC kernel draws mc_kernel.SAMPLES reads per iteration: the CUDA
+    backends refuse another n_samples when the step is built, on either
+    device; the torch backend takes any."""
+    model = _model().eval()
+    for backend in ("cuda_fused", "cuda"):
+        with pytest.raises(ValueError, match=f"draws {mc_kernel.SAMPLES} reads.*backend 'torch'"):
+            engine.make_infer_step(model, 4, THRESHOLD, 7, "mc", backend, n_iterations=10)
+    engine.make_infer_step(model, 4, THRESHOLD, 7, "mc", "torch", n_iterations=10)
 
 
 def test_mc_read_window_is_checked_before_the_launch():

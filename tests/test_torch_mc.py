@@ -12,6 +12,12 @@ order); the kernel's plain version 1e-6 against the numpy oracle of
 tests/test_ops.py (the same arithmetic, the sum over iterations in another
 precision) and 2e-4 against the Pallas kernel (its bf16 hi/lo split, the
 bound tests/test_ops.py holds it to)."""
+import ast
+import ctypes
+import operator
+import os
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -116,7 +122,7 @@ def _oracle(p, offsets, counts, u):
     return out
 
 
-@pytest.mark.parametrize("n_iters", [300, 1500])
+@pytest.mark.parametrize("n_iters", [300, 1500, 257])
 def test_mc_kernel_plain_matches_oracle_and_pallas(n_iters):
     rng = np.random.default_rng(9)
     counts = rng.integers(150, 500, size=12)
@@ -202,3 +208,134 @@ def test_count_zero_gives_zero_and_oversized_sites_raise():
     meta = [x.to("meta") for x in t]
     with pytest.raises(ValueError, match="cpu or cuda"):
         mc_kernel.site_probability_mc_cuda(*meta, u.to("meta"), 100)
+
+
+def _mc_constants():
+    """The ``constexpr int`` constants of csrc/mc.cu, evaluated."""
+    path = os.path.join(os.path.dirname(mc_kernel.__file__), "csrc", "mc.cu")
+    ops = {ast.Add: operator.add, ast.Sub: operator.sub, ast.Mult: operator.mul, ast.Div: operator.floordiv}
+    values = {}
+
+    def value(node):
+        if isinstance(node, ast.Constant):
+            return node.value
+        if isinstance(node, ast.Name):
+            return values[node.id]
+        return ops[type(node.op)](value(node.left), value(node.right))
+
+    with open(path) as f:
+        for name, expr in re.findall(r"^constexpr int (\w+) = ([^;]+);", f.read(), re.M):
+            values[name] = value(ast.parse(expr, mode="eval").body)
+    return values
+
+
+def test_mc_kernel_constants_hold_the_cap_and_the_published_iterations():
+    """MAX_SITE_READS and SAMPLES against mc.cu's constants and the shared
+    memory plan of its mc_site_launch: a slot of max_count + 1 floats per
+    site, two buffers when two slots fit kStagingBytes, as many sites a
+    group as fit (1 to kGroup), and beside each site's slot its threads' f64
+    sums."""
+    c = _mc_constants()
+    assert c["kSamples"] == mc_kernel.SAMPLES
+    # the published 1,000 iterations, and shared_draws' 1,024-column chunks,
+    # are held in registers whole: one pass over the draws a site
+    assert c["kThreads"] * c["kIters"] >= 1024 and c["kThreads"] % 32 == 0
+
+    def plan(max_count):
+        slot = 4 * (max_count + 1)
+        buffers = 2 if 2 * slot <= c["kStagingBytes"] else 1
+        group = min(max(c["kStagingBytes"] // (buffers * slot), 1), c["kGroup"])
+        return buffers, group, buffers * group * (8 * c["kThreads"] + slot)
+
+    meta = 4 * c["kGroup"] * 2 * 4  # the static ring of counts and offsets
+    buffers, group, shared = plan(mc_kernel.MAX_SITE_READS)
+    assert (buffers, group) == (1, 1) and shared + meta <= c["kSharedLimitBytes"]
+    # the cap is the largest multiple of 1,024 reads that fits
+    assert plan(mc_kernel.MAX_SITE_READS + 1024)[2] + meta > c["kSharedLimitBytes"]
+    # dataprep's default cap of 1,000 reads: pipelined, full groups, and two
+    # blocks on an SM (228 KB, 1 KB of it reserved per block)
+    buffers, group, shared = plan(1000)
+    assert buffers == 2 and group == c["kGroup"] >= c["kTogether"]
+    assert 2 * (shared + meta + 1024) <= 228 * 1024
+
+
+def test_mc_host_and_device_checks_agree():
+    """The wrapper checks the sites from the device tensors or, given
+    host_sites, from numpy arrays of the same values: the same values and
+    the same errors either way."""
+    rng = np.random.default_rng(12)
+    p, offsets, counts = _layout(rng, 30, 40, lo=1, hi=90)
+    t = [torch.from_numpy(a) for a in (p, offsets, counts)]
+    u = torch.from_numpy(random.shared_draws(2, 200))
+    plain = mc_kernel.site_probability_mc_cuda(*t, u, 200)
+    hosted = mc_kernel.site_probability_mc_cuda(*t, u, 200, host_sites=(offsets, counts))
+    assert torch.equal(plain, hosted)
+    cap = mc_kernel.MAX_SITE_READS
+    too_long = _layout(rng, 2, 4, counts=np.array([3, cap + 1]))
+    outside = (p[:10].copy(), np.array([0, 6, 0], np.int32), np.array([3, 5, 0], np.int32))
+    for bad_p, bad_offsets, bad_counts in (too_long, outside):
+        bad = [torch.from_numpy(a) for a in (bad_p, bad_offsets, bad_counts)]
+        messages = []
+        for host_sites in (None, (bad_offsets, bad_counts)):
+            with pytest.raises(ValueError) as raised:
+                mc_kernel.site_probability_mc_cuda(*bad, u[:, :4].contiguous(), 4, host_sites=host_sites)
+            messages.append(str(raised.value))
+        assert messages[0] == messages[1]
+    assert "1 site spans" in messages[0]
+    with pytest.raises(ValueError, match="host_sites"):
+        mc_kernel.site_probability_mc_cuda(*t, u, 200, host_sites=(offsets[:-1], counts[:-1]))
+
+
+def test_ragged_mc_batch_covers_the_kernels_cases():
+    """The batch the card checks the kernel on (mc_kernel.ragged_mc_batch):
+    pack_sites-shaped, a site at the cap, three sites in a row whose reads
+    exceed one launch's staging, counts 1-40 and around a bank's width,
+    count-0 sites between real ones and at the end, a read with p = 1; and
+    the plain version on it is finite, 0 at count 0."""
+    p, offsets, counts = mc_kernel.ragged_mc_batch()
+    real = counts > 0
+    assert mc_kernel.MAX_SITE_READS in counts
+    assert set(range(1, 41)) | {32, 33, 64, 65, 128, 129, 1000, 1024, 20000} <= set(counts.tolist())
+    run = np.flatnonzero(counts == 25000)
+    assert list(np.diff(run)) == [1, 1] and 3 * 25000 * 4 > _mc_constants()["kStagingBytes"]
+    assert (counts[:-16] == 0).sum() >= 3 and not counts[-16:].any()
+    assert (offsets[real] == (np.cumsum(counts) - counts)[real]).all() and (offsets[~real] == 0).all()
+    assert counts.sum() < len(p) and p[offsets[7]] == 1.0 and counts[7] == 1
+    t = [torch.from_numpy(a) for a in (p, offsets, counts)]
+    u = torch.from_numpy(random.shared_draws(4, 3))
+    got = mc_kernel.site_probability_mc_cuda(*t, u, 3, host_sites=(offsets, counts))
+    assert bool(torch.isfinite(got).all()) and not got[~torch.from_numpy(real)].any()
+    assert got[7] == 1.0
+
+
+def test_sweep_mc_rewrites_the_kernel_source():
+    """scripts/sweep_mc.py's builds apply to mc.cu as it stands: each
+    constant of a variant and each part an ablation leaves out occurs once;
+    its bank-pass count gives one pass to sites whose values sit in distinct
+    banks, and more to longer ones."""
+    from m6anet_tpu_torch.scripts import sweep_mc
+    from m6anet_tpu_torch.scripts._sweep import gather_passes, variant_source
+
+    with open(os.path.join(os.path.dirname(mc_kernel.__file__), "csrc", "mc.cu")) as f:
+        text = f.read()
+    for values in sweep_mc.VARIANTS:
+        rewritten = variant_source(text, sweep_mc.CONSTANTS, values, "mc.cu")
+        for name, value in zip(sweep_mc.CONSTANTS, values):
+            assert f"constexpr int {name} = {value};" in rewritten
+    assert all(text.count(old) == 1 for _, old, _ in sweep_mc.ABLATIONS)
+    u = random.shared_draws(0, 100)
+    passes, gathers = gather_passes(np.array([20, 31, 0]), u)
+    assert passes == gathers == 2 * 20 * 4
+    passes, gathers = gather_passes(np.array([1000]), u)
+    assert gathers == 20 * 4 and passes > 2 * gathers
+
+
+def test_mc_launch_argtypes_match_the_kernel_source():
+    """mc_kernel.LAUNCH_ARGTYPES, which the wrapper and the sweep bind
+    mc_site_launch with, against that function's parameters in mc.cu."""
+    with open(os.path.join(os.path.dirname(mc_kernel.__file__), "csrc", "mc.cu")) as f:
+        params = re.search(r"int mc_site_launch\(([^)]*)\)", f.read()).group(1).split(",")
+    scalars = {"int64_t": ctypes.c_int64, "int": ctypes.c_int}
+    want = [ctypes.c_void_p if "*" in param else scalars[param.split()[0]] for param in params]
+    assert mc_kernel.LAUNCH_ARGTYPES == want
+    assert [param.split()[-1] for param in params][5:8] == ["n_sites", "n_reads", "n_iters"]
