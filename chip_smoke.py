@@ -3,23 +3,27 @@
     python3 chip_smoke.py
 
 Drives m6anet_tpu_torch's paths on the card — ``inference`` with the
-production model and the exact site method (the main path), the MC site
-method, and the encoder-kernel backend — and holds every kernel against its
-plain PyTorch version:
+production model and the exact site method (the main path, at the default
+precision, f32x3), the f32 and bf16 precisions, the MC site method, and the
+encoder-kernel backend — and holds every kernel against its plain PyTorch
+version:
 
   1. device      require CUDA, print the card's name and power limit, TF32 off
   2. build       compile every ops/csrc/*.cu kernel (one nvcc each, in parallel)
-  3. small       fused_inference_t vs plain on a small ragged batch, and on
-                 batches whose read count ends phase A's tile raggedly (1, 2,
-                 3, 255, 257, one tile +- 1 and 4097 reads)
-  4. full        fused_inference_t vs plain at the production batch
+  3. small       fused_inference_t (f32) vs plain on a small ragged batch, and
+                 on batches whose read count ends phase A's tile raggedly (1,
+                 2, 3, 255, 257, one tile +- 1 and 4097 reads)
+  4. full        fused_inference_t (f32) vs plain at the production batch
                  (1,048,576 reads / 16,384 sites), and two launches
                  bit-identical; placement: p of batch[k:] is p[k:] of the
                  whole batch, bit for bit, for k = 1, 3, 129
   5. e2e         the inference CLI on tests/data (default device, --backend
-                 auto) against the golden CSVs, with the kernel's launches as
-                 the run reports them; the other three pretrained models once
-  6. timing      kernel, plain version and bound at the production batch;
+                 auto and --precision auto = f32x3: the main path) against the
+                 golden CSVs, with the kernels' launches as the run reports
+                 them; again with --precision f32 (golden) and --precision
+                 bf16 (golden site, per read within 2e-2 of the f32 run); the
+                 other three pretrained models once
+  6. timing      f32 kernel, plain version and bound at the production batch;
                  phase A's registers and spills (ptxas) and the SM clock
                  read right after the timing
   7. entries     fused_read_probability and fused_inference vs plain, small,
@@ -37,8 +41,9 @@ plain PyTorch version:
                  device and one from host arrays, as the engine calls it
  10. MC e2e      the CLI with --site_proba_method mc --num_iterations 2000
                  (default device and backend) against the golden CSVs, and
-                 the CLI with --backend cuda (the encoder kernel alone), each
-                 with its kernels' launches as its run reports them
+                 the CLI with --backend cuda (the encoder kernel alone) at
+                 --precision f32 and f32x3, each with its kernels' launches
+                 as its run reports them
  11. timing      the MC kernel and the two entry points: kernel, plain
                  version and bound at the production batch; the MC wrapper
                  both ways (sites checked on the device, with a host sync,
@@ -46,6 +51,16 @@ plain PyTorch version:
                  the SM clock; in a line of their own, the floors of mc.cu's
                  design at this batch (models counted from the batch, the
                  SASS and the card's maximum SM clock, not timings)
+ 12. modes       f32x3 and bf16 (read_prob_tc.cu, then phase B of
+                 fused_infer.cu) vs plain on a small batch, the ragged tails
+                 of the tensor-core block, the production batch, a shifted
+                 placement (bit for bit) and both entry points; f32x3 p
+                 within 2e-6 and 99.999% of reads within 1e-6, bf16 p within
+                 1e-3 and 99.9% within 1e-6, site_p 1e-5 (+ 20 max|dp| at a
+                 site holding a read further apart), mod_ratio equal but at
+                 reads near or across the threshold; repeats bit-identical
+ 13. timing      each mode's wrapper call, phase A alone, plain version,
+                 device split, ptxas usage and bound at the production batch
 
 Any failure exits nonzero.  The last line is the
 ``{"ok": true, "device": {...}}`` result; before it come the MC floors' JSON
@@ -69,9 +84,19 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WORK_DIR = os.path.join(ROOT, "build", "chip_smoke")
 THRESHOLD = 0.033379376  # HCT116_RNA002's read threshold
-P_ATOL, SITE_ATOL = 1e-6, 1e-5
+SITE_ATOL = 1e-5
+# kernel vs plain, per read: every read within P_ATOL and CLOSE_SHARE of
+# them within 1e-6.  f32x3: the tensor cores' k16 sums round inside the
+# chunk in their own way, which the plain version's truncated f64 sums
+# model to all but ~1 read in a million (0.99999); bf16: an f32 sum that
+# differs in its last bit can round an activation to the neighbouring bf16
+# value (0.999)
+P_ATOL = {"f32": 1e-6, "f32x3": 2e-6, "bf16": 1e-3}
+CLOSE, CLOSE_SHARE = 1e-6, {"f32": 1.0, "f32x3": 0.99999, "bf16": 0.999}
+MODES = ("f32x3", "bf16")
 PLACEMENT_SHIFTS = (1, 3, 129)
 GOLDEN_ATOL = {"indiv": 1e-5, "mod_ratio": 1e-6, "site": 1e-2}
+BF16_INDIV_ATOL = 2e-2  # bf16 CLI per read against the f32 CLI (tests/test_ops.py:325)
 MC_SITE_GOLDEN_ATOL = 1.5e-2  # the MC method's (tests/test_inference.py:61)
 MC_ATOL = 1e-6  # MC kernel vs plain: the same f32 draws, sums over t in f64
 MC_ITERS, MC_E2E_ITERS = 1000, 2000
@@ -86,7 +111,13 @@ CARD_RATES = [
 ]
 
 FLOP_PER_READ = 2 * (15 * 150 + 150 * 32 + 32)
-
+# per read, by the pipe that runs them (FP32 cores, bf16 tensor cores): f32x3
+# keeps layer 1 in f32 and takes three bf16 passes over layer 2 and the head
+MODE_FLOP_PER_READ = {
+    "f32x3": {"f32": 2 * 15 * 150, "bf16": 3 * 2 * (150 * 32 + 32)},
+    "bf16": {"f32": 0, "bf16": FLOP_PER_READ},
+}
+BF16_TENSOR_FLOPS = 989e12  # H100 SXM, dense (NVIDIA data sheet)
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -140,12 +171,53 @@ def production_count(rng):
     return lambda s: int(min(max(rng.gamma(2.0, 30.0), 20), 1000))
 
 
-def compare(fik, fp, batch, label):
-    """Kernel vs plain on one batch (and the kernel against itself); returns
-    the largest absolute difference over p, site_p and the mod_ratios of
-    sites with no read near the threshold."""
+# reads compared and reads more than CLOSE apart, by precision, over every
+# kernel-vs-plain check of the run (a share is held over all of them: one
+# read of a 129-read tail is 0.8%)
+CLOSE_TALLY = {precision: [0, 0] for precision in P_ATOL}
+
+
+def p_check(p, p_ref, precision):
+    """Largest |p - p_ref|, the share of reads within CLOSE, and whether
+    every read is within the precision's P_ATOL; counts the reads in
+    CLOSE_TALLY."""
+    err = (p - p_ref).abs()
+    far = int((err > CLOSE).sum())
+    CLOSE_TALLY[precision][0] += err.numel()
+    CLOSE_TALLY[precision][1] += far
+    err_max = float(err.max()) if err.numel() else 0.0
+    return err_max, 1.0 - far / max(err.numel(), 1), err_max <= P_ATOL[precision]
+
+
+def site_check(p, p_ref, site_p, site_ref, site_ids, n_sites):
+    """Largest |site_p - site_ref| over the sites whose reads all agree
+    within CLOSE, and whether every site is within SITE_ATOL, or, at a site
+    holding a read further apart, within SITE_ATOL + 20 max|p - p_ref| (the
+    derivative of 1 - m**20 is at most 20, and the mean m moves by at most
+    max|p - p_ref|)."""
+    err = (p - p_ref).abs()
+    far = torch.zeros(n_sites + 1, device=p.device).index_add_(0, site_ids.long(), (err > CLOSE).float())[:-1]
+    err_site = (site_p - site_ref).abs()
+    allowed = SITE_ATOL + torch.where(far > 0, 20 * err.max(), torch.zeros_like(far))
+    clear = float(torch.where(far > 0, torch.zeros_like(err_site), err_site).max())
+    return clear, int((far > 0).sum()), bool((err_site <= allowed).all())
+
+
+def check_close_share(precision):
+    n, far = CLOSE_TALLY[precision]
+    share = 1.0 - far / max(n, 1)
+    log(f"[{precision}] reads within {CLOSE} of the plain version over every check: {n - far} of {n} "
+        f"({share:.7f}; at least {CLOSE_SHARE[precision]})")
+    if share < CLOSE_SHARE[precision]:
+        fail(f"{precision}: too many reads differ from the plain version by more than {CLOSE}")
+
+
+def compare(fik, fp, batch, label, precision="f32"):
+    """Kernel vs plain on one batch in ``precision`` (and the kernel against
+    itself); returns the largest absolute difference over p, site_p and
+    the mod_ratios of sites with no read near or across the threshold."""
     features, kmer, offsets, counts = (torch.from_numpy(a).cuda() for a in batch)
-    args = (features, kmer, None, offsets, counts, THRESHOLD)
+    args = (features, kmer, None, offsets, counts, THRESHOLD, 20, precision)
     got = fik.fused_inference_t(fp, *args)
     again = fik.fused_inference_t(fp, *args)
     want = fik.fused_inference_t_plain(fp, *args)
@@ -153,73 +225,77 @@ def compare(fik, fp, batch, label):
     p, site_p, mod_ratio = got
     p_ref, site_ref, mr_ref = want
     finite = all(bool(torch.isfinite(t).all()) for t in got)
-    err_p = float((p - p_ref).abs().max())
-    err_site = float((site_p - site_ref).abs().max())
+    err_p, close, p_ok = p_check(p, p_ref, precision)
     # mod_ratio must be equal except where a read's plain p lies within
-    # 1e-6 of the threshold: such reads may fall on either side
-    near = ((p_ref - THRESHOLD).abs() < 1e-6).float()
+    # 1e-6 of the threshold, or the two p straddle it: such reads may fall
+    # on either side
+    near = (((p_ref - THRESHOLD).abs() < 1e-6) | ((p >= THRESHOLD) != (p_ref >= THRESHOLD))).float()
     n_real = int(counts.sum())
     site_ids = torch.full((p.numel(),), counts.numel(), dtype=torch.long, device=p.device)
     site_ids[:n_real] = torch.repeat_interleave(torch.arange(counts.numel(), device=p.device), counts.long())
+    err_site, far_sites, site_ok = site_check(p, p_ref, site_p, site_ref, site_ids, counts.numel())
     ambiguous = torch.zeros(counts.numel() + 1, device=p.device).index_add_(0, site_ids, near)[:-1]
     hit_diff = (mod_ratio - mr_ref).abs() * counts.clamp(min=1).float()
     mr_bad = int((hit_diff > ambiguous + 0.5).sum())
     err_mr = float(torch.where(ambiguous > 0, torch.zeros_like(hit_diff), (mod_ratio - mr_ref).abs()).max())
     identical = all(torch.equal(a, b) for a, b in zip(got, again))
     log(
-        f"[{label}] reads={p.numel()} sites={counts.numel()} real_reads={n_real} "
-        f"real_sites={int((counts > 0).sum())} max|dp|={err_p:.3e} "
-        f"max|dsite_p|={err_site:.3e} max|dmod_ratio| (clear sites)={err_mr:.3e} "
-        f"reads within 1e-6 of threshold={int(near.sum())} repeat_identical={identical}"
+        f"[{label}] precision={precision} reads={p.numel()} sites={counts.numel()} real_reads={n_real} "
+        f"real_sites={int((counts > 0).sum())} max|dp|={err_p:.3e} share |dp|<=1e-6={close:.6f} "
+        f"max|dsite_p| (sites of close reads)={err_site:.3e} sites with a read further apart={far_sites} "
+        f"max|dmod_ratio| (clear sites)={err_mr:.3e} "
+        f"reads near or across the threshold={int(near.sum())} repeat_identical={identical}"
     )
     if not finite:
         fail(f"{label}: non-finite kernel output")
-    if err_p > P_ATOL or err_site > SITE_ATOL or mr_bad or err_mr > 0:
+    if not p_ok or not site_ok or mr_bad or err_mr > 0:
         fail(f"{label}: kernel disagrees with plain version")
     if not identical:
         fail(f"{label}: two launches differ")
     return max(err_p, err_site, err_mr)
 
 
-def check_placement(fik, enc, fp, batch):
+def check_placement(fik, enc, fp, batch, precision="f32"):
     """p of batch[k:] (phase A alone) equals p[k:] of the whole batch
     (the fused step), bit for bit: a read's p does not depend on where it
     sits in the tile."""
     features, kmer, offsets, counts = (torch.from_numpy(a).cuda() for a in batch)
-    p = fik.fused_inference_t(fp, features, kmer, None, offsets, counts, THRESHOLD)[0]
-    same = {k: torch.equal(enc.fused_read_probability(fp, features[k:], kmer[k:]), p[k:])
+    p = fik.fused_inference_t(fp, features, kmer, None, offsets, counts, THRESHOLD, 20, precision)[0]
+    same = {k: torch.equal(enc.fused_read_probability(fp, features[k:], kmer[k:], precision), p[k:])
             for k in PLACEMENT_SHIFTS}
-    log(f"[placement] p of batch[k:] == p[k:] of the batch, bit for bit: {same}")
+    log(f"[placement] precision={precision}: p of batch[k:] == p[k:] of the batch, bit for bit: {same}")
     if not all(same.values()):
         fail("placement: a read's p depends on its place in the batch")
 
 
-def compare_entries(fik, enc, site_ops, fp, batch, label):
+def compare_entries(fik, enc, site_ops, fp, batch, label, precision="f32"):
     """fused_read_probability and fused_inference vs their plain versions
     (and each against itself); returns the largest absolute difference."""
     features, kmer, offsets, counts = (torch.from_numpy(a).cuda() for a in batch)
     n, n_sites = features.shape[0], counts.shape[0]
     site_ids = site_ops.derive_site_ids(offsets, counts, n, n_sites)
-    p = enc.fused_read_probability(fp, features, kmer)
-    p_again = enc.fused_read_probability(fp, features, kmer)
-    p_ref = enc.fused_read_probability_plain(fp, features, kmer)
-    got = fik.fused_inference(fp, features, kmer, site_ids, counts, THRESHOLD)
-    again = fik.fused_inference(fp, features, kmer, site_ids, counts, THRESHOLD)
-    want = fik.fused_inference_plain(fp, features, kmer, site_ids, counts, THRESHOLD)
+    p = enc.fused_read_probability(fp, features, kmer, precision)
+    p_again = enc.fused_read_probability(fp, features, kmer, precision)
+    p_ref = enc.fused_read_probability_plain(fp, features, kmer, precision)
+    fi_args = (fp, features, kmer, site_ids, counts, THRESHOLD, 20, precision)
+    got = fik.fused_inference(*fi_args)
+    again = fik.fused_inference(*fi_args)
+    want = fik.fused_inference_plain(*fi_args)
     torch.cuda.synchronize()
-    err_read = float((p - p_ref).abs().max())
-    err_p = float((got[0] - want[0]).abs().max())
-    err_site = float((got[1] - want[1]).abs().max())
-    near = (want[0] - THRESHOLD).abs() < 1e-6
+    err_read, _, read_ok = p_check(p, p_ref, precision)
+    err_p, _, fused_ok = p_check(got[0], want[0], precision)
+    err_site, _, site_ok = site_check(got[0], want[0], got[1], want[1], site_ids, n_sites)
+    near = ((want[0] - THRESHOLD).abs() < 1e-6) | ((got[0] >= THRESHOLD) != (want[0] >= THRESHOLD))
     hit_diff = (got[2] - want[2]).abs() * counts.clamp(min=1).float()
     ambiguous = torch.zeros(n_sites + 1, device=p.device).index_add_(0, site_ids.long(), near.float())[:-1]
     mr_bad = int((hit_diff > ambiguous + 0.5).sum())
     identical = torch.equal(p, p_again) and all(torch.equal(a, b) for a, b in zip(got, again))
-    log(f"[{label}] fused_read_probability max|dp|={err_read:.3e}; fused_inference max|dp|={err_p:.3e} "
-        f"max|dsite_p|={err_site:.3e} mod_ratio sites off={mr_bad} repeat_identical={identical}")
+    log(f"[{label}] precision={precision} fused_read_probability max|dp|={err_read:.3e}; fused_inference "
+        f"max|dp|={err_p:.3e} max|dsite_p|={err_site:.3e} mod_ratio sites off={mr_bad} "
+        f"repeat_identical={identical}")
     if not (torch.isfinite(p).all() and all(torch.isfinite(t).all() for t in got)):
         fail(f"{label}: non-finite output")
-    if err_read > P_ATOL or err_p > P_ATOL or err_site > SITE_ATOL or mr_bad:
+    if not (read_ok and fused_ok and site_ok) or mr_bad:
         fail(f"{label}: an entry point disagrees with its plain version")
     if not identical:
         fail(f"{label}: two launches differ")
@@ -315,7 +391,10 @@ def run_cli(model_name, out_dir, extra=()):
     )
 
 
-def check_golden(out_dir, site_atol=GOLDEN_ATOL["site"], label="e2e"):
+def check_golden(out_dir, site_atol=GOLDEN_ATOL["site"], label="e2e", only_site=False):
+    """The CLI's CSVs against the golden ones: rows and keys equal, values
+    within GOLDEN_ATOL (site within ``site_atol``; with ``only_site`` the
+    site probability alone is held)."""
     import pandas as pd
 
     data = os.path.join(ROOT, "tests", "data")
@@ -336,10 +415,23 @@ def check_golden(out_dir, site_atol=GOLDEN_ATOL["site"], label="e2e"):
         "mod_ratio": float((got_s.mod_ratio - want_s.mod_ratio).abs().max()),
         "site": float((got_s.probability_modified - want_s.probability_modified).abs().max()),
     }
-    tol = dict(GOLDEN_ATOL, site=site_atol)
+    tol = {"site": site_atol} if only_site else dict(GOLDEN_ATOL, site=site_atol)
     log(f"[{label}] golden max errors {errs} (tolerances {tol})")
-    if any(errs[k] > tol[k] for k in errs):
+    if any(errs[k] > tol[k] for k in tol):
         fail(f"{label} golden: outside tolerance")
+    return errs
+
+
+def indiv_diff(out_a, out_b):
+    """Largest per-read difference between two CLI runs' indiv CSVs."""
+    import pandas as pd
+
+    ki = ["transcript_id", "transcript_position", "read_index"]
+    a, b = (pd.read_csv(os.path.join(d, "data.indiv_proba.csv")).sort_values(ki).reset_index(drop=True)
+            for d in (out_a, out_b))
+    if len(a) != len(b) or not (a[ki].values == b[ki].values).all():
+        fail("indiv CSVs of two runs differ in their rows")
+    return float((a.probability_modified - b.probability_modified).abs().max())
 
 
 def check_finite(out_dir, n_sites, n_reads):
@@ -380,7 +472,7 @@ def main():
 
     # ---- 2. build
     built = _build.build_cuda()
-    for name in ("fused_infer", "mc"):
+    for name in ("fused_infer", "mc", "read_prob_tc"):
         if name not in built:
             fail(f"ops/csrc/{name}.cu was not built")
     for name, (path, seconds) in built.items():
@@ -413,13 +505,35 @@ def main():
     cli_wall, path, n_batches, launches = run_cli("HCT116_RNA002", out)
     log(f"[e2e] HCT116_RNA002: {cli_wall:.2f} s wall; {path}; {n_batches} batches; "
         f"kernel launches {launches}")
-    if "backend=cuda_fused" not in path or "device=cuda" not in path:
-        fail(f"main path ran as {path!r}, not the fused CUDA kernel")
-    if launches.get("fused_inference_t", 0) < 1 or n_batches < 1:
-        fail("the main path did not launch the fused_infer kernel")
+    if "backend=cuda_fused" not in path or "device=cuda" not in path or "precision=f32x3" not in path:
+        fail(f"main path ran as {path!r}, not the fused CUDA kernels at f32x3")
+    if launches.get("fused_inference_t", 0) < 1 or launches.get("read_prob_tc_f32x3", 0) < 1 or n_batches < 1:
+        fail("the main path did not launch the tensor-core kernel and phase B of fused_infer.cu")
     if "fused_inference" not in launches:
         fail("the engine did not report the launches of fused_inference")
-    check_golden(out)
+    golden = {"f32x3": check_golden(out, label="e2e f32x3 (auto)")}
+    # the f32 kernel, asked for by name, and the bf16 mode
+    out_f32 = os.path.join(WORK_DIR, "HCT116_RNA002_f32")
+    f32_wall, f32_path, f32_batches, f32_launches = run_cli("HCT116_RNA002", out_f32, ["--precision", "f32"])
+    log(f"[e2e] --precision f32: {f32_wall:.2f} s wall; {f32_path}; {f32_batches} batches; "
+        f"kernel launches {f32_launches}")
+    if (re.search(r"precision=(\w+)", f32_path).group(1) != "f32" or f32_launches["fused_inference_t"] < 1
+            or any(f32_launches[f"read_prob_tc_{m}"] for m in MODES)):
+        fail("--precision f32 did not run the f32 kernel alone")
+    golden["f32"] = check_golden(out_f32, label="e2e f32")
+    out_bf16 = os.path.join(WORK_DIR, "HCT116_RNA002_bf16")
+    bf16_wall, bf16_path, bf16_batches, bf16_launches = run_cli(
+        "HCT116_RNA002", out_bf16, ["--precision", "bf16"])
+    log(f"[e2e] --precision bf16: {bf16_wall:.2f} s wall; {bf16_path}; {bf16_batches} batches; "
+        f"kernel launches {bf16_launches}")
+    if "precision=bf16" not in bf16_path or bf16_launches["read_prob_tc_bf16"] < 1:
+        fail("--precision bf16 did not launch the tensor-core kernel")
+    golden["bf16"] = check_golden(out_bf16, label="e2e bf16", only_site=True)
+    golden["bf16"]["indiv_vs_f32"] = indiv_diff(out_bf16, out_f32)
+    log(f"[e2e bf16] per read against the f32 run: {golden['bf16']['indiv_vs_f32']:.3e} "
+        f"(tolerance {BF16_INDIV_ATOL})")
+    if golden["bf16"]["indiv_vs_f32"] > BF16_INDIV_ATOL:
+        fail("e2e bf16: per-read p too far from the f32 run")
     for name in sorted(set(PRETRAINED_CONFIGS) - {"HCT116_RNA002"}):
         other = os.path.join(WORK_DIR, name)
         wall, _, _, other_launches = run_cli(name, other)
@@ -450,7 +564,7 @@ def main():
         "route": "cuda",
         "source": "m6anet_tpu_torch/ops/csrc/fused_infer.cu",
         "replaces": _replaces("fused_infer.cu"),
-        "launches": launches["fused_inference_t"],
+        "launches": f32_launches["fused_inference_t"],
         "max_abs_err": max_err,
         "ms": kernel_ms,
         "plain_ms": plain_ms,
@@ -458,8 +572,8 @@ def main():
         "bound_by": "operations" if flop_ms >= byte_ms else "bytes",
         "library_ms": None,
         "library_note": "no single PyTorch call computes the encoder and the per-site reductions",
-        "launches_per_batch": launches["fused_inference_t"] / n_batches,
-        "path": "inference, exact (phase 5)",
+        "launches_per_batch": f32_launches["fused_inference_t"] / f32_batches,
+        "path": "inference --precision f32, exact (phase 5)",
         "device_ms": split,
         "phase_a_ptxas": phase_a,
         "sm_clock_after_timing": sm_clock,
@@ -495,11 +609,22 @@ def main():
         fail("the MC path did not launch the MC kernel and the fused_infer kernel")
     check_golden(out, MC_SITE_GOLDEN_ATOL, "MC e2e")
     out = os.path.join(WORK_DIR, "encoder")
-    enc_wall, enc_path, enc_batches, enc_launches = run_cli("HCT116_RNA002", out, ["--backend", "cuda"])
+    enc_wall, enc_path, enc_batches, enc_launches = run_cli(
+        "HCT116_RNA002", out, ["--backend", "cuda", "--precision", "f32"])
     log(f"[cuda e2e] {enc_wall:.2f} s wall; {enc_path}; {enc_batches} batches; kernel launches {enc_launches}")
-    if "backend=cuda " not in enc_path or enc_launches.get("fused_read_probability", 0) < 1:
-        fail("--backend cuda did not launch the encoder kernel")
+    if ("backend=cuda " not in enc_path or enc_launches.get("fused_read_probability", 0) < 1
+            or any(enc_launches[f"read_prob_tc_{m}"] for m in MODES)):
+        fail("--backend cuda --precision f32 did not launch the f32 encoder kernel alone")
     check_golden(out, label="cuda e2e")
+    out = os.path.join(WORK_DIR, "encoder_f32x3")
+    enc3_wall, enc3_path, enc3_batches, enc3_launches = run_cli(
+        "HCT116_RNA002", out, ["--backend", "cuda", "--precision", "f32x3"])
+    log(f"[cuda f32x3 e2e] {enc3_wall:.2f} s wall; {enc3_path}; {enc3_batches} batches; "
+        f"kernel launches {enc3_launches}")
+    if ("backend=cuda " not in enc3_path or "precision=f32x3" not in enc3_path
+            or enc3_launches["fused_read_probability"] < 1 or enc3_launches["read_prob_tc_f32x3"] < 1):
+        fail("--backend cuda --precision f32x3 did not launch the tensor-core kernel")
+    golden["cuda f32x3"] = check_golden(out, label="cuda f32x3 e2e")
     shutil.rmtree(WORK_DIR, ignore_errors=True)
 
     # ---- 11. timing of the MC kernel and the two entry points
@@ -575,7 +700,7 @@ def main():
         "library_ms": None,
         "library_note": "no single PyTorch call computes the encoder",
         "launches_per_batch": enc_launches["fused_read_probability"] / enc_batches,
-        "path": "inference --backend cuda (phase 10)",
+        "path": "inference --backend cuda --precision f32 (phase 10)",
     })
     fi_args = (fp, features, kmer, site_ids, counts, THRESHOLD)
     fi_ms = time_ms(lambda: fik.fused_inference(*fi_args))
@@ -598,6 +723,63 @@ def main():
         "path": "inference, exact (phase 5), which does not call it (nor does the JAX "
                 "engine); its own count, fused_inference_launch_count",
     })
+
+    # ---- 12. the f32x3 and bf16 modes: read_prob_tc.cu (phase A) and phase B
+    # of fused_infer.cu against the plain versions; 13. their timing
+    tc_tile = fik.read_tile_reads("f32x3")
+    tc_tails = fik.ragged_tail_batches(tc_tile, seed=2)
+    log(f"[modes] the tensor-core phase A takes {tc_tile} reads per block and step")
+    tc_ptxas = {}
+    for mode in MODES:
+        mode_err = compare(fik, fp, make_batch(rng, 4096, 128, small_count(rng)), f"{mode} small", mode)
+        for batch in tc_tails:
+            mode_err = max(mode_err, compare(fik, fp, batch, f"{mode} tail {batch[0].shape[0]}", mode))
+        mode_err = max(mode_err, compare(fik, fp, full_batch, f"{mode} full", mode))
+        check_placement(fik, enc, fp, full_batch, mode)
+        for batch in (tc_tails[-1], full_batch):
+            errs = compare_entries(fik, enc, site_ops, fp, batch, f"{mode} entries {batch[0].shape[0]}", mode)
+            mode_err = max(mode_err, *errs.values())
+        tc_ptxas[mode] = _build.ptxas_usage(
+            built["read_prob_tc"][0], f"read_prob_tc_kernelILi{fik.TC_MODES[mode]}E")
+        mode_args = (*args, 20, mode)
+        mode_ms = time_ms(lambda: fik.fused_inference_t(fp, *mode_args))
+        mode_plain_ms = time_ms(lambda: fik.fused_inference_t_plain(fp, *mode_args))
+        mode_phase_a_ms = time_ms(lambda: enc.fused_read_probability(fp, features, kmer, mode))
+        mode_split = device_split_ms(lambda: fik.fused_inference_t(fp, *mode_args))
+        mode_clock = _sweep.smi("clocks.sm")
+        ops = MODE_FLOP_PER_READ[mode]
+        op_ms = max(n_reads * ops["f32"] / peak_flops, n_reads * ops["bf16"] / BF16_TENSOR_FLOPS) * 1e3
+        mode_byte_ms = (bytes_moved - fp.packed.numel() * 4 + fp.tc.numel() * 4) / peak_bw * 1e3
+        cli = {"f32x3": (launches, n_batches, "inference, exact, --precision auto = f32x3 (phase 5: the main path)"),
+               "bf16": (bf16_launches, bf16_batches, "inference --precision bf16, exact (phase 5)")}[mode]
+        log(f"[timing {mode}] wrapper {mode_ms:.4f} ms, phase A alone {mode_phase_a_ms:.4f} ms, plain "
+            f"{mode_plain_ms:.4f} ms; device time per launch (torch.profiler, ms): {mode_split or 'not measured'}; "
+            f"read_prob_tc_kernel ptxas: {tc_ptxas[mode]}; SM clock right after: {mode_clock}")
+        kernels.append({
+            "name": f"fused_inference_t[{mode}]",
+            "route": "cuda",
+            "source": "m6anet_tpu_torch/ops/csrc/read_prob_tc.cu",
+            "replaces": _replaces("read_prob_tc.cu"),
+            "launches": cli[0][f"read_prob_tc_{mode}"],
+            "max_abs_err": mode_err,
+            "ms": mode_ms,
+            "plain_ms": mode_plain_ms,
+            "bound_ms": max(op_ms, mode_byte_ms),
+            "bound_by": "operations" if op_ms >= mode_byte_ms else "bytes",
+            "library_ms": None,
+            "library_note": "no single PyTorch call computes the encoder in this precision",
+            "launches_per_batch": cli[0][f"read_prob_tc_{mode}"] / cli[1],
+            "path": cli[2],
+            "kernels": "read_prob_tc_kernel (phase A) + site_reduce_kernel of fused_infer.cu (phase B)",
+            "phase_a_ms": mode_phase_a_ms,
+            "device_ms": mode_split,
+            "read_prob_tc_ptxas": tc_ptxas[mode],
+            "sm_clock_after_timing": mode_clock,
+            "golden_max_errors": golden[mode],
+        })
+
+    for precision in P_ATOL:
+        check_close_share(precision)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({
         "timing": {

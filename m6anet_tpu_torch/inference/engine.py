@@ -22,6 +22,11 @@ method (``method="mc"``) both CUDA backends take the site probability from
 the kernel of ``ops/mc_kernel.py``, and ``torch`` from
 ``site_ops.site_probability_mc``; the two draw different numbers for one
 seed, as the JAX package's backends do.
+
+Precisions (the JAX package's ``--precision``): ``f32`` everywhere, and on
+the CUDA backends ``f32x3`` and ``bf16``, whose per-read phase runs on the
+tensor-core kernel of ``ops/csrc/read_prob_tc.cu``; ``auto`` is ``f32x3``
+on the CUDA backends and ``f32`` on ``torch``.
 """
 from __future__ import annotations
 
@@ -49,7 +54,7 @@ INDIV_HEADER = "transcript_id,transcript_position,read_index,probability_modifie
 BACKENDS = ("auto", "torch", "cuda_fused", "cuda")
 METHODS = ("exact", "mc")
 CUDA_BACKENDS = ("cuda_fused", "cuda")
-PRECISIONS = ("auto", "f32")
+PRECISIONS = ("auto",) + fused_infer_kernel.PRECISIONS
 
 
 def resolve_device(device) -> torch.device:
@@ -98,17 +103,17 @@ def fused_backend_supported(model: MILModel) -> bool:
 def resolve_backend(
     model: MILModel, backend: str, precision: str, device: torch.device, log=None
 ) -> Tuple[str, str]:
-    """Resolve 'auto' backend/precision: the fused CUDA kernel on a card,
-    the torch modules on the CPU.  The torch modules run on the card only
-    when asked for by name: 'auto' (like 'cuda_fused' and 'cuda') raises on
-    a card for an architecture the kernels do not cover."""
+    """Resolve 'auto' backend/precision: the fused CUDA kernel at f32x3 on
+    a card, the torch modules at f32 on the CPU (the JAX package's own
+    resolution for its Pallas and XLA backends).  The torch modules
+    run on the card only when asked for by name: 'auto' (like 'cuda_fused'
+    and 'cuda') raises on a card for an architecture the kernels do not
+    cover.  f32x3 and bf16 need a CUDA backend, as the JAX package's need a
+    Pallas one."""
     if backend not in BACKENDS:
         raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
     if precision not in PRECISIONS:
-        raise ValueError(
-            f"precision must be one of {PRECISIONS}, got {precision!r} (the f32x3 "
-            "and bf16 modes wait: ROADMAP.md, Queue 1 'Reduced-precision modes')"
-        )
+        raise ValueError(f"precision must be one of {PRECISIONS}, got {precision!r}")
     if backend == "auto":
         backend = "cuda_fused" if device.type == "cuda" else "torch"
     elif backend in CUDA_BACKENDS and device.type != "cuda":
@@ -120,7 +125,13 @@ def resolve_backend(
             "--backend torch (its own kernels wait for ROADMAP.md, Queue 1 "
             "'Generic model path')"
         )
-    precision = "f32"
+    if precision == "auto":
+        precision = "f32x3" if backend in CUDA_BACKENDS else "f32"
+    elif precision != "f32" and backend not in CUDA_BACKENDS:
+        raise ValueError(
+            f"precision {precision!r} runs on the CUDA backends ('cuda_fused', "
+            "'cuda'); --backend torch computes in f32"
+        )
     if log is not None:
         log.info("inference path: device=%s backend=%s precision=%s", device, backend, precision)
     return backend, precision
@@ -135,6 +146,7 @@ def make_infer_step(
     backend: str = "torch",
     n_iterations: int = 1000,
     seed: int = 0,
+    precision: str = "f32",
 ):
     """Build the per-batch device function
     ``step(features, kmer_ids, offsets, counts, host_sites=None) -> (p, site_p, mod_ratio)``
@@ -148,7 +160,10 @@ def make_infer_step(
     CUDA backends its draws ``U`` are made once here and stay on the device
     for every batch (as the JAX engine passes one key to every step),
     every site count must be <= ``mc_kernel.MAX_SITE_READS``, and
-    ``n_samples`` must be the kernel's ``mc_kernel.SAMPLES``."""
+    ``n_samples`` must be the kernel's ``mc_kernel.SAMPLES``.
+
+    ``precision`` is the CUDA backends' (``f32``, ``f32x3`` or ``bf16``);
+    the torch backend takes only ``f32``."""
     if method not in METHODS:
         raise ValueError(f"site_proba method must be one of {METHODS}, got {method!r}")
     if backend not in ("torch",) + CUDA_BACKENDS:
@@ -160,6 +175,9 @@ def make_infer_step(
             f"the MC kernel draws {mc_kernel.SAMPLES} reads per iteration, got "
             f"n_samples={n_samples}; use backend 'torch'"
         )
+    fused_infer_kernel.check_precision(precision)
+    if backend == "torch" and precision != "f32":
+        raise ValueError(f"precision {precision!r} runs on the CUDA backends; backend 'torch' computes in f32")
     if backend == "torch":
         key = random.key_from_seed(seed)
 
@@ -188,7 +206,7 @@ def make_infer_step(
 
         def fused_step(features, kmer_ids, offsets, counts, host_sites=None):
             p, site_p, mod_ratio = fused_infer_kernel.fused_inference_t(
-                fp, features, kmer_ids, None, offsets, counts, threshold, n_samples
+                fp, features, kmer_ids, None, offsets, counts, threshold, n_samples, precision
             )
             if method == "mc":
                 site_p = mc_site_p(p, offsets, counts, host_sites)
@@ -197,7 +215,7 @@ def make_infer_step(
         return fused_step
 
     def encoder_step(features, kmer_ids, offsets, counts, host_sites=None):
-        p = encoder_kernel.fused_read_probability(fp, features, kmer_ids)
+        p = encoder_kernel.fused_read_probability(fp, features, kmer_ids, precision)
         site_ids = site_ops.derive_site_ids(offsets, counts, features.shape[0], site_capacity)
         if method == "mc":
             site_p = mc_site_p(p, offsets, counts, host_sites)
@@ -325,14 +343,19 @@ def run_inference(
     log = get_logger("m6anet_tpu_torch.inference")
     model.to(device).eval()
     backend, precision = resolve_backend(model, backend, precision, device, log=log)
-    # every kernel wrapper's launch count, by the TPU kernel it ports
+    # every kernel wrapper's launch count, by the TPU kernel it ports, and
+    # the tensor-core phase A's, by precision
     kernels = {
-        "fused_inference_t": (fused_infer_kernel, "launch_count"),
-        "fused_read_probability": (encoder_kernel, "launch_count"),
-        "site_probability_mc": (mc_kernel, "launch_count"),
-        "fused_inference": (fused_infer_kernel, "fused_inference_launch_count"),
+        "fused_inference_t": lambda: fused_infer_kernel.launch_count,
+        "fused_read_probability": lambda: encoder_kernel.launch_count,
+        "site_probability_mc": lambda: mc_kernel.launch_count,
+        "fused_inference": lambda: fused_infer_kernel.fused_inference_launch_count,
+        **{
+            f"read_prob_tc_{mode}": (lambda mode=mode: fused_infer_kernel.tc_launch_counts[mode])
+            for mode in fused_infer_kernel.tc_launch_counts
+        },
     }
-    launches_before = {name: getattr(*counter) for name, counter in kernels.items()}
+    launches_before = {name: count() for name, count in kernels.items()}
 
     # capacity validation at run setup, not mid-run from the packer (the
     # reference streams any site size — m6anet/utils/data_utils.py:226-229 —
@@ -356,7 +379,7 @@ def run_inference(
         )
     step = make_infer_step(
         model, site_capacity, read_proba_threshold, n_samples, method, backend,
-        n_iterations=num_iterations, seed=seed,
+        n_iterations=num_iterations, seed=seed, precision=precision,
     )
 
     site_path = os.path.join(out_dir, "data.site_proba.csv")
@@ -440,7 +463,7 @@ def run_inference(
                 n_batches += 1
         while inflight:
             drain()
-    launches = {name: getattr(*counter) - launches_before[name] for name, counter in kernels.items()}
+    launches = {name: count() - launches_before[name] for name, count in kernels.items()}
     log.info("inference stages: %s", timer.summary())
     log.info("batches dispatched: %d", n_batches)
     log.info("kernel launches: %s", json.dumps(launches))

@@ -64,12 +64,13 @@
 //    runs are bit-identical.  (The f64 sum makes the site mean independent
 //    of the summation order; the plain PyTorch version sums in f64 too.)
 //    The power is the binary exponentiation XLA uses for an integer power.
-//  * Tensor cores wait for the reduced-precision modes: Hopper's take f32
-//    operands only as TF32, and even a 3xTF32 split would change every
-//    read's rounding, which the 1e-6 per-read parity with the plain
-//    version and the JAX package does not allow.  TMA staging of the read
-//    stream (6% of the bound) and fusing the two phases into one launch are
-//    left for later.
+//  * No tensor cores in this f32 mode: Hopper's take f32 operands only as
+//    TF32, and even a 3xTF32 split would change every read's rounding,
+//    which the 1e-6 per-read parity with the plain version and the JAX
+//    package does not allow.  The f32x3 and bf16 modes run their phase A
+//    on the tensor cores in read_prob_tc.cu and their phase B here
+//    (site_reduce_launch).  TMA staging of the read stream (6% of the
+//    bound) and fusing the two phases into one launch are left for later.
 //
 // Built by ops/_build.py: nvcc -gencode arch=compute_90a,code=sm_90a -O3,
 // without --use_fast_math (expf and f32 division stay IEEE-accurate).
@@ -281,6 +282,16 @@ cudaError_t launch_read_prob(const float* features, const int8_t* kmer_ids,
   return cudaGetLastError();
 }
 
+cudaError_t launch_site_reduce(const float* p, const int32_t* offsets, const int32_t* counts,
+                               int64_t n_reads, int64_t n_sites, float threshold, int n_samples,
+                               float* site_p, float* mod_ratio, cudaStream_t stream) {
+  const int64_t warps_per_block = kSiteThreads / 32;
+  const int64_t blocks = (n_sites + warps_per_block - 1) / warps_per_block;
+  site_reduce_kernel<<<static_cast<unsigned>(blocks), kSiteThreads, 0, stream>>>(
+      p, offsets, counts, n_reads, n_sites, threshold, n_samples, site_p, mod_ratio);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -300,13 +311,22 @@ int fused_infer_launch(const float* features, const int8_t* kmer_ids,
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   if (n_sites > 0) {
-    const int64_t warps_per_block = kSiteThreads / 32;
-    const int64_t blocks = (n_sites + warps_per_block - 1) / warps_per_block;
-    site_reduce_kernel<<<static_cast<unsigned>(blocks), kSiteThreads, 0, stream>>>(
-        p, offsets, counts, n_reads, n_sites, threshold, n_samples, site_p, mod_ratio);
-    err = cudaGetLastError();
+    err = launch_site_reduce(p, offsets, counts, n_reads, n_sites, threshold, n_samples, site_p,
+                             mod_ratio, stream);
   }
   return static_cast<int>(err);
+}
+
+// Phase B alone: per-site site_p and mod_ratio from a p computed before on
+// `stream` (the reduced-precision modes' phase A is read_prob_tc.cu).
+// Returns the CUDA error code of the launch (0 = success).
+int site_reduce_launch(const float* p, const int32_t* offsets, const int32_t* counts,
+                       float* site_p, float* mod_ratio, int64_t n_reads, int64_t n_sites,
+                       float threshold, int n_samples, void* stream_ptr) {
+  if (n_sites <= 0) return static_cast<int>(cudaSuccess);
+  return static_cast<int>(launch_site_reduce(p, offsets, counts, n_reads, n_sites, threshold,
+                                             n_samples, site_p, mod_ratio,
+                                             static_cast<cudaStream_t>(stream_ptr)));
 }
 
 // Phase A alone: per-read p, on `stream` (the encoder-only entry point,

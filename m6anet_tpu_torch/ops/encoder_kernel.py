@@ -9,17 +9,27 @@ The JAX package folds the embedding into per-position (66, 150) tables for
 its MXU; the port keeps one parameter layout for this function and the
 fused step, the packed weight image of ``csrc/fused_infer.cu``, whose
 phase A computes exactly this.  On a CUDA tensor
-:func:`fused_read_probability` launches phase A alone through the kernel
-file's ``read_prob_launch`` entry point and counts the launch in
-``launch_count``; on a CPU tensor it runs
-:func:`fused_read_probability_plain`.  There is no fallback from one to the
-other.
+:func:`fused_read_probability` launches phase A alone — through the kernel
+file's ``read_prob_launch`` entry point in f32, or the tensor-core kernel
+of ``csrc/read_prob_tc.cu`` in the reduced modes ``f32x3`` and ``bf16``
+(with ``fused_inference_t``'s arithmetic, not the JAX function's own
+split, which also takes layer 1 in f32x3 and contracts premultiplied
+tables) — and counts the launch in ``launch_count``; on a CPU tensor it
+runs :func:`fused_read_probability_plain`.  There is no fallback from one
+to the other.
 """
 from __future__ import annotations
 
 import torch
 
-from .fused_infer_kernel import FusedParamsT, check_read_inputs, kernel_lib, launch_error
+from .fused_infer_kernel import (
+    FusedParamsT,
+    check_precision,
+    check_read_inputs,
+    kernel_lib,
+    launch_error,
+    launch_read_prob_tc,
+)
 # the kernel's parameter set: the packed image the fused step uses too
 from .fused_infer_kernel import prepare_fused_params_t as prepare_fused_params
 # the kernel's function in plain PyTorch (f32 matmuls), phase A's own
@@ -33,17 +43,24 @@ def fused_read_probability(
     fp: FusedParamsT,
     features: torch.Tensor,  # (N, 9) f32
     kmer_ids: torch.Tensor,  # (N, 3) int8 or int32
+    precision: str = "f32",
 ) -> torch.Tensor:
-    """Per-read probabilities p (N,).  CPU tensors run the plain version;
-    CUDA tensors launch phase A of the fused kernel.  int32 k-mer ids are
-    checked and narrowed to the int8 the kernel reads."""
+    """Per-read probabilities p (N,) in ``precision``.  CPU tensors run the
+    plain version; CUDA tensors launch phase A of the fused kernel (f32) or
+    the tensor-core kernel (f32x3, bf16).  int32 k-mer ids are checked and
+    narrowed to the int8 the kernels read."""
     global launch_count
+    check_precision(precision)
     if features.device.type == "cpu":
-        return fused_read_probability_plain(fp, features, kmer_ids)
+        return fused_read_probability_plain(fp, features, kmer_ids, precision)
     kmer_ids = check_read_inputs(fp, features, kmer_ids, "fused_read_probability")
-    lib = kernel_lib()
     device = features.device
     p = torch.empty(features.shape[0], dtype=torch.float32, device=device)
+    if precision != "f32":
+        launch_read_prob_tc(fp, features, kmer_ids, p, precision)
+        launch_count += 1
+        return p
+    lib = kernel_lib()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.read_prob_launch(

@@ -17,6 +17,26 @@ bound on the card and its design.
 ``fused_inference`` (the same contract given per-read site ids in the dense
 ``pack_sites`` layout): it launches the same kernel and counts its launches
 apart, in ``fused_inference_launch_count``.  The engine does not call it.
+
+Every entry point takes ``precision``, the JAX kernels' ``compute_dtype``:
+``"f32"`` (the kernel above), or the reduced modes ``"f32x3"`` and
+``"bf16"``, whose phase A is the tensor-core kernel of
+``csrc/read_prob_tc.cu`` (its launches counted per mode in
+``tc_launch_counts``), followed on the fused entry points by the f32
+kernel's own site phase.  The modes follow the JAX ``fused_inference_t``'s
+arithmetic (``_fused_infer_kernel_t``), per read:
+
+* f32x3: the embedding value is ``hi + lo`` (``hi = bf16(e)``, ``lo =
+  bf16(e - hi)``); layer 1 in full f32; layer 2 and the head take
+  ``(a_lo b_hi + a_hi b_lo) + a_hi b_hi`` over bf16 splits of both operands
+  with f32 sums;
+* bf16: every product is ``bf16(W) @ bf16(input)`` with f32 sums, the
+  embedding value ``bf16(e)``;
+
+and both add the f32 biases after each product.  The plain versions sum
+the tensor-core products as the kernel does (in k16 chunks, each truncated
+toward zero), so the two differ by the tensor cores' rounding inside a
+chunk alone.
 """
 from __future__ import annotations
 
@@ -31,18 +51,41 @@ from torch import nn
 from ..models.blocks import BN_EPS, KmerMultipleEmbedding, Linear
 from . import site_ops
 
-# launches of the CUDA kernel in this process, by wrapper: one per
-# fused_inference_t / fused_inference call on CUDA tensors
+# launches of the CUDA kernels in this process, by wrapper: one per
+# fused_inference_t / fused_inference call on CUDA tensors (any precision),
+# and one per launch of read_prob_tc.cu, by precision
 launch_count = 0
 fused_inference_launch_count = 0
+tc_launch_counts = {"f32x3": 0, "bf16": 0}
 
 N_FEATURES, N_POSITIONS, VOCAB, EMB_DIM, HIDDEN1, HIDDEN2 = 9, 3, 66, 2, 150, 32
 PACKED_WEIGHTS = 7400  # float count of the kernel's weight image (see the .cu)
+PRECISIONS = ("f32", "f32x3", "bf16")
+# the tensor-core kernel's mode argument (kModeF32x3, kModeBf16 in the .cu)
+TC_MODES = {"f32x3": 1, "bf16": 2}
+
+# The tensor-core image (32-bit words; csrc/read_prob_tc.cu documents it).
+# Hidden units are padded to 160 with zero weights and zero bias: layer 1's
+# N is 20 n8 tiles, layer 2's K is 10 k16 steps.
+HIDDEN1_PAD = 160
+TC_K_STEPS, TC_TILES1, TC_TILES2 = HIDDEN1_PAD // 16, HIDDEN1_PAD // 8, HIDDEN2 // 8
+TC_OFF_W1F = 0
+TC_OFF_EMBX = TC_OFF_W1F + HIDDEN1_PAD * 16
+TC_OFF_W3L = TC_OFF_EMBX + VOCAB * EMB_DIM
+TC_OFF_W2L = TC_OFF_W3L + HIDDEN2
+TC_OFF_W2H = TC_OFF_W2L + TC_K_STEPS * TC_TILES2 * 64
+TC_OFF_B2 = TC_OFF_W2H + TC_K_STEPS * TC_TILES2 * 64
+TC_OFF_W3H = TC_OFF_B2 + HIDDEN2
+TC_OFF_B3 = TC_OFF_W3H + HIDDEN2
+TC_OFF_W1H = TC_OFF_B3 + 4
+TC_OFF_B1 = TC_OFF_W1H + TC_TILES1 * 64
+TC_OFF_EMBH = TC_OFF_B1 + HIDDEN1_PAD
+TC_WORDS = TC_OFF_EMBH + VOCAB * EMB_DIM  # 9484
 
 
 class FusedParamsT(NamedTuple):
     """Transposed parameter set (the JAX package's ``FusedEncoderParamsT``)
-    plus the packed weight image the CUDA kernel stages in shared memory."""
+    plus the packed weight images the CUDA kernels stage in shared memory."""
 
     w1t: torch.Tensor  # (150, 15) BN-folded first linear
     embt: torch.Tensor  # (2, 66) embedding, transposed
@@ -52,6 +95,7 @@ class FusedParamsT(NamedTuple):
     w3t: torch.Tensor  # (1, 32)
     b3t: torch.Tensor  # (1, 1)
     packed: torch.Tensor  # (7400,) f32, layout documented in csrc/fused_infer.cu
+    tc: torch.Tensor  # (9484,) int32 words, layout documented in csrc/read_prob_tc.cu
 
 
 def _pack(w1t, embt, b1t, w2t, b2t, w3t, b3t) -> torch.Tensor:
@@ -65,6 +109,69 @@ def _pack(w1t, embt, b1t, w2t, b2t, w3t, b3t) -> torch.Tensor:
     ]
     flat = torch.cat(parts)
     return torch.cat([flat, flat.new_zeros(PACKED_WEIGHTS - flat.numel())]).contiguous()
+
+
+def bf16_round(t: torch.Tensor) -> torch.Tensor:
+    """``t`` rounded to bfloat16 (to nearest, ties to even), back in f32."""
+    return t.to(torch.bfloat16).float()
+
+
+def bf16_split(t: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(hi, lo) with ``hi = bf16(t)`` and ``lo = bf16(t - hi)``, in f32."""
+    hi = bf16_round(t)
+    return hi, bf16_round(t - hi)
+
+
+def _bf16x2_words(pairs: torch.Tensor) -> torch.Tensor:
+    """int32 words of bf16 pairs (last dim 2): element 0 in the low half,
+    as an ``mma`` operand register holds the smaller k index."""
+    bits = pairs.contiguous().to(torch.bfloat16).view(torch.int16).to(torch.int32)
+    return (bits[..., 0] & 0xFFFF) | (bits[..., 1] << 16)
+
+
+def _pack_tc(w1t, embt, b1t, w2t, b2t, w3t, b3t) -> torch.Tensor:
+    """The tensor-core kernel's image, in its fragment order (lane l of a
+    warp is group g = l // 4, thread t = l % 4 of the ``mma`` fragments)."""
+    pad = HIDDEN1_PAD - HIDDEN1
+    w1b = torch.cat([w1t, b1t], dim=1)  # (150, 16): W1'[n, 0:15], b1'[n]
+    w1b = torch.cat([w1b, w1b.new_zeros(pad, 16)])  # (160, 16)
+    j, c, t = torch.meshgrid(torch.arange(TC_K_STEPS), torch.arange(4), torch.arange(4), indexing="ij")
+    unit = 16 * j + 2 * t + (c & 1) + 8 * (c >> 1)  # the 4 units lane t computes in k step j
+    w1f = w1b.view(HIDDEN1_PAD, 4, 4)[unit].permute(0, 1, 3, 2, 4)  # [j][c][q][t][4]
+
+    g, t, reg, e = torch.meshgrid(torch.arange(8), torch.arange(4), torch.arange(2), torch.arange(2), indexing="ij")
+    k = 2 * t + 8 * reg + e  # B fragment of m16n8k16: k of (lane 4g + t, register, half)
+    w1k = torch.cat([w1t, w1t.new_zeros(HIDDEN1, 1)], dim=1)  # k = 15 is zero, never the bias
+    w1k = torch.cat([w1k, w1k.new_zeros(pad, 16)])  # (160, 16)
+    w1h = torch.stack([w1k[8 * nt + g, k] for nt in range(TC_TILES1)])  # [nt][g][t][reg][e]
+    w2k = torch.cat([w2t, w2t.new_zeros(HIDDEN2, pad)], dim=1)  # (32, 160)
+    w2 = torch.stack([
+        torch.stack([w2k[8 * nt + g, 16 * ks + k] for nt in range(TC_TILES2)]) for ks in range(TC_K_STEPS)
+    ])  # [ks][nt][g][t][reg][e]
+    w2_hi, w2_lo = bf16_split(w2)
+    emb = embt.t()
+    emb_hi, emb_lo = bf16_split(emb)
+    w3_hi, w3_lo = bf16_split(w3t.reshape(-1))
+
+    def words(f32: torch.Tensor) -> torch.Tensor:
+        return f32.contiguous().view(torch.int32).reshape(-1)
+
+    parts = [
+        words(w1f),  # W1F
+        words(emb_hi + emb_lo),  # EMBX
+        words(w3_lo),  # W3L
+        _bf16x2_words(w2_lo).reshape(-1),  # W2L
+        _bf16x2_words(w2_hi).reshape(-1),  # W2H
+        words(b2t.reshape(-1)),  # B2
+        words(w3_hi),  # W3H
+        words(torch.cat([b3t.reshape(-1), b3t.new_zeros(3)])),  # B3, zero padding
+        _bf16x2_words(w1h).reshape(-1),  # W1H
+        words(torch.cat([b1t.reshape(-1), b1t.new_zeros(pad)])),  # B1
+        words(bf16_round(emb)),  # EMBH
+    ]
+    image = torch.cat(parts).contiguous()
+    assert image.numel() == TC_WORDS
+    return image
 
 
 def prepare_fused_params_t(model: nn.Module) -> FusedParamsT:
@@ -101,20 +208,82 @@ def prepare_fused_params_t(model: nn.Module) -> FusedParamsT:
     for name, shape in expected.items():
         if tuple(tensors[name].shape) != shape:
             raise ValueError(f"fused kernel expects {name} of shape {shape}, got {tuple(tensors[name].shape)}")
-    return FusedParamsT(**tensors, packed=_pack(**tensors))
+    tc = _pack_tc(**{name: t.cpu() for name, t in tensors.items()}).to(tensors["w1t"].device)
+    return FusedParamsT(**tensors, packed=_pack(**tensors), tc=tc)
+
+
+def check_precision(precision: str) -> None:
+    if precision not in PRECISIONS:
+        raise ValueError(f"precision must be one of {PRECISIONS}, got {precision!r}")
+
+
+def _round_toward_zero(v: torch.Tensor) -> torch.Tensor:
+    """f64 ``v`` rounded toward zero to f32."""
+    f = v.float()
+    return torch.where(f.double().abs() > v.abs(), torch.nextafter(f, torch.zeros_like(f)), f)
+
+
+def _tensor_core_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b.T`` of bf16-valued operands as the tensor-core kernel sums
+    it: over k in chunks of 16 (one ``mma`` k step each, into a zero
+    accumulator), each chunk's products summed exactly (f64) and truncated
+    toward zero to f32, the chunks added in f32 in order.  The truncation
+    is the tensor cores' own: on an H100, f32 sums of the chunks rounded to
+    nearest left 18 of 1,048,576 f32x3 reads more than 1e-6 from the
+    kernel, truncated sums one (scripts/sweep_read_prob_tc.py)."""
+    out = None
+    for k in range(0, a.shape[1], 16):
+        part = _round_toward_zero(torch.matmul(a[:, k : k + 16].double(), b[:, k : k + 16].double().t()))
+        out = part if out is None else out + part
+    return out
+
+
+def _dot_f32x3(a: torch.Tensor, b: torch.Tensor, tensor_cores: bool = False) -> torch.Tensor:
+    """``a @ b.T`` as the JAX package's f32x3 dot with ``b`` the weights:
+    (b_lo . a_hi + b_hi . a_lo) + b_hi . a_hi, f32 sums of exact products
+    (the last summed as the tensor cores do when ``tensor_cores``)."""
+    a_hi, a_lo = bf16_split(a)
+    b_hi, b_lo = bf16_split(b)
+    hi = _tensor_core_matmul(a_hi, b_hi) if tensor_cores else torch.matmul(a_hi, b_hi.t())
+    return (torch.matmul(a_hi, b_lo.t()) + torch.matmul(a_lo, b_hi.t())) + hi
+
+
+def _dot_bf16(a: torch.Tensor, b: torch.Tensor, tensor_cores: bool = False) -> torch.Tensor:
+    """``a @ b.T`` of the operands rounded to bf16, with f32 sums (summed as
+    the tensor cores do when ``tensor_cores``)."""
+    a, b = bf16_round(a), bf16_round(b)
+    return _tensor_core_matmul(a, b) if tensor_cores else torch.matmul(a, b.t())
 
 
 def read_probability_plain(
-    fp: FusedParamsT, features: torch.Tensor, kmer_ids: torch.Tensor
+    fp: FusedParamsT, features: torch.Tensor, kmer_ids: torch.Tensor, precision: str = "f32"
 ) -> torch.Tensor:
-    """Phase A's function in plain PyTorch: per-read p (N,) (f32 matmuls)."""
+    """Phase A's function in plain PyTorch: per-read p (N,) (f32 matmuls).
+    The reduced modes round their operands as the module's docstring sets
+    out and sum every product the kernel takes on the tensor cores as it
+    does, in k16 chunks truncated toward zero (``_tensor_core_matmul``)."""
+    check_precision(precision)
     _check_kmer_range(kmer_ids)
     n = features.shape[0]
-    emb = fp.embt.t()[kmer_ids.long()].reshape(n, -1)
-    x = torch.cat([features, emb], dim=1)
-    h = torch.relu(torch.matmul(x, fp.w1t.t()) + fp.b1t.t())
-    h = torch.relu(torch.matmul(h, fp.w2t.t()) + fp.b2t.t())
-    return torch.sigmoid(torch.matmul(h, fp.w3t.t()) + fp.b3t.t()).reshape(-1)
+    table = fp.embt.t()
+    if precision == "f32x3":
+        hi, lo = bf16_split(table)
+        table = hi + lo
+    elif precision == "bf16":
+        table = bf16_round(table)
+    x = torch.cat([features, table[kmer_ids.long()].reshape(n, -1)], dim=1)
+    if precision == "bf16":
+        dot = _dot_bf16
+        h = torch.relu(dot(x, fp.w1t, tensor_cores=True) + fp.b1t.t())
+    else:  # layer 1 stays f32 in f32x3 (the JAX kernel's dot1)
+        h = torch.relu(torch.matmul(x, fp.w1t.t()) + fp.b1t.t())
+    if precision == "f32":
+        h = torch.relu(torch.matmul(h, fp.w2t.t()) + fp.b2t.t())
+        return torch.sigmoid(torch.matmul(h, fp.w3t.t()) + fp.b3t.t()).reshape(-1)
+    if precision == "f32x3":
+        dot = _dot_f32x3
+    h = torch.relu(dot(h, fp.w2t, tensor_cores=True) + fp.b2t.t())
+    return torch.sigmoid(dot(h, fp.w3t) + fp.b3t.t()).reshape(-1)
 
 
 def fused_inference_t_plain(
@@ -126,12 +295,14 @@ def fused_inference_t_plain(
     counts: torch.Tensor,
     threshold: float,
     n_samples: int = 20,
+    precision: str = "f32",
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The kernel's function in plain PyTorch (f32 matmuls, f64 site sums)."""
+    """The kernel's function in plain PyTorch (f32 matmuls, f64 site sums),
+    in ``precision``."""
     n, n_sites = features.shape[0], counts.shape[0]
     if site_ids is None:
         site_ids = site_ops.derive_site_ids(offsets, counts, n, n_sites)
-    p = read_probability_plain(fp, features, kmer_ids)
+    p = read_probability_plain(fp, features, kmer_ids, precision)
     site_p = site_ops.site_probability_exact(p, site_ids, counts, n_sites, n_samples)
     mod_ratio = site_ops.mod_ratio_exact(p, site_ids, counts, n_sites, threshold)
     return p, site_p, mod_ratio
@@ -157,16 +328,66 @@ def kernel_lib() -> ctypes.CDLL:
             lib.read_prob_launch.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64, ctypes.c_void_p]
             lib.read_prob_tile_reads.restype = ctypes.c_int
             lib.read_prob_tile_reads.argtypes = []
+            lib.site_reduce_launch.restype = ctypes.c_int
+            lib.site_reduce_launch.argtypes = (
+                [ctypes.c_void_p] * 5
+                + [ctypes.c_int64, ctypes.c_int64, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+            )
             lib.fused_infer_error_string.restype = ctypes.c_char_p
             lib.fused_infer_error_string.argtypes = [ctypes.c_int]
             _lib = lib
     return _lib
 
 
-def read_tile_reads() -> int:
-    """Reads one block of the kernel's phase A takes per tile (threads per
-    block x reads per thread); builds the kernel if needed."""
-    return int(kernel_lib().read_prob_tile_reads())
+_tc_lib: Optional[ctypes.CDLL] = None
+
+
+def tc_kernel_lib() -> ctypes.CDLL:
+    """The tensor-core phase A of csrc/read_prob_tc.cu, built if needed."""
+    global _tc_lib
+    with _lib_lock:
+        if _tc_lib is None:
+            from ._build import cuda_library
+
+            lib = ctypes.CDLL(cuda_library("read_prob_tc"))
+            lib.read_prob_tc_launch.restype = ctypes.c_int
+            lib.read_prob_tc_launch.argtypes = (
+                [ctypes.c_void_p] * 4 + [ctypes.c_int64, ctypes.c_int, ctypes.c_void_p]
+            )
+            lib.read_prob_tc_block_reads.restype = ctypes.c_int
+            lib.read_prob_tc_block_reads.argtypes = []
+            lib.read_prob_tc_error_string.restype = ctypes.c_char_p
+            lib.read_prob_tc_error_string.argtypes = [ctypes.c_int]
+            _tc_lib = lib
+    return _tc_lib
+
+
+def read_tile_reads(precision: str = "f32") -> int:
+    """Reads one block of phase A takes per tile (f32: threads per block x
+    reads per thread; the reduced modes: warps per block x 16); builds the
+    kernel if needed."""
+    check_precision(precision)
+    if precision == "f32":
+        return int(kernel_lib().read_prob_tile_reads())
+    return int(tc_kernel_lib().read_prob_tc_block_reads())
+
+
+def launch_read_prob_tc(fp: FusedParamsT, features: torch.Tensor, kmer_ids: torch.Tensor,
+                        p: torch.Tensor, precision: str) -> None:
+    """Launch the tensor-core phase A of ``precision`` ("f32x3" or "bf16")
+    into ``p`` on the current stream, on inputs that check_read_inputs has
+    checked, and count the launch."""
+    check_tensor("fp.tc", fp.tc, (torch.int32,), (TC_WORDS,), features.device)
+    lib = tc_kernel_lib()
+    with torch.cuda.device(features.device):
+        stream = torch.cuda.current_stream(features.device).cuda_stream
+        err = lib.read_prob_tc_launch(
+            features.data_ptr(), kmer_ids.data_ptr(), fp.tc.data_ptr(), p.data_ptr(),
+            features.shape[0], TC_MODES[precision], stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"read_prob_tc kernel launch failed: {lib.read_prob_tc_error_string(err).decode()}")
+    tc_launch_counts[precision] += 1
 
 
 def ragged_tail_batches(tile: int, seed: int = 1):
@@ -232,18 +453,22 @@ def fused_inference_t(
     counts: torch.Tensor,  # (S,) i32 reads per site, 0 = padding site
     threshold: float,
     n_samples: int = 20,
+    precision: str = "f32",
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Returns (p (N,), site_p (S,), mod_ratio (S,)) for a ``pack_sites``
-    batch.  CPU tensors run the plain version; CUDA tensors launch the
-    kernel, which reads the site spans from (offsets, counts) and ignores
-    ``site_ids``.  The kernel reads int8 k-mer ids: int32 ids are checked
-    and narrowed first."""
+    batch, in ``precision``.  CPU tensors run the plain version; CUDA
+    tensors launch the kernels, which read the site spans from (offsets,
+    counts) and ignore ``site_ids``.  The kernels read int8 k-mer ids:
+    int32 ids are checked and narrowed first."""
     global launch_count
+    check_precision(precision)
     if features.device.type == "cpu":
         return fused_inference_t_plain(
-            fp, features, kmer_ids, site_ids, offsets, counts, threshold, n_samples
+            fp, features, kmer_ids, site_ids, offsets, counts, threshold, n_samples, precision
         )
-    out = _launch_fused(fp, features, kmer_ids, offsets, counts, threshold, n_samples, "fused_inference_t")
+    out = _launch_fused(
+        fp, features, kmer_ids, offsets, counts, threshold, n_samples, "fused_inference_t", precision
+    )
     launch_count += 1
     return out
 
@@ -272,8 +497,11 @@ def launch_error(lib: ctypes.CDLL, err: int) -> RuntimeError:
     return RuntimeError(f"fused_infer kernel launch failed: {lib.fused_infer_error_string(err).decode()}")
 
 
-def _launch_fused(fp, features, kmer_ids, offsets, counts, threshold, n_samples, name, bad_site_ids=None):
-    """Check the inputs and launch both phases of the kernel."""
+def _launch_fused(fp, features, kmer_ids, offsets, counts, threshold, n_samples, name, precision,
+                  bad_site_ids=None):
+    """Check the inputs and launch both phases: fused_infer.cu's in f32; in
+    a reduced mode read_prob_tc.cu's phase A, then fused_infer.cu's phase
+    B."""
     device = features.device
     n, n_sites = features.shape[0], counts.shape[0]
     if device.type == "cuda":
@@ -287,14 +515,23 @@ def _launch_fused(fp, features, kmer_ids, offsets, counts, threshold, n_samples,
     p = torch.empty(n, dtype=torch.float32, device=device)
     site_p = torch.empty(n_sites, dtype=torch.float32, device=device)
     mod_ratio = torch.empty(n_sites, dtype=torch.float32, device=device)
+    if precision != "f32":
+        launch_read_prob_tc(fp, features, kmer_ids, p, precision)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.fused_infer_launch(
-            features.data_ptr(), kmer_ids.data_ptr(),
-            offsets.data_ptr(), counts.data_ptr(), fp.packed.data_ptr(),
-            p.data_ptr(), site_p.data_ptr(), mod_ratio.data_ptr(),
-            n, n_sites, float(threshold), int(n_samples), stream,
-        )
+        if precision == "f32":
+            err = lib.fused_infer_launch(
+                features.data_ptr(), kmer_ids.data_ptr(),
+                offsets.data_ptr(), counts.data_ptr(), fp.packed.data_ptr(),
+                p.data_ptr(), site_p.data_ptr(), mod_ratio.data_ptr(),
+                n, n_sites, float(threshold), int(n_samples), stream,
+            )
+        else:
+            err = lib.site_reduce_launch(
+                p.data_ptr(), offsets.data_ptr(), counts.data_ptr(),
+                site_p.data_ptr(), mod_ratio.data_ptr(),
+                n, n_sites, float(threshold), int(n_samples), stream,
+            )
     if err != 0:
         raise launch_error(lib, err)
     return p, site_p, mod_ratio
@@ -308,11 +545,12 @@ def fused_inference_plain(
     counts: torch.Tensor,
     threshold: float,
     n_samples: int = 20,
+    precision: str = "f32",
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """:func:`fused_inference`'s function in plain PyTorch: site sums over
     the given site ids (padding reads carry ``site_ids == S``)."""
     n_sites = counts.shape[0]
-    p = read_probability_plain(fp, features, kmer_ids)
+    p = read_probability_plain(fp, features, kmer_ids, precision)
     site_p = site_ops.site_probability_exact(p, site_ids, counts, n_sites, n_samples)
     mod_ratio = site_ops.mod_ratio_exact(p, site_ids, counts, n_sites, threshold)
     return p, site_p, mod_ratio
@@ -326,6 +564,7 @@ def fused_inference(
     counts: torch.Tensor,  # (S,) i32 reads per site, 0 = padding site
     threshold: float,
     n_samples: int = 20,
+    precision: str = "f32",
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Returns (p (N,), site_p (S,), mod_ratio (S,)), as
     :func:`fused_inference_t`, for a batch given by per-read site ids.
@@ -335,6 +574,7 @@ def fused_inference(
     the plain version; on CUDA tensors the kernel reads the spans from the
     counts."""
     global fused_inference_launch_count
+    check_precision(precision)
     n = features.shape[0]
     if features.device.type == "cuda":
         check_tensor("site_ids", site_ids, (torch.int32,), (n,), features.device)
@@ -345,10 +585,11 @@ def fused_inference(
     if features.device.type == "cpu":
         if bool(bad_site_ids):
             raise ValueError(SITE_IDS_ERROR)
-        return fused_inference_plain(fp, features, kmer_ids, site_ids, counts, threshold, n_samples)
+        return fused_inference_plain(fp, features, kmer_ids, site_ids, counts, threshold, n_samples, precision)
     offsets = (ends - counts).to(torch.int32).contiguous()
     out = _launch_fused(
-        fp, features, kmer_ids, offsets, counts, threshold, n_samples, "fused_inference", bad_site_ids
+        fp, features, kmer_ids, offsets, counts, threshold, n_samples, "fused_inference", precision,
+        bad_site_ids,
     )
     fused_inference_launch_count += 1
     return out

@@ -2,7 +2,8 @@
 
 The flags of the JAX package's ``inference`` command (reference:
 m6anet/scripts/inference.py), with ``--device {cuda,cpu}`` (default cuda),
-``--backend {auto,torch,cuda_fused,cuda}`` and ``--precision {auto,f32}``.
+``--backend {auto,torch,cuda_fused,cuda}`` and ``--precision
+{auto,f32,f32x3,bf16}``.
 ``--site_proba_method mc`` samples the site probability over
 ``--num_iterations`` iterations drawn from ``--seed``.  Flags whose path is
 not ported yet stop the parse with the ROADMAP.md item that will bring it.
@@ -98,7 +99,14 @@ def argparser():
                              "architectures run on cuda only with an explicit "
                              "--backend torch.")
     parser.add_argument("--precision", default="auto", choices=PRECISIONS,
-                        help="auto = f32 (parity mode; TF32 off).")
+                        help="auto = f32x3 on the CUDA backends, f32 on "
+                             "--backend torch; f32 = parity mode (f32 "
+                             "CUDA-core arithmetic, TF32 off); f32x3 = layer 1 "
+                             "in f32, layer 2 (on the tensor cores) and the head "
+                             "as 3-pass bf16x3 products, ~f32-accurate (within the "
+                             "1e-5 per-read golden tolerance); bf16 = fast "
+                             "mode (~1e-3 probability error). f32x3/bf16 need "
+                             "a CUDA backend.")
     parser.add_argument("--resume", default=False, action="store_true",
                         help="continue an interrupted run from the last "
                              "fully-written site.")

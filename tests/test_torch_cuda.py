@@ -24,7 +24,7 @@ from m6anet_tpu_torch.constants import (
 from m6anet_tpu_torch.data.dataset import build_dataset
 from m6anet_tpu_torch.inference.engine import run_inference
 from m6anet_tpu_torch.models import load_model
-from m6anet_tpu_torch.ops import encoder_kernel, mc_kernel, random
+from m6anet_tpu_torch.ops import encoder_kernel, mc_kernel, random, site_ops
 from m6anet_tpu_torch.ops import fused_infer_kernel as fik
 
 DATA_DIR = os.path.join(os.path.dirname(__file__), "data")
@@ -104,12 +104,15 @@ def _dataset():
 
 
 def test_engine_on_the_card_matches_cpu_and_repeats_bit_for_bit(cuda_device, tmp_path):
+    """The f32 kernel (asked for by name: the card's default is f32x3)
+    against the CPU's f32 run."""
     thr = PRETRAINED_CONFIGS["HCT116_RNA002"][1]
     run_inference(_model(), _dataset(), str(tmp_path / "cpu"), thr, device="cpu")
-    before = fik.launch_count
-    run_inference(_model(), _dataset(), str(tmp_path / "a"), thr)  # default device: cuda
-    assert fik.launch_count == before + 1
-    run_inference(_model(), _dataset(), str(tmp_path / "b"), thr, read_capacity=1024, site_capacity=8)
+    before = fik.launch_count, dict(fik.tc_launch_counts)
+    run_inference(_model(), _dataset(), str(tmp_path / "a"), thr, precision="f32")  # default device: cuda
+    assert (fik.launch_count, fik.tc_launch_counts) == (before[0] + 1, before[1])
+    run_inference(_model(), _dataset(), str(tmp_path / "b"), thr, read_capacity=1024, site_capacity=8,
+                  precision="f32")
     run_inference(_model(), _dataset(), str(tmp_path / "torch"), thr, backend="torch")
     for name in ("data.site_proba.csv", "data.indiv_proba.csv"):
         want = (tmp_path / "a" / name).read_bytes()
@@ -332,3 +335,81 @@ def test_engine_mc_and_encoder_backend_on_the_card(cuda_device, tmp_path):
         a = np.loadtxt(tmp_path / "enc_a" / name, delimiter=",", skiprows=1, usecols=3)
         b = np.loadtxt(tmp_path / "fused" / name, delimiter=",", skiprows=1, usecols=3)
         np.testing.assert_allclose(a, b, rtol=0, atol=atol)
+
+
+def _assert_mode_close(got, want, mode, tally):
+    """Kernel vs plain per read (chip_smoke.py's P_ATOL and CLOSE_SHARE):
+    every read within 2e-6 (f32x3: the tensor cores round inside a k16 sum
+    in their own way) or 1e-3 (bf16: an f32 sum that differs in its last
+    bit can round an activation to the neighbouring bf16 value); the reads
+    more than 1e-6 apart are counted in ``tally`` for a share over the
+    whole test."""
+    err = (got - want).abs()
+    assert float(err.max()) <= {"f32x3": 2e-6, "bf16": 1e-3}[mode], float(err.max())
+    tally[0] += err.numel()
+    tally[1] += int((err > 1e-6).sum())
+
+
+@pytest.mark.parametrize("mode", ["f32x3", "bf16"])
+def test_reduced_modes_match_plain(cuda_device, mode):
+    """The tensor-core phase A and phase B of fused_infer.cu against the
+    plain version of the mode: a ragged batch, the ragged tails of the
+    tensor-core block, shifted placements bit for bit, int32 ids, repeats
+    bit for bit, and the two other entry points on the same kernel."""
+    fp = fik.prepare_fused_params_t(_model().to(cuda_device))
+    X, K, offsets, counts = (torch.from_numpy(a).to(cuda_device) for a in _ragged_batch())
+    args = (X, K, None, offsets, counts, DEFAULT_READ_THRESHOLD, 20, mode)
+    before = fik.launch_count, fik.tc_launch_counts[mode]
+    got = fik.fused_inference_t(fp, *args)
+    again = fik.fused_inference_t(fp, *args)
+    want = fik.fused_inference_t_plain(fp, *args)
+    torch.cuda.synchronize()
+    assert (fik.launch_count, fik.tc_launch_counts[mode]) == (before[0] + 2, before[1] + 2)
+    tally = [0, 0]
+    _assert_mode_close(got[0], want[0], mode, tally)
+    # site_p 1e-5, and 20 max|dp| more at a site holding a read further
+    # than 1e-6 apart (the derivative of 1 - m**20 is at most 20)
+    far = torch.zeros(counts.numel() + 1, device=cuda_device).index_add_(
+        0, site_ops.derive_site_ids(offsets, counts, X.shape[0], counts.numel()).long(),
+        ((got[0] - want[0]).abs() > 1e-6).float())[:-1]
+    allowed = 1e-5 + 20 * (got[0] - want[0]).abs().max() * (far > 0)
+    assert bool(((got[1] - want[1]).abs() <= allowed).all())
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    got32 = fik.fused_inference_t(fp, X, K.int(), *args[2:])
+    assert all(torch.equal(a, b) for a, b in zip(got, got32))
+    for k in (1, 3, 129):
+        assert torch.equal(encoder_kernel.fused_read_probability(fp, X[k:], K[k:], mode), got[0][k:]), k
+    for batch in fik.ragged_tail_batches(fik.read_tile_reads(mode)):
+        Xt, Kt, ot, ct = (torch.from_numpy(a).to(cuda_device) for a in batch)
+        targs = (Xt, Kt, None, ot, ct, DEFAULT_READ_THRESHOLD, 20, mode)
+        tail = fik.fused_inference_t(fp, *targs)
+        _assert_mode_close(tail[0], fik.fused_inference_t_plain(fp, *targs)[0], mode, tally)
+        assert torch.equal(encoder_kernel.fused_read_probability(fp, Xt, Kt, mode), tail[0])
+        site_ids = torch.full((Xt.shape[0],), ct.numel(), dtype=torch.int32, device=cuda_device)
+        site_ids[: int(ct.sum())] = torch.repeat_interleave(
+            torch.arange(ct.numel(), device=cuda_device, dtype=torch.int32), ct.long())
+        entry = fik.fused_inference(fp, Xt, Kt, site_ids, ct, DEFAULT_READ_THRESHOLD, precision=mode)
+        assert all(torch.equal(a, b) for a, b in zip(entry, tail))
+    assert tally[1] <= {"f32x3": 1e-5, "bf16": 1e-3}[mode] * tally[0] + 1, tally
+
+
+def test_engine_precisions_on_the_card(cuda_device, tmp_path):
+    """auto is f32x3 on the card: each run reports its own kernel, f32x3
+    stays within 1e-5 of f32 per read and repeats bit for bit at another
+    batching; bf16 stays within 2e-2 per read and 1e-2 per site."""
+    thr = PRETRAINED_CONFIGS["HCT116_RNA002"][1]
+    runs = {}
+    for name, kw in (("auto", {}), ("small", dict(read_capacity=1024, site_capacity=8)),
+                     ("f32", dict(precision="f32")), ("bf16", dict(precision="bf16"))):
+        before = dict(fik.tc_launch_counts)
+        run_inference(_model(), _dataset(), str(tmp_path / name), thr, **kw)
+        mode = kw.get("precision", "f32x3")
+        if mode != "f32":
+            assert fik.tc_launch_counts[mode] > before[mode]
+        runs[name] = [np.loadtxt(tmp_path / name / f, delimiter=",", skiprows=1, usecols=3)
+                      for f in ("data.indiv_proba.csv", "data.site_proba.csv")]
+    for name in ("data.site_proba.csv", "data.indiv_proba.csv"):
+        assert (tmp_path / "small" / name).read_bytes() == (tmp_path / "auto" / name).read_bytes()
+    np.testing.assert_allclose(runs["auto"][0], runs["f32"][0], rtol=0, atol=1e-5)
+    np.testing.assert_allclose(runs["bf16"][0], runs["f32"][0], rtol=0, atol=2e-2)
+    np.testing.assert_allclose(runs["bf16"][1], runs["f32"][1], rtol=0, atol=1e-2)

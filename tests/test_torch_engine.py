@@ -243,8 +243,14 @@ def test_backend_resolution():
     cpu, cuda = torch.device("cpu"), torch.device("cuda")
     assert engine.fused_backend_supported(model)
     assert engine.resolve_backend(model, "auto", "auto", cpu) == ("torch", "f32")
-    assert engine.resolve_backend(model, "auto", "auto", cuda) == ("cuda_fused", "f32")
+    # auto is f32x3 on the CUDA backends, f32 on torch (the JAX package's
+    # resolution: pallas backends f32x3, xla f32)
+    assert engine.resolve_backend(model, "auto", "auto", cuda) == ("cuda_fused", "f32x3")
+    assert engine.resolve_backend(model, "cuda_fused", "auto", cuda) == ("cuda_fused", "f32x3")
+    assert engine.resolve_backend(model, "torch", "auto", cuda) == ("torch", "f32")
     assert engine.resolve_backend(model, "torch", "f32", cuda) == ("torch", "f32")
+    for precision in ("f32", "f32x3", "bf16"):
+        assert engine.resolve_backend(model, "auto", precision, cuda) == ("cuda_fused", precision)
     # another architecture runs the torch modules on the card only when asked
     with open(DEFAULT_MODEL_CONFIG, "rb") as f:
         config = tomllib.load(f)
@@ -258,12 +264,19 @@ def test_backend_resolution():
             engine.resolve_backend(narrow, backend, "auto", cuda)
     with pytest.raises(ValueError, match="needs device 'cuda'"):
         engine.resolve_backend(model, "cuda_fused", "auto", cpu)
-    with pytest.raises(ValueError, match="ROADMAP.md"):
-        engine.resolve_backend(model, "auto", "bf16", cuda)
+    # the reduced modes need a CUDA backend, as the JAX package's need a
+    # Pallas one
+    for backend, device in (("torch", cuda), ("torch", cpu), ("auto", cpu)):
+        for precision in ("f32x3", "bf16"):
+            with pytest.raises(ValueError, match="CUDA backends.*torch"):
+                engine.resolve_backend(model, backend, precision, device)
+    with pytest.raises(ValueError, match="precision must be one of"):
+        engine.resolve_backend(model, "auto", "f16", cuda)
     with pytest.raises(ValueError, match="exact.*mc"):
         engine.make_infer_step(model, 16, THRESHOLD, method="sampled")
     # the encoder-kernel backend: a card and the production architecture
-    assert engine.resolve_backend(model, "cuda", "auto", cuda) == ("cuda", "f32")
+    assert engine.resolve_backend(model, "cuda", "auto", cuda) == ("cuda", "f32x3")
+    assert engine.resolve_backend(model, "cuda", "bf16", cuda) == ("cuda", "bf16")
     with pytest.raises(ValueError, match="backend 'cuda' needs device 'cuda'"):
         engine.resolve_backend(model, "cuda", "auto", cpu)
     with pytest.raises(ValueError, match="--backend torch"):
@@ -331,7 +344,8 @@ def test_cli_subprocess_on_cpu(port_out, tmp_path):
     assert "backend=torch" in proc.stderr
     assert "batches dispatched: 1" in proc.stderr
     assert ('kernel launches: {"fused_inference_t": 0, "fused_read_probability": 0, '
-            '"site_probability_mc": 0, "fused_inference": 0}') in proc.stderr
+            '"site_probability_mc": 0, "fused_inference": 0, "read_prob_tc_f32x3": 0, '
+            '"read_prob_tc_bf16": 0}') in proc.stderr
     for name in ("data.site_proba.csv", "data.indiv_proba.csv"):
         assert (out / name).read_bytes() == (port_out / name).read_bytes()
 
