@@ -16,7 +16,7 @@ version:
   4. full        fused_inference_t (f32) vs plain at the production batch
                  (1,048,576 reads / 16,384 sites), and two launches
                  bit-identical; placement: p of batch[k:] is p[k:] of the
-                 whole batch, bit for bit, for k = 1, 3, 129
+                 whole batch, bit for bit, for k = 1, 3, 70, 129
   5. e2e         the inference CLI on tests/data (default device, --backend
                  auto and --precision auto = f32x3: the main path) against the
                  golden CSVs, with the kernels' launches as the run reports
@@ -51,16 +51,22 @@ version:
                  the SM clock; in a line of their own, the floors of mc.cu's
                  design at this batch (models counted from the batch, the
                  SASS and the card's maximum SM clock, not timings)
- 12. modes       f32x3 and bf16 (read_prob_tc.cu, then phase B of
+ 12. modes       phase B's spans: in every precision, sites whose span
+                 leaves p give NaN and every other output is bit-identical;
+                 f32x3 and bf16 (read_prob_tc.cu, then phase B of
                  fused_infer.cu) vs plain on a small batch, the ragged tails
-                 of the tensor-core block, the production batch, a shifted
-                 placement (bit for bit) and both entry points; f32x3 p
-                 within 2e-6 and 99.999% of reads within 1e-6, bf16 p within
-                 1e-3 and 99.9% within 1e-6, site_p 1e-5 (+ 20 max|dp| at a
-                 site holding a read further apart), mod_ratio equal but at
-                 reads near or across the threshold; repeats bit-identical
+                 of each mode's tensor-core tile, the production batch, shifted
+                 placements (bit for bit, across 64-read tiles and 16-byte
+                 boundaries) and both entry points; f32x3 p within 2e-6 and
+                 99.999% of reads within 1e-6, bf16 p within 1e-3 and 99.9%
+                 within 1e-6, site_p 1e-5 (+ 20 max|dp| at a site holding a
+                 read further apart), mod_ratio equal but at reads near or
+                 across the threshold; repeats bit-identical
  13. timing      each mode's wrapper call, phase A alone, plain version,
-                 device split, ptxas usage and bound at the production batch
+                 device split, bound at the production batch (and phase B's
+                 own), and read_prob_tc_kernel's registers (ptxas) and
+                 launch (threads, consumer warpgroups, ring stages, tile,
+                 dynamic shared memory)
 
 Any failure exits nonzero.  The last line is the
 ``{"ok": true, "device": {...}}`` result; before it come the MC floors' JSON
@@ -94,7 +100,10 @@ SITE_ATOL = 1e-5
 P_ATOL = {"f32": 1e-6, "f32x3": 2e-6, "bf16": 1e-3}
 CLOSE, CLOSE_SHARE = 1e-6, {"f32": 1.0, "f32x3": 0.99999, "bf16": 0.999}
 MODES = ("f32x3", "bf16")
-PLACEMENT_SHIFTS = (1, 3, 129)
+# k of the placement check: 70 moves reads across a 64-read tile of the
+# tensor-core kernel, and every k but 129 starts features and kmer_ids at
+# another offset from a 16-byte boundary (its bulk copies start below it)
+PLACEMENT_SHIFTS = (1, 3, 70, 129)
 GOLDEN_ATOL = {"indiv": 1e-5, "mod_ratio": 1e-6, "site": 1e-2}
 BF16_INDIV_ATOL = 2e-2  # bf16 CLI per read against the f32 CLI (tests/test_ops.py:325)
 MC_SITE_GOLDEN_ATOL = 1.5e-2  # the MC method's (tests/test_inference.py:61)
@@ -266,6 +275,30 @@ def check_placement(fik, enc, fp, batch, precision="f32"):
     log(f"[placement] precision={precision}: p of batch[k:] == p[k:] of the batch, bit for bit: {same}")
     if not all(same.values()):
         fail("placement: a read's p depends on its place in the batch")
+
+
+def check_span_fault(fik, fp, batch, precision):
+    """Phase B of a batch whose offsets and counts put three sites' spans
+    outside p (a negative offset, a negative count, a span past the last
+    read): those sites give NaN site_p and mod_ratio, every other output is
+    bit-identical to the batch as packed."""
+    features, kmer, offsets, counts = (torch.from_numpy(a).cuda() for a in batch)
+    n = features.shape[0]
+    bad_offsets, bad_counts = offsets.clone(), counts.clone()
+    bad_offsets[0] = -1
+    bad_counts[1] = -2
+    bad_offsets[2], bad_counts[2] = n - 1, 2
+    want = fik.fused_inference_t(fp, features, kmer, None, offsets, counts, THRESHOLD, 20, precision)
+    got = fik.fused_inference_t(fp, features, kmer, None, bad_offsets, bad_counts, THRESHOLD, 20, precision)
+    torch.cuda.synchronize()
+    bad = torch.zeros(counts.numel(), dtype=torch.bool, device=counts.device)
+    bad[:3] = True
+    nan = all(bool(t[bad].isnan().all()) for t in got[1:])
+    kept = torch.equal(got[0], want[0]) and all(torch.equal(a[~bad], b[~bad]) for a, b in zip(got[1:], want[1:]))
+    log(f"[span fault] precision={precision}: sites whose span leaves p give NaN: {nan}; "
+        f"every other output bit for bit: {kept}")
+    if not (nan and kept):
+        fail("phase B does not give NaN to exactly the sites whose span leaves p")
 
 
 def compare_entries(fik, enc, site_ops, fp, batch, label, precision="f32"):
@@ -726,17 +759,19 @@ def main():
 
     # ---- 12. the f32x3 and bf16 modes: read_prob_tc.cu (phase A) and phase B
     # of fused_infer.cu against the plain versions; 13. their timing
-    tc_tile = fik.read_tile_reads("f32x3")
-    tc_tails = fik.ragged_tail_batches(tc_tile, seed=2)
-    log(f"[modes] the tensor-core phase A takes {tc_tile} reads per block and step")
+    tc_tails = {mode: fik.ragged_tail_batches(fik.read_tile_reads(mode), seed=2) for mode in MODES}
+    log(f"[modes] the tensor-core phase A's launch in each mode: "
+        f"{ {mode: fik.tc_kernel_config(mode) for mode in MODES} }")
+    for precision in ("f32", *MODES):
+        check_span_fault(fik, fp, tc_tails["f32x3"][-1], precision)
     tc_ptxas = {}
     for mode in MODES:
         mode_err = compare(fik, fp, make_batch(rng, 4096, 128, small_count(rng)), f"{mode} small", mode)
-        for batch in tc_tails:
+        for batch in tc_tails[mode]:
             mode_err = max(mode_err, compare(fik, fp, batch, f"{mode} tail {batch[0].shape[0]}", mode))
         mode_err = max(mode_err, compare(fik, fp, full_batch, f"{mode} full", mode))
         check_placement(fik, enc, fp, full_batch, mode)
-        for batch in (tc_tails[-1], full_batch):
+        for batch in (tc_tails[mode][-1], full_batch):
             errs = compare_entries(fik, enc, site_ops, fp, batch, f"{mode} entries {batch[0].shape[0]}", mode)
             mode_err = max(mode_err, *errs.values())
         tc_ptxas[mode] = _build.ptxas_usage(
@@ -750,6 +785,8 @@ def main():
         ops = MODE_FLOP_PER_READ[mode]
         op_ms = max(n_reads * ops["f32"] / peak_flops, n_reads * ops["bf16"] / BF16_TENSOR_FLOPS) * 1e3
         mode_byte_ms = (bytes_moved - fp.packed.numel() * 4 + fp.tc.numel() * 4) / peak_bw * 1e3
+        # phase B alone: p once, offsets and counts in, site_p and mod_ratio out
+        phase_b_bytes = n_reads * 4 + (offsets.numel() + counts.numel()) * 4 + 2 * n_sites * 4
         cli = {"f32x3": (launches, n_batches, "inference, exact, --precision auto = f32x3 (phase 5: the main path)"),
                "bf16": (bf16_launches, bf16_batches, "inference --precision bf16, exact (phase 5)")}[mode]
         log(f"[timing {mode}] wrapper {mode_ms:.4f} ms, phase A alone {mode_phase_a_ms:.4f} ms, plain "
@@ -773,7 +810,10 @@ def main():
             "kernels": "read_prob_tc_kernel (phase A) + site_reduce_kernel of fused_infer.cu (phase B)",
             "phase_a_ms": mode_phase_a_ms,
             "device_ms": mode_split,
+            "phase_b_bound_ms": phase_b_bytes / peak_bw * 1e3,
+            "phase_b_bytes": phase_b_bytes,
             "read_prob_tc_ptxas": tc_ptxas[mode],
+            "read_prob_tc_launch": fik.tc_kernel_config(mode),
             "sm_clock_after_timing": mode_clock,
             "golden_max_errors": golden[mode],
         })

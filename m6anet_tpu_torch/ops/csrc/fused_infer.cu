@@ -22,6 +22,9 @@
 //                mod_ratio[s] = #{p >= threshold} / max(n, 1)
 //
 // Padding sites give site_p = 1 and mod_ratio = 0, as the TPU kernel does.
+// A site whose span leaves [0, n_reads) (a negative offset or count, or
+// offset + count > n_reads; pack_sites never makes one) gives NaN for both,
+// as mc.cu does, and reads nothing.
 //
 // Bound on the card.  Each read costs 2 * (15*150 + 150*32 + 32) = 14,164
 // f32 FLOP and moves 43 bytes (36 B of features, 3 B of int8 k-mer ids, 4 B
@@ -240,8 +243,11 @@ site_reduce_kernel(const float* __restrict__ p, const int32_t* __restrict__ offs
   if (site >= n_sites) return;  // uniform across the warp
   const int n = counts[site];
   const int64_t begin = offsets[site];
-  const int64_t stop = begin + (n > 0 ? n : 0);
-  const int64_t end = stop < n_reads ? stop : n_reads;
+  const int64_t end = begin + n;
+  if (n < 0 || begin < 0 || end > n_reads) {  // a span that leaves p: no result, and no load
+    if (lane == 0) site_p[site] = mod_ratio[site] = __int_as_float(0x7fc00000);
+    return;
+  }
 
   double sum = 0.0;
   int hits = 0;

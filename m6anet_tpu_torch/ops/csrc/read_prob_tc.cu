@@ -1,11 +1,12 @@
 // Phase A of the fused inference step in its two reduced-precision modes,
-// f32x3 and bf16, on Hopper's tensor cores (sm_90a).
+// f32x3 and bf16, on Hopper's tensor cores (sm_90a): warpgroup wgmma with
+// the read stream staged by bulk asynchronous copies.
 //
 // Replaces: m6anet_tpu/ops/fused_infer_kernel.py:397 (fused_inference_t, compute_dtype f32x3 / bf16)
 //
 // Its entry point read_prob_tc_launch is phase A of the same two modes of
 // three TPU kernels; the two fused ones follow it with phase B of
-// fused_infer.cu (site_reduce_launch, unchanged), and all three follow
+// fused_infer.cu (site_reduce_launch), and all three follow
 // fused_inference_t's arithmetic (see ops/fused_infer_kernel.py):
 //   fused_inference_t       m6anet_tpu/ops/fused_infer_kernel.py:397 (body :304-348)
 //   fused_read_probability  m6anet_tpu/ops/encoder_kernel.py:207 (policies :108-193)
@@ -31,35 +32,63 @@
 // the tensor cores (0.031 ms at 989 TFLOP/s, another pipe): 0.070 ms.
 // bf16: 14.85 GFLOP of bf16, 0.015 ms.
 //
-// Design (a simple, correct first kernel; wgmma, TMA and one launch for
-// both phases are later work):
-//  * A warp takes 16 reads at a time, the M dimension of
-//    mma.sync.m16n8k16.row.col.f32.bf16.bf16.f32.  Lane l is group
-//    g = l / 4, thread t = l % 4 of the fragments: it owns reads g and g + 8
-//    of the tile.  The weights are staged once per block in shared memory,
-//    laid out by prepare_fused_params_t in fragment order, so every operand
-//    load is one conflict-free LDS.64 (B fragments) or LDS.128 (f32 rows).
-//    Hidden units are padded 150 -> 160 with zero weights and zero bias.
-//  * bf16: layer 1 (K = 15 padded to 16, bias never folded into the bf16
-//    operand) is one mma per n8 tile.  The f32 accumulators of n8 tiles 2j
-//    and 2j + 1 are exactly the A fragment of layer 2's k16 step j: after
-//    bias and relu they convert in registers, so h1 never leaves them.
-//  * f32x3: layer 1 stays on the FP32 cores.  Each lane computes exactly
-//    the h1 values its A fragment holds (2 reads x 4 units per k step),
-//    splits them into bf16 hi and lo, and runs three mma per n8 tile
-//    against the pre-split W2.
+// Design.  The kernel before this one (a warp per 16 reads on mma.sync)
+// issued about half of its slots: each tile waited for its scalar input
+// loads, each k step was one dependent chain at 4 warps a scheduler, and
+// mma.sync took 80 B-fragment loads a tile.  scripts/sweep_read_prob_tc.py
+// --reference times its ablations.  This one:
+//  * A persistent grid of one block per SM, warp-specialised.  The last
+//    warpgroup is the producer: one of its threads keeps bulk copies
+//    (cp.async.bulk ... mbarrier::complete_tx) in flight, one per array per
+//    item, into a ring of stages, each with a full and an empty mbarrier.
+//    An item is one or more tiles of 64 reads (wgmma's M): 2,304 B of
+//    features and 192 B of k-mer ids a tile, so every item starts 16-byte
+//    aligned from the tensors' start.  Inputs that start off a 16-byte
+//    boundary (a view such as features[k:]) are copied from the boundary
+//    below, within the same 16-byte chunk; an item whose copy would end
+//    past the tensors (the ragged last one) is read with plain loads, never
+//    past n_reads.  The consumer warpgroups take the ring's items in turn;
+//    setmaxnreg moves the producer's registers to them.  Each consumer
+//    thread frees its stage as soon as its reads' inputs are in registers.
+//    Each mode has its own block (Cfg): f32x3 2 consumer warpgroups of 2
+//    tiles an item, bf16 3 of 1.
+//  * The weights are staged once per block (the mode's range of the image;
+//    prepare_fused_params_t lays it out).  Each wgmma B operand (bf16(W2),
+//    W2 - bf16(W2), bf16(W1')) sits in the canonical K-major layout without
+//    swizzle: core matrices of 8 n x 8 k bf16 (128 contiguous bytes, a row
+//    of 8 k per 16 bytes), the two k halves of a k16 step kBLbo bytes apart,
+//    groups of 8 n kBSbo bytes apart, addressed by matrix descriptors.
+//  * Lane l of warp w of a consumer warpgroup is group g = l / 4, thread
+//    t = l % 4 of the fragments: it owns rows 16w + g and 16w + g + 8 of
+//    each 64-read tile.  wgmma's register A fragment and its m64nN
+//    accumulator give every warp the layouts of mma.m16n8k16 and its n8
+//    tiles, so the per-lane arithmetic is the earlier kernel's.
+//  * f32x3: layer 1 stays on the FP32 cores in fused_infer.cu's FMA order
+//    (h1 bit for bit as before), each lane for 2 reads of each of its
+//    tiles and the 4 units its A fragment holds per k step (the padded
+//    units 152-159 of step 9 are skipped: their h1 is 0).  Layer 2 runs on
+//    wgmma.m64n32k16 with A from registers: W2lo.h1hi then W2hi.h1lo
+//    accumulate in one accumulator, step by step; each step's W2hi.h1hi
+//    goes into its own accumulator (scale-d = 0) and is added to the
+//    running f32 sum in step order.  The A fragments are double-buffered:
+//    layer 1 of step j + 1 runs while step j's wgmma is in flight.
+//  * bf16: layer 1 is one wgmma.m64n160k16 per tile (A the packed inputs,
+//    k = 15 zero, the bias never folded into the bf16 operand).  Its
+//    accumulators of n8 tiles 2j, 2j + 1 are exactly layer 2's A fragment
+//    of k step j: bias, relu and the bf16 pack happen in registers, so h1
+//    never leaves them.  Layer 2 takes one zero-accumulator wgmma a step,
+//    f32-added in order; its accumulator is double-buffered under
+//    wgmma.wait_group 1, so two steps are in flight.
 //  * Sums.  The tensor cores add a k16 step's products and truncate the
-//    sum toward zero, so accumulating ten steps in the mma's C operand
-//    drifts by several ulp of h2 in one direction.  The hi.hi (f32x3) or
-//    bf16 product of each k step therefore goes into a zero accumulator
-//    and is added to the running sum with an f32 add, in step order; the
-//    plain version sums the same k16 chunks, truncated.  The small cross
-//    terms of f32x3 (2^-8 of the sum) accumulate in C.
-//  * The head (32 -> 1) is a dot over the lane's 8 entries of layer 2's
-//    accumulator fragment, summed across the quad with two xor shuffles,
-//    so all four lanes hold the same z; lane 0 stores read g, lane 1 read
-//    g + 8.  Past the end of the batch a lane reads the last read again and
-//    stores nothing.  Repeats are bit-identical (no atomics).
+//    sum toward zero; the zero-accumulator steps and f32 adds keep that
+//    from drifting over ten steps (the plain version models the same
+//    truncated k16 chunks).
+//  * The head (32 -> 1) is a dot over the lane's 8 entries of a read's
+//    layer-2 accumulators, summed across the quad with two xor shuffles;
+//    lane t = 0 stores read g, t = 1 read g + 8.  Repeats are
+//    bit-identical (no atomics), and a read's p does not depend on its
+//    place in the batch.
+//  * A barrier wait that spins for ~10 s traps (a fault, never a hang).
 //
 // Built by ops/_build.py: nvcc -gencode arch=compute_90a,code=sm_90a -O3,
 // without --use_fast_math.  Plain C interface, called through ctypes from
@@ -84,19 +113,19 @@ constexpr int kTiles1 = 20;   // layer 1's n8 tiles (bf16)
 constexpr int kTiles2 = 4;    // layer 2's n8 tiles
 static_assert(kKSteps * 16 == kH1Pad && kTiles1 * 8 == kH1Pad && kTiles2 * 8 == kH2, "tiles");
 
-// Weight image (32-bit words), written by prepare_fused_params_t (lane l =
-// 4g + t; a bf16x2 word holds the smaller k in its low half):
+// Weight image (32-bit words), written by prepare_fused_params_t (a bf16x2
+// word holds the smaller k in its low half):
 //   W1F  [10 k steps][4 slots c][4 quads q][4 threads t] float4: f32x3
 //        layer 1, floats 4q..4q+3 of row u = 16j + 2t + (c & 1) + 8 (c >> 1)
 //        of [W1'[u, 0:15], b1'[u]] (zero for u >= 150)
 //   EMBX [66][2] f32: hi + lo of the embedding (f32x3)
 //   W3L  [32] f32: bf16(w3 - bf16(w3)) (f32x3)
-//   W2L  [10 k steps][4 n tiles][32 lanes][2] bf16x2: B fragments of
-//        W2 - bf16(W2) (f32x3); n = 8 tile + g, k = 16 step + 2t + 8 reg + half
+//   W2L  [10 k steps][4 n groups][2 k halves][8 n][8 k] bf16: W2 - bf16(W2)
+//        at n = 8 group + row, k = 16 step + 8 half + col (f32x3)
 //   W2H  the same for bf16(W2) (both modes)
 //   B2 [32], W3H [32] bf16(w3), B3 [1] + zero padding (both modes)
-//   W1H  [20 n tiles][32 lanes][2] bf16x2: B fragments of layer 1 (bf16),
-//        n = 8 tile + g, k = 2t + 8 reg + half; k = 15 is zero
+//   W1H  [20 n groups][2 k halves][8 n][8 k] bf16: bf16(W1'), k = 15 zero
+//        (bf16)
 //   B1   [160] f32: b1', zero past 150 (bf16)
 //   EMBH [66][2] f32: bf16(e) (bf16)
 constexpr int kTcOffW1F = 0;
@@ -112,31 +141,176 @@ constexpr int kTcOffB1 = kTcOffW1H + kTiles1 * 32 * 2;            // 9192
 constexpr int kTcOffEmbH = kTcOffB1 + kH1Pad;                     // 9352
 constexpr int kTcWords = kTcOffEmbH + kVocab * kEmb;              // 9484
 
-// Each mode stages one contiguous range of the image: f32x3 everything
-// before W1H, bf16 everything from W2H on.
+// The B operands' canonical K-major layout (bytes): a core matrix row of 8
+// k values, the two k halves of a k16 step, groups of 8 n, a k step of W2.
+constexpr int kBRowBytes = 16;
+constexpr int kBLbo = 128;
+constexpr int kBSbo = 256;
+constexpr int kW2StepBytes = kTiles2 * kBSbo;  // 1024
+static_assert(8 * kBRowBytes == kBLbo && 2 * kBLbo == kBSbo, "core matrices back to back");
+static_assert(kKSteps * kW2StepBytes == kKSteps * kTiles2 * 32 * 2 * 4, "W2's size in the image");
+
 constexpr int kModeF32x3 = 1;
 constexpr int kModeBf16 = 2;
 static_assert(kTcOffW2L % 4 == 0 && kTcOffW2H % 4 == 0 && kTcOffW1H % 4 == 0 && kTcWords % 4 == 0,
               "16-byte aligned ranges");
 
-constexpr int kThreads = 256;  // 8 warps, 16 reads each per step
-constexpr int kMinBlocks = 2;
-// unrolling of the loop over layer 2's k steps.  scripts/sweep_read_prob_tc.py
-// rewrites it and kMinBlocks; on an H100 SXM at the production batch (f32x3 /
-// bf16 ms): unroll 1 at 2 blocks/SM 0.2916 / 0.0993, unroll 2 0.2852 /
-// 0.0934, full 0.2959 / 0.0966; 3 blocks/SM (f32x3 spills) 0.3165 / 0.0992;
-// 1 block/SM 0.2915 / 0.0926, unroll 2 there 0.3183 / 0.0917.
-constexpr int kStepUnroll = 2;
-constexpr int kWarps = kThreads / 32;
-constexpr int kTileReads = 16;
+// The block of each mode: consumer warpgroups and one producer warpgroup,
+// stages in the input ring, 64-read tiles an item (a lane holds 2 reads of
+// each), and the registers setmaxnreg leaves a producer thread.
+// scripts/sweep_read_prob_tc.py rewrites them and times each build: f32x3
+// gains from 4 reads a lane (layer 1's W1 rows feed twice the reads), bf16
+// from a third consumer warpgroup (more wgmma chains in flight).
+constexpr int kF32x3Consumers = 2;
+constexpr int kF32x3Stages = 4;
+constexpr int kF32x3Tiles = 2;
+constexpr int kBf16Consumers = 3;
+constexpr int kBf16Stages = 3;
+constexpr int kBf16Tiles = 1;
+constexpr int kProducerRegs = 24;
+constexpr int kGroupThreads = 128;
+constexpr int kTileReads = 64;
+constexpr long long kWaitTrapCycles = 20000000000LL;  // ~10 s at 2 GHz
 
-__device__ __forceinline__ uint32_t bf16_bits(float x) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16_rn(x)));
+template <int Mode>
+struct Cfg {
+  static constexpr bool kF32x3 = Mode == kModeF32x3;
+  static constexpr int kConsumers = kF32x3 ? kF32x3Consumers : kBf16Consumers;
+  static constexpr int kStages = kF32x3 ? kF32x3Stages : kBf16Stages;
+  static constexpr int kTilesPerGroup = kF32x3 ? kF32x3Tiles : kBf16Tiles;
+  static constexpr int kThreads = kGroupThreads * (kConsumers + 1);
+  // Item q goes to consumer warpgroup q % kConsumers and stage q % kStages,
+  // so every use of a stage goes to the same warpgroup: it has seen the
+  // stage's last fill land before it waits for the next.  Otherwise a
+  // warpgroup could wait on a full barrier two phases ahead, which its
+  // parity wait takes for the phase before.
+  static_assert(kStages % kConsumers == 0, "each stage serves one consumer warpgroup");
+  static constexpr int kItemReads = kTileReads * kTilesPerGroup;
+  static constexpr int kReads = 2 * kTilesPerGroup;  // reads a lane holds
+  static constexpr int kItemFeatBytes = kItemReads * kFeat * 4;
+  static constexpr int kItemKmerBytes = kItemReads * kPos;
+  static_assert(kItemFeatBytes % 16 == 0 && kItemKmerBytes % 16 == 0, "items start 16-byte aligned");
+  // a stage holds an item and the up to 15 bytes before it of a misaligned start
+  static constexpr int kStageFeatBytes = kItemFeatBytes + 16;
+  static constexpr int kStageBytes = kStageFeatBytes + kItemKmerBytes + 16;
+  static_assert(kStageBytes % 16 == 0, "stages stay 16-byte aligned");
+  // registers a consumer thread, after setmaxnreg (with two or more consumer groups)
+  static constexpr int kConsumerRegs = (65536 / kGroupThreads - kProducerRegs) / kConsumers / 8 * 8;
+  static_assert(kConsumers < 2 || kConsumerRegs <= 256, "setmaxnreg takes at most 256");
+  // shared memory: the mode's contiguous range of the image (f32x3
+  // everything before W1H, bf16 everything from W2H on), the ring, its
+  // full and empty barriers
+  static constexpr int kBegin = kF32x3 ? kTcOffW1F : kTcOffW2H;
+  static constexpr int kWords = (kF32x3 ? kTcOffW1H : kTcWords) - kBegin;
+  static constexpr int kStagesAt = kWords * 4;  // 16-byte aligned
+  static constexpr int kBarriersAt = kStagesAt + kStages * kStageBytes;
+  static constexpr int kSmemBytes = kBarriersAt + 2 * kStages * 8;
+};
+using F32x3 = Cfg<kModeF32x3>;
+
+// ------------------------------------------------------------ PTX helpers
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
+__device__ __forceinline__ void bar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes) : "memory");
+}
+
+// wait for the completion of the barrier's phase of this parity
+__device__ __forceinline__ void bar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  long long start = -1;
+  while (true) {
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    const long long now = clock64();
+    if (start < 0) start = now;
+    if (now - start > kWaitTrapCycles) __trap();
+  }
+}
+
+// `bytes` (a multiple of 16) from 16-byte aligned `src` to `dst`, counted on `bar`
+__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src, uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// matrix descriptor of a K-major B operand without swizzle at `addr`
+__device__ __forceinline__ uint64_t b_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(kBLbo >> 4) << 16) |
+         (static_cast<uint64_t>(kBSbo >> 4) << 32);
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_wait_all() { asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_wait_one() { asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory"); }
+
+// keeps the compiler from moving reads of `d` across a wgmma wait
+template <int N>
+__device__ __forceinline__ void fence_operands(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (+)= a . B over one m64n32k16 step: A from registers, B by descriptor;
+// scale_d = 0 writes the product alone
+__device__ __forceinline__ void wgmma_n32(float (&d)[16], const uint32_t (&a)[4], uint64_t desc, int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %21, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+}
+
+// d = a . B over one m64n160k16 step (layer 1 of bf16; scale-d = 0)
+__device__ __forceinline__ void wgmma_n160(float (&d)[80], const uint32_t (&a)[4], uint64_t desc) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %85, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
+      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79}, "
+      "{%80, %81, %82, %83}, %84, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(0));
+}
+
+// ------------------------------------------------------------- arithmetic
 // two floats rounded to bf16 in one operand register, `lo` in the low half
+// (one cvt.rn.bf16x2.f32)
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  return bf16_bits(lo) | (bf16_bits(hi) << 16);
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
 }
 
 __device__ __forceinline__ float bf16_round(float x) {
@@ -145,26 +319,9 @@ __device__ __forceinline__ float bf16_round(float x) {
 
 // hi = bf16(a), lo = bf16(a - hi) of a pair, packed as two operand registers
 __device__ __forceinline__ void split_pack(float a, float b, uint32_t& hi, uint32_t& lo) {
-  const float ah = bf16_round(a), bh = bf16_round(b);
-  hi = pack_bf16x2(ah, bh);
+  hi = pack_bf16x2(a, b);
+  const float ah = __uint_as_float(hi << 16), bh = __uint_as_float(hi & 0xffff0000u);
   lo = pack_bf16x2(a - ah, b - bh);
-}
-
-// d = a . b + d over one m16n8k16 tile, bf16 operands, f32 accumulators
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint2 b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b.x), "r"(b.y));
-}
-
-// sum += a . b over one k16 step, through a zero accumulator
-__device__ __forceinline__ void mma_step(float (&sum)[4], const uint32_t (&a)[4], uint2 b) {
-  float part[4] = {0.f, 0.f, 0.f, 0.f};
-  mma_bf16(part, a, b);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) sum[i] += part[i];
 }
 
 __device__ __forceinline__ float quad_sum(float v) {
@@ -173,153 +330,222 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v;
 }
 
-// the 15 inputs of read r, with the mode's embedding table `emb` (shared)
-__device__ __forceinline__ void load_inputs(const float* __restrict__ features,
-                                            const int8_t* __restrict__ kmer_ids,
-                                            const float* emb, int64_t r, float (&x)[kIn]) {
-  const float* f = features + r * kFeat;
+// the 15 inputs of one read: its features row `f` and k-mer ids `k` (shared
+// or device memory), with the mode's embedding table `emb` (shared)
+__device__ __forceinline__ void load_inputs(const float* f, const int8_t* k, const float* emb, float (&x)[kIn]) {
 #pragma unroll
-  for (int i = 0; i < kFeat; ++i) x[i] = __ldg(f + i);
+  for (int i = 0; i < kFeat; ++i) x[i] = f[i];
 #pragma unroll
   for (int q = 0; q < kPos; ++q) {
-    const int k = static_cast<int>(kmer_ids[r * kPos + q]);
-    x[kFeat + kEmb * q] = emb[kEmb * k];
-    x[kFeat + kEmb * q + 1] = emb[kEmb * k + 1];
+    const int id = static_cast<int>(k[q]);
+    x[kFeat + kEmb * q] = emb[kEmb * id];
+    x[kFeat + kEmb * q + 1] = emb[kEmb * id + 1];
   }
 }
 
-// input column c (0..15; 15 is the zero padding) of read r
-__device__ __forceinline__ float input_col(const float* __restrict__ features,
-                                           const int8_t* __restrict__ kmer_ids,
-                                           const float* emb, int64_t r, int c) {
-  if (c < kFeat) return __ldg(features + r * kFeat + c);
-  if (c >= kIn) return 0.f;
-  const int k = static_cast<int>(kmer_ids[r * kPos + (c - kFeat) / kEmb]);
-  return emb[kEmb * k + (c - kFeat) % kEmb];
+// layer 1 of f32x3 for k step j: h1 of this lane's 4 units (slot c: unit
+// 16j + 2t + (c & 1) + 8 (c >> 1)) for each of its reads, split and packed
+// as the A fragments (hi, lo) of each tile
+template <int J>
+__device__ __forceinline__ void layer1_f32x3(const float4* w1, int t, const float (&x)[F32x3::kReads][kIn],
+                                             uint32_t (&ahi)[F32x3::kTilesPerGroup][4],
+                                             uint32_t (&alo)[F32x3::kTilesPerGroup][4]) {
+  float h[4][F32x3::kReads];
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    if (J == kKSteps - 1 && c >= 2) {  // units 152-159: zero weights and bias
+#pragma unroll
+      for (int i = 0; i < F32x3::kReads; ++i) h[c][i] = 0.f;
+      continue;
+    }
+    const float4* row = w1 + (J * 4 + c) * 16 + t;  // [j][c][q][t]
+    const float4 a = row[0], b = row[4], cc = row[8], d = row[12];
+#pragma unroll
+    for (int i = 0; i < F32x3::kReads; ++i) {
+      const float* in = x[i];
+      float u = a.x * in[0];  // fused_infer.cu's order
+      u = fmaf(a.y, in[1], u);
+      u = fmaf(a.z, in[2], u);
+      u = fmaf(a.w, in[3], u);
+      u = fmaf(b.x, in[4], u);
+      u = fmaf(b.y, in[5], u);
+      u = fmaf(b.z, in[6], u);
+      u = fmaf(b.w, in[7], u);
+      u = fmaf(cc.x, in[8], u);
+      u = fmaf(cc.y, in[9], u);
+      u = fmaf(cc.z, in[10], u);
+      u = fmaf(cc.w, in[11], u);
+      u = fmaf(d.x, in[12], u);
+      u = fmaf(d.y, in[13], u);
+      u = fmaf(d.z, in[14], u);
+      h[c][i] = fmaxf(u + d.w, 0.f);  // + b1', relu
+    }
+  }
+  // tile tt holds reads 2tt (row g) and 2tt + 1 (row g + 8):
+  // {row g, row g + 8} x {units 2t.., 2t + 8..}
+#pragma unroll
+  for (int tt = 0; tt < F32x3::kTilesPerGroup; ++tt) {
+    split_pack(h[0][2 * tt], h[1][2 * tt], ahi[tt][0], alo[tt][0]);
+    split_pack(h[0][2 * tt + 1], h[1][2 * tt + 1], ahi[tt][1], alo[tt][1]);
+    split_pack(h[2][2 * tt], h[3][2 * tt], ahi[tt][2], alo[tt][2]);
+    split_pack(h[2][2 * tt + 1], h[3][2 * tt + 1], ahi[tt][3], alo[tt][3]);
+  }
 }
 
-// z of reads g and g + 8 (rows l0, l1), f32x3; s is the staged range [0, W1H)
-__device__ __forceinline__ void f32x3_reads(const float* __restrict__ features,
-                                            const int8_t* __restrict__ kmer_ids,
-                                            const uint32_t* s, int64_t l0, int64_t l1,
-                                            int lane, float (&z)[2]) {
+// one k step of f32x3's layer 2 and, while it runs, layer 1 of the next
+template <int J>
+__device__ __forceinline__ void step_f32x3(const float4* w1, uint32_t w2l, uint32_t w2h, int t,
+                                           const float (&x)[F32x3::kReads][kIn],
+                                           uint32_t (&ahi)[2][F32x3::kTilesPerGroup][4],
+                                           uint32_t (&alo)[2][F32x3::kTilesPerGroup][4],
+                                           float (&cross)[F32x3::kTilesPerGroup][16],
+                                           float (&high)[F32x3::kTilesPerGroup][16],
+                                           float (&part)[F32x3::kTilesPerGroup][16]) {
+  constexpr int B = J & 1;
+  const uint64_t dl = b_desc(w2l + J * kW2StepBytes), dh = b_desc(w2h + J * kW2StepBytes);
+#pragma unroll
+  for (int tt = 0; tt < F32x3::kTilesPerGroup; ++tt) {
+    fence_operands(cross[tt]);
+    fence_operands(part[tt]);
+  }
+  wgmma_fence();
+#pragma unroll
+  for (int tt = 0; tt < F32x3::kTilesPerGroup; ++tt) {
+    wgmma_n32(cross[tt], ahi[B][tt], dl, 1);  // W2lo.h1hi
+    wgmma_n32(cross[tt], alo[B][tt], dh, 1);  // + W2hi.h1lo
+    wgmma_n32(part[tt], ahi[B][tt], dh, 0);   // W2hi.h1hi alone
+  }
+  wgmma_commit();
+  if constexpr (J + 1 < kKSteps) layer1_f32x3<J + 1>(w1, t, x, ahi[B ^ 1], alo[B ^ 1]);
+  wgmma_wait_all();
+#pragma unroll
+  for (int tt = 0; tt < F32x3::kTilesPerGroup; ++tt) {
+    fence_operands(part[tt]);
+#pragma unroll
+    for (int i = 0; i < 16; ++i) high[tt][i] += part[tt][i];
+  }
+  if constexpr (J + 1 < kKSteps) step_f32x3<J + 1>(w1, w2l, w2h, t, x, ahi, alo, cross, high, part);
+}
+
+// z of this lane's reads (2tt: row g, 2tt + 1: row g + 8 of tile tt), f32x3;
+// s is the staged range [0, W1H)
+__device__ __forceinline__ void f32x3_reads(const uint32_t* s, int t, const float (&x)[F32x3::kReads][kIn],
+                                            float (&z)[F32x3::kReads]) {
   const float* sf = reinterpret_cast<const float*>(s);
-  const int t = lane & 3;
-  float x[2][kIn];
-  load_inputs(features, kmer_ids, sf + kTcOffEmbX, l0, x[0]);
-  load_inputs(features, kmer_ids, sf + kTcOffEmbX, l1, x[1]);
-
-  float cross[kTiles2][4] = {};  // W2lo.h1hi + W2hi.h1lo, accumulated in C
-  float high[kTiles2][4] = {};   // W2hi.h1hi, summed per k step
   const float4* w1 = reinterpret_cast<const float4*>(sf + kTcOffW1F);
-  const uint2* w2l = reinterpret_cast<const uint2*>(s + kTcOffW2L);
-  const uint2* w2h = reinterpret_cast<const uint2*>(s + kTcOffW2H);
-#pragma unroll (kStepUnroll)
-  for (int j = 0; j < kKSteps; ++j) {
-    float h[4][2];  // [slot c][read]: units 16j + 2t + (c & 1) + 8 (c >> 1)
+  const uint32_t w2l = smem_addr(s + kTcOffW2L), w2h = smem_addr(s + kTcOffW2H);
+  uint32_t ahi[2][F32x3::kTilesPerGroup][4], alo[2][F32x3::kTilesPerGroup][4];
+  float cross[F32x3::kTilesPerGroup][16], high[F32x3::kTilesPerGroup][16], part[F32x3::kTilesPerGroup][16];
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const float4* row = w1 + (j * 4 + c) * 16 + t;  // [j][c][q][t]
-      const float4 a = row[0], b = row[4], cc = row[8], d = row[12];
+  for (int tt = 0; tt < F32x3::kTilesPerGroup; ++tt) {
 #pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const float* in = x[i];
-        float u = a.x * in[0];  // fused_infer.cu's order
-        u = fmaf(a.y, in[1], u);
-        u = fmaf(a.z, in[2], u);
-        u = fmaf(a.w, in[3], u);
-        u = fmaf(b.x, in[4], u);
-        u = fmaf(b.y, in[5], u);
-        u = fmaf(b.z, in[6], u);
-        u = fmaf(b.w, in[7], u);
-        u = fmaf(cc.x, in[8], u);
-        u = fmaf(cc.y, in[9], u);
-        u = fmaf(cc.z, in[10], u);
-        u = fmaf(cc.w, in[11], u);
-        u = fmaf(d.x, in[12], u);
-        u = fmaf(d.y, in[13], u);
-        u = fmaf(d.z, in[14], u);
-        h[c][i] = fmaxf(u + d.w, 0.f);  // + b1', relu
-      }
-    }
-    // A fragment of k step j: {read g, read g + 8} x {units 2t.., 2t + 8..}
-    uint32_t ahi[4], alo[4];
-    split_pack(h[0][0], h[1][0], ahi[0], alo[0]);
-    split_pack(h[0][1], h[1][1], ahi[1], alo[1]);
-    split_pack(h[2][0], h[3][0], ahi[2], alo[2]);
-    split_pack(h[2][1], h[3][1], ahi[3], alo[3]);
-#pragma unroll
-    for (int nt = 0; nt < kTiles2; ++nt) {
-      const uint2 bl = w2l[(j * kTiles2 + nt) * 32 + lane];
-      const uint2 bh = w2h[(j * kTiles2 + nt) * 32 + lane];
-      mma_bf16(cross[nt], ahi, bl);
-      mma_bf16(cross[nt], alo, bh);
-      mma_step(high[nt], ahi, bh);
-    }
+    for (int i = 0; i < 16; ++i) cross[tt][i] = high[tt][i] = part[tt][i] = 0.f;
   }
+  layer1_f32x3<0>(w1, t, x, ahi[0], alo[0]);
+  step_f32x3<0>(w1, w2l, w2h, t, x, ahi, alo, cross, high, part);
+#pragma unroll
+  for (int tt = 0; tt < F32x3::kTilesPerGroup; ++tt) fence_operands(cross[tt]);
 
-  // head: this lane's h2 entries n = 8 nt + 2t + e of reads g (i = 0), g + 8
-  float zx[2][2] = {}, zh[2] = {};  // w3lo.h2hi, w3hi.h2lo; w3hi.h2hi
-#pragma unroll
-  for (int nt = 0; nt < kTiles2; ++nt) {
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int n = 8 * nt + 2 * t + e;
-      const float b2 = sf[kTcOffB2 + n], w3h = sf[kTcOffW3H + n], w3l = sf[kTcOffW3L + n];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const float v = fmaxf(cross[nt][2 * i + e] + high[nt][2 * i + e] + b2, 0.f);
-        const float vh = bf16_round(v), vl = bf16_round(v - vh);
-        zx[i][0] = fmaf(w3l, vh, zx[i][0]);
-        zx[i][1] = fmaf(w3h, vl, zx[i][1]);
-        zh[i] = fmaf(w3h, vh, zh[i]);
-      }
-    }
-  }
+  // head: this lane's h2 entries n = 8 nt + 2t + e of rows g (r = 0), g + 8
   const float b3 = sf[kTcOffB3];
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    z[i] = ((quad_sum(zx[i][0]) + quad_sum(zx[i][1])) + quad_sum(zh[i])) + b3;
+  for (int tt = 0; tt < F32x3::kTilesPerGroup; ++tt) {
+    float zx[2][2] = {}, zh[2] = {};  // w3lo.h2hi, w3hi.h2lo; w3hi.h2hi
+#pragma unroll
+    for (int nt = 0; nt < kTiles2; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int n = 8 * nt + 2 * t + e;
+        const float b2 = sf[kTcOffB2 + n], w3h = sf[kTcOffW3H + n], w3l = sf[kTcOffW3L + n];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const float v = fmaxf(cross[tt][4 * nt + 2 * r + e] + high[tt][4 * nt + 2 * r + e] + b2, 0.f);
+          const float vh = bf16_round(v), vl = bf16_round(v - vh);
+          zx[r][0] = fmaf(w3l, vh, zx[r][0]);
+          zx[r][1] = fmaf(w3h, vl, zx[r][1]);
+          zh[r] = fmaf(w3h, vh, zh[r]);
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      z[2 * tt + r] = ((quad_sum(zx[r][0]) + quad_sum(zx[r][1])) + quad_sum(zh[r])) + b3;
+    }
   }
 }
 
-// z of reads g and g + 8 (rows l0, l1), bf16; s is the staged range [W2H, end)
-__device__ __forceinline__ void bf16_reads(const float* __restrict__ features,
-                                           const int8_t* __restrict__ kmer_ids,
-                                           const uint32_t* s, int64_t l0, int64_t l1,
-                                           int lane, float (&z)[2]) {
+// input column c (0..15; 15 is the zero padding) of a read
+__device__ __forceinline__ float input_col(const float* f, const int8_t* k, const float* emb, int c) {
+  if (c < kFeat) return f[c];
+  if (c >= kIn) return 0.f;
+  return emb[kEmb * static_cast<int>(k[(c - kFeat) / kEmb]) + (c - kFeat) % kEmb];
+}
+
+// layer 1's A fragment of one read pair: columns 2t, 2t + 1, 2t + 8, 2t + 9
+// of rows g (f0, k0) and g + 8 (f1, k1)
+__device__ __forceinline__ void load_a1(const float* f0, const int8_t* k0, const float* f1, const int8_t* k1,
+                                        const float* emb, int t, uint32_t (&a)[4]) {
+  a[0] = pack_bf16x2(input_col(f0, k0, emb, 2 * t), input_col(f0, k0, emb, 2 * t + 1));
+  a[1] = pack_bf16x2(input_col(f1, k1, emb, 2 * t), input_col(f1, k1, emb, 2 * t + 1));
+  a[2] = pack_bf16x2(input_col(f0, k0, emb, 2 * t + 8), input_col(f0, k0, emb, 2 * t + 9));
+  a[3] = pack_bf16x2(input_col(f1, k1, emb, 2 * t + 8), input_col(f1, k1, emb, 2 * t + 9));
+}
+
+// layer 2's A fragment of k step j: layer 1's n8 tiles 2j, 2j + 1 with the
+// bias (units 16j + 2t.., 16j + 8 + 2t..), relu, packed to bf16
+__device__ __forceinline__ void pack_a2(const float (&h)[80], const float2* b1, int j, int t, uint32_t (&a)[4]) {
+  const float2 bl = b1[8 * j + t], bh = b1[8 * j + 4 + t];
+  const float* c0 = h + 8 * j;
+  const float* c1 = h + 8 * j + 4;
+  a[0] = pack_bf16x2(fmaxf(c0[0] + bl.x, 0.f), fmaxf(c0[1] + bl.y, 0.f));
+  a[1] = pack_bf16x2(fmaxf(c0[2] + bl.x, 0.f), fmaxf(c0[3] + bl.y, 0.f));
+  a[2] = pack_bf16x2(fmaxf(c1[0] + bh.x, 0.f), fmaxf(c1[1] + bh.y, 0.f));
+  a[3] = pack_bf16x2(fmaxf(c1[2] + bh.x, 0.f), fmaxf(c1[3] + bh.y, 0.f));
+}
+
+// z of rows g (z[0]) and g + 8 (z[1]) of one tile, bf16, from its layer-1
+// A fragment; s is the staged range [W2H, end)
+__device__ __forceinline__ void bf16_tile(const uint32_t* s, int t, const uint32_t (&a1)[4], float (&z)[2]) {
   constexpr int kBase = kTcOffW2H;
   const float* sf = reinterpret_cast<const float*>(s);
-  const float* emb = sf + (kTcOffEmbH - kBase);
-  const int t = lane & 3;
-  // layer 1's A fragment: columns 2t, 2t + 1, 2t + 8, 2t + 9 of reads g, g + 8
-  uint32_t a1[4];
-  a1[0] = pack_bf16x2(input_col(features, kmer_ids, emb, l0, 2 * t),
-                      input_col(features, kmer_ids, emb, l0, 2 * t + 1));
-  a1[1] = pack_bf16x2(input_col(features, kmer_ids, emb, l1, 2 * t),
-                      input_col(features, kmer_ids, emb, l1, 2 * t + 1));
-  a1[2] = pack_bf16x2(input_col(features, kmer_ids, emb, l0, 2 * t + 8),
-                      input_col(features, kmer_ids, emb, l0, 2 * t + 9));
-  a1[3] = pack_bf16x2(input_col(features, kmer_ids, emb, l1, 2 * t + 8),
-                      input_col(features, kmer_ids, emb, l1, 2 * t + 9));
-
-  const uint2* w1h = reinterpret_cast<const uint2*>(s + (kTcOffW1H - kBase));
-  const uint2* w2h = reinterpret_cast<const uint2*>(s + (kTcOffW2H - kBase));
+  const uint32_t w2h = smem_addr(s + (kTcOffW2H - kBase));
   const float2* b1 = reinterpret_cast<const float2*>(sf + (kTcOffB1 - kBase));
-  float acc[kTiles2][4] = {};
-#pragma unroll (kStepUnroll)
-  for (int j = 0; j < kKSteps; ++j) {
-    float c0[4] = {0.f, 0.f, 0.f, 0.f}, c1[4] = {0.f, 0.f, 0.f, 0.f};  // n8 tiles 2j, 2j + 1
-    mma_bf16(c0, a1, w1h[(2 * j) * 32 + lane]);
-    mma_bf16(c1, a1, w1h[(2 * j + 1) * 32 + lane]);
-    const float2 bl = b1[8 * j + t], bh = b1[8 * j + 4 + t];  // units 16j + 2t.., 16j + 8 + 2t..
-    uint32_t a2[4];
-    a2[0] = pack_bf16x2(fmaxf(c0[0] + bl.x, 0.f), fmaxf(c0[1] + bl.y, 0.f));
-    a2[1] = pack_bf16x2(fmaxf(c0[2] + bl.x, 0.f), fmaxf(c0[3] + bl.y, 0.f));
-    a2[2] = pack_bf16x2(fmaxf(c1[0] + bh.x, 0.f), fmaxf(c1[1] + bh.y, 0.f));
-    a2[3] = pack_bf16x2(fmaxf(c1[2] + bh.x, 0.f), fmaxf(c1[3] + bh.y, 0.f));
+  float h[80];
 #pragma unroll
-    for (int nt = 0; nt < kTiles2; ++nt) mma_step(acc[nt], a2, w2h[(j * kTiles2 + nt) * 32 + lane]);
+  for (int i = 0; i < 80; ++i) h[i] = 0.f;
+  fence_operands(h);
+  wgmma_fence();
+  wgmma_n160(h, a1, b_desc(smem_addr(s + (kTcOffW1H - kBase))));
+  wgmma_commit();
+  wgmma_wait_all();
+  fence_operands(h);
+
+  uint32_t a2[kKSteps][4];  // every k step's A fragment at once: h dies here
+#pragma unroll
+  for (int j = 0; j < kKSteps; ++j) pack_a2(h, b1, j, t, a2[j]);
+  // two steps in flight: step j + 1 is issued before step j's product,
+  // in its own accumulator, is added to the sum
+  float acc[16], part[2][16];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) acc[i] = part[0][i] = part[1][i] = 0.f;
+  fence_operands(part[0]);
+  wgmma_fence();
+  wgmma_n32(part[0], a2[0], b_desc(w2h), 0);
+  wgmma_commit();
+#pragma unroll
+  for (int j = 0; j < kKSteps; ++j) {
+    if (j + 1 < kKSteps) {
+      fence_operands(part[(j + 1) & 1]);
+      wgmma_fence();
+      wgmma_n32(part[(j + 1) & 1], a2[j + 1], b_desc(w2h + (j + 1) * kW2StepBytes), 0);
+      wgmma_commit();
+      wgmma_wait_one();
+    } else {
+      wgmma_wait_all();
+    }
+    fence_operands(part[j & 1]);
+#pragma unroll
+    for (int i = 0; i < 16; ++i) acc[i] += part[j & 1][i];
   }
 
   float zz[2] = {0.f, 0.f};
@@ -330,8 +556,8 @@ __device__ __forceinline__ void bf16_reads(const float* __restrict__ features,
       const int n = 8 * nt + 2 * t + e;
       const float b2 = sf[kTcOffB2 - kBase + n], w3 = sf[kTcOffW3H - kBase + n];
 #pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        zz[i] = fmaf(w3, bf16_round(fmaxf(acc[nt][2 * i + e] + b2, 0.f)), zz[i]);
+      for (int r = 0; r < 2; ++r) {
+        zz[r] = fmaf(w3, bf16_round(fmaxf(acc[4 * nt + 2 * r + e] + b2, 0.f)), zz[r]);
       }
     }
   }
@@ -340,57 +566,168 @@ __device__ __forceinline__ void bf16_reads(const float* __restrict__ features,
   z[1] = quad_sum(zz[1]) + b3;
 }
 
+// Where item `item`'s inputs come from: bulk copies into a stage, or (the
+// ragged last item, or one whose copy from a misaligned start would end past
+// the tensors) plain loads from device memory.
+template <class C>
+struct Stream {
+  const float* features;
+  const int8_t* kmer_ids;
+  int64_t n_reads;
+  uint32_t feat_skew, kmer_skew;  // bytes the tensors start past a 16-byte boundary
+
+  __device__ bool bulk(int64_t item) const {
+    const int64_t rest = n_reads - (item + 1) * C::kItemReads;  // reads after the item
+    return rest >= 0 && rest * kFeat * 4 >= (feat_skew ? 16 - feat_skew : 0) &&
+           rest * kPos >= (kmer_skew ? 16 - kmer_skew : 0);
+  }
+  __device__ uint32_t feat_bytes() const { return C::kItemFeatBytes + (feat_skew ? 16 : 0); }
+  __device__ uint32_t kmer_bytes() const { return C::kItemKmerBytes + (kmer_skew ? 16 : 0); }
+};
+
 // kmer_ids are int8 ids in [0, 66); the Python wrapper checks the range
 template <int Mode>
-__global__ void __launch_bounds__(kThreads, kMinBlocks)
+__global__ void __launch_bounds__(Cfg<Mode>::kThreads, 1)
 read_prob_tc_kernel(const float* __restrict__ features, const int8_t* __restrict__ kmer_ids,
                     const uint32_t* __restrict__ image, int64_t n_reads, float* __restrict__ p_out) {
-  constexpr int kBegin = Mode == kModeF32x3 ? kTcOffW1F : kTcOffW2H;
-  constexpr int kWords = (Mode == kModeF32x3 ? kTcOffW1H : kTcWords) - kBegin;
-  __shared__ __align__(16) uint32_t s[kWords];
-  for (int i = threadIdx.x; i < kWords / 4; i += kThreads) {
-    reinterpret_cast<uint4*>(s)[i] = reinterpret_cast<const uint4*>(image + kBegin)[i];
+  using C = Cfg<Mode>;
+  constexpr int kStages = C::kStages;
+  extern __shared__ __align__(128) uint8_t smem[];
+  uint32_t* s = reinterpret_cast<uint32_t*>(smem);
+  uint8_t* stages = smem + C::kStagesAt;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + C::kBarriersAt);  // full[kStages], empty[kStages]
+
+  for (int i = threadIdx.x; i < C::kWords / 4; i += C::kThreads) {
+    reinterpret_cast<uint4*>(s)[i] = reinterpret_cast<const uint4*>(image + C::kBegin)[i];
   }
+  if (threadIdx.x == 0) {
+    for (int k = 0; k < kStages; ++k) {
+      bar_init(smem_addr(bars + k), 1);
+      bar_init(smem_addr(bars + kStages + k), kGroupThreads);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // the weights were written by the generic proxy; wgmma reads them by the async one
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   __syncthreads();
 
-  const int lane = threadIdx.x & 31;
-  const int64_t n_tiles = (n_reads + kTileReads - 1) / kTileReads;
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * kWarps;
-  // the tile index is the same on all lanes of a warp, so every mma sees a
-  // converged warp
-  for (int64_t tile = static_cast<int64_t>(blockIdx.x) * kWarps + threadIdx.x / 32; tile < n_tiles;
-       tile += stride) {
-    const int64_t r0 = tile * kTileReads + lane / 4, r1 = r0 + 8;
-    const int64_t l0 = r0 < n_reads ? r0 : n_reads - 1;  // valid reads; not stored
-    const int64_t l1 = r1 < n_reads ? r1 : n_reads - 1;
-    float z[2];
-    if constexpr (Mode == kModeF32x3) {
-      f32x3_reads(features, kmer_ids, s, l0, l1, lane, z);
-    } else {
-      bf16_reads(features, kmer_ids, s, l0, l1, lane, z);
+  const Stream<C> in{features, kmer_ids, n_reads,
+                     static_cast<uint32_t>(reinterpret_cast<uintptr_t>(features) & 15),
+                     static_cast<uint32_t>(reinterpret_cast<uintptr_t>(kmer_ids) & 15)};
+  const int64_t n_items = (n_reads + C::kItemReads - 1) / C::kItemReads;
+  const int group = threadIdx.x / kGroupThreads;
+
+  if (group == C::kConsumers) {  // the producer warpgroup
+    if constexpr (C::kConsumers >= 2) asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (threadIdx.x != C::kConsumers * kGroupThreads) return;
+    const uint8_t* feat_base = reinterpret_cast<const uint8_t*>(features) - in.feat_skew;
+    const uint8_t* kmer_base = reinterpret_cast<const uint8_t*>(kmer_ids) - in.kmer_skew;
+    for (int64_t q = 0;; ++q) {
+      const int64_t item = blockIdx.x + q * gridDim.x;
+      if (item >= n_items) break;
+      const int k = static_cast<int>(q % kStages);
+      const uint32_t full = smem_addr(bars + k), empty = smem_addr(bars + kStages + k);
+      bar_wait(empty, static_cast<uint32_t>(((q / kStages) & 1) ^ 1));
+      if (in.bulk(item)) {
+        const uint32_t stage = smem_addr(stages + k * C::kStageBytes);
+        bar_arrive_tx(full, in.feat_bytes() + in.kmer_bytes());
+        bulk_copy(stage, feat_base + item * C::kItemFeatBytes, in.feat_bytes(), full);
+        bulk_copy(stage + C::kStageFeatBytes, kmer_base + item * C::kItemKmerBytes, in.kmer_bytes(), full);
+      } else {
+        bar_arrive(full);  // the consumer reads this item from device memory
+      }
     }
-    const int t = lane & 3;
-    if (t == 0 && r0 < n_reads) p_out[r0] = 1.f / (1.f + expf(-z[0]));
-    if (t == 1 && r1 < n_reads) p_out[r1] = 1.f / (1.f + expf(-z[1]));
+    return;
+  }
+
+  if constexpr (C::kConsumers >= 2) asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(C::kConsumerRegs));
+  const int lane = threadIdx.x & 31, t = lane & 3;
+  const int row = 16 * ((threadIdx.x / 32) & 3) + lane / 4;  // row g of this warp's 16 in a tile
+  const float* sf = reinterpret_cast<const float*>(s);
+  for (int64_t q = group;; q += C::kConsumers) {
+    const int64_t item = blockIdx.x + q * gridDim.x;
+    if (item >= n_items) break;
+    const int k = static_cast<int>(q % kStages);
+    bar_wait(smem_addr(bars + k), static_cast<uint32_t>((q / kStages) & 1));
+    const int64_t first = item * C::kItemReads;
+    const bool bulk = in.bulk(item);
+    const uint8_t* stage = stages + k * C::kStageBytes;
+    const float* stage_f = reinterpret_cast<const float*>(stage + in.feat_skew);
+    const int8_t* stage_k = reinterpret_cast<const int8_t*>(stage + C::kStageFeatBytes + in.kmer_skew);
+    float z[C::kReads];
+    if constexpr (Mode == kModeF32x3) {
+      float x[C::kReads][kIn];
+#pragma unroll
+      for (int i = 0; i < C::kReads; ++i) {
+        const int r = 64 * (i / 2) + row + 8 * (i % 2);  // read of the item
+        if (bulk) {
+          load_inputs(stage_f + r * kFeat, stage_k + r * kPos, sf + kTcOffEmbX, x[i]);
+        } else {
+          const int64_t want = first + r, l = want < n_reads ? want : n_reads - 1;  // valid; not stored
+          load_inputs(features + l * kFeat, kmer_ids + l * kPos, sf + kTcOffEmbX, x[i]);
+        }
+      }
+      bar_arrive(smem_addr(bars + kStages + k));  // the stage is free
+      f32x3_reads(s, t, x, z);
+    } else {
+      const float* emb = sf + (kTcOffEmbH - kTcOffW2H);
+      uint32_t a1[C::kTilesPerGroup][4];
+#pragma unroll
+      for (int tt = 0; tt < C::kTilesPerGroup; ++tt) {
+        const int r = 64 * tt + row;
+        if (bulk) {
+          load_a1(stage_f + r * kFeat, stage_k + r * kPos, stage_f + (r + 8) * kFeat, stage_k + (r + 8) * kPos,
+                  emb, t, a1[tt]);
+        } else {
+          const int64_t w0 = first + r, w1 = w0 + 8;
+          const int64_t l0 = w0 < n_reads ? w0 : n_reads - 1, l1 = w1 < n_reads ? w1 : n_reads - 1;
+          load_a1(features + l0 * kFeat, kmer_ids + l0 * kPos, features + l1 * kFeat, kmer_ids + l1 * kPos,
+                  emb, t, a1[tt]);
+        }
+      }
+      bar_arrive(smem_addr(bars + kStages + k));
+#pragma unroll
+      for (int tt = 0; tt < C::kTilesPerGroup; ++tt) {
+        float zt[2];
+        bf16_tile(s, t, a1[tt], zt);
+        z[2 * tt] = zt[0];
+        z[2 * tt + 1] = zt[1];
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < C::kReads; ++i) {
+      const int64_t r = first + 64 * (i / 2) + row + 8 * (i % 2);
+      if (t == i % 2 && r < n_reads) p_out[r] = 1.f / (1.f + expf(-z[i]));
+    }
   }
 }
 
 template <int Mode>
 cudaError_t launch(const float* features, const int8_t* kmer_ids, const uint32_t* image,
                    int64_t n_reads, float* p, cudaStream_t stream) {
-  int device = 0, sms = 0, per_sm = 0;
+  using C = Cfg<Mode>;
+  int device = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err == cudaSuccess) {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, read_prob_tc_kernel<Mode>, kThreads, 0);
+    err = cudaFuncSetAttribute(read_prob_tc_kernel<Mode>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               C::kSmemBytes);
   }
   if (err != cudaSuccess) return err;
-  const int64_t tiles = (n_reads + kTileReads - 1) / kTileReads;
-  const int64_t needed = (tiles + kWarps - 1) / kWarps;
-  const int64_t resident = static_cast<int64_t>(sms) * (per_sm > 0 ? per_sm : 1);
-  const int grid = static_cast<int>(needed < resident ? needed : resident);
-  read_prob_tc_kernel<Mode><<<grid, kThreads, 0, stream>>>(features, kmer_ids, image, n_reads, p);
+  const int64_t items = (n_reads + C::kItemReads - 1) / C::kItemReads;
+  const int grid = static_cast<int>(items < sms ? items : sms);
+  read_prob_tc_kernel<Mode><<<grid, C::kThreads, C::kSmemBytes, stream>>>(features, kmer_ids, image, n_reads, p);
   return cudaGetLastError();
+}
+
+template <int Mode>
+void config(int32_t* out) {
+  using C = Cfg<Mode>;
+  out[0] = C::kThreads;
+  out[1] = C::kConsumers;
+  out[2] = C::kStages;
+  out[3] = C::kItemReads;
+  out[4] = C::kSmemBytes;
 }
 
 }  // namespace
@@ -412,9 +749,21 @@ int read_prob_tc_launch(const float* features, const int8_t* kmer_ids, const uin
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// Reads one block takes per step (warps x 16): the tile whose ragged edge
-// the tests and chip_smoke.py exercise.
-int read_prob_tc_block_reads(void) { return kWarps * kTileReads; }
+// The launch of `mode` (1 = f32x3, 2 = bf16): threads a block, consumer
+// warpgroups, ring stages, reads an item (a consumer warpgroup's 64-read
+// tiles: the tile whose ragged edge the tests and chip_smoke.py exercise),
+// dynamic shared memory bytes (fused_infer_kernel.TC_CONFIG_KEYS).  Returns
+// cudaErrorInvalidValue for another mode.
+int read_prob_tc_config(int mode, int32_t* out) {
+  if (mode == kModeF32x3) {
+    config<kModeF32x3>(out);
+  } else if (mode == kModeBf16) {
+    config<kModeBf16>(out);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaSuccess);
+}
 
 const char* read_prob_tc_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

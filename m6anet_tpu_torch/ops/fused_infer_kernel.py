@@ -63,6 +63,8 @@ PACKED_WEIGHTS = 7400  # float count of the kernel's weight image (see the .cu)
 PRECISIONS = ("f32", "f32x3", "bf16")
 # the tensor-core kernel's mode argument (kModeF32x3, kModeBf16 in the .cu)
 TC_MODES = {"f32x3": 1, "bf16": 2}
+# what read_prob_tc_config reports of the tensor-core kernel's launch
+TC_CONFIG_KEYS = ("threads", "consumer_warpgroups", "stages", "tile_reads", "dynamic_smem_bytes")
 
 # The tensor-core image (32-bit words; csrc/read_prob_tc.cu documents it).
 # Hidden units are padded to 160 with zero weights and zero bias: layer 1's
@@ -130,8 +132,9 @@ def _bf16x2_words(pairs: torch.Tensor) -> torch.Tensor:
 
 
 def _pack_tc(w1t, embt, b1t, w2t, b2t, w3t, b3t) -> torch.Tensor:
-    """The tensor-core kernel's image, in its fragment order (lane l of a
-    warp is group g = l // 4, thread t = l % 4 of the ``mma`` fragments)."""
+    """The tensor-core kernel's image: layer 1 of f32x3 in the order its
+    lanes read it (lane t of a quad computes 4 units a k step), and each
+    ``wgmma`` B operand in the canonical K-major layout without swizzle."""
     pad = HIDDEN1_PAD - HIDDEN1
     w1b = torch.cat([w1t, b1t], dim=1)  # (150, 16): W1'[n, 0:15], b1'[n]
     w1b = torch.cat([w1b, w1b.new_zeros(pad, 16)])  # (160, 16)
@@ -139,15 +142,13 @@ def _pack_tc(w1t, embt, b1t, w2t, b2t, w3t, b3t) -> torch.Tensor:
     unit = 16 * j + 2 * t + (c & 1) + 8 * (c >> 1)  # the 4 units lane t computes in k step j
     w1f = w1b.view(HIDDEN1_PAD, 4, 4)[unit].permute(0, 1, 3, 2, 4)  # [j][c][q][t][4]
 
-    g, t, reg, e = torch.meshgrid(torch.arange(8), torch.arange(4), torch.arange(2), torch.arange(2), indexing="ij")
-    k = 2 * t + 8 * reg + e  # B fragment of m16n8k16: k of (lane 4g + t, register, half)
+    # B (n x k16): core matrices of 8 n x 8 k, the two k halves of a k16
+    # step side by side, then the groups of 8 n
     w1k = torch.cat([w1t, w1t.new_zeros(HIDDEN1, 1)], dim=1)  # k = 15 is zero, never the bias
     w1k = torch.cat([w1k, w1k.new_zeros(pad, 16)])  # (160, 16)
-    w1h = torch.stack([w1k[8 * nt + g, k] for nt in range(TC_TILES1)])  # [nt][g][t][reg][e]
+    w1h = w1k.reshape(TC_TILES1, 8, 2, 8).permute(0, 2, 1, 3)  # [n group][k half][n][k]
     w2k = torch.cat([w2t, w2t.new_zeros(HIDDEN2, pad)], dim=1)  # (32, 160)
-    w2 = torch.stack([
-        torch.stack([w2k[8 * nt + g, 16 * ks + k] for nt in range(TC_TILES2)]) for ks in range(TC_K_STEPS)
-    ])  # [ks][nt][g][t][reg][e]
+    w2 = w2k.reshape(TC_TILES2, 8, TC_K_STEPS, 2, 8).permute(2, 0, 3, 1, 4)  # [step][n group][k half][n][k]
     w2_hi, w2_lo = bf16_split(w2)
     emb = embt.t()
     emb_hi, emb_lo = bf16_split(emb)
@@ -160,12 +161,12 @@ def _pack_tc(w1t, embt, b1t, w2t, b2t, w3t, b3t) -> torch.Tensor:
         words(w1f),  # W1F
         words(emb_hi + emb_lo),  # EMBX
         words(w3_lo),  # W3L
-        _bf16x2_words(w2_lo).reshape(-1),  # W2L
-        _bf16x2_words(w2_hi).reshape(-1),  # W2H
+        _bf16x2_words(w2_lo.reshape(-1, 2)),  # W2L
+        _bf16x2_words(w2_hi.reshape(-1, 2)),  # W2H
         words(b2t.reshape(-1)),  # B2
         words(w3_hi),  # W3H
         words(torch.cat([b3t.reshape(-1), b3t.new_zeros(3)])),  # B3, zero padding
-        _bf16x2_words(w1h).reshape(-1),  # W1H
+        _bf16x2_words(w1h.reshape(-1, 2)),  # W1H
         words(torch.cat([b1t.reshape(-1), b1t.new_zeros(pad)])),  # B1
         words(bf16_round(emb)),  # EMBH
     ]
@@ -354,8 +355,8 @@ def tc_kernel_lib() -> ctypes.CDLL:
             lib.read_prob_tc_launch.argtypes = (
                 [ctypes.c_void_p] * 4 + [ctypes.c_int64, ctypes.c_int, ctypes.c_void_p]
             )
-            lib.read_prob_tc_block_reads.restype = ctypes.c_int
-            lib.read_prob_tc_block_reads.argtypes = []
+            lib.read_prob_tc_config.restype = ctypes.c_int
+            lib.read_prob_tc_config.argtypes = [ctypes.c_int, ctypes.c_void_p]
             lib.read_prob_tc_error_string.restype = ctypes.c_char_p
             lib.read_prob_tc_error_string.argtypes = [ctypes.c_int]
             _tc_lib = lib
@@ -363,13 +364,22 @@ def tc_kernel_lib() -> ctypes.CDLL:
 
 
 def read_tile_reads(precision: str = "f32") -> int:
-    """Reads one block of phase A takes per tile (f32: threads per block x
-    reads per thread; the reduced modes: warps per block x 16); builds the
-    kernel if needed."""
+    """Reads phase A takes per tile (f32: threads per block x reads per
+    thread; the reduced modes: the 64-read tiles of one consumer
+    warpgroup's item, which differ by mode); builds the kernel if needed."""
     check_precision(precision)
     if precision == "f32":
         return int(kernel_lib().read_prob_tile_reads())
-    return int(tc_kernel_lib().read_prob_tc_block_reads())
+    return tc_kernel_config(precision)["tile_reads"]
+
+
+def tc_kernel_config(precision: str) -> dict:
+    """The tensor-core kernel's launch in ``precision`` ("f32x3" or "bf16"),
+    by ``TC_CONFIG_KEYS``; builds the kernel if needed."""
+    out = (ctypes.c_int32 * len(TC_CONFIG_KEYS))()
+    if tc_kernel_lib().read_prob_tc_config(TC_MODES[precision], out) != 0:
+        raise RuntimeError(f"read_prob_tc has no launch for precision {precision!r}")
+    return dict(zip(TC_CONFIG_KEYS, out))
 
 
 def launch_read_prob_tc(fp: FusedParamsT, features: torch.Tensor, kmer_ids: torch.Tensor,

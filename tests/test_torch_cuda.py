@@ -268,6 +268,31 @@ def test_mc_kernel_gives_nan_for_sites_the_launch_cannot_take(cuda_device):
     assert torch.equal(got[~bad], want[~bad])
 
 
+@pytest.mark.parametrize("precision", ["f32", "f32x3", "bf16"])
+def test_phase_b_gives_nan_for_sites_whose_span_leaves_p(cuda_device, precision):
+    """offsets and counts that put a site's span outside p (a negative
+    offset, a negative count, a span past the last read): that site's
+    site_p and mod_ratio are NaN, with no load outside p, and every other
+    output keeps its value bit for bit."""
+    fp = fik.prepare_fused_params_t(_model().to(cuda_device))
+    X, K, offsets, counts = (torch.from_numpy(a).to(cuda_device) for a in _ragged_batch())
+    n = X.shape[0]
+    args = (DEFAULT_READ_THRESHOLD, 20, precision)
+    want = fik.fused_inference_t(fp, X, K, None, offsets, counts, *args)
+    bad_offsets, bad_counts = offsets.clone(), counts.clone()
+    bad_offsets[4] = -3
+    bad_counts[9] = -1
+    bad_offsets[20], bad_counts[20] = n - 2, 3
+    got = fik.fused_inference_t(fp, X, K, None, bad_offsets, bad_counts, *args)
+    torch.cuda.synchronize()
+    bad = torch.zeros(counts.numel(), dtype=torch.bool, device=cuda_device)
+    bad[[4, 9, 20]] = True
+    assert torch.equal(got[0], want[0])
+    for a, b in zip(got[1:], want[1:]):
+        assert bool(a[bad].isnan().all()) and not bool(b[bad].isnan().any())
+        assert torch.equal(a[~bad], b[~bad])
+
+
 def test_engine_mc_step_makes_no_host_sync(cuda_device, monkeypatch):
     """The engine's MC step hands the MC wrapper the batch's host offsets
     and counts, so the wrapper checks them without a device-to-host sync:
@@ -377,7 +402,7 @@ def test_reduced_modes_match_plain(cuda_device, mode):
     assert all(torch.equal(a, b) for a, b in zip(got, again))
     got32 = fik.fused_inference_t(fp, X, K.int(), *args[2:])
     assert all(torch.equal(a, b) for a, b in zip(got, got32))
-    for k in (1, 3, 129):
+    for k in (1, 3, 70, 129):  # 70 moves reads across a 64-read tile
         assert torch.equal(encoder_kernel.fused_read_probability(fp, X[k:], K[k:], mode), got[0][k:]), k
     for batch in fik.ragged_tail_batches(fik.read_tile_reads(mode)):
         Xt, Kt, ot, ct = (torch.from_numpy(a).to(cuda_device) for a in batch)

@@ -292,42 +292,67 @@ def test_tc_image_layout_matches_the_kernel(models):
     b1 = part("B1", c["kH1Pad"]).view(torch.float32)
     assert torch.equal(b1[: fik.HIDDEN1], fp.b1t[:, 0]) and not b1[fik.HIDDEN1 :].any()
 
-    # B fragments of m16n8k16 (lane 4g + t, register reg, half e):
-    # n = 8 tile + g, k = 2t + 8 reg + e
-    def fragments(name, n_tiles, n_steps=1):
-        vals = _bf16_pairs(part(name, n_steps * n_tiles * 64))
-        return vals.reshape(n_steps, n_tiles, 8, 4, 2, 2)  # [step][tile][g][t][reg][e]
+    # wgmma B operands, K-major without swizzle: bf16 (n, k) of a k16 step at
+    # byte (n // 8) SBO + (k // 8) LBO + (n % 8) row bytes + 2 (k % 8)
+    def operand(name, n_steps, n_rows, step_bytes):
+        vals = _bf16_pairs(img[c[f"kTcOff{name}"] :]).reshape(-1)  # bf16 values in byte order
+        step, n, k = torch.meshgrid(torch.arange(n_steps), torch.arange(n_rows), torch.arange(16), indexing="ij")
+        at = step * step_bytes + (n // 8) * c["kBSbo"] + (k // 8) * c["kBLbo"] + (n % 8) * c["kBRowBytes"] + 2 * (k % 8)
+        return vals[at // 2]  # [step][n][k]
 
-    w1h = fragments("W1H", c["kTiles1"])[0]
-    w2h = fragments("W2H", c["kTiles2"], c["kKSteps"])
-    w2l = fragments("W2L", c["kTiles2"], c["kKSteps"])
     w1k = torch.zeros(c["kH1Pad"], 16)
     w1k[: fik.HIDDEN1, :15] = fp.w1t  # column 15 stays zero: never the bias
-    w2_hi, w2_lo = fik.bf16_split(torch.cat([fp.w2t, torch.zeros(fik.HIDDEN2, pad)], dim=1))
-    for g in range(8):
-        for t in range(4):
-            for reg in range(2):
-                for e in range(2):
-                    k = 2 * t + 8 * reg + e
-                    assert torch.equal(w1h[:, g, t, reg, e], fik.bf16_round(w1k[8 * torch.arange(20) + g, k]))
-                    for ks in range(c["kKSteps"]):
-                        n = 8 * torch.arange(4) + g
-                        assert torch.equal(w2h[ks, :, g, t, reg, e], w2_hi[n, 16 * ks + k])
-                        assert torch.equal(w2l[ks, :, g, t, reg, e], w2_lo[n, 16 * ks + k])
-    assert not w1h[fik.HIDDEN1 // 8 :, (fik.HIDDEN1 % 8) :].any() and not w1h[19].any()  # units 150..159
-    # each mode stages one contiguous, 16-byte aligned range
+    assert torch.equal(operand("W1H", 1, c["kH1Pad"], 0)[0], fik.bf16_round(w1k))
+    assert c["kTcOffB1"] - c["kTcOffW1H"] == c["kH1Pad"] * 16 // 2  # W1H fills its range
+    w2k = torch.cat([fp.w2t, torch.zeros(fik.HIDDEN2, pad)], dim=1)  # (32, 160)
+    w2_hi, w2_lo = fik.bf16_split(w2k.reshape(fik.HIDDEN2, c["kKSteps"], 16).permute(1, 0, 2))  # [step][n][k]
+    for name, want in (("W2H", w2_hi), ("W2L", w2_lo)):
+        assert torch.equal(operand(name, c["kKSteps"], c["kH2"], c["kW2StepBytes"]), want), name
+    assert c["kKSteps"] * c["kW2StepBytes"] == 4 * (c["kTcOffW2H"] - c["kTcOffW2L"])  # W2L fills its range
+    assert c["kW2StepBytes"] == c["kTiles2"] * c["kBSbo"] and c["kBSbo"] == 2 * c["kBLbo"] == 16 * c["kBRowBytes"]
+    # each mode stages one contiguous, 16-byte aligned range; every operand
+    # starts 16-byte aligned (a descriptor's address is in 16-byte units)
     assert c["kTcOffW2H"] % 4 == 0 and c["kTcOffW1H"] % 4 == 0 and c["kTcWords"] % 4 == 0
+    assert c["kTcOffW2L"] % 4 == 0 and (c["kTcOffW1H"] - c["kTcOffW2H"]) % 4 == 0
+
+
+_TC_MODE_NAMES = {"f32x3": "F32x3", "bf16": "Bf16"}  # the .cu's constants of each mode
+
+
+def _tc_tile(mode):
+    """Reads of one item of read_prob_tc.cu in ``mode`` (the tile_reads of
+    its read_prob_tc_config): its 64-read tiles, from the .cu's constants."""
+    c = _tc_constants()
+    assert c["kTileReads"] == 64
+    return c["kTileReads"] * c[f"k{_TC_MODE_NAMES[mode]}Tiles"]
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_ragged_tails_cover_the_tc_tile(mode):
+    """ragged_tail_batches of the tensor-core kernel's tile in ``mode`` end
+    it raggedly: the tile - 1 and tile + 1 reads, and past the reads a
+    block's consumer warpgroups take at once; each batch's sites stay
+    inside it."""
+    c = _tc_constants()
+    tile = _tc_tile(mode)
+    sizes = [b[0].shape[0] for b in fik.ragged_tail_batches(tile)]
+    assert {tile - 1, tile + 1} <= set(sizes)
+    assert max(sizes) > c[f"k{_TC_MODE_NAMES[mode]}Consumers"] * tile + 1
+    for X, K, offsets, counts in fik.ragged_tail_batches(tile):
+        n = X.shape[0]
+        assert K.shape == (n, 3) and int(counts.sum()) <= n
+        assert ((offsets >= 0) & (offsets + counts <= n)).all()
 
 
 @pytest.mark.parametrize("mode", MODES)
 def test_modes_on_ragged_tails_and_narrow_ids(models, mode):
     """The cases the card checks the tensor-core kernel on, the ragged
-    tails of its 128-read block: on CPU tensors the wrapper is the plain
-    version, int8 and int32 k-mer ids give the same outputs, and padding
-    sites give site_p 1."""
+    tails of its tile: on CPU tensors the wrapper is the plain version, int8
+    and int32 k-mer ids give the same outputs, and padding sites give
+    site_p 1."""
     _, port = models
     fp = fik.prepare_fused_params_t(port)
-    for X, K, offsets, counts in fik.ragged_tail_batches(128):
+    for X, K, offsets, counts in fik.ragged_tail_batches(_tc_tile(mode)):
         args = (None, *_t(offsets, counts), DEFAULT_READ_THRESHOLD, 20, mode)
         got = fik.fused_inference_t(fp, *_t(X, K), *args)
         want = fik.fused_inference_t_plain(fp, *_t(X, K), *args)
@@ -375,9 +400,10 @@ def test_cli_precision_flag(tmp_path, capsys):
 
 def test_sweep_rewrites_the_tc_kernels_constants(models):
     """scripts/sweep_read_prob_tc.py rewrites each of its constants once in
-    read_prob_tc.cu, and its ways of summing the tensor-core products give
-    plain versions that agree with the checked-in one (the same function,
-    summed otherwise)."""
+    read_prob_tc.cu, every ablation of the checked-in source finds its
+    lines, and its ways of summing the tensor-core products give plain
+    versions that agree with the checked-in one (the same function, summed
+    otherwise)."""
     from unittest import mock
 
     from m6anet_tpu_torch.scripts import _sweep, sweep_read_prob_tc as sweep
@@ -386,9 +412,12 @@ def test_sweep_rewrites_the_tc_kernels_constants(models):
     with open(path) as f:
         text = f.read()
     for values in sweep.VARIANTS:
-        rewritten = _sweep.variant_source(text, sweep.CONSTANTS, values, "read_prob_tc.cu")
-        for name, value in zip(sweep.CONSTANTS, values):
+        assert values[1] % values[0] == 0, values  # each stage serves one consumer warpgroup
+        names, settings = sweep.variant_constants(values)
+        rewritten = _sweep.variant_source(text, names, settings, "read_prob_tc.cu")
+        for name, value in zip(names, settings):
             assert f"constexpr int {name} = {value};" in rewritten
+    assert [name for name, _ in sweep.ablation_builds(text)] == list(sweep.ABLATIONS["wgmma"])
     _, port = models
     fp = fik.prepare_fused_params_t(port)
     X, K, *_ = _packed_batch()
