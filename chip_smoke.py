@@ -14,13 +14,14 @@ version:
                  on batches whose read count ends phase A's tile raggedly (1,
                  2, 3, 255, 257, one tile +- 1 and 4097 reads)
   4. full        fused_inference_t (f32) vs plain at the production batch
-                 (1,048,576 reads / 16,384 sites), and two launches
+                 (1,048,576 reads / 16,384 sites, made by
+                 scripts/_sweep.production_batch as every sweep makes it), and two launches
                  bit-identical; placement: p of batch[k:] is p[k:] of the
                  whole batch, bit for bit, for k = 1, 3, 70, 129
   5. e2e         the inference CLI on tests/data (default device, --backend
                  auto and --precision auto = f32x3: the main path) against the
                  golden CSVs, with the kernels' launches as the run reports
-                 them; again with --precision f32 (golden) and --precision
+                 them (phase B's launches among them); again with --precision f32 (golden) and --precision
                  bf16 (golden site, per read within 2e-2 of the f32 run); the
                  other three pretrained models once
   6. timing      f32 kernel, plain version and bound at the production batch;
@@ -45,14 +46,21 @@ version:
                  --precision f32 and f32x3, each with its kernels' launches
                  as its run reports them
  11. timing      the MC kernel and the two entry points: kernel, plain
-                 version and bound at the production batch; the MC wrapper
-                 both ways (sites checked on the device, with a host sync,
-                 and from the host arrays), mc_site_kernel's ptxas usage and
+                 version and bound at the production batch; every wrapper
+                 both ways (inputs checked on the device, with a host sync,
+                 and from the host arrays, as the engine calls them), the
+                 host cost of the k-mer check, mc_site_kernel's ptxas usage and
                  the SM clock; in a line of their own, the floors of mc.cu's
                  design at this batch (models counted from the batch, the
                  SASS and the card's maximum SM clock, not timings)
  12. modes       phase B's spans: in every precision, sites whose span
                  leaves p give NaN and every other output is bit-identical;
+                 phase B on each precision's own p the same bits as the
+                 plain site ops on it (the production batch and a small
+                 ragged batch, and each with three reads made NaN), and
+                 phase B alone on
+                 fused_infer_kernel.site_reduce_batch (p at the edges of
+                 the exact sums, NaN reads, counts 0 to 57,344);
                  f32x3 and bf16 (read_prob_tc.cu, then phase B of
                  fused_infer.cu) vs plain on a small batch, the ragged tails
                  of each mode's tensor-core tile, the production batch, shifted
@@ -62,16 +70,23 @@ version:
                  within 1e-6, site_p 1e-5 (+ 20 max|dp| at a site holding a
                  read further apart), mod_ratio equal but at reads near or
                  across the threshold; repeats bit-identical
- 13. timing      each mode's wrapper call, phase A alone, plain version,
-                 device split, bound at the production batch (and phase B's
-                 own), and read_prob_tc_kernel's registers (ptxas) and
-                 launch (threads, consumer warpgroups, ring stages, tile,
-                 dynamic shared memory)
+ 13. timing      each mode's wrapper call (both ways), phase A alone, plain
+                 version, device split, bound at the production batch, and
+                 read_prob_tc_kernel's registers (ptxas) and launch
+                 (threads, consumer warpgroups, ring stages, tile, dynamic
+                 shared memory); phase B alone (its wrapper, CUDA events,
+                 L2 flushed) beside its bound, its plain version and
+                 torch.segment_reduce of 1 - p (a yardstick that computes
+                 only the sums); site_reduce_kernel's registers and spills.
+                 A wrapper call with host arrays times the pair (phase A
+                 then phase B): the flush before it keeps the card busy
+                 while the host launches
 
 Any failure exits nonzero.  The last line is the
 ``{"ok": true, "device": {...}}`` result; before it come the MC floors' JSON
-line, the kernels' JSON line (measured values and each kernel's bound), a
-timing line and the card's ``nvidia-smi`` name and power limit.
+line, the kernels' JSON line (measured values and each kernel's bound, phase
+B's site_reduce_kernel with its own entry), a timing line and the card's
+``nvidia-smi`` name and power limit.
 """
 from __future__ import annotations
 
@@ -173,11 +188,6 @@ def small_count(rng):
         return int(rng.integers(2, 30))
 
     return draw
-
-
-def production_count(rng):
-    # HEK293T-shaped read counts: clip(gamma(2, 30), 20, 1000), mean ~60
-    return lambda s: int(min(max(rng.gamma(2.0, 30.0), 20), 1000))
 
 
 # reads compared and reads more than CLOSE apart, by precision, over every
@@ -299,6 +309,58 @@ def check_span_fault(fik, fp, batch, precision):
         f"every other output bit for bit: {kept}")
     if not (nan and kept):
         fail("phase B does not give NaN to exactly the sites whose span leaves p")
+
+
+def check_phase_b(fik, fp, batch, label, precision):
+    """Phase B on the kernel's own p of ``precision``: site_p and mod_ratio
+    the same bits as the plain site ops give on that p, and phase B alone
+    on that p with three reads made NaN (phase A makes no NaN: its ReLU
+    drops one)."""
+    from m6anet_tpu_torch.scripts._sweep import same_bits
+
+    features, kmer, offsets, counts = (torch.from_numpy(a).cuda() for a in batch)
+    p, site_p, mod_ratio = fik.fused_inference_t(fp, features, kmer, None, offsets, counts, THRESHOLD, 20, precision)
+    want = fik.site_reduce_plain(p, offsets, counts, THRESHOLD)
+    ok = same_bits(site_p, want[0]) and same_bits(mod_ratio, want[1])
+    p[[0, 700, 2000]] = float("nan")
+    got_nan = fik.site_reduce(p, offsets, counts, THRESHOLD)
+    want_nan = fik.site_reduce_plain(p, offsets, counts, THRESHOLD)
+    torch.cuda.synchronize()
+    ok_nan = all(same_bits(a, b) for a, b in zip(got_nan, want_nan)) and bool(got_nan[0].isnan().any())
+    log(f"[phase B exact] {label} precision={precision}: site_p and mod_ratio the same bits as the plain "
+        f"site ops on the kernel's p: {ok}; with three NaN reads: {ok_nan}")
+    if not (ok and ok_nan):
+        fail(f"phase B on {label} ({precision}) is not bit-identical to the plain site ops")
+
+
+def check_phase_b_alone(fik):
+    """Phase B alone on site_reduce_batch (p at the edges of the exact sums,
+    NaN reads, counts 0 to 57,344): the same bits as its plain version, and
+    a repeat too."""
+    from m6anet_tpu_torch.scripts._sweep import same_bits
+
+    p, offsets, counts = (torch.from_numpy(a).cuda() for a in fik.site_reduce_batch())
+    got = fik.site_reduce(p, offsets, counts, THRESHOLD)
+    again = fik.site_reduce(p, offsets, counts, THRESHOLD)
+    want = fik.site_reduce_plain(p, offsets, counts, THRESHOLD)
+    torch.cuda.synchronize()
+    ok = all(same_bits(a, b) for a, b in zip(got, want))
+    repeat = all(same_bits(a, b) for a, b in zip(got, again))
+    log(f"[phase B exact] site_reduce_batch ({counts.numel()} sites, {int(counts.sum())} reads, "
+        f"{int(p[: int(counts.sum())].isnan().sum())} NaN reads): the same bits as the plain version: {ok}; "
+        f"repeat: {repeat}")
+    if not (ok and repeat):
+        fail("phase B alone is not bit-identical to its plain version on site_reduce_batch")
+
+
+def host_check_ms(fik, kmer_host, reps=50):
+    """Median host time of checked_kmer_ids on the batch's host ids."""
+    times = []
+    for _ in range(reps):
+        start = time.perf_counter()
+        fik.checked_kmer_ids(kmer_host)
+        times.append((time.perf_counter() - start) * 1e3)
+    return statistics.median(times)
 
 
 def compare_entries(fik, enc, site_ops, fp, batch, label, precision="f32"):
@@ -525,7 +587,7 @@ def main():
     tails = fik.ragged_tail_batches(tile)  # own seed: the batches below do not depend on them
     for batch in tails:
         max_err = max(max_err, compare(fik, fp, batch, f"tail {batch[0].shape[0]}"))
-    full_batch = make_batch(rng, 1 << 20, 16384, production_count(rng))
+    full_batch = _sweep.production_batch()
     max_err = max(max_err, compare(fik, fp, full_batch, "full"))
     check_placement(fik, enc, fp, full_batch)
 
@@ -540,7 +602,8 @@ def main():
         f"kernel launches {launches}")
     if "backend=cuda_fused" not in path or "device=cuda" not in path or "precision=f32x3" not in path:
         fail(f"main path ran as {path!r}, not the fused CUDA kernels at f32x3")
-    if launches.get("fused_inference_t", 0) < 1 or launches.get("read_prob_tc_f32x3", 0) < 1 or n_batches < 1:
+    if (launches.get("fused_inference_t", 0) < 1 or launches.get("read_prob_tc_f32x3", 0) < 1
+            or launches.get("site_reduce", 0) < 1 or n_batches < 1):
         fail("the main path did not launch the tensor-core kernel and phase B of fused_infer.cu")
     if "fused_inference" not in launches:
         fail("the engine did not report the launches of fused_inference")
@@ -577,9 +640,13 @@ def main():
     # ---- 6. timing at the production batch
     features, kmer, offsets, counts = (torch.from_numpy(a).cuda() for a in full_batch)
     args = (features, kmer, None, offsets, counts, THRESHOLD)
-    kernel_ms = time_ms(lambda: fik.fused_inference_t(fp, *args))
+    host_kmer = fik.checked_kmer_ids(full_batch[1])  # the engine checks on its pack thread
+    kernel_ms = time_ms(lambda: fik.fused_inference_t(fp, *args, host_kmer_ids=host_kmer))
+    kernel_device_check_ms = time_ms(lambda: fik.fused_inference_t(fp, *args))
     plain_ms = time_ms(lambda: fik.fused_inference_t_plain(fp, *args))
-    split = device_split_ms(lambda: fik.fused_inference_t(fp, *args))
+    split = device_split_ms(lambda: fik.fused_inference_t(fp, *args, host_kmer_ids=host_kmer))
+    log(f"[timing] f32 wrapper call: {kernel_ms:.4f} ms with host arrays, {kernel_device_check_ms:.4f} ms "
+        f"checking on the device")
     sm_clock = _sweep.smi("clocks.sm")
     phase_a = _build.ptxas_usage(built["fused_infer"][0], "read_prob_kernel")
     log(f"[timing] device time per launch by kernel (torch.profiler, ms): {split or 'not measured'}")
@@ -607,6 +674,7 @@ def main():
         "library_note": "no single PyTorch call computes the encoder and the per-site reductions",
         "launches_per_batch": f32_launches["fused_inference_t"] / f32_batches,
         "path": "inference --precision f32, exact (phase 5)",
+        "ms_device_check": kernel_device_check_ms,
         "device_ms": split,
         "phase_a_ptxas": phase_a,
         "sm_clock_after_timing": sm_clock,
@@ -715,7 +783,11 @@ def main():
     })
 
     site_ids = site_ops.derive_site_ids(offsets, counts, n_reads, n_sites)
-    enc_ms = time_ms(lambda: enc.fused_read_probability(fp, features, kmer))
+    enc_ms = time_ms(lambda: enc.fused_read_probability(fp, features, kmer, host_kmer_ids=host_kmer))
+    enc_device_check_ms = time_ms(lambda: enc.fused_read_probability(fp, features, kmer))
+    kmer_check_ms = host_check_ms(fik, full_batch[1])
+    log(f"[timing] fused_read_probability (f32): {enc_ms:.4f} ms with host arrays, {enc_device_check_ms:.4f} ms "
+        f"checking on the device; checked_kmer_ids on the host at {full_batch[1].size} ids: {kmer_check_ms:.4f} ms")
     enc_plain_ms = time_ms(lambda: enc.fused_read_probability_plain(fp, features, kmer))
     enc_flop_ms = n_reads * FLOP_PER_READ / peak_flops * 1e3
     enc_byte_ms = (features.numel() * 4 + kmer.numel() + fp.packed.numel() * 4 + n_reads * 4) / peak_bw * 1e3
@@ -734,6 +806,8 @@ def main():
         "library_note": "no single PyTorch call computes the encoder",
         "launches_per_batch": enc_launches["fused_read_probability"] / enc_batches,
         "path": "inference --backend cuda --precision f32 (phase 10)",
+        "ms_device_check": enc_device_check_ms,
+        "host_kmer_check_ms": kmer_check_ms,
     })
     fi_args = (fp, features, kmer, site_ids, counts, THRESHOLD)
     fi_ms = time_ms(lambda: fik.fused_inference(*fi_args))
@@ -764,7 +838,13 @@ def main():
         f"{ {mode: fik.tc_kernel_config(mode) for mode in MODES} }")
     for precision in ("f32", *MODES):
         check_span_fault(fik, fp, tc_tails["f32x3"][-1], precision)
+    ragged = make_batch(rng, 4096, 128, small_count(rng))
+    check_phase_b_alone(fik)
+    for precision in ("f32", *MODES):
+        for batch, label in ((full_batch, "production batch"), (ragged, "small ragged batch")):
+            check_phase_b(fik, fp, batch, label, precision)
     tc_ptxas = {}
+    mode_kernels = {}
     for mode in MODES:
         mode_err = compare(fik, fp, make_batch(rng, 4096, 128, small_count(rng)), f"{mode} small", mode)
         for batch in tc_tails[mode]:
@@ -777,22 +857,23 @@ def main():
         tc_ptxas[mode] = _build.ptxas_usage(
             built["read_prob_tc"][0], f"read_prob_tc_kernelILi{fik.TC_MODES[mode]}E")
         mode_args = (*args, 20, mode)
-        mode_ms = time_ms(lambda: fik.fused_inference_t(fp, *mode_args))
+        mode_ms = time_ms(lambda: fik.fused_inference_t(fp, *mode_args, host_kmer_ids=host_kmer))
+        mode_device_check_ms = time_ms(lambda: fik.fused_inference_t(fp, *mode_args))
         mode_plain_ms = time_ms(lambda: fik.fused_inference_t_plain(fp, *mode_args))
-        mode_phase_a_ms = time_ms(lambda: enc.fused_read_probability(fp, features, kmer, mode))
-        mode_split = device_split_ms(lambda: fik.fused_inference_t(fp, *mode_args))
+        mode_phase_a_ms = time_ms(lambda: enc.fused_read_probability(fp, features, kmer, mode, host_kmer_ids=host_kmer))
+        mode_phase_a_device_check_ms = time_ms(lambda: enc.fused_read_probability(fp, features, kmer, mode))
+        mode_split = device_split_ms(lambda: fik.fused_inference_t(fp, *mode_args, host_kmer_ids=host_kmer))
         mode_clock = _sweep.smi("clocks.sm")
         ops = MODE_FLOP_PER_READ[mode]
         op_ms = max(n_reads * ops["f32"] / peak_flops, n_reads * ops["bf16"] / BF16_TENSOR_FLOPS) * 1e3
         mode_byte_ms = (bytes_moved - fp.packed.numel() * 4 + fp.tc.numel() * 4) / peak_bw * 1e3
-        # phase B alone: p once, offsets and counts in, site_p and mod_ratio out
-        phase_b_bytes = n_reads * 4 + (offsets.numel() + counts.numel()) * 4 + 2 * n_sites * 4
         cli = {"f32x3": (launches, n_batches, "inference, exact, --precision auto = f32x3 (phase 5: the main path)"),
                "bf16": (bf16_launches, bf16_batches, "inference --precision bf16, exact (phase 5)")}[mode]
-        log(f"[timing {mode}] wrapper {mode_ms:.4f} ms, phase A alone {mode_phase_a_ms:.4f} ms, plain "
+        log(f"[timing {mode}] wrapper {mode_ms:.4f} ms with host arrays, {mode_device_check_ms:.4f} ms checking on "
+            f"the device; phase A alone {mode_phase_a_ms:.4f} / {mode_phase_a_device_check_ms:.4f} ms; plain "
             f"{mode_plain_ms:.4f} ms; device time per launch (torch.profiler, ms): {mode_split or 'not measured'}; "
             f"read_prob_tc_kernel ptxas: {tc_ptxas[mode]}; SM clock right after: {mode_clock}")
-        kernels.append({
+        mode_kernels[mode] = {
             "name": f"fused_inference_t[{mode}]",
             "route": "cuda",
             "source": "m6anet_tpu_torch/ops/csrc/read_prob_tc.cu",
@@ -808,15 +889,57 @@ def main():
             "launches_per_batch": cli[0][f"read_prob_tc_{mode}"] / cli[1],
             "path": cli[2],
             "kernels": "read_prob_tc_kernel (phase A) + site_reduce_kernel of fused_infer.cu (phase B)",
+            "ms_device_check": mode_device_check_ms,
             "phase_a_ms": mode_phase_a_ms,
+            "phase_a_ms_device_check": mode_phase_a_device_check_ms,
             "device_ms": mode_split,
-            "phase_b_bound_ms": phase_b_bytes / peak_bw * 1e3,
-            "phase_b_bytes": phase_b_bytes,
             "read_prob_tc_ptxas": tc_ptxas[mode],
             "read_prob_tc_launch": fik.tc_kernel_config(mode),
             "sm_clock_after_timing": mode_clock,
             "golden_max_errors": golden[mode],
-        })
+        }
+
+    # phase B alone on the f32x3 p of the production batch (the main path's),
+    # and a library yardstick
+    p_tc = fik.fused_inference_t(fp, *args, 20, "f32x3", host_kmer_ids=host_kmer)[0]
+    n_real_reads = int(counts.sum())
+    phase_b_ms = time_ms(lambda: fik.site_reduce(p_tc, offsets, counts, THRESHOLD))
+    phase_b_plain_ms = time_ms(lambda: fik.site_reduce_plain(p_tc, offsets, counts, THRESHOLD))
+    one_minus = 1.0 - p_tc[:n_real_reads]
+    segment_ms = time_ms(lambda: torch.segment_reduce(one_minus, "sum", lengths=counts))
+    phase_b_split = device_split_ms(lambda: fik.site_reduce(p_tc, offsets, counts, THRESHOLD))
+    phase_b_ptxas = _build.ptxas_usage(built["fused_infer"][0], "site_reduce_kernel")
+    # the reads of the spans once, offsets and counts in, site_p and mod_ratio out
+    phase_b_bytes = 4 * n_real_reads + 16 * n_sites
+    phase_b_bound_ms = phase_b_bytes / peak_bw * 1e3
+    log(f"[timing phase B] alone {phase_b_ms:.4f} ms (bound {phase_b_bound_ms:.4f} ms, {phase_b_bytes} bytes), "
+        f"plain {phase_b_plain_ms:.4f} ms, torch.segment_reduce of 1 - p (the sums alone) {segment_ms:.4f} ms; "
+        f"device time per launch (torch.profiler, ms): {phase_b_split or 'not measured'}; "
+        f"site_reduce_kernel ptxas: {phase_b_ptxas}")
+    for mode in MODES:
+        mode_kernels[mode].update(phase_b_bound_ms=phase_b_bound_ms, phase_b_bytes=phase_b_bytes)
+        kernels.append(mode_kernels[mode])
+    kernels.append({
+        "name": "site_reduce_kernel",
+        "route": "cuda",
+        "source": "m6anet_tpu_torch/ops/csrc/fused_infer.cu",
+        "replaces": _replaces("fused_infer.cu", "site_reduce_launch"),
+        "launches": launches["site_reduce"],
+        "max_abs_err": 0.0,  # the same bits as the plain version, or the run has failed
+        "ms": phase_b_ms,
+        "plain_ms": phase_b_plain_ms,
+        "bound_ms": phase_b_bound_ms,
+        "bound_by": "bytes",
+        "library_ms": None,
+        "library_note": "no single PyTorch call computes the segment mean, the noisy-OR power and the hit "
+                        "ratio; torch.segment_reduce of 1 - p computes the sums alone (segment_reduce_ms)",
+        "segment_reduce_ms": segment_ms,
+        "bound_share": phase_b_bound_ms / phase_b_ms,
+        "launches_per_batch": launches["site_reduce"] / n_batches,
+        "path": "inference, exact, --precision auto = f32x3 (phase 5: the main path), after read_prob_tc_kernel",
+        "device_ms": phase_b_split,
+        "site_reduce_kernel_ptxas": phase_b_ptxas,
+    })
 
     for precision in P_ATOL:
         check_close_share(precision)
@@ -830,6 +953,7 @@ def main():
             "sm_clock_after_timing": sm_clock,
             "mc_demo_cli_wall_s": mc_wall, "mc_demo_path": mc_path,
             "cuda_backend_demo_cli_wall_s": enc_wall, "cuda_backend_demo_path": enc_path,
+            "real_reads": int(counts.sum()), "phase_b_ms": phase_b_ms, "host_kmer_check_ms": kmer_check_ms,
             "card": smi,
         }
     }))

@@ -149,11 +149,13 @@ def make_infer_step(
     precision: str = "f32",
 ):
     """Build the per-batch device function
-    ``step(features, kmer_ids, offsets, counts, host_sites=None) -> (p, site_p, mod_ratio)``
-    on tensors already on the model's device.  ``kmer_ids`` may be int8.
-    ``host_sites`` is ``(offsets, counts)`` as the numpy arrays the tensors
-    were copied from; the MC kernel's wrapper then checks the sites on the
-    host, with no host sync.
+    ``step(features, kmer_ids, offsets, counts, host_sites=None, host_kmer_ids=None)
+    -> (p, site_p, mod_ratio)`` on tensors already on the model's device.
+    ``kmer_ids`` may be int8.  ``host_sites`` is ``(offsets, counts)`` as the
+    numpy arrays the tensors were copied from; the MC kernel's wrapper then
+    checks the sites on the host, with no host sync.  ``host_kmer_ids`` is
+    ``fused_infer_kernel.checked_kmer_ids`` of the array ``kmer_ids`` was
+    copied from; the CUDA backends' encoder wrappers then make no host sync.
 
     ``method="mc"`` replaces the exact site probability with the sampled
     estimator over ``n_iterations`` iterations drawn from ``seed``.  On the
@@ -181,7 +183,7 @@ def make_infer_step(
     if backend == "torch":
         key = random.key_from_seed(seed)
 
-        def step(features, kmer_ids, offsets, counts, host_sites=None):
+        def step(features, kmer_ids, offsets, counts, host_sites=None, host_kmer_ids=None):
             site_ids = site_ops.derive_site_ids(offsets, counts, features.shape[0], site_capacity)
             p = model.per_read_probability({"X": features, "kmer": kmer_ids})
             if method == "mc":
@@ -204,9 +206,10 @@ def make_infer_step(
 
     if backend == "cuda_fused":
 
-        def fused_step(features, kmer_ids, offsets, counts, host_sites=None):
+        def fused_step(features, kmer_ids, offsets, counts, host_sites=None, host_kmer_ids=None):
             p, site_p, mod_ratio = fused_infer_kernel.fused_inference_t(
-                fp, features, kmer_ids, None, offsets, counts, threshold, n_samples, precision
+                fp, features, kmer_ids, None, offsets, counts, threshold, n_samples, precision,
+                host_kmer_ids=host_kmer_ids,
             )
             if method == "mc":
                 site_p = mc_site_p(p, offsets, counts, host_sites)
@@ -214,8 +217,10 @@ def make_infer_step(
 
         return fused_step
 
-    def encoder_step(features, kmer_ids, offsets, counts, host_sites=None):
-        p = encoder_kernel.fused_read_probability(fp, features, kmer_ids, precision)
+    def encoder_step(features, kmer_ids, offsets, counts, host_sites=None, host_kmer_ids=None):
+        p = encoder_kernel.fused_read_probability(
+            fp, features, kmer_ids, precision, host_kmer_ids=host_kmer_ids
+        )
         site_ids = site_ops.derive_site_ids(offsets, counts, features.shape[0], site_capacity)
         if method == "mc":
             site_p = mc_site_p(p, offsets, counts, host_sites)
@@ -350,6 +355,7 @@ def run_inference(
         "fused_read_probability": lambda: encoder_kernel.launch_count,
         "site_probability_mc": lambda: mc_kernel.launch_count,
         "fused_inference": lambda: fused_infer_kernel.fused_inference_launch_count,
+        "site_reduce": lambda: fused_infer_kernel.site_reduce_launch_count,
         **{
             f"read_prob_tc_{mode}": (lambda mode=mode: fused_infer_kernel.tc_launch_counts[mode])
             for mode in fused_infer_kernel.tc_launch_counts
@@ -435,11 +441,17 @@ def run_inference(
 
         from ..data.prefetch import threaded_iter
 
+        def checked(batches):
+            # the k-mer range check, on the pack thread: the dispatch stage
+            # then launches with no host sync and no host scan of the ids
+            for batch in batches:
+                yield batch, fused_infer_kernel.checked_kmer_ids(batch.kmer_ids)
+
         packed = pack_sites(
             sites_to_score(), read_capacity=read_capacity, site_capacity=site_capacity
         )
-        batches = threaded_iter(packed, depth=pipeline_depth + 1)
-        for batch in _timed_iter(timer, "featurize+pack", batches):
+        batches = threaded_iter(checked(packed), depth=pipeline_depth + 1)
+        for batch, host_kmer in _timed_iter(timer, "featurize+pack", batches):
             # derive_site_ids treats count 0 as padding: a real site with no
             # reads would shift the ids of every site after it
             if (batch.counts[: batch.n_sites] < 1).any():
@@ -447,13 +459,10 @@ def run_inference(
             while len(inflight) >= max_inflight:
                 drain()
             with timer.stage("dispatch"):
-                kmer = batch.kmer_ids
-                if kmer.dtype != np.int8:
-                    kmer = kmer.astype(np.int8)
                 p, site_p, mod_ratio = step(
-                    to_device(batch.features), to_device(kmer),
+                    to_device(batch.features), to_device(host_kmer.ids),
                     to_device(batch.offsets), to_device(batch.counts),
-                    host_sites=(batch.offsets, batch.counts),
+                    host_sites=(batch.offsets, batch.counts), host_kmer_ids=host_kmer,
                 )
                 outputs = (p, site_p, mod_ratio) if write_indiv else (site_p, mod_ratio)
                 # CSV rendering needs only sites/offsets/counts: drop the

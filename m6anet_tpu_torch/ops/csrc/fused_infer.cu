@@ -9,6 +9,10 @@
 //                       its wrapper derives the offsets from the counts)
 //   read_prob_launch    m6anet_tpu/ops/encoder_kernel.py:207
 //                       (fused_read_probability: phase A alone)
+//   site_reduce_launch  m6anet_tpu/ops/fused_infer_kernel.py:358
+//                       (phase B alone: the site half of fused_inference_t's
+//                       kernel body, after the f32x3 and bf16 phase A of
+//                       read_prob_tc.cu)
 //
 // What it computes, for a batch packed by data/batching.py::pack_sites
 // (site s owns the contiguous reads [offsets[s], offsets[s] + counts[s]);
@@ -31,7 +35,11 @@
 // of p): ~330 FLOP per byte, far above the H100's ~20 FLOP/B f32 ridge
 // (67 TFLOP/s over 3.35 TB/s on the SXM part), so the step is bound by the
 // f32 CUDA cores: ~0.22 ms for a 1,048,576-read batch on an H100 SXM.  The
-// per-site phase reads p once more (4 B per read) and is negligible.
+// per-site phase (phase B) reads p once more (4 B per read) and the spans
+// (8 B per site) and writes 8 B per site: 4.45 MB at the production batch
+// (16,384 sites), 1.3 us at 3.35 TB/s.  It is bound by latency, not bytes:
+// each site is a chain of dependent round trips to device memory (its span,
+// then its reads, then its results).
 //
 // What this design does about it:
 //  * Phase A, R reads per thread (register blocking over reads, R =
@@ -61,11 +69,37 @@
 //    take reads base + t + j * kReadThreads, so each of a warp's loads
 //    covers 32 neighbouring reads; past the end of the batch a thread
 //    computes the last read again and does not store it.
-//  * Phase B, one warp per site.  Lanes walk the site's span in a fixed
-//    stride, accumulate sum(1 - p) in f64 and the hit count in int, and a
-//    fixed-shape shuffle tree combines them: no float atomics, so repeat
-//    runs are bit-identical.  (The f64 sum makes the site mean independent
-//    of the summation order; the plain PyTorch version sums in f64 too.)
+//  * Phase B is bound by latency and by its own instruction issue, not by
+//    bytes: on an H100 an empty kernel launched in its place takes about
+//    half its time.  So it takes one round trip of each kind per site, with
+//    every load of a kind in flight at once, and few instructions a read.
+//    A site's reads are spread over kSiteLanes lanes (32 / kSiteLanes sites
+//    a warp): each lane loads the site's offset and count (one address for
+//    the site's lanes, neighbouring ones for the warp's sites), then its
+//    share of the span's 16-byte chunks (the span taken from the 16-byte
+//    boundary at or below its first read, reads outside it masked),
+//    kChunkLoads chunks a round, all in flight; a warp skips the chunks
+//    none of its lanes holds.  At 8 lanes and 8 loads a 60-read site is two
+//    loads a lane in one round, a 1,000-read site four rounds.  Each site's
+//    sums add up over its own lanes in redux.sync, every site of the warp
+//    in the same instructions, and the site's first lane finishes it
+//    (division and power).  A grid sized to the SMs walks the warps' runs
+//    of sites.  Launched as a programmatic dependent of phase A (sm_90's
+//    PDL), phase B gained nothing measurable, while the trigger in phase A
+//    cost read_prob_tc.cu spills, so it is launched plainly.
+//  * Exact integer sums.  For f32 p in [0, 1], 1 - p rounds to a multiple
+//    of 2^-24 (exact for p >= 0.5; in (0.5, 1] otherwise, whose spacing is
+//    2^-24), at most 2^24 units.  So a chunk's four terms sum to at most
+//    2^26 units and a lane's kChunkLoads chunks of a round to 2^31; a lane
+//    adds its rounds in 64 bits, and split at bit 24 the lanes' totals add
+//    up over the site's lanes in two redux.sync (__reduce_add_sync) that
+//    cannot overflow: exact integer sums, in any order.  The mean,
+//    (double)units * 2^-24 / max(n, 1) rounded to f32, is that of the exact
+//    sum, as an f64 sum of the terms and the plain version's int64 sums in
+//    2^-32 (ops/site_ops.py) give it, bit for bit.  The domain is
+//    what phase A makes: p in [0, 1] or NaN.  A read outside it (NaN, an
+//    infinity, p < 0 or p > 1) makes its site's site_p NaN (with n_samples
+//    = 0: 0, as 1 - NaN ** 0); mod_ratio counts it as p >= threshold says.
 //    The power is the binary exponentiation XLA uses for an integer power.
 //  * No tensor cores in this f32 mode: Hopper's take f32 operands only as
 //    TF32, and even a 3xTF32 split would change every read's rounding,
@@ -123,7 +157,18 @@ constexpr int kReadTile = 2;
 constexpr int kReadThreads = 256;
 constexpr int kReadMinBlocks = 2;
 constexpr int kReadUnroll = 1;
-constexpr int kSiteThreads = 256;  // 8 warps: 8 sites per block
+// Phase B's shape: kSiteThreads threads a block (its occupancy is asked of
+// the card at launch), kSiteLanes lanes a site's reads are spread over (a
+// power of two, at most 32: 32 / kSiteLanes sites a warp) and kChunkLoads
+// 16-byte loads a lane issues at once.  scripts/sweep_site_reduce.py
+// builds copies with these three lines rewritten and times each on the
+// card.
+constexpr int kSiteThreads = 256;
+constexpr int kSiteLanes = 8;
+constexpr int kChunkLoads = 8;
+static_assert(kSiteLanes >= 1 && kSiteLanes <= 32 && (kSiteLanes & (kSiteLanes - 1)) == 0,
+              "a warp holds whole sites");
+static_assert(kChunkLoads >= 1 && kChunkLoads <= 32, "a lane's chunks of a round sum below 2^32");
 
 // kmer_ids are int8 ids in [0, 66); the Python wrapper checks the range
 __global__ void __launch_bounds__(kReadThreads, kReadMinBlocks)
@@ -233,39 +278,91 @@ __device__ __forceinline__ float integer_pow(float x, int n) {
   return acc;
 }
 
+// 1 - v in units of 2^-24: exact for v in [0, 1] (the note above)
+__device__ __forceinline__ uint32_t one_minus_units(float v) {
+  return __float2uint_rz((1.f - v) * 16777216.f);
+}
+
+// the sum of v over the lanes of `group` (a site's), in each of them
+__device__ __forceinline__ uint32_t group_sum(unsigned group, uint32_t v) {
+  return __reduce_add_sync(group, v);
+}
+
 __global__ void __launch_bounds__(kSiteThreads)
 site_reduce_kernel(const float* __restrict__ p, const int32_t* __restrict__ offsets,
                    const int32_t* __restrict__ counts, int64_t n_reads,
                    int64_t n_sites, float threshold, int n_samples,
                    float* __restrict__ site_p, float* __restrict__ mod_ratio) {
-  const int64_t site = (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) / 32;
-  const int lane = threadIdx.x & 31;
-  if (site >= n_sites) return;  // uniform across the warp
-  const int n = counts[site];
-  const int64_t begin = offsets[site];
-  const int64_t end = begin + n;
-  if (n < 0 || begin < 0 || end > n_reads) {  // a span that leaves p: no result, and no load
-    if (lane == 0) site_p[site] = mod_ratio[site] = __int_as_float(0x7fc00000);
-    return;
-  }
-
-  double sum = 0.0;
-  int hits = 0;
-  for (int64_t i = begin + lane; i < end; i += 32) {
-    const float v = p[i];
-    sum += static_cast<double>(1.f - v);
-    hits += v >= threshold ? 1 : 0;
-  }
+  constexpr int G = kSiteLanes;
+  constexpr int kSitesPerWarp = 32 / G;
+  constexpr int kWarps = kSiteThreads / 32;
+  constexpr unsigned kAll = 0xffffffffu;
+  const int lane = threadIdx.x & 31, t = lane % G;
+  const unsigned group = G == 32 ? kAll : ((1u << G) - 1u) << (lane - t);  // the lanes of this lane's site
+  const int64_t n_runs = (n_sites + kSitesPerWarp - 1) / kSitesPerWarp;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kWarps;
+  for (int64_t run = static_cast<int64_t>(blockIdx.x) * kWarps + threadIdx.x / 32; run < n_runs; run += stride) {
+    const int64_t site = run * kSitesPerWarp + lane / G;
+    int32_t begin = 0, count = 0;
+    if (site < n_sites) {  // the G lanes of a site read one address, the warp's sites neighbouring ones
+      begin = offsets[site];
+      count = counts[site];
+    }
+    // a span that leaves p gives NaN and loads nothing
+    const bool ok = count >= 0 && begin >= 0 && static_cast<int64_t>(begin) + count <= n_reads;
+    // the span's 16-byte chunks: chunk q holds reads a + 4q .. a + 4q + 3,
+    // of which read a + 4q + k is the site's when mis <= 4q + k < mis + n
+    const uint32_t mis = ok ? static_cast<uint32_t>((reinterpret_cast<uintptr_t>(p + begin) >> 2) & 3) : 0u;
+    const float* a = p + begin - mis;
+    const int chunks = ok && count > 0 ? static_cast<int>((static_cast<int64_t>(mis) + count + 3) >> 2) : 0;
+    uint64_t units = 0;  // this lane's share of the site's 1 - p, in 2^-24 units
+    uint32_t hits = 0;
+    bool bad = false;    // a read outside [0, 1]
+    // lane t of the site takes chunks t, t + G, ...: kChunkLoads of them at once
+    for (int q0 = t; __any_sync(kAll, q0 < chunks); q0 += G * kChunkLoads) {
+      float4 v[kChunkLoads];
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    sum += __shfl_down_sync(0xffffffffu, sum, o);
-    hits += __shfl_down_sync(0xffffffffu, hits, o);
-  }
-  if (lane == 0) {
-    const double cnt = n > 1 ? static_cast<double>(n) : 1.0;
-    const float mean = static_cast<float>(sum / cnt);
-    site_p[site] = 1.f - integer_pow(mean, n_samples);
-    mod_ratio[site] = static_cast<float>(hits) / static_cast<float>(cnt);
+      for (int m = 0; m < kChunkLoads; ++m) {
+        const int q = q0 + G * m;
+        v[m] = q < chunks ? reinterpret_cast<const float4*>(a)[q] : make_float4(1.f, 1.f, 1.f, 1.f);
+      }
+      uint32_t round_units = 0;  // at most kChunkLoads * 2^26
+#pragma unroll
+      for (int m = 0; m < kChunkLoads; ++m) {
+        const int q = q0 + G * m;
+        if (q >= chunks) break;  // a warp skips what none of its lanes holds
+        const uint32_t r = 4u * static_cast<uint32_t>(q) - mis;  // span index of the chunk's first read
+        const float x[4] = {v[m].x, v[m].y, v[m].z, v[m].w};
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const bool in = r + k < static_cast<uint32_t>(count);
+          const float y = in ? x[k] : 1.f;
+          round_units += one_minus_units(y);
+          hits += in && y >= threshold ? 1u : 0u;
+          bad |= !(y >= 0.f && y <= 1.f);
+        }
+      }
+      units += round_units;
+    }
+    // the site's sums, exact in any order: split at bit 24, neither half's
+    // sum over the site's lanes passes 32 bits; every site of the warp adds
+    // up at once, each over its own lanes
+    const uint32_t sum_hi = group_sum(group, static_cast<uint32_t>(units >> 24));
+    const uint32_t sum_lo = group_sum(group, static_cast<uint32_t>(units & 0xffffffu));
+    const uint32_t sum_hits = group_sum(group, hits);
+    const bool any_bad = (__ballot_sync(kAll, bad) & group) != 0;
+    if (t == 0 && site < n_sites) {
+      float sp = __int_as_float(0x7fc00000), mr = sp;
+      if (ok) {
+        const double cnt = count > 1 ? static_cast<double>(count) : 1.0;
+        const uint64_t total = (static_cast<uint64_t>(sum_hi) << 24) + sum_lo;
+        const float mean = any_bad ? sp : static_cast<float>(static_cast<double>(total) * 0x1p-24 / cnt);
+        sp = 1.f - integer_pow(mean, n_samples);
+        mr = static_cast<float>(sum_hits) / static_cast<float>(cnt);
+      }
+      site_p[site] = sp;
+      mod_ratio[site] = mr;
+    }
   }
 }
 
@@ -291,10 +388,20 @@ cudaError_t launch_read_prob(const float* features, const int8_t* kmer_ids,
 cudaError_t launch_site_reduce(const float* p, const int32_t* offsets, const int32_t* counts,
                                int64_t n_reads, int64_t n_sites, float threshold, int n_samples,
                                float* site_p, float* mod_ratio, cudaStream_t stream) {
-  const int64_t warps_per_block = kSiteThreads / 32;
-  const int64_t blocks = (n_sites + warps_per_block - 1) / warps_per_block;
-  site_reduce_kernel<<<static_cast<unsigned>(blocks), kSiteThreads, 0, stream>>>(
-      p, offsets, counts, n_reads, n_sites, threshold, n_samples, site_p, mod_ratio);
+  int device = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, site_reduce_kernel, kSiteThreads, 0);
+  }
+  if (err != cudaSuccess) return err;
+  constexpr int64_t kWarps = kSiteThreads / 32;
+  const int64_t runs = (n_sites + 32 / kSiteLanes - 1) / (32 / kSiteLanes);
+  const int64_t needed = (runs + kWarps - 1) / kWarps;
+  const int64_t resident = static_cast<int64_t>(sms) * (per_sm > 0 ? per_sm : 1);
+  const int grid = static_cast<int>(needed < resident ? needed : resident);
+  site_reduce_kernel<<<grid, kSiteThreads, 0, stream>>>(p, offsets, counts, n_reads, n_sites, threshold,
+                                                        n_samples, site_p, mod_ratio);
   return cudaGetLastError();
 }
 

@@ -16,14 +16,19 @@ of ``csrc/read_prob_tc.cu`` in the reduced modes ``f32x3`` and ``bf16``
 split, which also takes layer 1 in f32x3 and contracts premultiplied
 tables) — and counts the launch in ``launch_count``; on a CPU tensor it
 runs :func:`fused_read_probability_plain`.  There is no fallback from one
-to the other.
+to the other.  ``host_kmer_ids`` takes the host check of the k-mer ids,
+as ``fused_infer_kernel.fused_inference_t`` does.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
 from .fused_infer_kernel import (
+    CheckedKmerIds,
     FusedParamsT,
+    check_host_kmer_ids,
     check_precision,
     check_read_inputs,
     kernel_lib,
@@ -44,16 +49,23 @@ def fused_read_probability(
     features: torch.Tensor,  # (N, 9) f32
     kmer_ids: torch.Tensor,  # (N, 3) int8 or int32
     precision: str = "f32",
+    host_kmer_ids: Optional[CheckedKmerIds] = None,
 ) -> torch.Tensor:
     """Per-read probabilities p (N,) in ``precision``.  CPU tensors run the
     plain version; CUDA tensors launch phase A of the fused kernel (f32) or
     the tensor-core kernel (f32x3, bf16).  int32 k-mer ids are checked and
-    narrowed to the int8 the kernels read."""
+    narrowed to the int8 the kernels read.  ``host_kmer_ids``
+    (``checked_kmer_ids`` of the array ``kmer_ids`` was copied from)
+    replaces the check on the device, and its host sync."""
     global launch_count
     check_precision(precision)
+    if host_kmer_ids is not None:
+        check_host_kmer_ids(host_kmer_ids, kmer_ids)
     if features.device.type == "cpu":
         return fused_read_probability_plain(fp, features, kmer_ids, precision)
-    kmer_ids = check_read_inputs(fp, features, kmer_ids, "fused_read_probability")
+    kmer_ids = check_read_inputs(
+        fp, features, kmer_ids, "fused_read_probability", host_checked=host_kmer_ids is not None
+    )
     device = features.device
     p = torch.empty(features.shape[0], dtype=torch.float32, device=device)
     if precision != "f32":

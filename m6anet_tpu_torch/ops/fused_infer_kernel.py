@@ -18,6 +18,18 @@ bound on the card and its design.
 ``pack_sites`` layout): it launches the same kernel and counts its launches
 apart, in ``fused_inference_launch_count``.  The engine does not call it.
 
+The site phase (phase B, ``site_reduce_kernel`` of ``csrc/fused_infer.cu``)
+runs after every phase A of the fused entry points; its launches are
+counted in ``site_reduce_launch_count``.
+
+The k-mer ids must lie in [0, 66) (the kernels read the embedding table
+with them unchecked).  By default the wrappers check the tensor on its
+device, which on the card costs one host sync a call.  Given
+``host_kmer_ids``, the host array the tensor was copied from as
+:func:`checked_kmer_ids` returns it (checked on the host, for example on
+the engine's pack thread), the wrapper touches no device data and makes no
+sync.
+
 Every entry point takes ``precision``, the JAX kernels' ``compute_dtype``:
 ``"f32"`` (the kernel above), or the reduced modes ``"f32x3"`` and
 ``"bf16"``, whose phase A is the tensor-core kernel of
@@ -53,9 +65,11 @@ from . import site_ops
 
 # launches of the CUDA kernels in this process, by wrapper: one per
 # fused_inference_t / fused_inference call on CUDA tensors (any precision),
-# and one per launch of read_prob_tc.cu, by precision
+# one per launch of phase B (site_reduce_kernel), and one per launch of
+# read_prob_tc.cu, by precision
 launch_count = 0
 fused_inference_launch_count = 0
+site_reduce_launch_count = 0
 tc_launch_counts = {"f32x3": 0, "bf16": 0}
 
 N_FEATURES, N_POSITIONS, VOCAB, EMB_DIM, HIDDEN1, HIDDEN2 = 9, 3, 66, 2, 150, 32
@@ -309,6 +323,17 @@ def fused_inference_t_plain(
     return p, site_p, mod_ratio
 
 
+# the C interfaces of csrc/fused_infer.cu's launches (fused_infer_launch:
+# features, kmer_ids, offsets, counts, weights, p, site_p, mod_ratio,
+# n_reads, n_sites, threshold, n_samples, stream; site_reduce_launch: p,
+# offsets, counts, site_p, mod_ratio, n_reads, n_sites, threshold,
+# n_samples, stream) and of read_prob_tc.cu's (features, kmer_ids, image,
+# p, n_reads, mode, stream)
+FUSED_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int64, ctypes.c_int64, ctypes.c_float, ctypes.c_int,
+                                          ctypes.c_void_p]
+SITE_REDUCE_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int64, ctypes.c_int64, ctypes.c_float, ctypes.c_int,
+                                                ctypes.c_void_p]
+TC_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int64, ctypes.c_int, ctypes.c_void_p]
 _lib_lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 
@@ -321,19 +346,13 @@ def kernel_lib() -> ctypes.CDLL:
 
             lib = ctypes.CDLL(cuda_library("fused_infer"))
             lib.fused_infer_launch.restype = ctypes.c_int
-            lib.fused_infer_launch.argtypes = (
-                [ctypes.c_void_p] * 8
-                + [ctypes.c_int64, ctypes.c_int64, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-            )
+            lib.fused_infer_launch.argtypes = FUSED_ARGTYPES
             lib.read_prob_launch.restype = ctypes.c_int
             lib.read_prob_launch.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64, ctypes.c_void_p]
             lib.read_prob_tile_reads.restype = ctypes.c_int
             lib.read_prob_tile_reads.argtypes = []
             lib.site_reduce_launch.restype = ctypes.c_int
-            lib.site_reduce_launch.argtypes = (
-                [ctypes.c_void_p] * 5
-                + [ctypes.c_int64, ctypes.c_int64, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-            )
+            lib.site_reduce_launch.argtypes = SITE_REDUCE_ARGTYPES
             lib.fused_infer_error_string.restype = ctypes.c_char_p
             lib.fused_infer_error_string.argtypes = [ctypes.c_int]
             _lib = lib
@@ -352,9 +371,7 @@ def tc_kernel_lib() -> ctypes.CDLL:
 
             lib = ctypes.CDLL(cuda_library("read_prob_tc"))
             lib.read_prob_tc_launch.restype = ctypes.c_int
-            lib.read_prob_tc_launch.argtypes = (
-                [ctypes.c_void_p] * 4 + [ctypes.c_int64, ctypes.c_int, ctypes.c_void_p]
-            )
+            lib.read_prob_tc_launch.argtypes = TC_ARGTYPES
             lib.read_prob_tc_config.restype = ctypes.c_int
             lib.read_prob_tc_config.argtypes = [ctypes.c_int, ctypes.c_void_p]
             lib.read_prob_tc_error_string.restype = ctypes.c_char_p
@@ -439,6 +456,41 @@ SITE_IDS_ERROR = (
 )
 
 
+class CheckedKmerIds(NamedTuple):
+    """Host k-mer ids (N, 3) int8 whose range :func:`checked_kmer_ids` has
+    checked: what a wrapper's ``host_kmer_ids`` takes."""
+
+    ids: np.ndarray
+
+
+def checked_kmer_ids(kmer_ids: np.ndarray) -> CheckedKmerIds:
+    """Check host k-mer ids for the range [0, 66) on the host and return
+    them as int8, marked as checked; raise ValueError on any other id.  An
+    int8 array takes one pass as uint8, where negative ids read as >= 128;
+    wider ids are checked before they are narrowed."""
+    ids = np.asarray(kmer_ids)
+    if not np.issubdtype(ids.dtype, np.integer):
+        raise ValueError(f"kmer_ids must be integers, got {ids.dtype}")
+    if ids.dtype == np.int8:
+        bad = ids.size > 0 and int(ids.view(np.uint8).max()) >= VOCAB
+    else:
+        bad = ids.size > 0 and (int(ids.min()) < 0 or int(ids.max()) >= VOCAB)
+    if bad:
+        raise ValueError(f"kmer_ids must lie in [0, {VOCAB})")
+    return CheckedKmerIds(ids.astype(np.int8, copy=False))
+
+
+def check_host_kmer_ids(host_kmer_ids: CheckedKmerIds, kmer_ids: torch.Tensor) -> None:
+    """Raise unless ``host_kmer_ids`` is checked_kmer_ids' result for an
+    array of ``kmer_ids``' shape."""
+    if not isinstance(host_kmer_ids, CheckedKmerIds):
+        raise TypeError("host_kmer_ids must be what checked_kmer_ids returns")
+    if host_kmer_ids.ids.shape != tuple(kmer_ids.shape):
+        raise ValueError(
+            f"host_kmer_ids have shape {host_kmer_ids.ids.shape}, expected {tuple(kmer_ids.shape)} like kmer_ids"
+        )
+
+
 def _check_kmer_range(kmer_ids: torch.Tensor, bad_site_ids: Optional[torch.Tensor] = None) -> None:
     """Raise on a k-mer id outside [0, 66) (pack_sites never makes one) and,
     given ``bad_site_ids`` (a 0-d bool tensor), on site ids off the dense
@@ -464,20 +516,26 @@ def fused_inference_t(
     threshold: float,
     n_samples: int = 20,
     precision: str = "f32",
+    host_kmer_ids: Optional[CheckedKmerIds] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Returns (p (N,), site_p (S,), mod_ratio (S,)) for a ``pack_sites``
     batch, in ``precision``.  CPU tensors run the plain version; CUDA
     tensors launch the kernels, which read the site spans from (offsets,
     counts) and ignore ``site_ids``.  The kernels read int8 k-mer ids:
-    int32 ids are checked and narrowed first."""
+    int32 ids are checked and narrowed first.  ``host_kmer_ids``
+    (:func:`checked_kmer_ids` of the array ``kmer_ids`` was copied from)
+    replaces the check on the device, and its host sync."""
     global launch_count
     check_precision(precision)
+    if host_kmer_ids is not None:
+        check_host_kmer_ids(host_kmer_ids, kmer_ids)
     if features.device.type == "cpu":
         return fused_inference_t_plain(
             fp, features, kmer_ids, site_ids, offsets, counts, threshold, n_samples, precision
         )
     out = _launch_fused(
-        fp, features, kmer_ids, offsets, counts, threshold, n_samples, "fused_inference_t", precision
+        fp, features, kmer_ids, offsets, counts, threshold, n_samples, "fused_inference_t", precision,
+        host_checked=host_kmer_ids is not None,
     )
     launch_count += 1
     return out
@@ -489,17 +547,21 @@ def check_read_inputs(
     kmer_ids: torch.Tensor,
     name: str,
     bad_site_ids: Optional[torch.Tensor] = None,
+    host_checked: bool = False,
 ) -> torch.Tensor:
     """Check the per-read inputs of a kernel launch (and ``bad_site_ids``,
     in the same host sync); return the k-mer ids as the int8 the kernel
-    reads."""
+    reads.  ``host_checked``: the caller checked the ids' range on the host
+    (``host_kmer_ids``), so only their type and shape are checked here, and
+    nothing waits for the device."""
     if features.device.type != "cuda":
         raise ValueError(f"{name} runs on cpu or cuda, got {features.device}")
     device, n = features.device, features.shape[0]
     check_tensor("features", features, (torch.float32,), (n, N_FEATURES), device)
     check_tensor("kmer_ids", kmer_ids, (torch.int8, torch.int32), (n, N_POSITIONS), device)
     check_tensor("fp.packed", fp.packed, (torch.float32,), (PACKED_WEIGHTS,), device)
-    _check_kmer_range(kmer_ids, bad_site_ids)
+    if not host_checked:
+        _check_kmer_range(kmer_ids, bad_site_ids)
     return kmer_ids.to(torch.int8)
 
 
@@ -508,10 +570,11 @@ def launch_error(lib: ctypes.CDLL, err: int) -> RuntimeError:
 
 
 def _launch_fused(fp, features, kmer_ids, offsets, counts, threshold, n_samples, name, precision,
-                  bad_site_ids=None):
+                  bad_site_ids=None, host_checked=False):
     """Check the inputs and launch both phases: fused_infer.cu's in f32; in
     a reduced mode read_prob_tc.cu's phase A, then fused_infer.cu's phase
     B."""
+    global site_reduce_launch_count
     device = features.device
     n, n_sites = features.shape[0], counts.shape[0]
     if device.type == "cuda":
@@ -519,7 +582,7 @@ def _launch_fused(fp, features, kmer_ids, offsets, counts, threshold, n_samples,
         check_tensor("counts", counts, (torch.int32,), (n_sites,), device)
     if n_samples < 0:
         raise ValueError(f"n_samples must be >= 0, got {n_samples}")
-    kmer_ids = check_read_inputs(fp, features, kmer_ids, name, bad_site_ids)
+    kmer_ids = check_read_inputs(fp, features, kmer_ids, name, bad_site_ids, host_checked)
 
     lib = kernel_lib()
     p = torch.empty(n, dtype=torch.float32, device=device)
@@ -527,24 +590,119 @@ def _launch_fused(fp, features, kmer_ids, offsets, counts, threshold, n_samples,
     mod_ratio = torch.empty(n_sites, dtype=torch.float32, device=device)
     if precision != "f32":
         launch_read_prob_tc(fp, features, kmer_ids, p, precision)
+        launch_site_reduce(p, offsets, counts, threshold, n_samples, site_p, mod_ratio)
+        return p, site_p, mod_ratio
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        if precision == "f32":
-            err = lib.fused_infer_launch(
-                features.data_ptr(), kmer_ids.data_ptr(),
-                offsets.data_ptr(), counts.data_ptr(), fp.packed.data_ptr(),
-                p.data_ptr(), site_p.data_ptr(), mod_ratio.data_ptr(),
-                n, n_sites, float(threshold), int(n_samples), stream,
-            )
-        else:
-            err = lib.site_reduce_launch(
-                p.data_ptr(), offsets.data_ptr(), counts.data_ptr(),
-                site_p.data_ptr(), mod_ratio.data_ptr(),
-                n, n_sites, float(threshold), int(n_samples), stream,
-            )
+        err = lib.fused_infer_launch(
+            features.data_ptr(), kmer_ids.data_ptr(),
+            offsets.data_ptr(), counts.data_ptr(), fp.packed.data_ptr(),
+            p.data_ptr(), site_p.data_ptr(), mod_ratio.data_ptr(),
+            n, n_sites, float(threshold), int(n_samples), stream,
+        )
     if err != 0:
         raise launch_error(lib, err)
+    if n_sites > 0:
+        site_reduce_launch_count += 1
     return p, site_p, mod_ratio
+
+
+def site_reduce_plain(
+    p: torch.Tensor, offsets: torch.Tensor, counts: torch.Tensor, threshold: float, n_samples: int = 20
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Phase B's function in plain PyTorch: (site_p, mod_ratio) of the spans
+    [offsets[s], offsets[s] + counts[s]) of ``p``, with the site ops' exact
+    sums; NaN for both at a site whose span leaves ``p``."""
+    n, n_sites = p.shape[0], counts.shape[0]
+    off, cnt = offsets.long(), counts.long()
+    bad = (cnt < 0) | (off < 0) | (off + cnt > n)
+    take = torch.where(bad, torch.zeros_like(cnt), cnt)
+    seg = torch.repeat_interleave(torch.arange(n_sites, device=p.device), take)
+    first = torch.repeat_interleave(off - (torch.cumsum(take, 0) - take), take)
+    values = p[torch.arange(seg.numel(), device=p.device) + first]
+    site_p = site_ops.site_probability_exact(values, seg, take, n_sites, n_samples)
+    mod_ratio = site_ops.mod_ratio_exact(values, seg, take, n_sites, threshold)
+    nan = torch.full_like(site_p, float("nan"))
+    return torch.where(bad, nan, site_p), torch.where(bad, nan, mod_ratio)
+
+
+def site_reduce(
+    p: torch.Tensor,  # (N,) f32 per-read probabilities
+    offsets: torch.Tensor,  # (S,) i32 first read of each site
+    counts: torch.Tensor,  # (S,) i32 reads per site, 0 = padding site
+    threshold: float,
+    n_samples: int = 20,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Phase B alone: (site_p (S,), mod_ratio (S,)) of the spans of ``p``,
+    as the fused entry points compute them after their phase A.  CPU
+    tensors run :func:`site_reduce_plain`; CUDA tensors launch
+    ``site_reduce_kernel``, which gives the same bits for p in [0, 1] or
+    NaN and NaN site_p at a site holding a read outside [0, 1]."""
+    if p.device.type == "cpu":
+        return site_reduce_plain(p, offsets, counts, threshold, n_samples)
+    if p.device.type != "cuda":
+        raise ValueError(f"site_reduce runs on cpu or cuda, got {p.device}")
+    n_sites = counts.shape[0]
+    check_tensor("p", p, (torch.float32,), (p.shape[0],), p.device)
+    check_tensor("offsets", offsets, (torch.int32,), (n_sites,), p.device)
+    check_tensor("counts", counts, (torch.int32,), (n_sites,), p.device)
+    if n_samples < 0:
+        raise ValueError(f"n_samples must be >= 0, got {n_samples}")
+    site_p = torch.empty(n_sites, dtype=torch.float32, device=p.device)
+    mod_ratio = torch.empty(n_sites, dtype=torch.float32, device=p.device)
+    launch_site_reduce(p, offsets, counts, threshold, n_samples, site_p, mod_ratio)
+    return site_p, mod_ratio
+
+
+def launch_site_reduce(p, offsets, counts, threshold, n_samples, site_p, mod_ratio) -> None:
+    """Launch phase B on the current stream, on checked inputs, and count
+    the launch."""
+    global site_reduce_launch_count
+    n_sites = counts.shape[0]
+    if n_sites == 0:
+        return
+    lib = kernel_lib()
+    with torch.cuda.device(p.device):
+        stream = torch.cuda.current_stream(p.device).cuda_stream
+        err = lib.site_reduce_launch(
+            p.data_ptr(), offsets.data_ptr(), counts.data_ptr(), site_p.data_ptr(), mod_ratio.data_ptr(),
+            p.shape[0], n_sites, float(threshold), int(n_samples), stream,
+        )
+    if err != 0:
+        raise launch_error(lib, err)
+    site_reduce_launch_count += 1
+
+
+# p values at the edges of phase B's exact sums: 1 - p is a whole number of
+# 2^-24 units for each, from 2^24 (p = 0) down to 0 (p = 1)
+PHASE_B_EDGES = np.array([0.0, 2.0**-149, 2.0**-25, 0.5 - 2.0**-25, 0.5, 1 - 2.0**-24, 1.0], np.float32)
+
+
+def site_reduce_batch(seed: int = 3, nan_reads: bool = True):
+    """``(p, offsets, counts)`` (numpy) on which the card tests and
+    ``chip_smoke.py`` hold phase B alone against its plain version: sites of
+    1, 20-1,000 and 57,344 reads (``mc_kernel.MAX_SITE_READS``), count-0
+    sites between real ones and at the end, a 1,000-read site of p = 0
+    (every step's warp sum at its 2^31 ceiling) and one of p = 1,
+    ``PHASE_B_EDGES`` at every seventh read, with ``nan_reads`` a NaN read
+    in three sites, and NaN padding reads past the last site (never read).
+    Offsets fall on every 16-byte phase."""
+    rng = np.random.default_rng(seed)
+    body = rng.integers(20, 1001, size=400)
+    body[::9], body[4::31] = 1, 0
+    counts = np.array([1, 0, 57344, 1000, 1000, 3, 1] + list(body) + [0] * 16, np.int32)
+    offsets = np.zeros_like(counts)
+    offsets[1:] = np.cumsum(counts)[:-1]
+    total = int(counts.sum())
+    p = rng.uniform(0.0, 1.0, size=total + 77).astype(np.float32)
+    p[::7] = np.resize(PHASE_B_EDGES, p[::7].shape)
+    p[offsets[3] : offsets[3] + 1000] = 0.0
+    p[offsets[4] : offsets[4] + 1000] = 1.0
+    if nan_reads:
+        for site in (2, 5, 20):
+            p[offsets[site] + counts[site] // 2] = np.nan
+    p[total:] = np.nan
+    return p, offsets, counts
 
 
 def fused_inference_plain(

@@ -1,6 +1,9 @@
 """What the on-card sweeps of the kernel sources share.
 
+* :func:`production_batch` makes the production batch every sweep and
+  ``chip_smoke.py`` time on;
 * :func:`variant_source` rewrites ``constexpr int`` constants of a source;
+* :func:`same_bits` compares two kernels' outputs bit for bit;
 * :func:`sass_instructions` and :func:`sass_counts` read a kernel's static
   SASS with ``cuobjdump``;
 * :func:`smi` queries ``nvidia-smi``, :func:`max_sm_hz` reads the SM
@@ -27,6 +30,32 @@ from ..ops import _build
 
 FLUSH_BYTES = 1 << 30  # zeroed before each timed launch: well past the 50 MB L2
 BANKS = 32  # shared-memory banks of an SM
+READS, SITES = 1 << 20, 16384  # the production batch: the JAX engine's accelerator capacities
+
+
+def production_batch(seed: int = 0):
+    """The production batch, as numpy ``(features, kmer_ids, offsets,
+    counts)``: ``READS`` reads and ``SITES`` sites packed back to back from
+    read 0 as ``pack_sites`` packs them, read counts from the HEK293T-shaped
+    law of ``bench.py``, ``clip(gamma(2, 30), 20, 1000)`` (mean ~60, so all
+    16,384 sites are real and ~1M reads), padding reads after the last site.
+    Features are N(0, 1), k-mer ids uniform over the 66; drawn in that
+    order from ``seed``."""
+    rng = np.random.default_rng(seed)
+    features = rng.normal(size=(READS, 9)).astype(np.float32)
+    kmer_ids = rng.integers(0, 66, size=(READS, 3)).astype(np.int8)
+    counts = np.clip(rng.gamma(2.0, 30.0, size=SITES), 20, 1000).astype(np.int32)
+    if int(counts.sum()) > READS:
+        raise ValueError("the production batch's read counts overflow its reads")
+    offsets = (np.cumsum(counts) - counts).astype(np.int32)
+    return features, kmer_ids, offsets, counts
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """The same bits at every element of two f32 tensors, any NaN taken as
+    any NaN."""
+    nan_a, nan_b = torch.isnan(a), torch.isnan(b)
+    return bool(torch.equal(nan_a, nan_b)) and torch.equal(a[~nan_a].view(torch.int32), b[~nan_b].view(torch.int32))
 
 
 def variant_source(text: str, names: Sequence[str], values: Sequence[int], source_name: str) -> str:

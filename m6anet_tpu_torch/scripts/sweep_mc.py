@@ -16,7 +16,8 @@ with those constants rewritten, and reports:
   draws of one site) per draw, with the ``LDG`` and ``F2I`` among them;
 * whether site_p is bit-identical to the source as it stands and to
   ``--reference`` (another version of the file, such as an earlier
-  commit's; its ``mc_site_launch`` may lack the ``n_reads`` argument), at a production batch (16,384 sites, read
+  commit's; its ``mc_site_launch`` may lack the ``n_reads`` argument), at
+  the production batch of ``_sweep.production_batch`` (16,384 sites, read
   counts ``clip(gamma(2, 30), 20, 1000)``, p from the fused kernel with the
   HCT116_RNA002 model's weights, 1,000 iterations) and on
   ``mc_kernel.ragged_mc_batch`` at 1,500 iterations, and its largest
@@ -49,7 +50,6 @@ import sys
 import tempfile
 import tomllib
 
-import numpy as np
 import torch
 
 from ..constants import DEFAULT_MODEL_CONFIG, PRETRAINED_CONFIGS
@@ -59,8 +59,8 @@ from ..ops import fused_infer_kernel as fik
 from ..ops import mc_kernel
 from ..ops import random as prng
 from ._sweep import (
-    draw_window, gather_passes, issue_floor_ms, max_sm_hz, sass_counts, sass_instructions, smi,
-    time_interleaved, variant_source,
+    SITES, draw_window, gather_passes, issue_floor_ms, max_sm_hz, production_batch, sass_counts,
+    sass_instructions, smi, time_interleaved, variant_source,
 )
 
 # (threads, iterations held, blocks per SM asked, sites staged together,
@@ -80,25 +80,18 @@ ABLATIONS = [
     ("half the draws", "for (int j = 0; j < kSamples; ++j) {", "for (int j = 0; j < kSamples / 2; ++j) {"),
 ]
 OPCODES = ("LDS", "LDG", "STS", "F2I", "FADD", "FMUL", "IMAD", "IMNMX", "BAR", "SHFL", "MUFU")
-READS, SITES = 1 << 20, 16384  # the production batch
 ITERS, RAGGED_ITERS = 1000, 1500
 REPS = 30  # timed launches per build and round
 
 
-def production_batch(fp):
-    """p (from the fused kernel), offsets and counts of a production batch,
-    on the card, and the counts on the host."""
-    rng = np.random.default_rng(0)
-    counts = np.clip(rng.gamma(2.0, 30.0, size=SITES), 20, 1000).astype(np.int32)
-    offsets = (np.cumsum(counts) - counts).astype(np.int32)
-    if counts.sum() > READS:
-        raise SystemExit("the production batch's counts overflow its reads")
-    features = torch.from_numpy(rng.normal(size=(READS, 9)).astype(np.float32)).cuda()
-    kmer = torch.from_numpy(rng.integers(0, 66, size=(READS, 3)).astype(np.int8)).cuda()
-    offsets_t, counts_t = torch.from_numpy(offsets).cuda(), torch.from_numpy(counts).cuda()
+def production_batch_p(fp):
+    """p (from the fused kernel), offsets and counts of the production batch
+    (``_sweep.production_batch``), on the card, and the counts on the host."""
+    batch = production_batch()
+    features, kmer, offsets, counts = (torch.from_numpy(a).cuda() for a in batch)
     threshold = PRETRAINED_CONFIGS["HCT116_RNA002"][1]
-    p = fik.fused_inference_t(fp, features, kmer, None, offsets_t, counts_t, threshold)[0]
-    return p, offsets_t, counts_t, counts
+    p = fik.fused_inference_t(fp, features, kmer, None, offsets, counts, threshold)[0]
+    return p, offsets, counts, batch[3]
 
 
 def main(argv=None) -> int:
@@ -116,7 +109,7 @@ def main(argv=None) -> int:
     with open(DEFAULT_MODEL_CONFIG, "rb") as f:
         model = load_model(tomllib.load(f), PRETRAINED_CONFIGS["HCT116_RNA002"][0]).cuda()
     fp = fik.prepare_fused_params_t(model)
-    p, offsets, counts, host_counts = production_batch(fp)
+    p, offsets, counts, host_counts = production_batch_p(fp)
     u_np = prng.shared_draws(0, ITERS)
     u = torch.from_numpy(u_np).cuda()
     rp, roffsets, rcounts = (torch.from_numpy(a).cuda() for a in mc_kernel.ragged_mc_batch())

@@ -54,14 +54,13 @@ import tempfile
 import tomllib
 from unittest import mock
 
-import numpy as np
 import torch
 
 from ..constants import DEFAULT_MODEL_CONFIG, PRETRAINED_CONFIGS
 from ..models import load_model
 from ..ops import _build
 from ..ops import fused_infer_kernel as fik
-from ._sweep import smi, time_interleaved, variant_source
+from ._sweep import READS, production_batch, smi, time_interleaved, variant_source
 
 # (consumer warpgroups, ring stages, 64-read tiles an item, registers
 # setmaxnreg leaves the producer warpgroup), set in both modes; the stages
@@ -72,7 +71,6 @@ VARIANTS = [
 ]
 VARIANT_KEYS = ("consumers", "stages", "tiles", "producer_regs")
 MODES = ("f32x3", "bf16")
-READS = 1 << 20  # the production batch
 REPS = 20  # timed launches per build, precision and round
 
 
@@ -292,9 +290,7 @@ def main(argv=None) -> int:
     with open(DEFAULT_MODEL_CONFIG, "rb") as f:
         model = load_model(tomllib.load(f), PRETRAINED_CONFIGS["HCT116_RNA002"][0]).cuda()
     fp = fik.prepare_fused_params_t(model)
-    rng = np.random.default_rng(0)
-    features = torch.from_numpy(rng.normal(size=(READS, 9)).astype(np.float32)).cuda()
-    kmer = torch.from_numpy(rng.integers(0, 66, size=(READS, 3)).astype(np.int8)).cuda()
+    features, kmer = (torch.from_numpy(a).cuda() for a in production_batch()[:2])
     by_size = {b[0].shape[0]: b for tile in sorted({fik.read_tile_reads(m) for m in MODES})
                for b in fik.ragged_tail_batches(tile)}
     tails = [(torch.from_numpy(b[0]).cuda(), torch.from_numpy(b[1]).cuda()) for _, b in sorted(by_size.items())]

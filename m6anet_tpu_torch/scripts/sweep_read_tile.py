@@ -37,14 +37,15 @@ import sys
 import tempfile
 import tomllib
 
-import numpy as np
 import torch
 
 from ..constants import DEFAULT_MODEL_CONFIG, PRETRAINED_CONFIGS
 from ..models import load_model
 from ..ops import _build
 from ..ops import fused_infer_kernel as fik
-from ._sweep import sass_counts, sass_instructions, smi, time_interleaved, variant_source
+from ._sweep import (
+    READS, production_batch, sass_counts, sass_instructions, smi, time_interleaved, variant_source,
+)
 
 # (reads per thread, threads per block, blocks per SM, hidden-unit unroll)
 VARIANTS = [
@@ -57,7 +58,6 @@ CONSTANTS = ("kReadTile", "kReadThreads", "kReadMinBlocks", "kReadUnroll")
 F32_FLOPS = 67e12  # H100 SXM, f32 outside the tensor cores (data sheet)
 FLOP_PER_READ = 2 * (15 * 150 + 150 * 32 + 32)
 OPCODES = ("LDS", "FFMA", "FMUL", "FADD", "FMNMX", "LDG", "STG")
-READS = 1 << 20  # the production batch
 REPS = 30  # timed launches per build and round
 
 
@@ -76,9 +76,7 @@ def main(argv=None) -> int:
     with open(DEFAULT_MODEL_CONFIG, "rb") as f:
         model = load_model(tomllib.load(f), PRETRAINED_CONFIGS["HCT116_RNA002"][0]).cuda()
     fp = fik.prepare_fused_params_t(model)
-    rng = np.random.default_rng(0)
-    features = torch.from_numpy(rng.normal(size=(READS, 9)).astype(np.float32)).cuda()
-    kmer = torch.from_numpy(rng.integers(0, 66, size=(READS, 3)).astype(np.int8)).cuda()
+    features, kmer = (torch.from_numpy(a).cuda() for a in production_batch()[:2])
     p_plain = fik.read_probability_plain(fp, features, kmer)
 
     tmp = tempfile.mkdtemp(prefix="sweep_read_tile_")

@@ -26,6 +26,7 @@ from m6anet_tpu_torch.inference.engine import run_inference
 from m6anet_tpu_torch.models import load_model
 from m6anet_tpu_torch.ops import encoder_kernel, mc_kernel, random, site_ops
 from m6anet_tpu_torch.ops import fused_infer_kernel as fik
+from m6anet_tpu_torch.scripts._sweep import same_bits
 
 DATA_DIR = os.path.join(os.path.dirname(__file__), "data")
 pytestmark = pytest.mark.cuda
@@ -94,8 +95,16 @@ def test_wrapper_checks_inputs(cuda_device):
         fik.fused_inference_t(fp, X.t().contiguous().t(), K, None, offsets, counts, 0.5)
     bad = K.clone()
     bad[5, 2] = 66
+    before = fik.launch_count, fik.site_reduce_launch_count
     with pytest.raises(ValueError, match="kmer_ids"):
         fik.fused_inference_t(fp, X, bad, None, offsets, counts, 0.5)
+    with pytest.raises(ValueError, match="kmer_ids"):  # the host route raises before the call
+        fik.fused_inference_t(fp, X, bad, None, offsets, counts, 0.5,
+                              host_kmer_ids=fik.checked_kmer_ids(bad.cpu().numpy()))
+    with pytest.raises(ValueError, match="host_kmer_ids have shape"):
+        fik.fused_inference_t(fp, X, K, None, offsets, counts, 0.5,
+                              host_kmer_ids=fik.checked_kmer_ids(K[1:].cpu().numpy()))
+    assert (fik.launch_count, fik.site_reduce_launch_count) == before
 
 
 def _dataset():
@@ -291,6 +300,121 @@ def test_phase_b_gives_nan_for_sites_whose_span_leaves_p(cuda_device, precision)
     for a, b in zip(got[1:], want[1:]):
         assert bool(a[bad].isnan().all()) and not bool(b[bad].isnan().any())
         assert torch.equal(a[~bad], b[~bad])
+
+
+@pytest.mark.parametrize("precision", ["f32", "f32x3", "bf16"])
+def test_phase_b_is_bit_identical_to_the_plain_site_ops(cuda_device, precision):
+    """Phase B's exact integer sums: on the kernel's own p of each precision
+    (the production batch and a ragged batch) site_p and mod_ratio are the
+    same bits as the plain site ops give on that p, and so is phase B alone
+    on that p with three reads made NaN (phase A makes no NaN: its ReLU
+    drops one) and on site_reduce_batch (p at the edges of the sums, NaN
+    reads, counts 0 to 57,344), twice over."""
+    from m6anet_tpu_torch.scripts._sweep import production_batch
+
+    fp = fik.prepare_fused_params_t(_model().to(cuda_device))
+    for batch in (production_batch(), _ragged_batch()):
+        X, K, offsets, counts = (torch.from_numpy(a).to(cuda_device) for a in batch)
+        before = fik.site_reduce_launch_count
+        p, site_p, mod_ratio = fik.fused_inference_t(fp, X, K, None, offsets, counts, DEFAULT_READ_THRESHOLD, 20,
+                                                     precision)
+        assert fik.site_reduce_launch_count == before + 1
+        want = fik.site_reduce_plain(p, offsets, counts, DEFAULT_READ_THRESHOLD)
+        assert same_bits(site_p, want[0]) and same_bits(mod_ratio, want[1])
+        p[[0, 1500, 4000]] = float("nan")
+        got = fik.site_reduce(p, offsets, counts, DEFAULT_READ_THRESHOLD)
+        want = fik.site_reduce_plain(p, offsets, counts, DEFAULT_READ_THRESHOLD)
+        assert bool(got[0].isnan().any())
+        assert all(same_bits(a, b) for a, b in zip(got, want))
+    p, offsets, counts = (torch.from_numpy(a).to(cuda_device) for a in fik.site_reduce_batch())
+    for n_samples in (20, 1, 0):
+        got = fik.site_reduce(p, offsets, counts, DEFAULT_READ_THRESHOLD, n_samples)
+        again = fik.site_reduce(p, offsets, counts, DEFAULT_READ_THRESHOLD, n_samples)
+        want = fik.site_reduce_plain(p, offsets, counts, DEFAULT_READ_THRESHOLD, n_samples)
+        assert all(same_bits(a, b) for a, b in zip(got, want)), n_samples
+        assert all(same_bits(a, b) for a, b in zip(got, again)), n_samples
+
+
+def test_phase_b_outside_its_domain(cuda_device):
+    """A read outside [0, 1] (phase A makes none) makes its site's site_p
+    NaN, and 0 with n_samples = 0 (1 - NaN ** 0); mod_ratio counts it as
+    p >= threshold says; every other site keeps the plain version's bits."""
+    counts = np.array([10, 10, 10, 10, 10, 0], np.int32)
+    offsets = np.array([0, 10, 20, 30, 40, 0], np.int32)
+    p = np.random.default_rng(8).uniform(0, 1, size=53).astype(np.float32)
+    p[[3, 15, 27, 38]] = [1.5, -0.25, np.inf, -np.inf]
+    t = [torch.from_numpy(a).to(cuda_device) for a in (p, offsets, counts)]
+    bad = torch.tensor([True, True, True, True, False, False], device=cuda_device)
+    for n_samples in (20, 0):
+        site_p, mod_ratio = fik.site_reduce(*t, DEFAULT_READ_THRESHOLD, n_samples)
+        want = fik.site_reduce_plain(*t, DEFAULT_READ_THRESHOLD, n_samples)
+        if n_samples:
+            assert bool(site_p[bad].isnan().all())
+        else:
+            assert bool((site_p[bad] == 0).all())
+        assert same_bits(site_p[~bad], want[0][~bad]) and same_bits(mod_ratio, want[1])
+
+
+@pytest.mark.parametrize("precision", ["f32", "f32x3", "bf16"])
+def test_engine_exact_step_makes_no_host_sync(cuda_device, precision):
+    """The engine's exact cuda_fused step, given the batch's host k-mer ids
+    as the engine's pack thread checks them, launches both phases with no
+    device-to-host sync: under set_sync_debug_mode("error") it runs, while
+    the same step checking the ids on the device raises."""
+    from m6anet_tpu_torch.inference import engine
+
+    model = _model().to(cuda_device).eval()
+    X, K, offsets, counts = _ragged_batch()
+    step = engine.make_infer_step(model, len(counts), DEFAULT_READ_THRESHOLD, 20, "exact", "cuda_fused",
+                                  precision=precision)
+    args = [torch.from_numpy(a).to(cuda_device) for a in (X, K, offsets, counts)]
+    host = dict(host_sites=(offsets, counts), host_kmer_ids=fik.checked_kmer_ids(K))
+    with torch.no_grad():
+        want = step(*args)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = step(*args, **host)
+            with pytest.raises(RuntimeError, match="synchroniz"):
+                step(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_encoder_call_of_the_cuda_backend_makes_no_host_sync(cuda_device, monkeypatch):
+    """The cuda backend's step hands fused_read_probability the batch's
+    host k-mer ids: the encoder call makes no host sync, in every
+    precision."""
+    from m6anet_tpu_torch.inference import engine
+
+    real = encoder_kernel.fused_read_probability
+    seen = []
+
+    def no_sync(*args, **kwargs):
+        seen.append(kwargs.get("host_kmer_ids") is not None)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return real(*args, **kwargs)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    monkeypatch.setattr(encoder_kernel, "fused_read_probability", no_sync)
+    model = _model().to(cuda_device).eval()
+    fp = fik.prepare_fused_params_t(model)
+    X, K, offsets, counts = _ragged_batch()
+    args = [torch.from_numpy(a).to(cuda_device) for a in (X, K, offsets, counts)]
+    with torch.no_grad():
+        for precision in ("f32", "f32x3", "bf16"):
+            step = engine.make_infer_step(model, len(counts), DEFAULT_READ_THRESHOLD, 20, "exact", "cuda",
+                                          precision=precision)
+            got = step(*args, host_sites=(offsets, counts), host_kmer_ids=fik.checked_kmer_ids(K))
+            with pytest.raises(RuntimeError, match="synchroniz"):
+                step(*args)
+            want = real(fp, *args[:2], precision)
+            assert torch.equal(got[0], want), precision
+    assert seen == [True, False] * 3
 
 
 def test_engine_mc_step_makes_no_host_sync(cuda_device, monkeypatch):

@@ -31,7 +31,7 @@ from m6anet_tpu_torch.data.dataset import build_dataset
 from m6anet_tpu_torch.inference import engine
 from m6anet_tpu_torch.inference.engine import run_inference
 from m6anet_tpu_torch.models import load_model
-from m6anet_tpu_torch.ops import mc_kernel, random, site_ops
+from m6anet_tpu_torch.ops import fused_infer_kernel, mc_kernel, random, site_ops
 
 DATA_DIR = os.path.join(os.path.dirname(__file__), "data")
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -344,7 +344,7 @@ def test_cli_subprocess_on_cpu(port_out, tmp_path):
     assert "backend=torch" in proc.stderr
     assert "batches dispatched: 1" in proc.stderr
     assert ('kernel launches: {"fused_inference_t": 0, "fused_read_probability": 0, '
-            '"site_probability_mc": 0, "fused_inference": 0, "read_prob_tc_f32x3": 0, '
+            '"site_probability_mc": 0, "fused_inference": 0, "site_reduce": 0, "read_prob_tc_f32x3": 0, '
             '"read_prob_tc_bf16": 0}') in proc.stderr
     for name in ("data.site_proba.csv", "data.indiv_proba.csv"):
         assert (out / name).read_bytes() == (port_out / name).read_bytes()
@@ -436,8 +436,9 @@ def test_cuda_backend_steps_on_cpu_tensors(backend, method):
         step = engine.make_infer_step(model, 64, THRESHOLD, 20, backend=backend, **kw)
         got = step(*args)
         want = engine.make_infer_step(model, 64, THRESHOLD, 20, backend="torch", **kw)(*args)
-        # the engine's call, with the batch's host offsets and counts
-        hosted = step(*args, host_sites=(batch.offsets, batch.counts))
+        # the engine's call, with the batch's host offsets, counts and k-mer ids
+        hosted = step(*args, host_sites=(batch.offsets, batch.counts),
+                      host_kmer_ids=fused_infer_kernel.checked_kmer_ids(batch.kmer_ids))
     assert all(torch.equal(a, b) for a, b in zip(got, hosted))
     torch.testing.assert_close(got[0], want[0], rtol=0, atol=1e-6)
     torch.testing.assert_close(got[2], want[2], rtol=0, atol=0)
