@@ -81,15 +81,38 @@ version:
                  A wrapper call with host arrays times the pair (phase A
                  then phase B): the flush before it keeps the card busy
                  while the host launches
+ 14. T1 train    the production model's train step (train/loop.py: the
+                 train-mode forward, BCE, backward, optax's global-norm
+                 clip, torch.optim.Adam) on the card against the CPU, from
+                 the released HCT116 weights and from a seeded init, on
+                 seeded 256-site x 20-read batches: the first step, then 20
+                 steps each side (TRAIN_* tolerances below); the 20 card
+                 steps again, bit for bit or not (reported, not held), and
+                 in two fresh processes (torch's defaults, and
+                 torch.use_deterministic_algorithms with
+                 CUBLAS_WORKSPACE_CONFIG) where the bits part: one step's
+                 gradients twice, each product of the backward alone, the
+                 20 steps twice; median ms per train step and per eval step
+                 (CUDA events) and their kernels (torch.profiler)
+ 15. T2 CLI      python -m m6anet_tpu_torch train on tests/data (2 epochs,
+                 default device), every output file in the JAX package's
+                 layout and finite losses; then inference
+                 --model_state_dict <save_dir>/avg_loss.npz on the card
+                 (cuda_fused, f32, its kernels' launches as the run reports
+                 them) against the same command with --device cpu, at the
+                 golden tolerances
 
 Any failure exits nonzero.  The last line is the
 ``{"ok": true, "device": {...}}`` result; before it come the MC floors' JSON
 line, the kernels' JSON line (measured values and each kernel's bound, phase
-B's site_reduce_kernel with its own entry), a timing line and the card's
-``nvidia-smi`` name and power limit.
+B's site_reduce_kernel with its own entry), the training line (phases 14
+and 15), a timing line and the card's ``nvidia-smi`` name and power limit.
+The training path runs no hand-written kernel (the JAX package's train step
+reaches no Pallas kernel): its products are cuBLAS's.
 """
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import re
@@ -142,6 +165,20 @@ MODE_FLOP_PER_READ = {
     "bf16": {"f32": 0, "bf16": FLOP_PER_READ},
 }
 BF16_TENSOR_FLOPS = 989e12  # H100 SXM, dense (NVIDIA data sheet)
+
+# phase 14: the train step on the card against the CPU, at the JAX package's
+# test settings (tests/test_train.py) and the reference's batch of 256 sites
+# x 20 reads.  Tolerances and why: PERF.md, "Training".  The first step from
+# one state: loss 1e-6 relative, each parameter 1e-6, but 2 lr where the
+# CPU's gradient is below 1e-6 (Adam's first step lr g / (|g| + 1e-8) turns
+# f32 noise there into steps of order lr: block3's bias before BatchNorm,
+# dead units).  Twenty steps each side: the two trajectories drift apart
+# through those elements, so each step's loss is held to 1e-3 relative and
+# every final parameter to 2 lr.
+TRAIN_LR, TRAIN_WD, TRAIN_CLIP = 4e-3, 1e-5, 5.0
+TRAIN_STEPS, TRAIN_SITES, TRAIN_READS = 20, 256, 20
+TRAIN_FIRST_LOSS_RTOL, TRAIN_FIRST_ATOL, TRAIN_UNRESOLVED_GRAD = 1e-6, 1e-6, 1e-6
+TRAIN_LOSS_RTOL, TRAIN_PARAM_ATOL = 1e-3, 2 * TRAIN_LR
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -517,18 +554,6 @@ def check_golden(out_dir, site_atol=GOLDEN_ATOL["site"], label="e2e", only_site=
     return errs
 
 
-def indiv_diff(out_a, out_b):
-    """Largest per-read difference between two CLI runs' indiv CSVs."""
-    import pandas as pd
-
-    ki = ["transcript_id", "transcript_position", "read_index"]
-    a, b = (pd.read_csv(os.path.join(d, "data.indiv_proba.csv")).sort_values(ki).reset_index(drop=True)
-            for d in (out_a, out_b))
-    if len(a) != len(b) or not (a[ki].values == b[ki].values).all():
-        fail("indiv CSVs of two runs differ in their rows")
-    return float((a.probability_modified - b.probability_modified).abs().max())
-
-
 def check_finite(out_dir, n_sites, n_reads):
     import pandas as pd
 
@@ -539,6 +564,330 @@ def check_finite(out_dir, n_sites, n_reads):
     ])
     if len(site) != n_sites or len(indiv) != n_reads or not np.isfinite(values).all():
         fail(f"{out_dir}: {len(site)} site / {len(indiv)} read rows, or non-finite values")
+
+
+# ------------------------------------------------------------- training
+def train_batches(seed, n_batches):
+    """Seeded synthetic batches of the loader's layout: X (B, 20, 9) f32,
+    kmer (B, 20, 3) int32, y (B,) f32."""
+    rng = np.random.default_rng(seed)
+    return [{
+        "X": rng.normal(size=(TRAIN_SITES, TRAIN_READS, 9)).astype(np.float32),
+        "kmer": rng.integers(0, 66, size=(TRAIN_SITES, TRAIN_READS, 3)).astype(np.int32),
+        "y": rng.integers(0, 2, size=TRAIN_SITES).astype(np.float32),
+    } for _ in range(n_batches)]
+
+
+def train_model(config, state, device):
+    from m6anet_tpu_torch.models.mil import MILModel
+    from m6anet_tpu_torch.train import loop, losses
+
+    model = MILModel(config).to(device)
+    model.load_state_dict(state)
+    optimizer = loop.make_optimizer(model, TRAIN_LR, TRAIN_WD)
+    step = loop.make_train_step(model, losses.binary_cross_entropy_loss, optimizer, TRAIN_CLIP)
+    return model, step
+
+
+def run_train_steps(config, state, device, batches):
+    """The train steps from ``state`` on ``device``: every step's loss and
+    the final parameters (JAX tree layout, numpy)."""
+    from m6anet_tpu_torch.models.convert import params_to_jax
+    from m6anet_tpu_torch.train import loop
+
+    device = torch.device(device)
+    model, step = train_model(config, state, device)
+    step_losses = [step(loop.batch_to_device(b, device))[0] for b in batches]
+    return torch.stack(step_losses).cpu().numpy(), params_to_jax(model.state_dict())
+
+
+def param_diffs(a, b):
+    return {f"{blk}/{leaf}": float(np.abs(a[blk][leaf] - b[blk][leaf]).max()) for blk in a for leaf in a[blk]}
+
+
+def check_train_start(config, state, label, batches):
+    """Phase 14 for one starting state; returns what the training line
+    reports of it."""
+    from m6anet_tpu_torch.models.convert import params_to_jax
+    from m6anet_tpu_torch.models.mil import MILModel
+    from m6anet_tpu_torch.train import losses
+
+    # the first step, on the card and the CPU, from the same state
+    grad_model = MILModel(config)
+    grad_model.load_state_dict(state)
+    first = {k: torch.from_numpy(v) for k, v in batches[0].items()}
+    losses.binary_cross_entropy_loss(grad_model.site_probability(first, train=True), first["y"]).backward()
+    grads = params_to_jax({k: p.grad for k, p in grad_model.named_parameters()})
+    (card_loss,), card_params = run_train_steps(config, state, "cuda", batches[:1])
+    (cpu_loss,), cpu_params = run_train_steps(config, state, "cpu", batches[:1])
+    first_loss_rel = float(abs(card_loss - cpu_loss) / abs(cpu_loss))
+    first_err, unresolved = 0.0, 0
+    for blk in cpu_params:
+        for leaf, want in cpu_params[blk].items():
+            diff = np.abs(card_params[blk][leaf] - want)
+            loose = (np.abs(grads[blk][leaf]) < TRAIN_UNRESOLVED_GRAD if leaf in grads.get(blk, {})
+                     else np.zeros(want.shape, bool))
+            unresolved += int(loose.sum())
+            first_err = max(first_err, float(diff[~loose].max(initial=0.0)))
+            if diff[~loose].max(initial=0.0) > TRAIN_FIRST_ATOL or diff[loose].max(initial=0.0) > 2 * TRAIN_LR:
+                fail(f"[T1 {label}] first step: {blk}/{leaf} off by {diff.max():.3e} (card vs CPU)")
+    log(f"[T1 {label}] first step: loss card {card_loss:.9g} CPU {cpu_loss:.9g} (relative {first_loss_rel:.2e}); "
+        f"parameters within {first_err:.3e}, {unresolved} elements with |grad| < {TRAIN_UNRESOLVED_GRAD} "
+        f"held to {2 * TRAIN_LR}")
+    if first_loss_rel > TRAIN_FIRST_LOSS_RTOL:
+        fail(f"[T1 {label}] first step: loss off by {first_loss_rel:.3e} relative")
+
+    # twenty steps each side
+    card = run_train_steps(config, state, "cuda", batches)
+    cpu = run_train_steps(config, state, "cpu", batches)
+    if not (np.isfinite(card[0]).all() and np.isfinite(cpu[0]).all()):
+        fail(f"[T1 {label}] non-finite losses")
+    loss_rel = float(np.max(np.abs(card[0] - cpu[0]) / np.abs(cpu[0])))
+    diffs = param_diffs(card[1], cpu[1])
+    log(f"[T1 {label}] {len(batches)} steps: losses card {card[0][0]:.6f} -> {card[0][-1]:.6f}, CPU "
+        f"{cpu[0][0]:.6f} -> {cpu[0][-1]:.6f}; largest relative loss gap {loss_rel:.3e} "
+        f"(tolerance {TRAIN_LOSS_RTOL}); final parameters, largest gap by leaf {diffs}")
+    if loss_rel > TRAIN_LOSS_RTOL or max(diffs.values()) > TRAIN_PARAM_ATOL:
+        fail(f"[T1 {label}] card and CPU trajectories apart beyond the tolerances")
+
+    # determinism: the card's steps again (the gap by leaf; 0 everywhere
+    # means the same bits)
+    again = run_train_steps(config, state, "cuda", batches)
+    repeat = {"losses_bit_identical": bool(np.array_equal(card[0], again[0])),
+              "param_gap_by_leaf": param_diffs(card[1], again[1])}
+    log(f"[T1 {label}] the card's {len(batches)} steps again: {repeat}")
+    return {"first_step_loss_rel": first_loss_rel, "first_step_param_err": first_err,
+            "first_step_unresolved_elements": unresolved, "loss_rel": loss_rel, "param_gap_by_leaf": diffs,
+            "card_losses": card[0].tolist(), "cpu_losses": cpu[0].tolist(), "repeat": repeat}
+
+
+def determinism_probe():
+    """Where the card's train steps lose bit-reproducibility: one step's
+    forward and gradients twice from one state (the bits of the loss, the
+    site probabilities and each gradient leaf), each product of the
+    backward alone, ten times twice, and phase 14's 20 steps from the
+    released weights twice.  Run in a process of its own, so the cuBLAS
+    workspace setting and torch.use_deterministic_algorithms that the
+    caller chose hold from the first cuBLAS call.  Prints one JSON line."""
+    from m6anet_tpu_torch.models.convert import params_from_jax, params_to_jax
+    from m6anet_tpu_torch.models.mil import MILModel
+    from m6anet_tpu_torch.train import loop, losses
+    from m6anet_tpu_torch.utils.treeio import load_tree
+    from m6anet_tpu_torch.constants import DEFAULT_MODEL_CONFIG, PRETRAINED_CONFIGS
+
+    import tomllib
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    with open(DEFAULT_MODEL_CONFIG, "rb") as f:
+        config = tomllib.load(f)
+    state = params_from_jax(load_tree(PRETRAINED_CONFIGS["HCT116_RNA002"][0]))
+    batch = loop.batch_to_device(train_batches(0, 1)[0], torch.device("cuda"))
+
+    def forward_backward():
+        model = MILModel(config).cuda()
+        model.load_state_dict(state)
+        pred = model.site_probability(batch, train=True)
+        loss = losses.binary_cross_entropy_loss(pred, batch["y"])
+        loss.backward()
+        grads = params_to_jax({k: p.grad for k, p in model.named_parameters()})
+        return loss.detach().cpu().numpy(), pred.detach().cpu().numpy(), grads
+
+    def attempt(fn):
+        # under torch.use_deterministic_algorithms an op without a
+        # deterministic implementation raises: that is a result too
+        try:
+            return fn()
+        except RuntimeError as err:
+            return {"error": str(err)[:300]}
+
+    def step_twice():
+        a, b = forward_backward(), forward_backward()
+        return {"loss_bit_identical": bool(np.array_equal(a[0], b[0])),
+                "pred_bit_identical": bool(np.array_equal(a[1], b[1])),
+                "grad_gap_by_leaf": param_diffs(a[2], b[2])}
+
+    report = {"one_step": attempt(step_twice)}
+    # the backward's products alone, at their shapes in the step
+    rng = np.random.default_rng(1)
+    n = TRAIN_SITES * TRAIN_READS
+    h0, h1 = (torch.from_numpy(rng.normal(size=(n, w)).astype(np.float32)).cuda() for w in (15, 150))
+    g1, g2 = (torch.from_numpy(rng.normal(size=(n, w)).astype(np.float32)).cuda() for w in (150, 32))
+    w2 = torch.from_numpy(rng.normal(size=(32, 150)).astype(np.float32)).cuda()
+    ids = torch.from_numpy(rng.integers(0, 66, size=(n, 3))).cuda()
+    g_emb = torch.from_numpy(rng.normal(size=(n, 3, 2)).astype(np.float32)).cuda()
+
+    def emb_grad():
+        weight = torch.zeros(66, 2, device="cuda", requires_grad=True)
+        torch.nn.functional.embedding(ids, weight).backward(g_emb)
+        return weight.grad
+
+    ops = {
+        "layer-1 weight gradient (15 x 5120 @ 5120 x 150)": lambda: h0.t() @ g1,
+        "layer-2 weight gradient (150 x 5120 @ 5120 x 32)": lambda: h1.t() @ g2,
+        "layer-2 input gradient (5120 x 32 @ 32 x 150)": lambda: g2 @ w2,
+        "bias gradient (sum over 5120 rows)": lambda: g1.sum(0),
+        "embedding backward (15,360 ids into 66 rows)": emb_grad,
+    }
+    report["ops_bit_identical"] = {
+        name: attempt(lambda: all(torch.equal(fn(), fn()) for _ in range(10))) for name, fn in ops.items()
+    }
+
+    def steps_twice():
+        batches = train_batches(0, TRAIN_STEPS)
+        first, second = (run_train_steps(config, state, "cuda", batches) for _ in range(2))
+        return {"losses_bit_identical": bool(np.array_equal(first[0], second[0])),
+                "param_gap_by_leaf": param_diffs(first[1], second[1])}
+
+    report["steps"] = attempt(steps_twice)
+    print(json.dumps({"determinism_probe": report}), flush=True)
+
+
+def run_determinism_probe(deterministic):
+    """determinism_probe() in a fresh process: torch's defaults, or
+    torch.use_deterministic_algorithms(True) with CUBLAS_WORKSPACE_CONFIG
+    set, as torch's reproducibility notes ask."""
+    env = dict(os.environ)
+    code = "import chip_smoke; chip_smoke.determinism_probe()"
+    if deterministic:
+        env["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+        code = "import torch; torch.use_deterministic_algorithms(True); " + code
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True, text=True,
+                          timeout=300)
+    if proc.returncode != 0:
+        log(proc.stdout[-3000:] + proc.stderr[-3000:])
+        fail(f"the determinism probe (deterministic={deterministic}) exited {proc.returncode}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])["determinism_probe"]
+
+
+def time_train_steps(config, state, batches):
+    """Median ms per train step and per eval step on the card: CUDA events
+    around one step after the L2 flush (time_ms; the flush hides the host's
+    launches only while it outlasts them, and a train step launches ~250
+    kernels, so this reads host time too), the wall of steps launched back
+    to back (one event pair around 2 x len(batches) steps, as a training
+    loop runs them), the same with each numpy batch copied in
+    (loop.batch_to_device), the kernels and device time a step
+    (torch.profiler), and the CPU's step on the chip machine's host (host
+    clock)."""
+    from m6anet_tpu_torch.train import loop, losses
+
+    model, step = train_model(config, state, "cuda")
+    eval_step = loop.make_eval_step(model, losses.binary_cross_entropy_loss)
+    on_card = [loop.batch_to_device(b, torch.device("cuda")) for b in batches]
+    turns = itertools.cycle(on_card)
+    out = {
+        "train_step_device_ms": time_ms(lambda: step(next(turns)), reps=50),
+        "eval_step_device_ms": time_ms(lambda: eval_step(next(turns)), reps=50),
+    }
+    for key, fn in (("train_step_ms", lambda b: step(on_card[b])),
+                    ("train_step_with_copy_ms", lambda b: step(loop.batch_to_device(batches[b], torch.device("cuda")))),
+                    ("eval_step_ms", lambda b: eval_step(on_card[b]))):
+        rounds = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            for i in range(2 * len(batches)):
+                fn(i % len(batches))
+            end.record()
+            end.synchronize()
+            rounds.append(start.elapsed_time(end) / (2 * len(batches)))
+        out[key] = statistics.median(rounds)
+    out["train_step_profile"] = step_profile(lambda: step(next(turns)))
+    out["eval_step_profile"] = step_profile(lambda: eval_step(next(turns)))
+    _, cpu_step = train_model(config, state, "cpu")
+    cpu_batches = [loop.batch_to_device(b, torch.device("cpu")) for b in batches]
+    walls = []
+    for b in cpu_batches[:5]:
+        t0 = time.perf_counter()
+        cpu_step(b)
+        walls.append((time.perf_counter() - t0) * 1e3)
+    out["cpu_train_step_ms_host_clock"] = statistics.median(walls)
+    return out
+
+
+def step_profile(fn, reps=5):
+    """torch.profiler over ``reps`` calls of ``fn``: kernels launched and
+    device time a call, and the five kernels that take the most."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [(e.key, e.count, getattr(e, "device_time_total", 0)) for e in prof.key_averages()
+               if getattr(e, "device_time_total", 0) > 0]
+    top = sorted(kernels, key=lambda k: -k[2])[:5]
+    return {
+        "kernels_per_call": sum(k[1] for k in kernels) / reps,
+        "device_ms_per_call": sum(k[2] for k in kernels) / reps / 1e3,
+        "top_kernels_ms_per_call": {k[0][:70]: k[2] / reps / 1e3 for k in top},
+    }
+
+
+def train_cli(work_dir):
+    """Phase 15: the train CLI on tests/data; returns its wall, save_dir and
+    per-epoch results."""
+    from m6anet_tpu_torch.constants import DEFAULT_NORM_PATH, TRAIN_CONFIG_TEMPLATE
+    from m6anet_tpu_torch.utils.config import dump_toml, load_toml
+    from m6anet_tpu_torch.utils.treeio import load_tree
+
+    cfg = load_toml(TRAIN_CONFIG_TEMPLATE)
+    cfg["dataset"].update(root_dir=os.path.join(ROOT, "tests", "data"), norm_path=DEFAULT_NORM_PATH)
+    cfg_path, save_dir = os.path.join(work_dir, "train.toml"), os.path.join(work_dir, "train_out")
+    dump_toml(cfg, cfg_path)
+    cmd = [sys.executable, "-m", "m6anet_tpu_torch", "train", "--train_config", cfg_path, "--save_dir", save_dir,
+           "--epochs", "2", "--save_per_epoch", "2", "--num_iterations", "1"]
+    start = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - start
+    if proc.returncode != 0:
+        log(proc.stdout[-4000:] + proc.stderr[-4000:])
+        fail(f"train CLI exited {proc.returncode}")
+    want = ["avg_loss.npz", "model_states", "pr_auc.npz", "roc_auc.npz", "test_results_avg_loss.json",
+            "test_results_pr_auc.json", "test_results_roc_auc.json", "train_info.toml", "train_results.json",
+            "val_results.json"]
+    if sorted(os.listdir(save_dir)) != want:
+        fail(f"train CLI wrote {sorted(os.listdir(save_dir))}, not {want}")
+    ckpt = os.path.join(save_dir, "model_states", "2")
+    if sorted(os.listdir(ckpt)) != ["meta.json", "model_states.npz", "opt_state.npz"]:
+        fail(f"train CLI's checkpoint holds {sorted(os.listdir(ckpt))}")
+    with np.load(os.path.join(ckpt, "opt_state.npz")) as data:
+        n_leaves = len(data.files)
+    tree = load_tree(os.path.join(save_dir, "avg_loss.npz"))
+    leaves = sorted(f"{blk}/{leaf}" for blk in tree for leaf in tree[blk])
+    if n_leaves != 23 or len(leaves) != 11 or tree["block3"]["w"].shape != (15, 150):
+        fail(f"train CLI's files are not in the JAX layout: {n_leaves} optimizer leaves, parameters {leaves}")
+    results = {}
+    for name in ("train_results.json", "val_results.json", *(f"test_results_{c}.json" for c in
+                                                             ("avg_loss", "roc_auc", "pr_auc"))):
+        with open(os.path.join(save_dir, name)) as f:
+            results[name] = json.load(f)
+        if not np.isfinite(results[name]["avg_loss"]).all():
+            fail(f"train CLI: non-finite losses in {name}")
+    if "There are 57 train sites" not in proc.stdout:
+        fail("train CLI did not read the 57 train sites of tests/data")
+    return wall, save_dir, results
+
+
+def compare_outputs(out_a, out_b):
+    """Largest per-read, mod_ratio and site gaps between two CLI runs."""
+    import pandas as pd
+
+    ki, ks = ["transcript_id", "transcript_position", "read_index"], ["transcript_id", "transcript_position"]
+    a_i, b_i = (pd.read_csv(os.path.join(d, "data.indiv_proba.csv")).sort_values(ki).reset_index(drop=True)
+                for d in (out_a, out_b))
+    a_s, b_s = (pd.read_csv(os.path.join(d, "data.site_proba.csv")).sort_values(ks).reset_index(drop=True)
+                for d in (out_a, out_b))
+    if not ((a_i[ki].values == b_i[ki].values).all() and (a_s[ks].values == b_s[ks].values).all()):
+        fail("two CLI runs differ in their rows")
+    return {
+        "indiv": float((a_i.probability_modified - b_i.probability_modified).abs().max()),
+        "mod_ratio": float((a_s.mod_ratio - b_s.mod_ratio).abs().max()),
+        "site": float((a_s.probability_modified - b_s.probability_modified).abs().max()),
+    }
 
 
 def main():
@@ -625,7 +974,7 @@ def main():
     if "precision=bf16" not in bf16_path or bf16_launches["read_prob_tc_bf16"] < 1:
         fail("--precision bf16 did not launch the tensor-core kernel")
     golden["bf16"] = check_golden(out_bf16, label="e2e bf16", only_site=True)
-    golden["bf16"]["indiv_vs_f32"] = indiv_diff(out_bf16, out_f32)
+    golden["bf16"]["indiv_vs_f32"] = compare_outputs(out_bf16, out_f32)["indiv"]
     log(f"[e2e bf16] per read against the f32 run: {golden['bf16']['indiv_vs_f32']:.3e} "
         f"(tolerance {BF16_INDIV_ATOL})")
     if golden["bf16"]["indiv_vs_f32"] > BF16_INDIV_ATOL:
@@ -941,9 +1290,57 @@ def main():
         "site_reduce_kernel_ptxas": phase_b_ptxas,
     })
 
+    # ---- 14. T1: the train step on the card against the CPU
+    from m6anet_tpu_torch.models.convert import params_from_jax
+    from m6anet_tpu_torch.models.mil import MILModel
+    from m6anet_tpu_torch.utils.treeio import load_tree
+
+    with open(DEFAULT_MODEL_CONFIG, "rb") as f:
+        config = tomllib.load(f)
+    starts = {
+        "HCT116_RNA002": params_from_jax(load_tree(PRETRAINED_CONFIGS["HCT116_RNA002"][0])),
+        "init seed 0": MILModel(config).init(torch.Generator().manual_seed(0)).state_dict(),
+    }
+    batches = train_batches(0, TRAIN_STEPS)
+    training = {"steps": TRAIN_STEPS, "sites": TRAIN_SITES, "reads_per_site": TRAIN_READS, "lr": TRAIN_LR,
+                "weight_decay": TRAIN_WD, "clip_grad": TRAIN_CLIP}
+    for label, state in starts.items():
+        training[label] = check_train_start(config, state, label, batches)
+    training["determinism"] = {"default": run_determinism_probe(False), "deterministic": run_determinism_probe(True)}
+    log(f"[T1 determinism] {training['determinism']}")
+    training["timing"] = time_train_steps(config, starts["HCT116_RNA002"], batches)
+    log(f"[T1 timing] {training['timing']}")
+
+    # ---- 15. T2: the train CLI on the card, then its model through inference
+    os.makedirs(WORK_DIR)
+    train_wall, save_dir, train_results = train_cli(WORK_DIR)
+    log(f"[T2] train CLI: {train_wall:.2f} s wall; train losses {train_results['train_results.json']['avg_loss']}, "
+        f"val losses {train_results['val_results.json']['avg_loss']}")
+    trained = ["--model_state_dict", os.path.join(save_dir, "avg_loss.npz"), "--precision", "f32"]
+    out_card, out_cpu = os.path.join(WORK_DIR, "trained_card"), os.path.join(WORK_DIR, "trained_cpu")
+    t2_wall, t2_path, t2_batches, t2_launches = run_cli("HCT116_RNA002", out_card, trained)
+    if ("backend=cuda_fused" not in t2_path or "precision=f32" not in t2_path
+            or t2_launches["fused_inference_t"] < 1 or t2_launches["site_reduce"] < 1):
+        fail(f"the trained model's inference ran as {t2_path!r} with launches {t2_launches}")
+    cpu_wall, cpu_path, _, _ = run_cli("HCT116_RNA002", out_cpu, [*trained, "--device", "cpu"])
+    check_finite(out_card, 101, 5595)
+    t2_errs = compare_outputs(out_card, out_cpu)
+    log(f"[T2] trained model's inference: card {t2_wall:.2f} s ({t2_path}; launches {t2_launches}), CPU "
+        f"{cpu_wall:.2f} s; card vs CPU {t2_errs} (tolerances {GOLDEN_ATOL})")
+    if any(t2_errs[k] > GOLDEN_ATOL[k] for k in GOLDEN_ATOL):
+        fail("the trained model's inference on the card is too far from the CPU's")
+    shutil.rmtree(WORK_DIR, ignore_errors=True)
+    training["cli"] = {
+        "train_wall_s": train_wall, "train_losses": train_results["train_results.json"]["avg_loss"],
+        "val_losses": train_results["val_results.json"]["avg_loss"],
+        "inference_card_vs_cpu": t2_errs, "inference_launches": t2_launches, "inference_batches": t2_batches,
+        "inference_path": t2_path,
+    }
+
     for precision in P_ATOL:
         check_close_share(precision)
     log(json.dumps({"kernels": kernels}))
+    log(json.dumps({"training": training}))
     log(json.dumps({
         "timing": {
             "reads": n_reads, "sites": n_sites, "kernel_ms": kernel_ms, "plain_ms": plain_ms,

@@ -1,6 +1,6 @@
 """Single `m6anet_tpu_torch` console entry point with a subcommand registry
-(reference: m6anet/__init__.py:11-30).  Only ``inference`` is ported so far;
-the other subcommands follow ROADMAP.md."""
+(reference: m6anet/__init__.py:11-30).  ``inference`` and ``train`` are
+ported; the other subcommands follow ROADMAP.md."""
 from __future__ import annotations
 
 from argparse import ArgumentDefaultsHelpFormatter, ArgumentParser
@@ -8,9 +8,9 @@ from argparse import ArgumentDefaultsHelpFormatter, ArgumentParser
 
 def main(argv=None):
     from . import __version__
-    from .scripts import inference
+    from .scripts import inference, train
 
-    modules = {"inference": inference}
+    modules = {"inference": inference, "train": train}
 
     parser = ArgumentParser(prog="m6anet_tpu_torch", formatter_class=ArgumentDefaultsHelpFormatter)
     parser.add_argument("-v", "--version", action="version", version=f"%(prog)s {__version__}")

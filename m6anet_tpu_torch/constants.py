@@ -51,6 +51,9 @@ ARABIDOPSIS_READ_THRESHOLD = 0.0032978046219796
 DEFAULT_READS_PER_SITE = 20  # MC resample width / training sample size
 
 DEFAULT_MODEL_CONFIG = asset_path("configs", "m6anet.toml")
+# ready-to-edit training-config template (reference ships the same file class:
+# m6anet/model/configs/training_configs/m6anet_train_config.toml)
+TRAIN_CONFIG_TEMPLATE = asset_path("configs", "train_config.toml")
 
 DEFAULT_PRETRAINED_MODELS = ["HCT116_RNA002", "arabidopsis_RNA002", "HEK293T_RNA004"]
 DEFAULT_PRETRAINED_MODEL = "HCT116_RNA002"

@@ -134,6 +134,8 @@ class SiteDataset:
         if self.mode != "Inference":
             self.labels = self.data_info["modification_status"].values
 
+        # train-mode read subsampling source; swap for reproducibility
+        self.rng = np.random
         self._norm_cache: Dict[str, Tuple[np.ndarray, np.ndarray]] = {}
         self._kmer_id_cache: Dict[str, np.ndarray] = {}
 
@@ -292,6 +294,20 @@ class SiteDataset:
         finally:
             for h in handles:
                 h.close()
+
+    # ------------------------------------------------------- training access
+    def sample_reads(self, site: Site) -> Tuple[np.ndarray, np.ndarray]:
+        """Sample exactly min_reads reads without replacement (train modes)
+        (reference: m6anet/utils/data_utils.py:213-214)."""
+        sel = self.rng.choice(site.n_reads, self.min_reads, replace=False)
+        return site.features[sel], np.repeat(site.kmer_ids[None, :], self.min_reads, axis=0)
+
+    def __getitem__(self, idx: int):
+        site = self.get_site(idx)
+        if self.mode == "Inference":
+            return site
+        features, kmers = self.sample_reads(site)
+        return features, kmers, site.label
 
 
 class ReplicateSiteDataset(SiteDataset):

@@ -6,19 +6,48 @@ production config (``models/assets/configs/m6anet.toml``) uses
 ``{"X": signal features, "kmer": k-mer ids or embeddings}`` between them,
 as the JAX blocks do.
 
-Numerics: f32 throughout.  ``Linear`` applies BatchNorm in eval mode with the
-JAX block's formula ``(y - mean) * rsqrt(var + 1e-5) * scale + bias``
-(blocks.py:212 there); training mode and ``ExtractSignal``/``Flatten`` wait
-for ROADMAP.md's generic-model and training items.
+Every block's ``forward`` takes ``train`` and ``generator`` as the JAX
+blocks' ``apply`` takes ``train`` and ``rng``; only ``Linear`` uses them.
+``ExtractSignal``/``Flatten`` wait for ROADMAP.md's generic-model item.
+
+Numerics: f32 throughout, with the JAX block's formulas (blocks.py:197-220
+there).  BatchNorm in eval mode is ``(y - mean) * rsqrt(var + 1e-5) * scale +
+bias`` over the running statistics; in train mode it normalises by the batch
+mean and the biased batch variance and folds the batch mean and the
+*unbiased* variance into the running statistics with momentum 0.1
+(torch.nn.BatchNorm1d semantics), in place, outside autograd.
 """
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional
 
 import torch
 from torch import nn
 
 BN_EPS = 1e-5
+BN_MOMENTUM = 0.1
+
+
+def _draw_(tensor: torch.Tensor, generator: torch.Generator, bound: Optional[float] = None) -> None:
+    """Overwrite ``tensor`` with U(-bound, bound) draws, or N(0, 1) draws
+    when ``bound`` is None, taken from ``generator`` (a CPU generator, so
+    one seed gives the same values on every device)."""
+    draws = torch.empty(tensor.shape, dtype=tensor.dtype)
+    if bound is None:
+        draws.normal_(generator=generator)
+    else:
+        draws.uniform_(-bound, bound, generator=generator)
+    with torch.no_grad():
+        tensor.copy_(draws)
+
+
+def init_linear(linear: nn.Linear, generator: torch.Generator) -> None:
+    """torch.nn.Linear's default law, as the JAX package draws it: weight and
+    bias U(-1/sqrt(in), 1/sqrt(in)) (blocks.py:67-75 there)."""
+    bound = 1.0 / math.sqrt(linear.in_features)
+    _draw_(linear.weight, generator, bound)
+    _draw_(linear.bias, generator, bound)
 
 
 def get_activation(name: Optional[str]):
@@ -46,7 +75,7 @@ class DeaggregateNanopolish(nn.Module):
         self.n_positions = 2 * num_neighboring_features + 1
         self.n_features = n_features * self.n_positions
 
-    def forward(self, x: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    def forward(self, x: Dict[str, torch.Tensor], train: bool = False, generator=None) -> Dict[str, torch.Tensor]:
         return {
             "X": x["X"].reshape(-1, self.n_features),
             "kmer": x["kmer"].reshape(-1, self.n_positions),
@@ -57,7 +86,7 @@ class ConcatenateFeatures(nn.Module):
     """Concatenate signal features and k-mer embeddings, X first
     (reference: m6anet/model/model_blocks/blocks.py:48-66)."""
 
-    def forward(self, x: Dict[str, torch.Tensor]) -> torch.Tensor:
+    def forward(self, x: Dict[str, torch.Tensor], train: bool = False, generator=None) -> torch.Tensor:
         return torch.cat([x["X"], x["kmer"]], dim=1)
 
 
@@ -71,14 +100,18 @@ class KmerMultipleEmbedding(nn.Module):
         self.n_positions = 2 * num_neighboring_features + 1
         self.embedding = nn.Embedding(input_channel, output_channel)
 
-    def forward(self, x: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    def init(self, generator: torch.Generator) -> None:
+        """torch.nn.Embedding's default law: N(0, 1)."""
+        _draw_(self.embedding.weight, generator)
+
+    def forward(self, x: Dict[str, torch.Tensor], train: bool = False, generator=None) -> Dict[str, torch.Tensor]:
         kmer = x["kmer"].reshape(-1, self.n_positions).long()
         emb = self.embedding(kmer)
         return {"X": x["X"], "kmer": emb.reshape(-1, self.n_positions * self.embedding.embedding_dim)}
 
 
 class Linear(nn.Module):
-    """Linear -> (eval BatchNorm1d) -> activation
+    """Linear -> (BatchNorm1d) -> activation -> (dropout)
     (reference: m6anet/model/model_blocks/blocks.py:208-266)."""
 
     def __init__(
@@ -94,11 +127,38 @@ class Linear(nn.Module):
         self.activation = get_activation(activation)
         self.linear = nn.Linear(input_channel, output_channel)
         self.bn = nn.BatchNorm1d(output_channel, eps=BN_EPS) if batch_norm else None
-        del dropout  # accepted from model TOMLs; dropout acts only in training
+        self.dropout = dropout
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def init(self, generator: torch.Generator) -> None:
+        init_linear(self.linear, generator)
+        if self.bn is not None:
+            with torch.no_grad():
+                self.bn.weight.fill_(1.0)
+                self.bn.bias.zero_()
+                self.bn.running_mean.zero_()
+                self.bn.running_var.fill_(1.0)
+                self.bn.num_batches_tracked.zero_()
+
+    def forward(self, x: torch.Tensor, train: bool = False, generator: Optional[torch.Generator] = None) -> torch.Tensor:
         y = self.linear(x)
         if self.bn is not None:
             bn = self.bn
-            y = (y - bn.running_mean) * torch.rsqrt(bn.running_var + BN_EPS) * bn.weight + bn.bias
-        return self.activation(y)
+            if train:
+                mean = y.mean(dim=0)
+                var = (y - mean).square().mean(dim=0)
+                with torch.no_grad():
+                    n = y.shape[0]
+                    unbiased = var * (n / max(n - 1, 1))
+                    bn.running_mean.copy_((1 - BN_MOMENTUM) * bn.running_mean + BN_MOMENTUM * mean)
+                    bn.running_var.copy_((1 - BN_MOMENTUM) * bn.running_var + BN_MOMENTUM * unbiased)
+            else:
+                mean, var = bn.running_mean, bn.running_var
+            y = (y - mean) * torch.rsqrt(var + BN_EPS) * bn.weight + bn.bias
+        y = self.activation(y)
+        if train and self.dropout > 0.0:
+            if generator is None:
+                raise ValueError("dropout requires a generator in train mode")
+            keep = 1.0 - self.dropout
+            mask = torch.rand(y.shape, generator=generator, device=y.device) < keep
+            y = torch.where(mask, y / keep, 0.0)
+        return y

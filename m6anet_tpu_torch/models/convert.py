@@ -1,15 +1,25 @@
-"""Carry weights across: JAX parameter trees and reference ``.pt`` files ->
-this package's ``state_dict``.
+"""Carry weights and optimizer state across, both ways: JAX parameter trees
+and reference ``.pt`` files <-> this package's ``state_dict``, and the optax
+Adam chain's state <-> ``torch.optim.Adam``'s.
 
 The JAX package keeps parameters as ``{"block<i>": {...}}`` with linear
 weights stored ``(in, out)``; here block ``i`` is ``blocks.<i>`` of
 :class:`~m6anet_tpu_torch.models.mil.MILModel`, every linear layer is
 ``.linear`` (``(out, in)``, PyTorch's layout) and every BatchNorm ``.bn``.
+
+The JAX training chain (clip -> decayed weights -> Adam -> scale) keeps
+three kinds of leaves, in tree order: ``count`` (int32), then Adam's first
+moments ``mu`` and second moments ``nu``, each over the parameter tree's
+leaves in its flatten order (keys sorted).  They are torch Adam's ``step``,
+``exp_avg`` and ``exp_avg_sq``.  JAX keeps moments for the BatchNorm
+running statistics too; they never reach the parameters (the train step
+overwrites those leaves), so they are dropped on import and written as
+zeros on export.
 """
 from __future__ import annotations
 
 from collections import OrderedDict
-from typing import Dict
+from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -26,6 +36,91 @@ _LEAF_MAP = {
 }
 
 
+_PORT_TO_LEAF = {key: (leaf, transpose) for leaf, (key, transpose) in _LEAF_MAP.items()}
+
+
+def params_to_jax(state_dict: Dict[str, torch.Tensor]) -> Dict[str, Dict[str, np.ndarray]]:
+    """The inverse of :func:`params_from_jax`: the port's state_dict as a
+    JAX parameter tree of numpy arrays (``num_batches_tracked`` has no JAX
+    leaf and is dropped)."""
+    tree: Dict[str, Dict[str, np.ndarray]] = {}
+    for name, value in state_dict.items():
+        _, index, sub = name.split(".", 2)
+        if sub == "bn.num_batches_tracked":
+            continue
+        if sub not in _PORT_TO_LEAF:
+            raise ValueError(f"parameter {name} has no JAX leaf")
+        leaf, transpose = _PORT_TO_LEAF[sub]
+        arr = value.detach().cpu().numpy().astype(np.float32)
+        tree.setdefault(f"block{index}", {})[leaf] = np.ascontiguousarray(arr.T if transpose else arr)
+    return tree
+
+
+def jax_leaf_order(model: torch.nn.Module) -> List[Tuple[str, str, str]]:
+    """``(block, leaf, port key)`` for every leaf of the model's JAX
+    parameter tree, in the tree's flatten order (keys sorted, as
+    ``jax.tree_util`` flattens dicts)."""
+    leaves = []
+    for name in model.state_dict():
+        _, index, sub = name.split(".", 2)
+        if sub in _PORT_TO_LEAF:
+            leaves.append((f"block{index}", _PORT_TO_LEAF[sub][0], name))
+    return sorted(leaves)
+
+
+def adam_state_to_jax(model: torch.nn.Module, optimizer: torch.optim.Adam) -> List[np.ndarray]:
+    """The optax chain's state leaves (``count``, ``mu``..., ``nu``...) for
+    ``optimizer``'s state over ``model``; a parameter without state yet (no
+    step taken) and every BatchNorm running statistic get zeros."""
+    params = dict(model.named_parameters())
+    shapes = {key: tuple(value.shape) for key, value in model.state_dict().items()}
+    count = 0
+    mu: List[np.ndarray] = []
+    nu: List[np.ndarray] = []
+    for _, leaf, key in jax_leaf_order(model):
+        transpose = _LEAF_MAP[leaf][1]
+        state = optimizer.state.get(params[key], {}) if key in params else {}
+        if state:
+            count = int(state["step"])
+        for out, name in ((mu, "exp_avg"), (nu, "exp_avg_sq")):
+            if name in state:
+                arr = state[name].detach().cpu().numpy()
+                out.append(np.ascontiguousarray(arr.T if transpose else arr))
+            else:
+                out.append(np.zeros(shapes[key][::-1] if transpose else shapes[key], np.float32))
+    return [np.asarray(count, np.int32), *mu, *nu]
+
+
+def adam_state_from_jax(leaves: Sequence[np.ndarray], model: torch.nn.Module, optimizer: torch.optim.Adam) -> None:
+    """Load the optax chain's state leaves into ``optimizer``'s state over
+    ``model`` (the inverse of :func:`adam_state_to_jax`)."""
+    order = jax_leaf_order(model)
+    if len(leaves) != 1 + 2 * len(order):
+        raise ValueError(
+            f"expected {1 + 2 * len(order)} optimizer leaves (count, then mu and nu over "
+            f"{len(order)} parameters), got {len(leaves)}"
+        )
+    params = dict(model.named_parameters())
+    count = float(np.asarray(leaves[0]))
+    mu, nu = leaves[1 : 1 + len(order)], leaves[1 + len(order) :]
+    optimizer.state.clear()
+    for (_, leaf, key), m, v in zip(order, mu, nu):
+        if key not in params:  # a BatchNorm running statistic
+            continue
+        param = params[key]
+        transpose = _LEAF_MAP[leaf][1]
+
+        def moment(arr):
+            arr = np.asarray(arr, np.float32)
+            return torch.tensor(arr.T if transpose else arr, device=param.device)
+
+        optimizer.state[param] = {
+            "step": torch.tensor(count, dtype=torch.float32),
+            "exp_avg": moment(m),
+            "exp_avg_sq": moment(v),
+        }
+
+
 def params_from_jax(tree: Dict[str, Dict[str, np.ndarray]]) -> "OrderedDict[str, torch.Tensor]":
     """Map a JAX parameter tree (numpy leaves) onto the port's state_dict."""
     sd: "OrderedDict[str, torch.Tensor]" = OrderedDict()
@@ -36,7 +131,7 @@ def params_from_jax(tree: Dict[str, Dict[str, np.ndarray]]) -> "OrderedDict[str,
                 raise ValueError(f"unknown parameter {block}/{leaf}")
             key, transpose = _LEAF_MAP[leaf]
             arr = np.asarray(value, np.float32)
-            sd[f"blocks.{index}.{key}"] = torch.from_numpy(np.ascontiguousarray(arr.T if transpose else arr))
+            sd[f"blocks.{index}.{key}"] = torch.from_numpy(np.array(arr.T if transpose else arr))
         if "bn_mean" in tree[block]:
             sd[f"blocks.{index}.bn.num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
     return sd

@@ -64,25 +64,51 @@ class MILModel(nn.Module):
     def decoder(self) -> List[nn.Module]:
         return list(self.blocks[self.pooling_index + 1 :])
 
+    def init(self, generator: torch.Generator) -> "MILModel":
+        """Draw every parameter from the JAX package's init laws
+        (blocks.py:67-75, 160 there): linear weights and biases
+        U(-1/sqrt(in), 1/sqrt(in)), embeddings N(0, 1), BatchNorm scale 1,
+        bias 0, running mean 0 and variance 1.  The draws come from
+        ``generator`` (a CPU ``torch.Generator``), block by block, so one
+        seed gives one init on every device; it is not the JAX package's
+        init for the same seed."""
+        for blk in self.blocks:
+            if hasattr(blk, "init"):
+                blk.init(generator)
+        return self
+
+    def _run(self, blocks, x, train: bool, generator: Optional[torch.Generator]):
+        for blk in blocks:
+            x = blk(x, train=train, generator=generator)
+        return x
+
     def read_representation(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         """Per-read latent representation (reference: m6anet/model/model.py:85-97)."""
-        x = batch
-        for blk in self.encoder:
-            x = blk(x)
-        return x
+        return self._run(self.encoder, batch, False, None)
 
     def per_read_probability(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         """Flat per-read probabilities (N,) — the inference path
         (reference: m6anet/utils/inference_utils.py:35-37)."""
         return self.pooling.per_read_prob(self.read_representation(batch))
 
-    def forward(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    def site_probability(
+        self,
+        batch: Dict[str, torch.Tensor],
+        train: bool = False,
+        generator: Optional[torch.Generator] = None,
+    ) -> torch.Tensor:
         """Site probability over fixed blocks of ``n_reads_per_site`` reads
-        (reference: m6anet/model/model.py:122-131)."""
-        y = self.pooling(self.read_representation(batch))
-        for blk in self.decoder:
-            y = blk(y)
-        return y
+        (reference: m6anet/model/model.py:122-131), with the JAX method's
+        semantics: ``train=True`` normalises BatchNorm by the batch and
+        refreshes its running statistics in place, and draws dropout from
+        ``generator``."""
+        x = self._run(self.encoder, batch, train, generator)
+        y = self.pooling(x, train=train, generator=generator)
+        return self._run(self.decoder, y, train, generator)
+
+    def forward(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """Eval-mode site probability, :meth:`site_probability`."""
+        return self.site_probability(batch)
 
 
 def load_model(model_config: Dict, weights_path: Optional[str] = None) -> MILModel:

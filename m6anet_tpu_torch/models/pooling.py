@@ -15,6 +15,25 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from .blocks import init_linear
+
+
+def tree_prod(x: torch.Tensor) -> torch.Tensor:
+    """Product over dim 1 of a (B, n) tensor as a tree of elementwise
+    products: halves of ceil(n/2) and floor(n/2) columns multiplied, until
+    one is left.  This is the product JAX computes when it differentiates a
+    product (its reduce_prod JVP rule), so a train step's site probability
+    and its gradient take the JAX package's order.  Its backward is plain
+    multiplication: no zero test, so no host sync (torch.prod's backward
+    counts the zeros of its input on the host)."""
+    while x.shape[1] > 1:
+        n1 = (x.shape[1] + 1) // 2
+        n2 = x.shape[1] - n1
+        # JAX pads the shorter half with a 1; x * 1 is x, so the odd column
+        # passes through
+        x = torch.cat([x[:, :n2] * x[:, n1:], x[:, n2:n1]], dim=1)
+    return x[:, 0]
+
 
 class PoolingFilter(nn.Module):
     """Marker base class: the model assembler splits the block list at the
@@ -31,6 +50,9 @@ class SigmoidProdPooling(PoolingFilter):
         self.n_reads_per_site = n_reads_per_site
         self.linear = nn.Linear(input_channel, 1)  # the probability layer
 
+    def init(self, generator: torch.Generator) -> None:
+        init_linear(self.linear, generator)
+
     def per_read_prob(self, x: torch.Tensor) -> torch.Tensor:
         """Per-read modification probability on the flat read axis, (N,)."""
         return torch.sigmoid(self.linear(x)).reshape(-1)
@@ -38,5 +60,8 @@ class SigmoidProdPooling(PoolingFilter):
     def read_level_prob(self, x: torch.Tensor) -> torch.Tensor:
         return self.per_read_prob(x).reshape(-1, self.n_reads_per_site)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return 1.0 - torch.prod(1.0 - self.read_level_prob(x), dim=1)
+    def forward(self, x: torch.Tensor, train: bool = False, generator=None) -> torch.Tensor:
+        """The noisy-OR; in train mode its product is :func:`tree_prod`, as
+        in the JAX package's train step (its eval keeps XLA's product)."""
+        q = 1.0 - self.read_level_prob(x)
+        return 1.0 - (tree_prod(q) if train else torch.prod(q, dim=1))

@@ -39,15 +39,22 @@ DEFAULT_CAPACITIES = {
 
 
 class _NotPorted(argparse.Action):
-    """Stop the parse: this flag's path waits for a ROADMAP.md item."""
+    """Stop the parse: this flag's path waits for a ROADMAP.md item.  With
+    ``refused``, only those values of the flag stop it; the others are
+    stored."""
 
-    def __init__(self, option_strings, dest, roadmap_item, **kwargs):
+    def __init__(self, option_strings, dest, roadmap_item, refused=None, **kwargs):
         self.roadmap_item = roadmap_item
+        self.refused = refused
         super().__init__(option_strings, dest, **kwargs)
 
     def __call__(self, parser, namespace, values, option_string=None):
+        if self.refused is not None and values not in self.refused:
+            setattr(namespace, self.dest, values)
+            return
+        shown = option_string if self.refused is None else f"{option_string} {values}"
         parser.error(
-            f"{option_string} is not ported to m6anet_tpu_torch yet "
+            f"{shown} is not ported to m6anet_tpu_torch yet "
             f"(ROADMAP.md, Queue 1 '{self.roadmap_item}')"
         )
 

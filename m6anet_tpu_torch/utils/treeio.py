@@ -1,13 +1,29 @@
-"""Reading flat-key ``.npz`` parameter files into nested trees.
+"""Flat-key ``.npz`` serialization of parameter trees (dicts / lists of
+arrays), the JAX package's layout.
 
 Keys are '/'-joined paths; all-digit segments denote list indices.  The
-converted pretrained weight files use this layout.
+converted pretrained weight files and the training checkpoints use this
+layout, so both packages read what either writes.
 """
 from __future__ import annotations
 
 from typing import Dict
 
 import numpy as np
+
+
+def flatten_tree(tree, prefix: str = "") -> Dict[str, np.ndarray]:
+    out: Dict[str, np.ndarray] = {}
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = ((str(i), v) for i, v in enumerate(tree))
+    else:
+        out[prefix.rstrip("/")] = np.asarray(tree)
+        return out
+    for k, v in items:
+        out.update(flatten_tree(v, f"{prefix}{k}/"))
+    return out
 
 
 def unflatten_tree(flat: Dict[str, np.ndarray]):
@@ -27,6 +43,10 @@ def unflatten_tree(flat: Dict[str, np.ndarray]):
         return {k: normalize(v) for k, v in node.items()}
 
     return normalize(root)
+
+
+def save_tree(path: str, tree) -> None:
+    np.savez(path, **flatten_tree(tree))
 
 
 def load_tree(path: str):

@@ -8,6 +8,7 @@ conftest, from the root of the checkout:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
+import json
 import os
 import tomllib
 
@@ -562,3 +563,122 @@ def test_engine_precisions_on_the_card(cuda_device, tmp_path):
     np.testing.assert_allclose(runs["auto"][0], runs["f32"][0], rtol=0, atol=1e-5)
     np.testing.assert_allclose(runs["bf16"][0], runs["f32"][0], rtol=0, atol=2e-2)
     np.testing.assert_allclose(runs["bf16"][1], runs["f32"][1], rtol=0, atol=1e-2)
+
+
+# ---------------------------------------------------------------- training
+TRAIN_LR = 4e-3
+
+
+def _train_batches(n, sites=256, seed=0):
+    rng = np.random.default_rng(seed)
+    return [{
+        "X": rng.normal(size=(sites, 20, 9)).astype(np.float32),
+        "kmer": rng.integers(0, 66, size=(sites, 20, 3)).astype(np.int32),
+        "y": rng.integers(0, 2, size=sites).astype(np.float32),
+    } for _ in range(n)]
+
+
+def _train_steps(state, device, batches):
+    from m6anet_tpu_torch.models.convert import params_to_jax
+    from m6anet_tpu_torch.models.mil import MILModel
+    from m6anet_tpu_torch.train import loop, losses
+
+    with open(DEFAULT_MODEL_CONFIG, "rb") as f:
+        model = MILModel(tomllib.load(f)).to(device)
+    model.load_state_dict(state)
+    step = loop.make_train_step(model, losses.binary_cross_entropy_loss,
+                                loop.make_optimizer(model, TRAIN_LR, 1e-5), 5.0)
+    out = torch.stack([step(loop.batch_to_device(b, torch.device(device)))[0] for b in batches])
+    return out.cpu().numpy(), params_to_jax(model.state_dict())
+
+
+def test_train_steps_on_the_card_match_cpu(cuda_device):
+    """From the released weights, on 256 x 20 batches: the first step
+    within 1e-6 of the CPU's (loss relative; every parameter, but 2 lr
+    where the CPU's gradient is below 1e-6: Adam's first step turns f32
+    noise there into steps of order lr), and five steps each side within
+    1e-3 relative (losses) and 2 lr (parameters), as chip_smoke.py phase
+    14 holds twenty (PERF.md, "Training")."""
+    from m6anet_tpu_torch.models.convert import params_from_jax, params_to_jax
+    from m6anet_tpu_torch.train import losses
+    from m6anet_tpu_torch.utils.treeio import load_tree
+
+    state = params_from_jax(load_tree(PRETRAINED_CONFIGS["HCT116_RNA002"][0]))
+    batches = _train_batches(5)
+    grad_model = _model()
+    grad_model.load_state_dict(state)
+    first = {k: torch.from_numpy(v) for k, v in batches[0].items()}
+    losses.binary_cross_entropy_loss(grad_model.site_probability(first, train=True), first["y"]).backward()
+    grads = params_to_jax({k: p.grad for k, p in grad_model.named_parameters()})
+    (card_loss,), card = _train_steps(state, "cuda", batches[:1])
+    (cpu_loss,), cpu = _train_steps(state, "cpu", batches[:1])
+    assert abs(card_loss - cpu_loss) <= 1e-6 * abs(cpu_loss)
+    for blk in cpu:
+        for leaf, want in cpu[blk].items():
+            loose = np.abs(grads[blk][leaf]) < 1e-6 if leaf in grads[blk] else np.zeros(want.shape, bool)
+            np.testing.assert_allclose(card[blk][leaf][~loose], want[~loose], rtol=0, atol=1e-6, err_msg=leaf)
+            np.testing.assert_allclose(card[blk][leaf][loose], want[loose], rtol=0, atol=2 * TRAIN_LR, err_msg=leaf)
+    card_losses, card = _train_steps(state, "cuda", batches)
+    cpu_losses, cpu = _train_steps(state, "cpu", batches)
+    np.testing.assert_allclose(card_losses, cpu_losses, rtol=1e-3)
+    for blk in cpu:
+        for leaf, want in cpu[blk].items():
+            np.testing.assert_allclose(card[blk][leaf], want, rtol=0, atol=2 * TRAIN_LR, err_msg=leaf)
+
+
+@pytest.mark.parametrize("loss_name", ["binary_cross_entropy_loss", "weighted_binary_cross_entropy_loss"])
+def test_epoch_steps_make_no_host_sync(cuda_device, loss_name):
+    """An epoch's train steps, numpy batches in (a wrap-padded last batch
+    among them), and the eval steps launch with no device-to-host sync:
+    the loop fetches once per epoch."""
+    from m6anet_tpu_torch.models.mil import MILModel
+    from m6anet_tpu_torch.train import loop, losses
+
+    with open(DEFAULT_MODEL_CONFIG, "rb") as f:
+        model = MILModel(tomllib.load(f)).init(torch.Generator().manual_seed(0)).to(cuda_device)
+    loss_fn = losses.LOSS_REGISTRY[loss_name]
+    step = loop.make_train_step(model, loss_fn, loop.make_optimizer(model, TRAIN_LR, 1e-5), 5.0)
+    eval_step = loop.make_eval_step(model, loss_fn)
+    batches = [dict(b, n_valid=64) for b in _train_batches(4, sites=64)]
+    batches[-1]["n_valid"] = 40  # rows 40-63 are wrap-around padding
+    generator = torch.Generator(device=cuda_device)
+    loop.run_epoch_steps(step, batches[:1], generator, cuda_device)  # first-use set-up syncs
+    eval_step(loop.batch_to_device(_train_batches(1, sites=64)[0], cuda_device))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        step_losses, pred_parts, y_true = loop.run_epoch_steps(step, batches, generator, cuda_device)
+        preds = [eval_step(loop.batch_to_device({k: b[k] for k in ("X", "kmer", "y")}, cuda_device))[1]
+                 for b in batches]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    got_losses, got_preds = loop._fetch(step_losses, pred_parts)
+    assert got_losses.shape == (4,) and np.isfinite(got_losses).all()
+    assert got_preds.shape == (3 * 64 + 40,) == np.concatenate(y_true).shape
+    assert all(torch.isfinite(p).all() for p in preds)
+
+
+def test_train_cli_on_the_card_writes_the_jax_layout(cuda_device, tmp_path):
+    from m6anet_tpu_torch.cli import main
+    from m6anet_tpu_torch.constants import DEFAULT_NORM_PATH, TRAIN_CONFIG_TEMPLATE
+    from m6anet_tpu_torch.utils.config import dump_toml, load_toml
+    from m6anet_tpu_torch.utils.treeio import load_tree
+
+    cfg = load_toml(TRAIN_CONFIG_TEMPLATE)
+    cfg["dataset"].update(root_dir=DATA_DIR, norm_path=DEFAULT_NORM_PATH)
+    dump_toml(cfg, str(tmp_path / "train.toml"))
+    out = tmp_path / "out"
+    main(["train", "--train_config", str(tmp_path / "train.toml"), "--save_dir", str(out), "--epochs", "2",
+          "--save_per_epoch", "2", "--num_iterations", "1"])  # the default device: the card
+    assert sorted(os.listdir(out / "model_states" / "2")) == ["meta.json", "model_states.npz", "opt_state.npz"]
+    with np.load(out / "model_states" / "2" / "opt_state.npz") as data:
+        assert len(data.files) == 23 and data["leaf_0000"].dtype == np.int32
+    for name in ("avg_loss.npz", "roc_auc.npz", "pr_auc.npz"):
+        tree = load_tree(str(out / name))
+        assert sorted(f"{b}/{leaf}" for b in tree for leaf in tree[b]) == [
+            "block1/embedding", "block3/b", "block3/bn_bias", "block3/bn_mean", "block3/bn_scale", "block3/bn_var",
+            "block3/w", "block4/b", "block4/w", "block5/b", "block5/w"]
+        assert tree["block3"]["w"].shape == (15, 150)
+    for name in ("train_results.json", "val_results.json", "test_results_avg_loss.json"):
+        with open(out / name) as f:
+            assert np.isfinite(json.load(f)["avg_loss"]).all()
