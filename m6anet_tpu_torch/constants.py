@@ -51,6 +51,10 @@ ARABIDOPSIS_READ_THRESHOLD = 0.0032978046219796
 DEFAULT_READS_PER_SITE = 20  # MC resample width / training sample size
 
 DEFAULT_MODEL_CONFIG = asset_path("configs", "m6anet.toml")
+# the reference's signal-only variant: no k-mer embedding, the 9 signal
+# features straight into the 150 -> 32 encoder
+# (reference: m6anet/model/configs/model_configs/prod_pooling_signal.toml)
+SIGNAL_MODEL_CONFIG = asset_path("configs", "prod_pooling_signal.toml")
 # ready-to-edit training-config template (reference ships the same file class:
 # m6anet/model/configs/training_configs/m6anet_train_config.toml)
 TRAIN_CONFIG_TEMPLATE = asset_path("configs", "train_config.toml")

@@ -17,7 +17,11 @@ Backends (the JAX package's ``pallas_fused``, ``pallas`` and ``xla``):
 ``cuda_fused`` runs the whole step as the hand-written kernel of
 ``ops/fused_infer_kernel.py``; ``cuda`` runs only the per-read encoder as a
 kernel (``ops/encoder_kernel.py``) and the plain site ops;
-``torch`` runs the model's modules and the plain site ops.  With the MC site
+``torch`` runs the model's modules and the plain site ops, for any model
+config whose pooling filter has a per-read probability layer.  The CUDA
+kernels cover the production architecture at its published widths; a
+config of other blocks resolves to ``torch``, as the JAX package's go to
+``xla`` (``resolve_backend``).  With the MC site
 method (``method="mc"``) both CUDA backends take the site probability from
 the kernel of ``ops/mc_kernel.py``, and ``torch`` from
 ``site_ops.site_probability_mc``; the two draw different numbers for one
@@ -76,17 +80,29 @@ def resolve_device(device) -> torch.device:
     return device
 
 
-def fused_backend_supported(model: MILModel) -> bool:
-    """True when the architecture matches the fused kernel's layout:
-    Deaggregate -> KmerMultipleEmbedding(66 -> 2, 3 positions) -> Concat ->
-    Linear(15 -> 150, relu, BN optional) -> Linear(150 -> 32, relu, no BN)
-    -> SigmoidProdPooling — the production MILModel all four released
-    models share."""
+def production_architecture(model: MILModel) -> bool:
+    """True when the block types and activations are the production
+    MILModel's: Deaggregate -> KmerMultipleEmbedding -> Concat ->
+    Linear(relu, BN optional) -> Linear(relu, no BN) -> SigmoidProdPooling,
+    at any widths.  This is the JAX package's own test for its fused Pallas
+    kernel, which takes any width of this architecture."""
     names = [type(blk).__name__ for blk in model.blocks]
     if names != [
         "DeaggregateNanopolish", "KmerMultipleEmbedding", "ConcatenateFeatures",
         "Linear", "Linear", "SigmoidProdPooling",
     ]:
+        return False
+    l1, l2 = model.blocks[3], model.blocks[4]
+    return l1.activation_name == "relu" and l2.activation_name == "relu" and l2.bn is None
+
+
+def fused_backend_supported(model: MILModel) -> bool:
+    """True when the architecture matches the fused kernel's layout: the
+    production architecture (``production_architecture``) at the widths
+    the CUDA kernels are built for, KmerMultipleEmbedding(66 -> 2, 3
+    positions) -> Linear(15 -> 150) -> Linear(150 -> 32) — the production
+    MILModel all four released models share."""
+    if not production_architecture(model):
         return False
     emb, l1, l2 = model.blocks[1], model.blocks[3], model.blocks[4]
     return (
@@ -94,43 +110,55 @@ def fused_backend_supported(model: MILModel) -> bool:
         and tuple(emb.embedding.weight.shape) == (fused_infer_kernel.VOCAB, fused_infer_kernel.EMB_DIM)
         and tuple(l1.linear.weight.shape) == (fused_infer_kernel.HIDDEN1, 15)
         and tuple(l2.linear.weight.shape) == (fused_infer_kernel.HIDDEN2, fused_infer_kernel.HIDDEN1)
-        and l1.activation_name == "relu"
-        and l2.activation_name == "relu"
-        and l2.bn is None
     )
 
 
 def resolve_backend(
     model: MILModel, backend: str, precision: str, device: torch.device, log=None
 ) -> Tuple[str, str]:
-    """Resolve 'auto' backend/precision: the fused CUDA kernel at f32x3 on
-    a card, the torch modules at f32 on the CPU (the JAX package's own
-    resolution for its Pallas and XLA backends).  The torch modules
-    run on the card only when asked for by name: 'auto' (like 'cuda_fused'
-    and 'cuda') raises on a card for an architecture the kernels do not
-    cover.  f32x3 and bf16 need a CUDA backend, as the JAX package's need a
-    Pallas one."""
+    """Resolve 'auto' backend/precision, from the architecture, before
+    anything launches.  On a card: the fused CUDA kernel at f32x3 for the
+    production architecture at the kernels' widths, and the torch modules
+    at f32 for an architecture of other block types or activations (the
+    JAX package's ``auto`` takes ``xla`` for the same configs).  The
+    production architecture at other widths raises: the JAX package runs
+    it on its width-generic Pallas kernel, the CUDA kernels are built for
+    150/32 (ROADMAP.md Queue 2 item 8), so the plain modules run it only
+    when asked for by name.  On the CPU the torch modules at f32.  An
+    explicit CUDA backend for an architecture its kernels do not cover
+    raises.  f32x3 and bf16 need a CUDA backend, as the JAX package's need
+    a Pallas one."""
     if backend not in BACKENDS:
         raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
     if precision not in PRECISIONS:
         raise ValueError(f"precision must be one of {PRECISIONS}, got {precision!r}")
-    if backend == "auto":
-        backend = "cuda_fused" if device.type == "cuda" else "torch"
+    if backend == "auto" and device.type == "cuda":
+        if fused_backend_supported(model):
+            backend = "cuda_fused"
+        elif production_architecture(model):
+            raise ValueError(
+                "backend 'auto': the CUDA kernels are built for the production "
+                "architecture at its published widths (15 -> 150 -> 32), not at "
+                "this model's (ROADMAP.md Queue 2 item 8); run it with --backend torch"
+            )
+        else:
+            backend = "torch"
+    elif backend == "auto":
+        backend = "torch"
     elif backend in CUDA_BACKENDS and device.type != "cuda":
         raise ValueError(f"backend {backend!r} needs device 'cuda'; use --backend torch on the CPU")
-    if backend in CUDA_BACKENDS and not fused_backend_supported(model):
+    elif backend in CUDA_BACKENDS and not fused_backend_supported(model):
         raise ValueError(
-            "the CUDA kernels support only the production architecture "
-            "(the packaged m6anet.toml config); run this model config with "
-            "--backend torch (its own kernels wait for ROADMAP.md, Queue 1 "
-            "'Generic model path')"
+            f"backend {backend!r}: the CUDA kernels support only the production "
+            "architecture at its published widths (the packaged m6anet.toml "
+            "config); run this model config with --backend torch"
         )
     if precision == "auto":
         precision = "f32x3" if backend in CUDA_BACKENDS else "f32"
     elif precision != "f32" and backend not in CUDA_BACKENDS:
         raise ValueError(
             f"precision {precision!r} runs on the CUDA backends ('cuda_fused', "
-            "'cuda'); --backend torch computes in f32"
+            "'cuda') and the production architecture; --backend torch computes in f32"
         )
     if log is not None:
         log.info("inference path: device=%s backend=%s precision=%s", device, backend, precision)
@@ -165,7 +193,9 @@ def make_infer_step(
     ``n_samples`` must be the kernel's ``mc_kernel.SAMPLES``.
 
     ``precision`` is the CUDA backends' (``f32``, ``f32x3`` or ``bf16``);
-    the torch backend takes only ``f32``."""
+    the torch backend takes only ``f32``, and a model whose pooling filter
+    has a per-read probability layer (it raises the JAX package's error
+    for any other)."""
     if method not in METHODS:
         raise ValueError(f"site_proba method must be one of {METHODS}, got {method!r}")
     if backend not in ("torch",) + CUDA_BACKENDS:
@@ -181,6 +211,7 @@ def make_infer_step(
     if backend == "torch" and precision != "f32":
         raise ValueError(f"precision {precision!r} runs on the CUDA backends; backend 'torch' computes in f32")
     if backend == "torch":
+        model.per_read_filter()  # the JAX package's error, before any batch
         key = random.key_from_seed(seed)
 
         def step(features, kmer_ids, offsets, counts, host_sites=None, host_kmer_ids=None):

@@ -1,14 +1,12 @@
 """Feature blocks of the production MIL model, as ``nn.Module``s.
 
-The port of the JAX package's ``models/blocks.py`` for the blocks the
-production config (``models/assets/configs/m6anet.toml``) uses
+The port of the JAX package's ``models/blocks.py``
 (reference: m6anet/model/model_blocks/blocks.py).  Blocks pass a dict
 ``{"X": signal features, "kmer": k-mer ids or embeddings}`` between them,
 as the JAX blocks do.
 
 Every block's ``forward`` takes ``train`` and ``generator`` as the JAX
 blocks' ``apply`` takes ``train`` and ``rng``; only ``Linear`` uses them.
-``ExtractSignal``/``Flatten`` wait for ROADMAP.md's generic-model item.
 
 Numerics: f32 throughout, with the JAX block's formulas (blocks.py:197-220
 there).  BatchNorm in eval mode is ``(y - mean) * rsqrt(var + 1e-5) * scale +
@@ -82,12 +80,36 @@ class DeaggregateNanopolish(nn.Module):
         }
 
 
+class ExtractSignal(nn.Module):
+    """Drop the k-mer channel, keep only the signal features
+    (reference: m6anet/model/model_blocks/blocks.py:69-86)."""
+
+    def forward(self, x: Dict[str, torch.Tensor], train: bool = False, generator=None) -> torch.Tensor:
+        return x["X"]
+
+
 class ConcatenateFeatures(nn.Module):
     """Concatenate signal features and k-mer embeddings, X first
     (reference: m6anet/model/model_blocks/blocks.py:48-66)."""
 
     def forward(self, x: Dict[str, torch.Tensor], train: bool = False, generator=None) -> torch.Tensor:
         return torch.cat([x["X"], x["kmer"]], dim=1)
+
+
+class Flatten(nn.Module):
+    """torch.nn.Flatten(start_dim, end_dim) as the JAX block computes it: a
+    negative ``end_dim`` counts from the last axis, ``start_dim`` is taken
+    as given (reference: m6anet/model/model_blocks/blocks.py:129-162)."""
+
+    def __init__(self, start_dim: int, end_dim: int):
+        super().__init__()
+        self.start_dim = start_dim
+        self.end_dim = end_dim
+
+    def forward(self, x: torch.Tensor, train: bool = False, generator=None) -> torch.Tensor:
+        shape = tuple(x.shape)
+        end = self.end_dim if self.end_dim >= 0 else len(shape) + self.end_dim
+        return x.reshape(shape[: self.start_dim] + (-1,) + shape[end + 1 :])
 
 
 class KmerMultipleEmbedding(nn.Module):

@@ -2,27 +2,35 @@
 and reference ``.pt`` files <-> this package's ``state_dict``, and the optax
 Adam chain's state <-> ``torch.optim.Adam``'s.
 
-The JAX package keeps parameters as ``{"block<i>": {...}}`` with linear
-weights stored ``(in, out)``; here block ``i`` is ``blocks.<i>`` of
-:class:`~m6anet_tpu_torch.models.mil.MILModel`, every linear layer is
-``.linear`` (``(out, in)``, PyTorch's layout) and every BatchNorm ``.bn``.
+The JAX package keeps parameters as a nested tree ``{"block<i>": {...}}``
+of dicts and lists, with linear weights stored ``(in, out)``.  Here block
+``i`` is ``blocks.<i>`` of :class:`~m6anet_tpu_torch.models.mil.MILModel`,
+and the modules below it carry the tree's keys as names (list entries by
+index), so a tree path maps onto a parameter name by its leaf alone: every
+``w``/``b`` pair is an ``nn.Linear`` called ``linear`` (``(out, in)``,
+PyTorch's layout), an ``embedding`` an ``nn.Embedding`` and the ``bn_*``
+leaves an ``nn.BatchNorm1d`` called ``bn``.  For example
+``block4/attention_v/layers/0/w`` is ``blocks.4.attention_v.layers.0.linear.weight``
+transposed, and ``block3/bn_mean`` is ``blocks.3.bn.running_mean``.
 
 The JAX training chain (clip -> decayed weights -> Adam -> scale) keeps
 three kinds of leaves, in tree order: ``count`` (int32), then Adam's first
 moments ``mu`` and second moments ``nu``, each over the parameter tree's
-leaves in its flatten order (keys sorted).  They are torch Adam's ``step``,
-``exp_avg`` and ``exp_avg_sq``.  JAX keeps moments for the BatchNorm
-running statistics too; they never reach the parameters (the train step
-overwrites those leaves), so they are dropped on import and written as
-zeros on export.
+leaves in its flatten order (:func:`jax_leaf_order`).  They are torch
+Adam's ``step``, ``exp_avg`` and ``exp_avg_sq``.  JAX keeps moments for the
+BatchNorm running statistics too; they never reach the parameters (the
+train step overwrites those leaves), so they are dropped on import and
+written as zeros on export.
 """
 from __future__ import annotations
 
 from collections import OrderedDict
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from ..utils.treeio import flatten_tree, unflatten_tree
 
 # JAX leaf name -> (port sub-key, transpose)
 _LEAF_MAP = {
@@ -39,33 +47,58 @@ _LEAF_MAP = {
 _PORT_TO_LEAF = {key: (leaf, transpose) for leaf, (key, transpose) in _LEAF_MAP.items()}
 
 
-def params_to_jax(state_dict: Dict[str, torch.Tensor]) -> Dict[str, Dict[str, np.ndarray]]:
+def _port_key(path: str) -> Tuple[str, bool]:
+    """``"block4/layers/0/w"`` -> ``("blocks.4.layers.0.linear.weight",
+    True)``: the parameter name and whether the array is transposed."""
+    block, *middle, leaf = path.split("/")
+    if not block.startswith("block") or leaf not in _LEAF_MAP:
+        raise ValueError(f"unknown parameter {path}")
+    sub, transpose = _LEAF_MAP[leaf]
+    return ".".join(["blocks", block.removeprefix("block"), *middle, sub]), transpose
+
+
+def _jax_path(name: str) -> Optional[str]:
+    """The inverse of :func:`_port_key`; None for a state_dict entry with no
+    JAX leaf (``num_batches_tracked``)."""
+    parts = name.split(".")
+    sub = ".".join(parts[-2:])
+    if sub == "bn.num_batches_tracked":
+        return None
+    if parts[0] != "blocks" or sub not in _PORT_TO_LEAF:
+        raise ValueError(f"parameter {name} has no JAX leaf")
+    return "/".join([f"block{parts[1]}", *parts[2:-2], _PORT_TO_LEAF[sub][0]])
+
+
+def _transposed(path: str) -> bool:
+    return _LEAF_MAP[path.rsplit("/", 1)[-1]][1]
+
+
+def params_to_jax(state_dict: Dict[str, torch.Tensor]):
     """The inverse of :func:`params_from_jax`: the port's state_dict as a
     JAX parameter tree of numpy arrays (``num_batches_tracked`` has no JAX
     leaf and is dropped)."""
-    tree: Dict[str, Dict[str, np.ndarray]] = {}
+    flat = {}
     for name, value in state_dict.items():
-        _, index, sub = name.split(".", 2)
-        if sub == "bn.num_batches_tracked":
+        path = _jax_path(name)
+        if path is None:
             continue
-        if sub not in _PORT_TO_LEAF:
-            raise ValueError(f"parameter {name} has no JAX leaf")
-        leaf, transpose = _PORT_TO_LEAF[sub]
         arr = value.detach().cpu().numpy().astype(np.float32)
-        tree.setdefault(f"block{index}", {})[leaf] = np.ascontiguousarray(arr.T if transpose else arr)
-    return tree
+        flat[path] = np.ascontiguousarray(arr.T if _transposed(path) else arr)
+    return unflatten_tree(flat)
 
 
-def jax_leaf_order(model: torch.nn.Module) -> List[Tuple[str, str, str]]:
-    """``(block, leaf, port key)`` for every leaf of the model's JAX
-    parameter tree, in the tree's flatten order (keys sorted, as
-    ``jax.tree_util`` flattens dicts)."""
-    leaves = []
-    for name in model.state_dict():
-        _, index, sub = name.split(".", 2)
-        if sub in _PORT_TO_LEAF:
-            leaves.append((f"block{index}", _PORT_TO_LEAF[sub][0], name))
-    return sorted(leaves)
+def _flatten_order(path: str):
+    # dict keys sorted as strings, list entries by index
+    return [(0, int(part), "") if part.isdigit() else (1, 0, part) for part in path.split("/")]
+
+
+def jax_leaf_order(model: torch.nn.Module) -> List[Tuple[str, str]]:
+    """``(JAX tree path, port key)`` for every leaf of the model's JAX
+    parameter tree, in the order ``jax.tree_util`` flattens it: dict keys
+    sorted, list entries in index order (``layers/2`` before
+    ``layers/10``)."""
+    leaves = [(path, name) for name in model.state_dict() if (path := _jax_path(name)) is not None]
+    return sorted(leaves, key=lambda leaf: _flatten_order(leaf[0]))
 
 
 def adam_state_to_jax(model: torch.nn.Module, optimizer: torch.optim.Adam) -> List[np.ndarray]:
@@ -77,8 +110,8 @@ def adam_state_to_jax(model: torch.nn.Module, optimizer: torch.optim.Adam) -> Li
     count = 0
     mu: List[np.ndarray] = []
     nu: List[np.ndarray] = []
-    for _, leaf, key in jax_leaf_order(model):
-        transpose = _LEAF_MAP[leaf][1]
+    for path, key in jax_leaf_order(model):
+        transpose = _transposed(path)
         state = optimizer.state.get(params[key], {}) if key in params else {}
         if state:
             count = int(state["step"])
@@ -104,11 +137,11 @@ def adam_state_from_jax(leaves: Sequence[np.ndarray], model: torch.nn.Module, op
     count = float(np.asarray(leaves[0]))
     mu, nu = leaves[1 : 1 + len(order)], leaves[1 + len(order) :]
     optimizer.state.clear()
-    for (_, leaf, key), m, v in zip(order, mu, nu):
+    for (path, key), m, v in zip(order, mu, nu):
         if key not in params:  # a BatchNorm running statistic
             continue
         param = params[key]
-        transpose = _LEAF_MAP[leaf][1]
+        transpose = _transposed(path)
 
         def moment(arr):
             arr = np.asarray(arr, np.float32)
@@ -121,19 +154,17 @@ def adam_state_from_jax(leaves: Sequence[np.ndarray], model: torch.nn.Module, op
         }
 
 
-def params_from_jax(tree: Dict[str, Dict[str, np.ndarray]]) -> "OrderedDict[str, torch.Tensor]":
-    """Map a JAX parameter tree (numpy leaves) onto the port's state_dict."""
+def params_from_jax(tree) -> "OrderedDict[str, torch.Tensor]":
+    """Map a JAX parameter tree (numpy leaves, nested dicts and lists) onto
+    the port's state_dict, blocks in index order."""
+    flat = flatten_tree(tree)
     sd: "OrderedDict[str, torch.Tensor]" = OrderedDict()
-    for block in sorted(tree, key=lambda k: int(k.removeprefix("block"))):
-        index = int(block.removeprefix("block"))
-        for leaf, value in tree[block].items():
-            if leaf not in _LEAF_MAP:
-                raise ValueError(f"unknown parameter {block}/{leaf}")
-            key, transpose = _LEAF_MAP[leaf]
-            arr = np.asarray(value, np.float32)
-            sd[f"blocks.{index}.{key}"] = torch.from_numpy(np.array(arr.T if transpose else arr))
-        if "bn_mean" in tree[block]:
-            sd[f"blocks.{index}.bn.num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
+    for path in sorted(flat, key=lambda p: int(p.split("/", 1)[0].removeprefix("block"))):
+        key, transpose = _port_key(path)
+        arr = np.asarray(flat[path], np.float32)
+        sd[key] = torch.from_numpy(np.array(arr.T if transpose else arr))
+        if path.endswith("/bn_mean"):
+            sd[key.removesuffix("running_mean") + "num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
     return sd
 
 

@@ -45,10 +45,14 @@ arithmetic (``_fused_infer_kernel_t``), per read:
 * bf16: every product is ``bf16(W) @ bf16(input)`` with f32 sums, the
   embedding value ``bf16(e)``;
 
-and both add the f32 biases after each product.  The plain versions sum
-the tensor-core products as the kernel does (in k16 chunks, each truncated
-toward zero), so the two differ by the tensor cores' rounding inside a
-chunk alone.
+and both add the f32 biases after each product.  The plain versions of the
+reduced modes take every sum in the kernel's order (``read_probability_plain``)
+and sum the tensor-core products as the kernel does (in k16 chunks, each
+truncated toward zero), so the two differ by the tensor cores' rounding
+inside a chunk alone.  The order matters beyond an ulp: f32x3 rounds the
+low half of each split to bf16, so one ulp of h1 or h2 can move a low half
+by a bf16 step of its own, which a model that amplifies its inputs (such as
+HEK293T_RNA004) turns into ~7e-6 of p (PERF.md section 6, PR 9).
 """
 from __future__ import annotations
 
@@ -253,30 +257,58 @@ def _tensor_core_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _dot_f32x3(a: torch.Tensor, b: torch.Tensor, tensor_cores: bool = False) -> torch.Tensor:
-    """``a @ b.T`` as the JAX package's f32x3 dot with ``b`` the weights:
-    (b_lo . a_hi + b_hi . a_lo) + b_hi . a_hi, f32 sums of exact products
-    (the last summed as the tensor cores do when ``tensor_cores``)."""
-    a_hi, a_lo = bf16_split(a)
-    b_hi, b_lo = bf16_split(b)
-    hi = _tensor_core_matmul(a_hi, b_hi) if tensor_cores else torch.matmul(a_hi, b_hi.t())
-    return (torch.matmul(a_hi, b_lo.t()) + torch.matmul(a_lo, b_hi.t())) + hi
+def _tensor_core_accumulate(acc: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``acc + a @ b.T`` as one tensor-core accumulator takes it (``wgmma``
+    with scale-d 1): each k16 chunk's products summed exactly with the
+    accumulator and truncated toward zero to f32, chunk after chunk."""
+    for k in range(0, a.shape[1], 16):
+        acc = _round_toward_zero(acc.double() + torch.matmul(a[:, k : k + 16].double(), b[:, k : k + 16].double().t()))
+    return acc
 
 
-def _dot_bf16(a: torch.Tensor, b: torch.Tensor, tensor_cores: bool = False) -> torch.Tensor:
-    """``a @ b.T`` of the operands rounded to bf16, with f32 sums (summed as
-    the tensor cores do when ``tensor_cores``)."""
-    a, b = bf16_round(a), bf16_round(b)
-    return _tensor_core_matmul(a, b) if tensor_cores else torch.matmul(a, b.t())
+def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """f32 ``fmaf(a, b, c)``: the product is exact in f64; the f64 sum
+    rounds once more before f32, which differs from one rounding only where
+    it lands on an f32 tie."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def _fma_chain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w.T`` (x (N, K), w (M, K)) in the kernels' layer-1 order:
+    ``x[0] w[0]`` rounded, then one ``fmaf`` per k in order."""
+    u = x[:, :1] * w[:, 0]
+    for k in range(1, x.shape[1]):
+        u = _fma(w[:, k], x[:, k : k + 1], u)
+    return u
+
+
+def _lane_dot(v: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``v @ w`` (v (N, 32), w (32,)) in the order of read_prob_tc.cu's
+    head: lane t of a quad takes units 8 nt + 2t + e (nt, then e, in order)
+    with ``fmaf`` from 0, and the quad adds its four sums as
+    (t0 + t1) + (t2 + t3) (two xor shuffles)."""
+    lanes = []
+    for t in range(4):
+        acc = v.new_zeros(v.shape[0])
+        for nt in range(HIDDEN2 // 8):
+            for e in range(2):
+                n = 8 * nt + 2 * t + e
+                acc = _fma(w[n], v[:, n], acc)
+        lanes.append(acc)
+    return (lanes[0] + lanes[1]) + (lanes[2] + lanes[3])
 
 
 def read_probability_plain(
     fp: FusedParamsT, features: torch.Tensor, kmer_ids: torch.Tensor, precision: str = "f32"
 ) -> torch.Tensor:
-    """Phase A's function in plain PyTorch: per-read p (N,) (f32 matmuls).
-    The reduced modes round their operands as the module's docstring sets
-    out and sum every product the kernel takes on the tensor cores as it
-    does, in k16 chunks truncated toward zero (``_tensor_core_matmul``)."""
+    """Phase A's function in plain PyTorch: per-read p (N,).  f32 takes f32
+    matmuls.  The reduced modes round their operands as the module's
+    docstring sets out and follow ``read_prob_tc.cu``'s arithmetic step by
+    step: every f32 sum in the kernel's order (layer 1's FMA chain in f32x3,
+    the head's per-lane FMAs and quad sum, the biases where the kernel adds
+    them), and every product the kernel takes on the tensor cores summed as
+    they do, in k16 chunks truncated toward zero (``_tensor_core_matmul``;
+    f32x3's cross products in one accumulator, ``_tensor_core_accumulate``)."""
     check_precision(precision)
     _check_kmer_range(kmer_ids)
     n = features.shape[0]
@@ -287,18 +319,29 @@ def read_probability_plain(
     elif precision == "bf16":
         table = bf16_round(table)
     x = torch.cat([features, table[kmer_ids.long()].reshape(n, -1)], dim=1)
-    if precision == "bf16":
-        dot = _dot_bf16
-        h = torch.relu(dot(x, fp.w1t, tensor_cores=True) + fp.b1t.t())
-    else:  # layer 1 stays f32 in f32x3 (the JAX kernel's dot1)
-        h = torch.relu(torch.matmul(x, fp.w1t.t()) + fp.b1t.t())
+    b1, b2, b3 = fp.b1t.reshape(-1), fp.b2t.reshape(-1), fp.b3t.reshape(-1)
     if precision == "f32":
-        h = torch.relu(torch.matmul(h, fp.w2t.t()) + fp.b2t.t())
-        return torch.sigmoid(torch.matmul(h, fp.w3t.t()) + fp.b3t.t()).reshape(-1)
+        h = torch.relu(torch.matmul(x, fp.w1t.t()) + b1)
+        h = torch.relu(torch.matmul(h, fp.w2t.t()) + b2)
+        return torch.sigmoid(torch.matmul(h, fp.w3t.t()) + b3).reshape(-1)
     if precision == "f32x3":
-        dot = _dot_f32x3
-    h = torch.relu(dot(h, fp.w2t, tensor_cores=True) + fp.b2t.t())
-    return torch.sigmoid(dot(h, fp.w3t) + fp.b3t.t()).reshape(-1)
+        h = torch.relu(_fma_chain(x, fp.w1t) + b1)  # layer 1 stays f32 (the JAX kernel's dot1)
+        h_hi, h_lo = bf16_split(h)
+        w2_hi, w2_lo = bf16_split(fp.w2t)
+        cross = h.new_zeros(n, HIDDEN2)
+        for k in range(0, HIDDEN1, 16):  # W2lo.h1hi, then W2hi.h1lo, a k16 step at a time
+            ks = slice(k, k + 16)
+            cross = _tensor_core_accumulate(cross, h_hi[:, ks], w2_lo[:, ks])
+            cross = _tensor_core_accumulate(cross, h_lo[:, ks], w2_hi[:, ks])
+        h = torch.relu((cross + _tensor_core_matmul(h_hi, w2_hi)) + b2)
+        v_hi, v_lo = bf16_split(h)
+        w3_hi, w3_lo = bf16_split(fp.w3t.reshape(-1))
+        z = ((_lane_dot(v_hi, w3_lo) + _lane_dot(v_lo, w3_hi)) + _lane_dot(v_hi, w3_hi)) + b3
+    else:
+        h = torch.relu(_tensor_core_matmul(bf16_round(x), bf16_round(fp.w1t)) + b1)
+        h = torch.relu(_tensor_core_matmul(bf16_round(h), bf16_round(fp.w2t)) + b2)
+        z = _lane_dot(bf16_round(h), bf16_round(fp.w3t.reshape(-1))) + b3
+    return 1.0 / (1.0 + torch.exp(-z))
 
 
 def fused_inference_t_plain(

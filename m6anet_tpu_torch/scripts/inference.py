@@ -68,9 +68,13 @@ def argparser():
     parser.add_argument("--pretrained_model", default=DEFAULT_PRETRAINED_MODEL, type=str,
                         help=f"pre-trained model. Options include {DEFAULT_PRETRAINED_MODELS}.")
     parser.add_argument("--model_config", default=DEFAULT_MODEL_CONFIG,
-                        help="path to model config file.")
+                        help="path to model config file (any TOML of the "
+                             "reference's blocks whose pooling filter has a "
+                             "per-read probability layer).")
     parser.add_argument("--model_state_dict", default=None,
-                        help="path to model weights (.npz native, or a reference .pt).")
+                        help="path to model weights (.npz in the JAX package's "
+                             "tree layout, or the reference's .pt of the "
+                             "production model).")
     parser.add_argument("--norm_path", default=DEFAULT_NORM_PATH,
                         help="path to normalization factors file (.npz or reference .joblib).")
     parser.add_argument("--batch_size", default=16, type=int,
@@ -100,11 +104,13 @@ def argparser():
     parser.add_argument("--min_reads", default=DEFAULT_MIN_READS, type=int,
                         help="minimum reads for a site to be scored.")
     parser.add_argument("--backend", default="auto", choices=BACKENDS,
-                        help="auto = the fused CUDA kernel on cuda, the torch "
-                             "modules on cpu; cuda = the encoder kernel alone, "
-                             "site statistics in plain PyTorch; other "
-                             "architectures run on cuda only with an explicit "
-                             "--backend torch.")
+                        help="auto = the fused CUDA kernel on cuda for the "
+                             "production architecture (m6anet.toml, all four "
+                             "released models), the torch modules for any other "
+                             "--model_config and on cpu; cuda = the encoder "
+                             "kernel alone, site statistics in plain PyTorch; "
+                             "cuda_fused and cuda take the production "
+                             "architecture only.")
     parser.add_argument("--precision", default="auto", choices=PRECISIONS,
                         help="auto = f32x3 on the CUDA backends, f32 on "
                              "--backend torch; f32 = parity mode (f32 "

@@ -259,6 +259,8 @@ def _chunks(a: torch.Tensor, b: torch.Tensor, chunk_sum) -> torch.Tensor:
 
 
 # how the plain version sums the products the kernel takes on the tensor cores
+# into a zero accumulator (f32x3's cross products, in one accumulator, stay
+# in fik._tensor_core_accumulate; scripts/probe_tc_sums.py varies both)
 SUMS = {
     "k16 chunks, f64 sums truncated toward zero (the plain version)": fik._tensor_core_matmul,
     "k16 chunks, f64 sums rounded to nearest": lambda a, b: _chunks(

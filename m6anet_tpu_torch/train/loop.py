@@ -71,7 +71,7 @@ def make_train_step(model, loss_fn: Callable, optimizer: torch.optim.Optimizer, 
     supports_mask = _loss_supports_mask(loss_fn)
     params = dict(model.named_parameters())
     # the JAX parameter tree's leaf order, so the global norm sums as optax's
-    ordered = [params[key] for _, _, key in jax_leaf_order(model) if key in params]
+    ordered = [params[key] for _, key in jax_leaf_order(model) if key in params]
 
     def step(batch: Dict[str, torch.Tensor], generator: Optional[torch.Generator] = None):
         optimizer.zero_grad()
@@ -79,6 +79,13 @@ def make_train_step(model, loss_fn: Callable, optimizer: torch.optim.Optimizer, 
         mask = batch.get("mask") if supports_mask else None
         loss = loss_fn(pred, batch["y"]) if mask is None else loss_fn(pred, batch["y"], mask=mask)
         loss.backward()
+        for p in ordered:
+            # a parameter the site output does not reach (the read classifier
+            # of ProbabilityAttention and SummaryStatsProbability) gets a zero
+            # gradient, as under jax.grad: Adam then moves it by its weight
+            # decay alone, as optax does
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
         if clip_grad is not None:
             clip_by_global_norm_([p.grad for p in ordered], clip_grad)
         optimizer.step()
@@ -227,7 +234,10 @@ def saturation_aware_init(model, bias: float = -4.0):
     """Opt-in alternative mitigation: set the probability layer's bias so a
     fresh init starts with per-read p ~ sigmoid(bias) and site_p well below
     1, outside the saturated noisy-OR region.  Changes the init
-    distribution vs the reference torch loop, hence never the default."""
+    distribution vs the reference torch loop, hence never the default.
+    As in the JAX package, only a filter whose own parameters hold the
+    bias (``b`` at the top of its tree: the instance-pooling filters) is
+    touched; ``ProbabilityAttention``'s, under ``read_classifier``, is not."""
     with torch.no_grad():
         for blk in model.blocks:
             if isinstance(blk, PoolingFilter) and hasattr(blk, "linear"):

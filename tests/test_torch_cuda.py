@@ -682,3 +682,65 @@ def test_train_cli_on_the_card_writes_the_jax_layout(cuda_device, tmp_path):
     for name in ("train_results.json", "val_results.json", "test_results_avg_loss.json"):
         with open(out / name) as f:
             assert np.isfinite(json.load(f)["avg_loss"]).all()
+
+
+# ------------------------------------------------- released models, generic
+def _assert_runs_close(got_dir, want_dir, threshold, read_atol, site_atol=1e-5):
+    """inference.outputs.compare_runs on the demo's outputs (5,595 reads,
+    101 sites)."""
+    from m6anet_tpu_torch.inference.outputs import compare_runs
+
+    gaps = compare_runs(str(got_dir), str(want_dir), threshold, read_atol, site_atol)
+    assert gaps["ok"] and gaps["rows"] == [5595, 101], gaps
+
+
+@pytest.mark.parametrize("name", sorted(PRETRAINED_CONFIGS))
+def test_released_models_match_the_torch_backend_on_the_card(cuda_device, tmp_path, name):
+    """Each released model (its own weights, threshold and norm factors)
+    through cuda_fused at f32 and f32x3 against --backend torch on the card:
+    per read within 1e-6 (f32) and 2e-5 (f32x3), or twice the mode's own
+    error against an f64 copy of the model on the same reads (its plain
+    version's) where that is larger, as chip_smoke.py phase 16 holds them."""
+    import copy
+
+    from m6anet_tpu_torch.data.batching import pack_sites
+
+    weights, threshold, norm = PRETRAINED_CONFIGS[name]
+    with open(DEFAULT_MODEL_CONFIG, "rb") as f:
+        model = load_model(tomllib.load(f), weights)
+    dataset = build_dataset(DATA_DIR, min_reads=DEFAULT_MIN_READS, norm_path=norm, mode="Inference")
+    run_inference(model, dataset, str(tmp_path / "torch"), threshold, backend="torch")
+    (batch,) = pack_sites(dataset.iter_sites(), read_capacity=8192, site_capacity=128)
+    X, K, offsets, counts = (torch.from_numpy(a).to(cuda_device) for a in
+                             (batch.features, batch.kmer_ids, batch.offsets, batch.counts))
+    n = int(counts.sum())
+    fp = fik.prepare_fused_params_t(model)
+    with torch.no_grad():
+        exact = copy.deepcopy(model).double().per_read_probability({"X": X[:n].double(), "kmer": K[:n].long()})
+    for precision, tol in (("f32", 1e-6), ("f32x3", 2e-5)):
+        before = fik.launch_count, fik.site_reduce_launch_count
+        run_inference(model, dataset, str(tmp_path / precision), threshold, backend="cuda_fused", precision=precision)
+        assert fik.launch_count > before[0] and fik.site_reduce_launch_count > before[1]
+        plain = fik.fused_inference_t_plain(fp, X, K, None, offsets, counts, threshold, 20, precision)[0]
+        own_error = float((plain[:n].double() - exact).abs().max())
+        _assert_runs_close(tmp_path / precision, tmp_path / "torch", threshold, max(tol, 2 * own_error))
+
+
+def test_signal_config_under_auto_on_the_card_matches_cpu(cuda_device, tmp_path):
+    """prod_pooling_signal.toml (seeded weights): auto on the card takes the
+    torch modules, launches no kernel, and matches the CPU's run (per read
+    1e-6, per site 1e-5, mod_ratio equal)."""
+    from m6anet_tpu_torch.constants import SIGNAL_MODEL_CONFIG
+    from m6anet_tpu_torch.inference import engine
+    from m6anet_tpu_torch.models.mil import MILModel
+
+    with open(SIGNAL_MODEL_CONFIG, "rb") as f:
+        model = MILModel(tomllib.load(f)).init(torch.Generator().manual_seed(0)).eval()
+    assert engine.resolve_backend(model, "auto", "auto", cuda_device) == ("torch", "f32")
+    run_inference(model, _dataset(), str(tmp_path / "cpu"), DEFAULT_READ_THRESHOLD, device="cpu")
+    before = (fik.launch_count, fik.site_reduce_launch_count, encoder_kernel.launch_count, mc_kernel.launch_count,
+              dict(fik.tc_launch_counts))
+    run_inference(model, _dataset(), str(tmp_path / "card"), DEFAULT_READ_THRESHOLD)
+    assert (fik.launch_count, fik.site_reduce_launch_count, encoder_kernel.launch_count, mc_kernel.launch_count,
+            dict(fik.tc_launch_counts)) == before
+    _assert_runs_close(tmp_path / "card", tmp_path / "cpu", DEFAULT_READ_THRESHOLD, 1e-6)

@@ -251,17 +251,22 @@ def test_backend_resolution():
     assert engine.resolve_backend(model, "torch", "f32", cuda) == ("torch", "f32")
     for precision in ("f32", "f32x3", "bf16"):
         assert engine.resolve_backend(model, "auto", precision, cuda) == ("cuda_fused", precision)
-    # another architecture runs the torch modules on the card only when asked
+    # the production architecture at other widths: the JAX package runs it
+    # on its width-generic Pallas kernel, the CUDA kernels are built for
+    # 150/32, so on the card the torch modules run it only when asked for
     with open(DEFAULT_MODEL_CONFIG, "rb") as f:
         config = tomllib.load(f)
     config["block"][4]["output_channel"] = config["block"][5]["input_channel"] = 16
     narrow = load_model(config)
     assert not engine.fused_backend_supported(narrow)
+    assert engine.production_architecture(narrow)
     assert engine.resolve_backend(narrow, "auto", "auto", cpu) == ("torch", "f32")
     assert engine.resolve_backend(narrow, "torch", "auto", cuda) == ("torch", "f32")
     for backend in ("auto", "cuda_fused"):
-        with pytest.raises(ValueError, match="--backend torch.*'Generic model path'"):
+        with pytest.raises(ValueError, match="--backend torch"):
             engine.resolve_backend(narrow, backend, "auto", cuda)
+    with pytest.raises(ValueError, match="Queue 2 item 8.*--backend torch"):
+        engine.resolve_backend(narrow, "auto", "auto", cuda)
     with pytest.raises(ValueError, match="needs device 'cuda'"):
         engine.resolve_backend(model, "cuda_fused", "auto", cpu)
     # the reduced modes need a CUDA backend, as the JAX package's need a
@@ -484,3 +489,65 @@ def test_mc_read_window_is_checked_before_the_launch():
     with torch.no_grad(), pytest.raises(ValueError, match=f"{big} reads.*--backend torch"):
         step(features, kmer, offsets, counts)
     assert mc_kernel.launch_count == before
+
+
+def test_compare_runs_holds_each_rule(tmp_path):
+    """inference.outputs.compare_runs, the comparison of two runs' CSVs
+    every port check makes: a run against itself passes; a read moved past
+    read_atol, a site moved past site_atol + 20 max|dp| of its reads, a
+    mod_ratio moved off the threshold, a row missing or a NaN each fail it;
+    a mod_ratio at a site holding a read across the threshold may move."""
+    from m6anet_tpu_torch.inference.outputs import compare_runs
+
+    base = tmp_path / "base"
+    run_inference(_model(), _dataset(), str(base), THRESHOLD, device="cpu")
+    assert compare_runs(str(base), str(base), THRESHOLD, 0.0, 0.0)["ok"]
+
+    def edited(name, edit):
+        out = tmp_path / name
+        out.mkdir()
+        for csv in ("data.indiv_proba.csv", "data.site_proba.csv"):
+            frame = pd.read_csv(base / csv)
+            changed = edit(csv, frame)
+            frame = frame if changed is None else changed
+            frame.to_csv(out / csv, index=False, float_format="%.16f")
+        return str(out)
+
+    site = pd.read_csv(base / "data.site_proba.csv").iloc[0]
+    at_site = lambda f: (f.transcript_id == site.transcript_id) & (f.transcript_position == site.transcript_position)
+
+    def read(delta):
+        def edit(csv, f):
+            if csv == "data.indiv_proba.csv":
+                f.loc[f.index[at_site(f)][0], "probability_modified"] += delta
+        return edit
+
+    def site_p(delta):
+        def edit(csv, f):
+            if csv == "data.site_proba.csv":
+                f.loc[at_site(f), "probability_modified"] += delta
+        return edit
+
+    def mod_ratio(csv, f):
+        if csv == "data.site_proba.csv":
+            f.loc[at_site(f), "mod_ratio"] += 0.05
+
+    gaps = compare_runs(edited("read", read(2e-6)), str(base), THRESHOLD, 1e-6)
+    assert not gaps["ok"] and gaps["reads_over_read_atol"] == 1
+    assert compare_runs(str(tmp_path / "read"), str(base), THRESHOLD, 3e-6)["ok"]
+    assert not compare_runs(edited("site", site_p(2e-5)), str(base), THRESHOLD, 1e-6)["ok"]
+    assert compare_runs(str(tmp_path / "site"), str(base), THRESHOLD, 1e-6, None)["ok"]  # reads alone
+    # the site's allowance grows by 20 max|dp| of its reads
+    assert compare_runs(edited("both", lambda c, f: read(1e-6)(c, f) or site_p(2e-5)(c, f)), str(base),
+                        THRESHOLD, 1e-6)["ok"]
+    assert not compare_runs(edited("mod_ratio", mod_ratio), str(base), THRESHOLD, 1e-6)["ok"]
+    # a read moved across the threshold frees its site's mod_ratio
+    first = pd.read_csv(base / "data.indiv_proba.csv")
+    p0 = first.probability_modified[at_site(first)].iloc[0]
+    across = edited("across", lambda c, f: read(2 * (THRESHOLD - p0))(c, f) or mod_ratio(c, f))
+    gaps = compare_runs(across, str(base), THRESHOLD, 1.0, 1.0)
+    assert gaps["ok"] and gaps["sites_near_threshold"] == 1
+    gaps = compare_runs(edited("nan", read(float("nan"))), str(base), THRESHOLD, 1.0, 1.0)
+    assert not gaps["ok"] and not gaps["finite"]
+    short = edited("short", lambda c, f: f.iloc[1:] if c == "data.site_proba.csv" else None)
+    assert not compare_runs(short, str(base), THRESHOLD, 1.0, 1.0)["same_rows"]

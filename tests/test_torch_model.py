@@ -80,8 +80,12 @@ def test_npz_and_reference_pt_give_the_same_state_dict(name):
 
 
 def test_unported_block_type_names_the_roadmap_item():
+    """Every block of the reference is ported now: another pooling filter
+    builds, and an unknown block type raises naming the blocks there are."""
     cfg = _config()
     cfg["block"] = [dict(b) for b in cfg["block"]]
     cfg["block"][-1]["block_type"] = "SigmoidMeanPooling"
-    with pytest.raises(ValueError, match="ROADMAP.md"):
+    assert type(MILModel(cfg).pooling).__name__ == "SigmoidMeanPooling"
+    cfg["block"][-1]["block_type"] = "NoSuchPooling"
+    with pytest.raises(ValueError, match="Unknown block_type 'NoSuchPooling'; available: .*SigmoidMeanPooling"):
         MILModel(cfg)
