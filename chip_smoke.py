@@ -5,8 +5,9 @@
 Drives m6anet_tpu_torch's paths on the card — ``inference`` with the
 production model and the exact site method (the main path, at the default
 precision, f32x3), the f32 and bf16 precisions, the MC site method, the
-encoder-kernel backend, training, all four released models and the generic
-model configs — and holds every kernel against its plain PyTorch version:
+encoder-kernel backend, training, all four released models, the generic
+model configs, the columnar store and multi-process runs — and holds every
+kernel against its plain PyTorch version:
 
   1. device      require CUDA, print the card's name and power limit, TF32 off
   2. build       compile every ops/csrc/*.cu kernel (one nvcc each, in parallel)
@@ -129,10 +130,33 @@ model configs — and holds every kernel against its plain PyTorch version:
                  --model_state_dict); 20 train steps of the attention-plus-
                  decoder architecture of tests/test_train.py:304, card
                  against CPU, at phase 14's tolerances
+ 18. columnar    a columnar store of 65,536 sites (four production
+                 batches' worth; read counts from _sweep.production_batch's
+                 law, the demo's sequence contexts, seeded reads), written
+                 by the port's ColumnarWriter: iter_packed's first batch the
+                 same bits as pack_sites(iter_sites())'s; both feeds alone
+                 on the host (seconds, sites/s); the CLI with --columnar
+                 (auto = cuda_fused f32x3) and with --site_proba_method mc,
+                 each kernel of the path launched once a batch, their stage
+                 seconds and sites/s; the generic feed through the engine
+                 over the same store, its CSVs the --columnar run's bytes;
+                 on the demo, --columnar against data.json on the card (the
+                 store normalises f32 reads in f32, data.json f64 decimals
+                 in f64: per read within 5e-5, the JAX package's bound) and
+                 against the golden CSVs
+ 19. shards      on the one card, each against the one-process run's bytes:
+                 --distributed (two jobs of two ranks sharing the card, at
+                 once: data.json exact and columnar MC), --host_shard 0 2
+                 and 1 2 then the merge (exact and MC), --concat_shards over
+                 two stores; train --use_mesh on's step (phase 14's 20
+                 batches, the last wrap-padded) with one rank, the bits of
+                 the step without the job, and with two ranks sharing the
+                 card (gloo), within phase 14's tolerances of one rank
 
 Any failure exits nonzero.  The last line is the
 ``{"ok": true, "device": {...}}`` result; before it come the MC floors' JSON
-line, the models and generic lines (phases 16 and 17), the kernels' JSON
+line, the models and generic lines (phases 16 and 17), the columnar and
+shards lines (phases 18 and 19), the kernels' JSON
 line (measured values and each kernel's bound, phase B's site_reduce_kernel
 with its own entry, and each kernel's launches by released model), the
 training line (phases 14 and 15), a timing line and the card's
@@ -536,10 +560,10 @@ def time_ms(fn, reps=30, flush_bytes=1 << 30):
 
 
 # ------------------------------------------------------------- end to end
-def run_cli(model_name, out_dir, extra=()):
+def run_cli(model_name, out_dir, extra=(), input_dir=os.path.join(ROOT, "tests", "data")):
     cmd = [
         sys.executable, "-m", "m6anet_tpu_torch", "inference",
-        "--input_dir", os.path.join(ROOT, "tests", "data"), "--out_dir", out_dir,
+        "--input_dir", input_dir, "--out_dir", out_dir,
         "--pretrained_model", model_name, *extra,
     ]
     start = time.perf_counter()
@@ -1234,6 +1258,445 @@ def check_generic(logs, work_dir):
     return report
 
 
+# ------------------------------------------------- columnar store, shards
+# phase 18: a store of four production batches' worth of sites, read counts
+# from scripts/_sweep.production_batch's HEK293T-shaped law
+COLUMNAR_SITES = 4 * 16384
+# the JAX package's bound between its columnar and data.json runs
+# (tests/test_columnar.py): the store holds f32 reads and normalises in f32,
+# data.json's decimals are normalised in f64
+COLUMNAR_JSON_READ_ATOL = 5e-5
+STAGE_RE = re.compile(r"([\w+]+)=([\d.]+)s/(\d+)x")
+
+
+def stage_seconds(stages):
+    """``inference stages:`` as {stage: seconds}."""
+    return {name: float(sec) for name, sec, _ in STAGE_RE.findall(stages)}
+
+
+def demo_sites():
+    from m6anet_tpu_torch.data.dataset import SiteDataset
+
+    raw = SiteDataset(os.path.join(ROOT, "tests", "data"), min_reads=0, norm_path=None)
+    raw.norm_dict = None
+    return list(raw.iter_sites())
+
+
+def write_store(root, sites):
+    """A columnar store of the given (raw) sites, by the port's writer."""
+    from m6anet_tpu_torch.data.columnar import ColumnarWriter
+
+    writer = ColumnarWriter(root, 3)
+    for site in sites:
+        writer.append_site(site.tx_id, site.tx_pos, site.sequence, site.features, site.read_ids)
+    writer.finalize()
+    return root
+
+
+def write_production_store(root, seed=0):
+    """COLUMNAR_SITES sites of seeded raw reads: read counts
+    clip(gamma(2, 30), 20, 1000) as in _sweep.production_batch, the demo's
+    sequence contexts in turn (real k-mers), each read its k-mers' norm
+    factors' mean + std x N(0, 1), so the normalised reads are N(0, 1).
+    Returns (sites, reads, bytes, seconds)."""
+    from m6anet_tpu_torch.constants import DEFAULT_NORM_PATH
+    from m6anet_tpu_torch.data.columnar import ColumnarWriter
+    from m6anet_tpu_torch.data.norm import load_norm_factors, site_norm_vectors
+
+    start = time.perf_counter()
+    seqs = [site.sequence for site in demo_sites()]
+    norm = load_norm_factors(DEFAULT_NORM_PATH)
+    vectors = {seq: tuple(v.astype(np.float32) for v in site_norm_vectors(norm, seq, 3)) for seq in set(seqs)}
+    rng = np.random.default_rng(seed)
+    counts = np.clip(rng.gamma(2.0, 30.0, size=COLUMNAR_SITES), 20, 1000).astype(np.int64)
+    bounds = np.concatenate([[0], np.cumsum(counts)])
+    noise = rng.standard_normal(size=(int(bounds[-1]), 9), dtype=np.float32)
+    writer = ColumnarWriter(root, 3)
+    for i in range(COLUMNAR_SITES):
+        seq = seqs[i % len(seqs)]
+        mean, std = vectors[seq]
+        lo, hi = bounds[i], bounds[i + 1]
+        writer.append_site(f"CHIP{i // 256:05d}", 100 + 10 * (i % 256), seq, mean + std * noise[lo:hi],
+                           np.arange(lo, hi, dtype=np.int64))
+    writer.finalize()
+    size = sum(os.path.getsize(os.path.join(root, "columnar", f)) for f in os.listdir(os.path.join(root, "columnar")))
+    return COLUMNAR_SITES, int(bounds[-1]), size, time.perf_counter() - start
+
+
+class GenericFeed:
+    """A dataset's sites without its ``iter_packed``: the engine then packs
+    them with ``pack_sites``, as for data.json."""
+
+    def __init__(self, dataset):
+        self.dataset, self.max_site_reads = dataset, dataset.max_site_reads
+
+    def __len__(self):
+        return len(self.dataset)
+
+    def iter_sites(self, n_threads=1):
+        return self.dataset.iter_sites(n_threads)
+
+
+def same_csvs(a, b, suffix=""):
+    names = ["data.site_proba.csv"] + (["data.indiv_proba.csv"] if os.path.exists(
+        os.path.join(b, "data.indiv_proba.csv")) else [])
+    for name in names:
+        with open(os.path.join(a, name + suffix), "rb") as f, open(os.path.join(b, name), "rb") as g:
+            if f.read() != g.read():
+                return False
+    return True
+
+
+def feed_seconds(batches):
+    """Host seconds to make every batch of a feed, with the engine's k-mer
+    check: (seconds, batches, sites)."""
+    from m6anet_tpu_torch.ops import fused_infer_kernel as fik
+
+    start, n, sites = time.perf_counter(), 0, 0
+    for batch in batches:
+        fik.checked_kmer_ids(batch.kmer_ids)
+        n, sites = n + 1, sites + batch.n_sites
+    return time.perf_counter() - start, n, sites
+
+
+def check_columnar(logs, work_dir):
+    """Phase 18: the columnar store at four production batches' size through
+    the CLI (--columnar, auto = cuda_fused f32x3; and --site_proba_method
+    mc), each kernel of the path once a batch; iter_packed's first batch the
+    same bits as pack_sites(iter_sites())'s; both feeds timed alone on the
+    host and through the engine, whose generic-feed CSVs must be the
+    columnar run's bytes; on the demo, --columnar against data.json."""
+    from m6anet_tpu_torch.constants import DEFAULT_MIN_READS, DEFAULT_MODEL_CONFIG, PRETRAINED_CONFIGS
+    from m6anet_tpu_torch.data.batching import pack_sites
+    from m6anet_tpu_torch.data.columnar import ColumnarSiteDataset
+    from m6anet_tpu_torch.models import load_model
+    from m6anet_tpu_torch.utils.config import load_toml
+
+    report = {}
+    store = os.path.join(work_dir, "store")
+    n_sites, n_reads, size, write_s = write_production_store(store)
+    report["store"] = {"sites": n_sites, "reads": n_reads, "bytes": size, "write_s": write_s}
+    log(f"[columnar] store: {n_sites} sites, {n_reads} reads, {size} bytes, written in {write_s:.3f} s")
+    _, threshold, norm = PRETRAINED_CONFIGS["HCT116_RNA002"]
+    ds = ColumnarSiteDataset(store, min_reads=DEFAULT_MIN_READS, norm_path=norm)
+    read_cap, site_cap = 1048576, 16384  # the CLI's defaults on the card
+
+    # iter_packed's first batch against pack_sites over the same sites
+    got = next(ds.iter_packed(0, None, read_cap, site_cap))
+    want = next(pack_sites(ds.iter_sites(), read_capacity=read_cap, site_capacity=site_cap))
+    fields = ("features", "kmer_ids", "site_ids", "offsets", "counts", "global_ids")
+    same = {f: bool(getattr(got, f).dtype == getattr(want, f).dtype and np.array_equal(getattr(got, f), getattr(want, f)))
+            for f in fields}
+    same["sites"] = [(s.tx_id, s.tx_pos) for s in got.sites] == [(s.tx_id, s.tx_pos) for s in want.sites]
+    log(f"[columnar] iter_packed's first batch ({got.n_sites} sites, {got.n_reads} reads) against "
+        f"pack_sites(iter_sites()), the same bits: {same}")
+    if not all(same.values()):
+        fail("iter_packed's first batch is not pack_sites(iter_sites())'s")
+    report["first_batch"] = {"sites": got.n_sites, "reads": got.n_reads, "same_bits": same}
+    del got, want
+
+    # both feeds alone on the host
+    feeds = {}
+    for name, batches in (("columnar", ds.iter_packed(0, None, read_cap, site_cap)),
+                          ("generic", pack_sites(ds.iter_sites(), read_capacity=read_cap, site_capacity=site_cap))):
+        sec, n_batches, sites = feed_seconds(batches)
+        feeds[name] = {"seconds": sec, "batches": n_batches, "sites": sites, "sites_per_s": sites / sec}
+    log(f"[columnar] the feeds alone on the host (batches made and k-mer-checked): {feeds}")
+    report["feeds_alone"] = feeds
+
+    # the CLI, both methods; then the generic feed through the engine
+    runs = {}
+    for method, extra in (("exact", []), ("mc", ["--site_proba_method", "mc"])):
+        out = os.path.join(work_dir, f"cli_{method}")
+        wall, path, n_batches, launches = run_cli("HCT116_RNA002", out, ["--columnar", *extra], input_dir=store)
+        stages = stage_seconds(path.split("; stages ")[1])
+        want_launches = {k: 0 for k in launches}
+        want_launches.update(fused_inference_t=n_batches, read_prob_tc_f32x3=n_batches, site_reduce=n_batches)
+        if method == "mc":
+            want_launches["site_probability_mc"] = n_batches
+        log(f"[columnar] --columnar {method}: {wall:.3f} s wall; {path}; {n_batches} batches; launches {launches}")
+        if "backend=cuda_fused" not in path or "precision=f32x3" not in path or launches != want_launches:
+            fail(f"--columnar {method} ran as {path!r} with launches {launches}, not one of each of "
+                 f"{[k for k, v in want_launches.items() if v]} a batch")
+        runs[method] = {"wall_s": wall, "path": path, "batches": n_batches, "launches": launches,
+                        "stages_s": stages, "sites_per_s": n_sites / wall}
+    # both feeds through the engine in this process (start-up paid), the
+    # generic one's CSVs the --columnar run's bytes; the dispatch stage by part
+    model = load_model(load_toml(DEFAULT_MODEL_CONFIG), PRETRAINED_CONFIGS["HCT116_RNA002"][0])
+    for label, dataset in (("generic", GenericFeed(ds)), ("columnar", ds)):
+        out = os.path.join(work_dir, f"engine_{label}")
+        run = engine_run(logs, model, dataset, out, threshold, read_capacity=read_cap, site_capacity=site_cap)
+        run.update(stages_s=stage_seconds(run["stages"]), sites_per_s=n_sites / run["wall_s"],
+                   byte_identical=same_csvs(out, os.path.join(work_dir, "cli_exact")))
+        log(f"[columnar] the {label} feed through the engine in this process: {run['wall_s']:.3f} s; stages "
+            f"{run['stages']}; launches {run['launches']}; CSVs the --columnar CLI run's bytes: "
+            f"{run['byte_identical']}")
+        if not run["byte_identical"]:
+            fail(f"the {label} feed's CSVs are not the --columnar CLI run's bytes")
+        runs[f"{label} feed, exact, in process"] = run
+        shutil.rmtree(out)
+    report["runs"] = runs
+    report["dispatch_parts_s"] = dispatch_parts(model, next(ds.iter_packed(0, None, read_cap, site_cap)),
+                                                threshold, site_cap)
+    log(f"[columnar] one production batch's dispatch by part (host clock, synchronised, median of 3): "
+        f"{report['dispatch_parts_s']}")
+    for name in os.listdir(work_dir):
+        if name.startswith("cli_"):
+            shutil.rmtree(os.path.join(work_dir, name))
+
+    # on the demo: --columnar (the demo's data.json written as a store)
+    # against data.json, on the card
+    demo_store = write_store(os.path.join(work_dir, "demo_store"), demo_sites())
+    out_col, out_json = os.path.join(work_dir, "demo_columnar"), os.path.join(work_dir, "demo_json")
+    col = cli_in_process(logs, out_col, "--columnar", input_dir=demo_store)
+    cli_in_process(logs, out_json, input_dir=os.path.join(ROOT, "tests", "data"))
+    gaps = hold_outputs(out_col, out_json, threshold, COLUMNAR_JSON_READ_ATOL, None,
+                        "columnar demo: --columnar vs data.json on the card")
+    check_golden(out_col, label="columnar demo")
+    report["demo"] = {"columnar": col, "columnar_vs_json": gaps, "byte_identical": same_csvs(out_col, out_json)}
+    return report, demo_store
+
+
+def cli_in_process(logs, out, *flags, input_dir):
+    """The inference CLI's main() in this process on the card, every launch
+    count set to 0 just before it; returns its wall, launches and path."""
+    from m6anet_tpu_torch.cli import main as cli_main
+
+    reset_launch_counts()
+    start = time.perf_counter()
+    cli_main(["inference", "--input_dir", *([input_dir] if isinstance(input_dir, str) else input_dir),
+              "--out_dir", out, *flags])
+    torch.cuda.synchronize()
+    return {"wall_s": time.perf_counter() - start, "launches": read_launch_counts(),
+            "path": logs.last("inference path:")}
+
+
+def dispatch_parts(model, batch, threshold, site_cap, reps=3):
+    """One production-size batch's dispatch stage by part, as the engine
+    runs it (cuda_fused, f32x3): the h2d copies of its arrays from pageable
+    memory, the step, and the outputs' copy back to pinned memory and its
+    wait.  Host clock around each part ending in a synchronise; medians of
+    ``reps``."""
+    from m6anet_tpu_torch.inference import engine
+    from m6anet_tpu_torch.ops import fused_infer_kernel as fik
+
+    model = model.to("cuda").eval()
+    step = engine.make_infer_step(model, site_cap, threshold, backend="cuda_fused", precision="f32x3")
+    host_kmer = fik.checked_kmer_ids(batch.kmer_ids)
+    arrays = (batch.features, host_kmer.ids, batch.offsets, batch.counts)
+    parts = {"h2d": [], "step": [], "copy_back": []}
+    with torch.no_grad():
+        for _ in range(reps + 1):  # the first round warms up
+            t0 = time.perf_counter()
+            tensors = [torch.from_numpy(a).to("cuda") for a in arrays]
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            outputs = step(*tensors, host_sites=(batch.offsets, batch.counts), host_kmer_ids=host_kmer)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            engine._PendingBatch(batch, outputs, torch.device("cuda")).fetch()
+            t3 = time.perf_counter()
+            for name, sec in (("h2d", t1 - t0), ("step", t2 - t1), ("copy_back", t3 - t2)):
+                parts[name].append(sec)
+    out = {name: statistics.median(v[1:]) for name, v in parts.items()}
+    out["h2d_bytes"] = int(sum(a.nbytes for a in arrays))
+    return out
+
+
+def launch_ranks(argv, world, timeout=300, env_extra=None):
+    """``argv`` as ``world`` ranks of a job on this machine (the launcher's
+    env:// variables set by hand, a free port); returns [(code, stdout,
+    stderr)] by rank.  Every rank shares card 0."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    procs = []
+    for rank in range(world):
+        env = dict(os.environ, RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
+                   LOCAL_WORLD_SIZE=str(world), MASTER_ADDR="localhost", MASTER_PORT=str(port), **(env_extra or {}))
+        procs.append(subprocess.Popen(argv, cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                      text=True))
+    return procs
+
+
+def wait_ranks(procs, label, timeout=300):
+    results = []
+    deadline = time.perf_counter() + timeout
+    for proc in procs:
+        try:
+            out, err = proc.communicate(timeout=max(1.0, deadline - time.perf_counter()))
+        except subprocess.TimeoutExpired:
+            for p in procs:
+                p.kill()
+            fail(f"{label}: a rank outlasted {timeout} s")
+        results.append((proc.returncode, out, err))
+    for rank, (code, out, err) in enumerate(results):
+        if code != 0:
+            log(out[-3000:] + err[-3000:])
+            fail(f"{label}: rank {rank} exited {code}")
+    return results
+
+
+# phase 19's train steps: phase 14's batches, the last cut to 255 sites and
+# wrap-padded to 256 as TrainLoader(pad_to_multiple=2) pads it
+def dp_batches():
+    batches = train_batches(0, TRAIN_STEPS)
+    for b in batches:
+        b["mask"] = np.ones(TRAIN_SITES, np.float32)
+    last = batches[-1]
+    for key in ("X", "kmer", "y"):
+        last[key][-1] = last[key][0]
+    last["mask"][-1] = 0.0
+    return batches
+
+
+def dp_train_rank(out_path):
+    """One rank of phase 19's data-parallel train job on the card (run by
+    check_shards in a process of its own, with the launcher's variables
+    and deterministic algorithms): phase 14's steps from the released HCT116
+    weights through train.loop.make_train_step over the job; a job of one
+    rank also takes the steps without the job.  Rank 0 saves the losses and
+    final parameters (npz)."""
+    import tomllib
+
+    from m6anet_tpu_torch.constants import DEFAULT_MODEL_CONFIG, PRETRAINED_CONFIGS
+    from m6anet_tpu_torch.models.convert import params_from_jax, params_to_jax
+    from m6anet_tpu_torch.models.mil import MILModel
+    from m6anet_tpu_torch.parallel.group import DataParallel, start_job
+    from m6anet_tpu_torch.train import loop, losses
+    from m6anet_tpu_torch.utils.logging import get_logger
+    from m6anet_tpu_torch.utils.treeio import flatten_tree, load_tree
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    with open(DEFAULT_MODEL_CONFIG, "rb") as f:
+        config = tomllib.load(f)
+    state = params_from_jax(load_tree(PRETRAINED_CONFIGS["HCT116_RNA002"][0]))
+    job = start_job(torch.device("cuda"), device_collectives=True, log=get_logger("chip_smoke"))
+    batches = dp_batches()
+
+    def steps(data_parallel):
+        model = MILModel(config).to(job.device)
+        model.load_state_dict(state)
+        step = loop.make_train_step(model, losses.binary_cross_entropy_loss,
+                                    loop.make_optimizer(model, TRAIN_LR, TRAIN_WD), TRAIN_CLIP, data_parallel)
+        step_losses = [step(loop.batch_to_device(b, job.device))[0] for b in batches]
+        return torch.stack(step_losses).cpu().numpy(), flatten_tree(params_to_jax(model.state_dict()))
+
+    on = steps(DataParallel(job))
+    result = {"on_losses": on[0], **{f"on/{k}": v for k, v in on[1].items()}}
+    if job.world_size == 1:
+        off = steps(None)
+        result.update({"off_losses": off[0], **{f"off/{k}": v for k, v in off[1].items()}})
+    if job.rank == 0:
+        np.savez(out_path, backend=job.backend, **result)
+    job.barrier()
+    job.close()
+
+
+def check_shards(logs, work_dir, demo_store):
+    """Phase 19, on the one card: host shards (--host_shard 0 2 and 1 2,
+    then a merge), --distributed with two ranks sharing the card and
+    --concat_shards over two stores, each merged output the one-process
+    run's bytes, exact and MC; then train --use_mesh on's step with one rank
+    (the bits of the step without the job) and two ranks sharing the card
+    (phase 14's tolerances against one rank).  The four jobs (two
+    inference, two train) run at once, beside the in-process runs."""
+    from m6anet_tpu_torch.data.columnar import ColumnarSiteDataset
+    from m6anet_tpu_torch.inference.engine import merge_host_shards
+
+    report = {}
+    demo = os.path.join(ROOT, "tests", "data")
+    mc = ["--site_proba_method", "mc"]
+    start = time.perf_counter()
+    jobs = {}
+    for label, flags, input_dir in (("json exact", [], demo), ("columnar mc", ["--columnar", *mc], demo_store)):
+        out = os.path.join(work_dir, "distributed", label.replace(" ", "_"))
+        argv = [sys.executable, "-m", "m6anet_tpu_torch", "inference", "--input_dir", input_dir, "--out_dir", out,
+                *flags, "--distributed"]
+        jobs[f"--distributed {label}"] = (out, label, launch_ranks(argv, 2))
+    code = "import torch; torch.use_deterministic_algorithms(True); import sys, chip_smoke; chip_smoke.dp_train_rank(sys.argv[1])"
+    for world in (1, 2):
+        path = os.path.join(work_dir, f"dp{world}.npz")
+        jobs[f"train --use_mesh on, {world} rank(s)"] = (path, world, launch_ranks(
+            [sys.executable, "-c", code, path], world, env_extra={"CUBLAS_WORKSPACE_CONFIG": ":4096:8"}))
+
+    # the one-process runs: the demo store, exact and MC, and data.json
+    ref = {}
+    for label, flags, input_dir in (("columnar exact", ["--columnar"], demo_store),
+                                     ("columnar mc", ["--columnar", *mc], demo_store),
+                                     ("json exact", [], demo)):
+        ref[label] = os.path.join(work_dir, "one", label.replace(" ", "_"))
+        report.setdefault("one_process", {})[label] = cli_in_process(logs, ref[label], *flags, input_dir=input_dir)
+
+    # --host_shard 0 2 and 1 2, then the merge, in this process
+    for label, flags in (("columnar exact", ["--columnar"]), ("columnar mc", ["--columnar", *mc])):
+        out = os.path.join(work_dir, "host_shard", label.replace(" ", "_"))
+        runs = [cli_in_process(logs, out, *flags, "--host_shard", str(h), "2", input_dir=demo_store)
+                for h in range(2)]
+        merge_host_shards(out, 2)
+        identical = same_csvs(out, ref[label])
+        log(f"[shards] --host_shard 0 2 and 1 2 {label}: {[r['wall_s'] for r in runs]} s, launches "
+            f"{[r['launches'] for r in runs]}; merged CSVs the one-process bytes: {identical}")
+        if not identical or not all(r["launches"]["fused_inference_t"] == 1 for r in runs):
+            fail(f"--host_shard {label}: merged CSVs differ from the one-process run, or a shard did not launch")
+        report.setdefault("host_shard", {})[label] = {"walls_s": [r["wall_s"] for r in runs],
+                                                      "byte_identical": identical}
+
+    # --concat_shards over two stores: the demo store's sites cut in two
+    whole = ColumnarSiteDataset(demo_store, min_reads=0, compute_norm=False)
+    sites = list(whole.iter_sites())
+    half = len(sites) // 2
+    parts = [write_store(os.path.join(work_dir, f"part{i}"), chunk) for i, chunk in enumerate((sites[:half], sites[half:]))]
+    out = os.path.join(work_dir, "concat")
+    run = cli_in_process(logs, out, "--columnar", "--concat_shards", input_dir=parts)
+    identical = same_csvs(out, ref["columnar exact"])
+    log(f"[shards] --concat_shards --columnar over two stores ({half} + {len(sites) - half} sites): "
+        f"{run['wall_s']:.6f} s, launches {run['launches']}; CSVs the one-store bytes: {identical}")
+    if not identical:
+        fail("--concat_shards: the CSVs are not the one-store run's bytes")
+    report["concat_shards"] = {"wall_s": run["wall_s"], "byte_identical": identical}
+
+    # the jobs
+    train = {}
+    for name, (target, what, procs) in jobs.items():
+        results = wait_ranks(procs, name)
+        if name.startswith("train"):
+            with np.load(target) as data:
+                train[what] = {k: data[k] for k in data.files}
+            continue
+        backends = [m.group(1) if m else None for m in (re.search(r"backend (\w+)", err) for _, _, err in results)]
+        identical = same_csvs(target, ref[what])
+        log(f"[shards] --distributed {what}: two ranks on card 0, backend {backends}; merged CSVs the "
+            f"one-process bytes: {identical}")
+        if not identical:
+            fail(f"--distributed {what}: the merged CSVs are not the one-process run's bytes")
+        report.setdefault("distributed", {})[what] = {"ranks": 2, "byte_identical": identical, "backends": backends}
+    report["jobs_wall_s"] = time.perf_counter() - start
+    one, two = train[1], train[2]
+    leaves = [k[3:] for k in one if k.startswith("on/")]
+    one_bits = bool(np.array_equal(one["on_losses"], one["off_losses"])) and all(
+        np.array_equal(one[f"on/{k}"], one[f"off/{k}"]) for k in leaves)
+    first_rel = float(abs(two["on_losses"][0] - one["on_losses"][0]) / abs(one["on_losses"][0]))
+    loss_rel = float(np.max(np.abs(two["on_losses"] - one["on_losses"]) / np.abs(one["on_losses"])))
+    gaps = {k: float(np.abs(two[f"on/{k}"] - one[f"on/{k}"]).max()) for k in leaves}
+    report["train"] = {
+        "steps": TRAIN_STEPS, "sites": TRAIN_SITES, "last_batch_valid": TRAIN_SITES - 1,
+        "one_rank_backend": str(one["backend"]), "two_rank_backend": str(two["backend"]),
+        "one_rank_on_equals_off_bits": one_bits, "two_vs_one_first_loss_rel": first_rel,
+        "two_vs_one_loss_rel": loss_rel, "two_vs_one_param_gap_by_leaf": gaps,
+    }
+    log(f"[shards] train --use_mesh on: {report['train']}; the four jobs and the in-process runs "
+        f"{report['jobs_wall_s']:.3f} s wall")
+    if not one_bits:
+        fail("train --use_mesh on with one rank is not the bits of the step without the job")
+    if first_rel > TRAIN_FIRST_LOSS_RTOL or loss_rel > TRAIN_LOSS_RTOL or max(gaps.values()) > TRAIN_PARAM_ATOL:
+        fail("train --use_mesh on with two ranks is outside phase 14's tolerances of one rank")
+    shutil.rmtree(work_dir, ignore_errors=True)
+    return report
+
+
 def main():
     # ---- 1. device
     if not torch.cuda.is_available():
@@ -1701,6 +2164,12 @@ def main():
             name: {"run": run, "launches": rep["runs"][run]["launches"][counter],
                    "batches": rep["runs"][run]["batches"]} for name, rep in models.items()}
 
+    # ---- 18. the columnar store, 19. shards and processes
+    os.makedirs(WORK_DIR, exist_ok=True)
+    columnar, demo_store = check_columnar(logs, os.path.join(WORK_DIR, "columnar"))
+    shards = check_shards(logs, os.path.join(WORK_DIR, "shards"), demo_store)
+    shutil.rmtree(WORK_DIR, ignore_errors=True)
+
     for precision in P_ATOL:
         check_close_share(precision)
     log(json.dumps({"models": {
@@ -1715,6 +2184,8 @@ def main():
                   "card_path": rep["card"]["path"], "card_stages": rep["card"]["stages"]}
                if "card" in rep else {k: v for k, v in rep.items() if k not in ("card_losses", "cpu_losses")})
         for name, rep in generic.items()}}))
+    log(json.dumps({"columnar": columnar}))
+    log(json.dumps({"shards": shards}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"training": training}))
     log(json.dumps({

@@ -505,3 +505,47 @@ def build_dataset(
     if isinstance(root_dir, str):
         return SiteDataset(root_dir, **kwargs)
     raise ValueError("Invalid type for argument root_dir")
+
+
+class ConcatSiteDataset:
+    """Disjoint shard concatenation: several dataprep output directories
+    treated as ONE dataset (per-host dataprep shards; unlike
+    ReplicateSiteDataset the shards cover different transcripts, so read ids
+    are kept as-is and nothing is pooled).  ``columnar=True`` reads each
+    shard's columnar store instead of data.json.
+
+    ``norm_path`` is required: per-shard factors computed from each shard's
+    own sites would normalize one logical dataset inconsistently shard by
+    shard.  Pass the factors the whole dataset shares (the JAX package's
+    ``compute_norm_factors`` computes them once)."""
+
+    def __init__(self, root_dirs: Sequence[str], columnar: bool = False, **kwargs):
+        if kwargs.get("norm_path") is None:
+            # each shard would auto-compute factors over only its own
+            # sites, normalizing one logical dataset inconsistently
+            raise ValueError(
+                "concatenated shards form ONE dataset and need an explicit "
+                "norm_path; per-shard auto-computed factors would differ"
+            )
+        if columnar:
+            from .columnar import ColumnarSiteDataset
+
+            self.parts = [ColumnarSiteDataset(d, **kwargs) for d in root_dirs]
+        else:
+            self.parts = [SiteDataset(d, **kwargs) for d in root_dirs]
+        self._offsets = np.cumsum([0] + [len(p) for p in self.parts])
+
+    def __len__(self) -> int:
+        return int(self._offsets[-1])
+
+    @property
+    def max_site_reads(self) -> int:
+        return max((p.max_site_reads for p in self.parts), default=0)
+
+    def get_site(self, idx: int) -> Site:
+        part = int(np.searchsorted(self._offsets, idx, side="right")) - 1
+        return self.parts[part].get_site(idx - int(self._offsets[part]))
+
+    def iter_sites(self, n_threads: int = 1) -> Iterator[Site]:
+        for part in self.parts:
+            yield from part.iter_sites(n_threads=n_threads)

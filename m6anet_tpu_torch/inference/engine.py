@@ -35,6 +35,7 @@ on the CUDA backends and ``f32`` on ``torch``.
 from __future__ import annotations
 
 import contextlib
+import itertools
 import json
 import os
 import shutil
@@ -49,6 +50,7 @@ from ..data.dataset import SiteDataset
 from ..models.mil import MILModel
 from ..ops import encoder_kernel, fused_infer_kernel, mc_kernel, random, site_ops
 from ..ops.site_ops import derive_site_ids  # noqa: F401  (part of this module's API)
+from ..parallel.mesh import host_shard_bounds
 from ..utils.logging import get_logger
 from ..utils.profiling import StageTimer
 
@@ -354,6 +356,7 @@ def run_inference(
     backend: str = "auto",
     precision: str = "auto",
     resume: bool = False,
+    host_shard: Optional[Tuple[int, int]] = None,
     n_threads: int = 1,
     write_indiv: bool = True,
     device="cuda",
@@ -372,6 +375,17 @@ def run_inference(
     At most ``pipeline_depth`` batches are in flight: a new batch is
     dispatched only after the oldest beyond that bound is written.  Rows are
     written strictly in site order, one device->host copy per batch.
+
+    ``host_shard=(host_id, n_hosts)`` is the multi-process mode: this
+    process scores its contiguous slice of the global site index
+    (``parallel.mesh.host_shard_bounds``) and writes ``*.csv.shard{host_id}``
+    files, which :func:`merge_host_shards` joins; ``resume`` then works
+    within the shard's own files.  MC draws depend only on the seed and each
+    site's reads, so the merged CSVs do not depend on the shard layout.
+
+    A dataset with ``iter_packed`` (the columnar store) packs its batches
+    itself, straight from its memory map: the same arrays as ``pack_sites``
+    gives over its sites, without the per-site Python of the generic feed.
     """
     device = resolve_device(device)
     os.makedirs(out_dir, exist_ok=True)
@@ -393,6 +407,19 @@ def run_inference(
         },
     }
     launches_before = {name: count() for name, count in kernels.items()}
+
+    shard_suffix = ""
+    global_offset = 0
+    n_total_sites = None
+    if host_shard is not None:
+        host_id, n_hosts = host_shard
+        if not 0 <= host_id < n_hosts:
+            raise ValueError(f"host_shard: host id {host_id} is outside [0, {n_hosts})")
+        lo, hi = host_shard_bounds(len(dataset), n_hosts, host_id)
+        global_offset = lo
+        n_total_sites = hi - lo
+        shard_suffix = f".shard{host_id}"
+        log.info("host %d/%d scoring sites [%d, %d)", host_id, n_hosts, lo, hi)
 
     # capacity validation at run setup, not mid-run from the packer (the
     # reference streams any site size — m6anet/utils/data_utils.py:226-229 —
@@ -419,8 +446,8 @@ def run_inference(
         n_iterations=num_iterations, seed=seed, precision=precision,
     )
 
-    site_path = os.path.join(out_dir, "data.site_proba.csv")
-    indiv_path = os.path.join(out_dir, "data.indiv_proba.csv")
+    site_path = os.path.join(out_dir, "data.site_proba.csv" + shard_suffix)
+    indiv_path = os.path.join(out_dir, "data.indiv_proba.csv" + shard_suffix)
 
     n_done = 0
     file_mode = "w"
@@ -440,9 +467,12 @@ def run_inference(
         # scales with host threads (the reference's DataLoader num_workers,
         # m6anet/scripts/inference.py:104-105)
         it = dataset.iter_sites(n_threads=n_threads)
-        for _ in range(n_done):
+        for _ in range(global_offset + n_done):
             next(it)
-        yield from it
+        if n_total_sites is None:
+            yield from it
+        else:
+            yield from itertools.islice(it, n_total_sites - n_done)
 
     def to_device(a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(device)
@@ -478,9 +508,14 @@ def run_inference(
             for batch in batches:
                 yield batch, fused_infer_kernel.checked_kmer_ids(batch.kmer_ids)
 
-        packed = pack_sites(
-            sites_to_score(), read_capacity=read_capacity, site_capacity=site_capacity
-        )
+        if hasattr(dataset, "iter_packed"):
+            # the columnar feed: whole batches straight off the memory map
+            limit = None if n_total_sites is None else n_total_sites - n_done
+            packed = dataset.iter_packed(global_offset + n_done, limit, read_capacity, site_capacity)
+        else:
+            packed = pack_sites(
+                sites_to_score(), read_capacity=read_capacity, site_capacity=site_capacity
+            )
         batches = threaded_iter(checked(packed), depth=pipeline_depth + 1)
         for batch, host_kmer in _timed_iter(timer, "featurize+pack", batches):
             # derive_site_ids treats count 0 as padding: a real site with no

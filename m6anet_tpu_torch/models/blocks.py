@@ -150,6 +150,10 @@ class Linear(nn.Module):
         self.linear = nn.Linear(input_channel, output_channel)
         self.bn = nn.BatchNorm1d(output_channel, eps=BN_EPS) if batch_norm else None
         self.dropout = dropout
+        # a parallel.group.DataParallel while the model trains over the
+        # ranks of a job: train-mode statistics and dropout then span the
+        # global batch (train.loop.make_train_step sets it)
+        self.data_parallel = None
 
     def init(self, generator: torch.Generator) -> None:
         init_linear(self.linear, generator)
@@ -165,11 +169,19 @@ class Linear(nn.Module):
         y = self.linear(x)
         if self.bn is not None:
             bn = self.bn
-            if train:
+            dp = self.data_parallel
+            if train and dp is not None and dp.world_size > 1:
+                # the global batch's statistics: sums over every rank's rows
+                # (one rank holds the whole batch, and takes the branch below)
+                n = y.shape[0] * dp.world_size
+                mean = dp.all_reduce_sum(y.sum(dim=0)) / n
+                var = dp.all_reduce_sum((y - mean).square().sum(dim=0)) / n
+            elif train:
                 mean = y.mean(dim=0)
                 var = (y - mean).square().mean(dim=0)
+                n = y.shape[0]
+            if train:
                 with torch.no_grad():
-                    n = y.shape[0]
                     unbiased = var * (n / max(n - 1, 1))
                     bn.running_mean.copy_((1 - BN_MOMENTUM) * bn.running_mean + BN_MOMENTUM * mean)
                     bn.running_var.copy_((1 - BN_MOMENTUM) * bn.running_var + BN_MOMENTUM * unbiased)
@@ -181,6 +193,10 @@ class Linear(nn.Module):
             if generator is None:
                 raise ValueError("dropout requires a generator in train mode")
             keep = 1.0 - self.dropout
-            mask = torch.rand(y.shape, generator=generator, device=y.device) < keep
+            if self.data_parallel is not None:
+                draw = self.data_parallel.draw_rows(y.shape, generator, y.device)
+            else:
+                draw = torch.rand(y.shape, generator=generator, device=y.device)
+            mask = draw < keep
             y = torch.where(mask, y / keep, 0.0)
         return y

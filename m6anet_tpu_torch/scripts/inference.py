@@ -5,15 +5,19 @@ m6anet/scripts/inference.py), with ``--device {cuda,cpu}`` (default cuda),
 ``--backend {auto,torch,cuda_fused,cuda}`` and ``--precision
 {auto,f32,f32x3,bf16}``.
 ``--site_proba_method mc`` samples the site probability over
-``--num_iterations`` iterations drawn from ``--seed``.  Flags whose path is
-not ported yet stop the parse with the ROADMAP.md item that will bring it.
---batch_size and --save_per_batch, the reference's own flags, are accepted
-for compatibility and do nothing: batching is capacity-based and results
-are always flushed.
+``--num_iterations`` iterations drawn from ``--seed``.  ``--columnar`` reads
+the columnar site store (several ``--input_dir`` are replicates, as for
+data.json), ``--concat_shards`` joins several dataprep shards into one
+dataset, ``--host_shard HOST_ID N_HOSTS`` scores one contiguous slice of the
+sites into ``*.csv.shard<HOST_ID>`` files, and ``--distributed`` does that
+for every rank of a ``torch.distributed`` job (``torchrun --nproc_per_node N
+-m m6anet_tpu_torch inference ... --distributed``), after which rank 0
+merges the shards.  --batch_size and --save_per_batch, the reference's own
+flags, are accepted for compatibility and do nothing: batching is
+capacity-based and results are always flushed.
 """
 from __future__ import annotations
 
-import argparse
 import pathlib
 import warnings
 from argparse import ArgumentDefaultsHelpFormatter, ArgumentParser
@@ -38,31 +42,13 @@ DEFAULT_CAPACITIES = {
 }
 
 
-class _NotPorted(argparse.Action):
-    """Stop the parse: this flag's path waits for a ROADMAP.md item.  With
-    ``refused``, only those values of the flag stop it; the others are
-    stored."""
-
-    def __init__(self, option_strings, dest, roadmap_item, refused=None, **kwargs):
-        self.roadmap_item = roadmap_item
-        self.refused = refused
-        super().__init__(option_strings, dest, **kwargs)
-
-    def __call__(self, parser, namespace, values, option_string=None):
-        if self.refused is not None and values not in self.refused:
-            setattr(namespace, self.dest, values)
-            return
-        shown = option_string if self.refused is None else f"{option_string} {values}"
-        parser.error(
-            f"{shown} is not ported to m6anet_tpu_torch yet "
-            f"(ROADMAP.md, Queue 1 '{self.roadmap_item}')"
-        )
-
-
 def argparser():
     parser = ArgumentParser(formatter_class=ArgumentDefaultsHelpFormatter, add_help=False)
     parser.add_argument("--input_dir", nargs="+", required=True,
-                        help="directories containing data.info and data.json.")
+                        help="dataprep output directories: data.info and data.json, "
+                             "or the columnar store (columnar/, with --columnar). "
+                             "Several are replicates, or with --concat_shards "
+                             "disjoint shards of one dataset.")
     parser.add_argument("--out_dir", required=True,
                         help="directory to output inference results.")
     parser.add_argument("--pretrained_model", default=DEFAULT_PRETRAINED_MODEL, type=str,
@@ -83,7 +69,8 @@ def argparser():
                         help="compatibility no-op (results are always flushed).")
     parser.add_argument("--n_processes", default=25, type=int,
                         help="host threads parsing data.json payloads (the native "
-                             "parser releases the GIL).")
+                             "parser releases the GIL; columnar input ignores this "
+                             "— its feed is parse-free).")
     parser.add_argument("--num_iterations", default=1000, type=int,
                         help="number of sampling iterations (mc mode only).")
     parser.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
@@ -126,28 +113,66 @@ def argparser():
     parser.add_argument("--skip_indiv_proba", default=False, action="store_true",
                         help="write only data.site_proba.csv (per-read "
                              "probabilities never leave the device).")
-    parser.add_argument("--columnar", nargs=0, action=_NotPorted,
-                        roadmap_item="Columnar store and concatenated shards",
-                        help="not ported yet.")
-    parser.add_argument("--concat_shards", nargs=0, action=_NotPorted,
-                        roadmap_item="Columnar store and concatenated shards",
-                        help="not ported yet.")
-    parser.add_argument("--distributed", nargs=0, action=_NotPorted,
-                        roadmap_item="Multi-device runs", help="not ported yet.")
-    parser.add_argument("--host_shard", nargs=2, action=_NotPorted,
-                        roadmap_item="Multi-device runs", metavar=("HOST_ID", "N_HOSTS"),
-                        help="not ported yet.")
+    parser.add_argument("--columnar", default=False, action="store_true",
+                        help="read the columnar site store instead of data.json "
+                             "(requires dataprep --format columnar or both).")
+    parser.add_argument("--concat_shards", default=False, action="store_true",
+                        help="treat multiple --input_dir directories as disjoint "
+                             "dataprep shards (one logical dataset, one shared "
+                             "--norm_path) instead of replicates.")
+    parser.add_argument("--distributed", default=False, action="store_true",
+                        help="multi-process mode: join the torch.distributed job "
+                             "of the launcher's environment (torchrun), shard the "
+                             "site index by rank, write per-rank CSV shards; rank 0 "
+                             "merges them once every rank has finished.")
+    parser.add_argument("--host_shard", nargs=2, type=int, default=None,
+                        metavar=("HOST_ID", "N_HOSTS"),
+                        help="manual host shard (alternative to --distributed): "
+                             "score slice HOST_ID of N_HOSTS into *.csv.shard<HOST_ID>.")
     return parser
 
 
 def main(args):
+    from ..inference.engine import merge_host_shards, resolve_device
+
+    device = resolve_device(args.device)  # fails here, before any work, without a card
+    if not args.distributed:
+        host_shard = tuple(args.host_shard) if args.host_shard else None
+        _score(args, device, host_shard)
+        return
+
+    from ..parallel.group import start_job
+    from ..utils.logging import get_logger
+
+    job = start_job(device, device_collectives=False, log=get_logger("m6anet_tpu_torch.inference"))
+    failure = None
+    try:
+        _score(args, job.device, (job.rank, job.world_size))
+    except Exception as e:  # reported to every rank below, then raised
+        failure = e
+    # every rank reports, then rank 0 merges: only after every rank has
+    # finished, and never over a failed rank's shard
+    reports = job.all_gather_object(None if failure is None else f"{type(failure).__name__}: {failure}")
+    failed = {rank: msg for rank, msg in enumerate(reports) if msg is not None}
+    if failed:
+        job.close()
+        if failure is not None:
+            raise failure
+        raise RuntimeError(f"--distributed: rank(s) failed, the CSV shards were not merged: {failed}")
+    if job.rank == 0:
+        merge_host_shards(args.out_dir, job.world_size, write_indiv=not args.skip_indiv_proba)
+    job.barrier()
+    job.close()
+
+
+def _score(args, device, host_shard):
+    """Load the model and the dataset the flags name, and run inference
+    over them (over ``host_shard``'s slice of the sites, when given)."""
     import tomllib
 
     from ..data.dataset import build_dataset
-    from ..inference.engine import resolve_device, run_inference
+    from ..inference.engine import run_inference
     from ..models.mil import load_model
-
-    device = resolve_device(args.device)  # fails here, before any work, without a card
 
     if args.model_state_dict is not None:
         warnings.warn("--model_state_dict is specified, overwriting default model weights")
@@ -168,9 +193,27 @@ def main(args):
 
     input_dir = args.input_dir
     root_dir = input_dir[0] if len(input_dir) == 1 else list(input_dir)
-    dataset = build_dataset(
-        root_dir, min_reads=args.min_reads, norm_path=norm_path, mode="Inference"
-    )
+    if args.concat_shards:
+        from ..data.dataset import ConcatSiteDataset
+
+        dataset = ConcatSiteDataset(
+            list(input_dir), columnar=args.columnar,
+            min_reads=args.min_reads, norm_path=norm_path, mode="Inference",
+        )
+    elif args.columnar:
+        if isinstance(root_dir, str):
+            from ..data.columnar import ColumnarSiteDataset
+
+            dataset = ColumnarSiteDataset(root_dir, min_reads=args.min_reads, norm_path=norm_path)
+        else:  # multiple input dirs = replicates, like the data.json path
+            from ..data.columnar import ReplicateColumnarDataset
+
+            dataset = ReplicateColumnarDataset(root_dir, min_reads=args.min_reads, norm_path=norm_path)
+    else:
+        dataset = build_dataset(
+            root_dir, min_reads=args.min_reads, norm_path=norm_path, mode="Inference"
+        )
+
     read_cap, site_cap = DEFAULT_CAPACITIES[device.type]
     run_inference(
         model,
@@ -185,6 +228,7 @@ def main(args):
         backend=args.backend,
         precision=args.precision,
         resume=args.resume,
+        host_shard=host_shard,
         n_threads=args.n_processes,
         write_indiv=not args.skip_indiv_proba,
         device=device,

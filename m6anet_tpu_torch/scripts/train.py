@@ -3,9 +3,15 @@
 The flags of the JAX package's ``train`` command (reference:
 m6anet/scripts/train.py, plus ``--clip_grad``, ``--resume_epoch``,
 ``--resume_from``, ``--reseed_on_stall`` and ``--init_probability_bias``),
-with ``--device {cuda,cpu}`` (default cuda).  ``--use_mesh on`` stops the
-parse (ROADMAP.md, Queue 1 'Multi-device runs'); ``auto`` and ``off`` train
-on one device.
+with ``--device {cuda,cpu}`` (default cuda).  ``--use_mesh on`` (and
+``auto`` when the launcher's ``WORLD_SIZE`` is above 1) trains data-parallel
+over the ranks of a ``torch.distributed`` job, one process per card
+(``torchrun --nproc_per_node N -m m6anet_tpu_torch train ...``): the JAX
+package's mesh step, the one-process step on each global batch padded to a
+multiple of the ranks (``train.loop.make_train_step``).  Every rank loads
+every batch with one loader thread (so that every rank draws the same
+reads); rank 0 alone prints and writes.  ``off``, and ``auto`` outside a
+job, train on one device.
 
 ``--seed`` seeds numpy, as the JAX script does, so the samplers, shuffles
 and read subsampling draw as there; the initial parameters come from a
@@ -25,7 +31,6 @@ import os
 from argparse import ArgumentDefaultsHelpFormatter, ArgumentParser
 
 from ..constants import DEFAULT_MODEL_CONFIG, TRAIN_CONFIG_TEMPLATE
-from .inference import _NotPorted
 
 
 def argparser():
@@ -60,9 +65,9 @@ def argparser():
                              "checkpoint directory (written by either package), "
                              "or 'auto' to pick the latest under save_dir.")
     parser.add_argument("--use_mesh", default="auto", choices=["auto", "on", "off"],
-                        action=_NotPorted, roadmap_item="Multi-device runs", refused=("on",),
-                        help="'on' (data-parallel training over several devices) "
-                             "is not ported yet; 'auto' and 'off' train on one device.")
+                        help="data-parallel training over the ranks of a "
+                             "torch.distributed job (one process per card, "
+                             "started by torchrun); auto = on when WORLD_SIZE > 1.")
     parser.add_argument("--reseed_on_stall", default=False, action="store_true",
                         help="detect the saturated noisy-OR plateau (loss ~6.9, "
                              "ROC ~0.5 — a known fixed point of this model "
@@ -99,8 +104,24 @@ def main(args):
     model_config = load_toml(args.model_config)
     train_config = load_toml(args.train_config)
 
+    data_parallel, n_processes = None, args.n_processes
+    if args.use_mesh == "on" or (args.use_mesh == "auto" and int(os.environ.get("WORLD_SIZE", "1")) > 1):
+        from ..parallel.group import DataParallel, start_job
+        from ..utils.logging import get_logger
+
+        job = start_job(device, device_collectives=True, log=get_logger("m6anet_tpu_torch.train"))
+        device, data_parallel = job.device, DataParallel(job)
+        for section in train_config["dataloader"].values():
+            section["pad_to_multiple"] = job.world_size
+        if job.world_size > 1:
+            n_processes = 1  # one loader thread: every rank draws the same reads
+    main_rank = data_parallel is None or data_parallel.rank == 0
+    if data_parallel is not None and main_rank:
+        print(f"Data-parallel training over {data_parallel.world_size} ranks")
+
     save_dir = args.save_dir
-    print(f"Saving training information to {save_dir}")
+    if main_rank:
+        print(f"Saving training information to {save_dir}")
     os.makedirs(save_dir, exist_ok=True)
 
     train_info = {
@@ -115,7 +136,8 @@ def main(args):
             "seed": args.seed,
         },
     }
-    dump_toml(train_info, os.path.join(save_dir, "train_info.toml"))
+    if main_rank:
+        dump_toml(train_info, os.path.join(save_dir, "train_info.toml"))
 
     model = MILModel(model_config).to(device)
     optimizer = make_optimizer(model, args.lr, args.weight_decay)
@@ -142,7 +164,7 @@ def main(args):
     else:
         init_fn(args.seed)
 
-    train_dl, val_dl, test_dl = build_dataloader(train_config, args.n_processes)
+    train_dl, val_dl, test_dl = build_dataloader(train_config, n_processes, verbose=main_rank)
 
     loss_fn = build_loss_function(dict(train_config["loss_function"]))
 
@@ -163,6 +185,7 @@ def main(args):
         reseed_on_stall=args.reseed_on_stall,
         stall_patience=args.stall_patience,
         max_restarts=args.max_restarts,
+        data_parallel=data_parallel,
     )
 
     def _dump_results(results, path):
@@ -174,12 +197,14 @@ def main(args):
         with open(path, "w", encoding="utf-8") as f:
             json.dump(clean, f, indent=2)
 
-    _dump_results(train_results, os.path.join(save_dir, "train_results.json"))
-    _dump_results(val_results, os.path.join(save_dir, "val_results.json"))
+    if main_rank:
+        _dump_results(train_results, os.path.join(save_dir, "train_results.json"))
+        _dump_results(val_results, os.path.join(save_dir, "val_results.json"))
 
     # Best-model selection per criterion over saved checkpoints + test eval
-    # (reference: m6anet/scripts/train.py:107-131).
-    eval_step = make_eval_step(model, loss_fn)
+    # (reference: m6anet/scripts/train.py:107-131).  Every rank reads the
+    # checkpoints rank 0 wrote and evaluates its rows of the test batches.
+    eval_step = make_eval_step(model, loss_fn, data_parallel)
     for criterion in ("avg_loss", "roc_auc", "pr_auc"):
         series = [
             val_results[criterion][i]
@@ -193,10 +218,13 @@ def main(args):
         # offset), so a resumed run must select with the same offset
         best_epoch += args.resume_epoch
         best_params = load_tree(os.path.join(save_dir, "model_states", str(best_epoch), "model_states.npz"))
-        save_tree(os.path.join(save_dir, f"{criterion}.npz"), best_params)
+        if main_rank:
+            save_tree(os.path.join(save_dir, f"{criterion}.npz"), best_params)
         model.load_state_dict(params_from_jax(best_params))
 
         test_results = validate(eval_step, test_dl, loss_fn, device, args.num_iterations)
+        if not main_rank:
+            continue
         print(f"Criteria: {criterion} \tCompute time: {test_results['compute_time']:.3f}")
         print(
             f"Test Loss: {test_results['avg_loss']:.3f} \t"
@@ -208,3 +236,6 @@ def main(args):
             {k: [v] for k, v in test_results.items() if k not in ("y_pred", "y_true")},
             os.path.join(save_dir, f"test_results_{criterion}.json"),
         )
+    if data_parallel is not None:
+        data_parallel.barrier()
+        data_parallel.job.close()

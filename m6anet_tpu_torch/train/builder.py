@@ -12,14 +12,19 @@ from .losses import build_loss_function  # noqa: F401  — re-exported for scrip
 
 
 def build_mode_dataset(config: Dict, mode: str):
-    """[dataset] table -> dataset, as the reference's builder.  The JAX
-    package's ``format = "columnar"`` extension is not ported yet."""
-    if config.get("format") == "columnar":
-        raise ValueError(
-            "[dataset] format = 'columnar' is not ported to m6anet_tpu_torch yet "
-            "(ROADMAP.md, Queue 1 'Columnar store and concatenated shards')"
-        )
+    """[dataset] table -> dataset.  ``format = "columnar"`` (the JAX
+    package's extension of the reference's TOML surface) trains off the
+    memory-mapped columnar store of a single ``root_dir`` instead of
+    data.json; everything else matches the reference's builder."""
     kwargs = {k: v for k, v in config.items() if k not in ("root_dir", "format")}
+    if config.get("format") == "columnar":
+        from ..data.columnar import ColumnarSiteDataset
+
+        root = config["root_dir"]
+        if not isinstance(root, str):
+            raise ValueError("format='columnar' training supports a single root_dir")
+        kwargs.pop("n_processes", None)  # json-path norm computation knob
+        return ColumnarSiteDataset(root, **kwargs, mode=mode)
     return build_dataset(config["root_dir"], **kwargs, mode=mode)
 
 

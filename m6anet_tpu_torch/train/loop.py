@@ -57,7 +57,30 @@ def _loss_supports_mask(loss_fn: Callable) -> bool:
         return False
 
 
-def make_train_step(model, loss_fn: Callable, optimizer: torch.optim.Optimizer, clip_grad: Optional[float] = None):
+def _site_probability(model, batch, data_parallel, **kwargs):
+    """The model's site probabilities for the batch: on one process all of
+    them; under ``data_parallel``, this rank's rows, gathered over ranks
+    into the global batch's."""
+    if data_parallel is None:
+        return model.site_probability({"X": batch["X"], "kmer": batch["kmer"]}, **kwargs)
+    x = {"X": data_parallel.shard(batch["X"]), "kmer": data_parallel.shard(batch["kmer"])}
+    return data_parallel.gather(model.site_probability(x, **kwargs))
+
+
+def set_data_parallel(model, data_parallel) -> None:
+    """Point every train-mode ``Linear`` of the model at ``data_parallel``
+    (``None``: one process)."""
+    from ..models.blocks import Linear
+
+    for module in model.modules():
+        if isinstance(module, Linear):
+            module.data_parallel = data_parallel
+
+
+def make_train_step(
+    model, loss_fn: Callable, optimizer: torch.optim.Optimizer, clip_grad: Optional[float] = None,
+    data_parallel=None,
+):
     """One train step on a batch of device tensors: train-mode forward (the
     BatchNorm running statistics refreshed in place), loss, gradients,
     global-norm clip, Adam update.  Returns the loss and the site
@@ -67,15 +90,23 @@ def make_train_step(model, loss_fn: Callable, optimizer: torch.optim.Optimizer, 
     padding from TrainLoader's ``pad_to_multiple``) and the loss function
     accepts a ``mask`` kwarg, padded duplicates get zero loss weight;
     custom losses without mask support fall back to the full-batch
-    reduction (metrics are always de-padded host-side)."""
+    reduction (metrics are always de-padded host-side).
+
+    ``data_parallel`` (a ``parallel.group.DataParallel``) makes it the JAX
+    package's mesh step over the ranks of a job: every rank is given the
+    whole global batch, runs the model on its own rows, and takes the one
+    step the global batch gives on one process (BatchNorm statistics,
+    dropout, loss and gradients over the global batch; see
+    ``DataParallel``).  The batch's rows must split evenly over the ranks."""
     supports_mask = _loss_supports_mask(loss_fn)
     params = dict(model.named_parameters())
     # the JAX parameter tree's leaf order, so the global norm sums as optax's
     ordered = [params[key] for _, key in jax_leaf_order(model) if key in params]
+    set_data_parallel(model, data_parallel)
 
     def step(batch: Dict[str, torch.Tensor], generator: Optional[torch.Generator] = None):
         optimizer.zero_grad()
-        pred = model.site_probability({"X": batch["X"], "kmer": batch["kmer"]}, train=True, generator=generator)
+        pred = _site_probability(model, batch, data_parallel, train=True, generator=generator)
         mask = batch.get("mask") if supports_mask else None
         loss = loss_fn(pred, batch["y"]) if mask is None else loss_fn(pred, batch["y"], mask=mask)
         loss.backward()
@@ -86,6 +117,8 @@ def make_train_step(model, loss_fn: Callable, optimizer: torch.optim.Optimizer, 
             # decay alone, as optax does
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        if data_parallel is not None:
+            data_parallel.sum_grads_([p.grad for p in ordered])
         if clip_grad is not None:
             clip_by_global_norm_([p.grad for p in ordered], clip_grad)
         optimizer.step()
@@ -94,10 +127,12 @@ def make_train_step(model, loss_fn: Callable, optimizer: torch.optim.Optimizer, 
     return step
 
 
-def make_eval_step(model, loss_fn: Callable):
+def make_eval_step(model, loss_fn: Callable, data_parallel=None):
+    """The eval-mode step; under ``data_parallel`` each rank runs its own
+    rows of the batch and every rank gets the gathered predictions."""
     @torch.no_grad()
     def step(batch: Dict[str, torch.Tensor]):
-        pred = model.site_probability({"X": batch["X"], "kmer": batch["kmer"]})
+        pred = _site_probability(model, batch, data_parallel)
         return loss_fn(pred, batch["y"]), pred
 
     return step
@@ -245,6 +280,23 @@ def saturation_aware_init(model, bias: float = -4.0):
     return model
 
 
+def _print_epoch(epoch, epoch_increment, n_epoch, tr, vr, total_time):
+    print(
+        f"Epoch:[{epoch + epoch_increment}/{n_epoch + epoch_increment}] \t "
+        f"train time:{tr['compute_time']:.0f}s \t "
+        f"val time:{vr['compute_time']:.0f}s \t ({total_time:.0f}s)"
+    )
+    print(
+        f"Train Loss:{tr['avg_loss']:.2f}\t "
+        f"Train ROC AUC: {tr['roc_auc']:.3f}\t Train PR AUC: {tr['pr_auc']:.3f}"
+    )
+    print(
+        f"Val Loss:{vr['avg_loss']:.2f} \t "
+        f"Val ROC AUC: {vr['roc_auc']:.3f}\t Val PR AUC: {vr['pr_auc']:.3f}"
+    )
+    print("=====================================")
+
+
 def train(
     model,
     train_loader,
@@ -264,6 +316,7 @@ def train(
     max_restarts: int = 3,
     stall_loss_range: Tuple[float, float] = STALL_LOSS_RANGE,
     stall_roc_range: Tuple[float, float] = STALL_ROC_RANGE,
+    data_parallel=None,
 ) -> Tuple[Dict, Dict]:
     """Full training run (reference: m6anet/utils/training_utils.py:61-145),
     on the device of the model's parameters.  Trains ``model`` in place and
@@ -279,14 +332,21 @@ def train(
     re-initialises the model in place with a seed derived from the attempt
     number, the optimizer's state is cleared, at most ``max_restarts``
     times.  The results returned are the final attempt's only.
+
+    ``data_parallel`` trains over the ranks of a job (``make_train_step``):
+    every rank iterates the same loaders, so the loaders must give every
+    rank the same batches, padded to a multiple of the ranks; every rank
+    gets the same metrics, rank 0 alone prints them and writes the
+    checkpoints, and the ranks meet after each checkpoint.
     """
     if save_per_epoch > n_epoch:
         raise ValueError(f"save_per_epoch ({save_per_epoch}) exceeds the number of epochs ({n_epoch})")
     if reseed_on_stall and init_fn is None:
         raise ValueError("reseed_on_stall requires init_fn (a seed -> re-initialise the model)")
 
-    step = make_train_step(model, loss_fn, optimizer, clip_grad)
-    eval_step = make_eval_step(model, loss_fn)
+    step = make_train_step(model, loss_fn, optimizer, clip_grad, data_parallel)
+    eval_step = make_eval_step(model, loss_fn, data_parallel)
+    main_rank = data_parallel is None or data_parallel.rank == 0
     device = next(model.parameters()).device
     generator = torch.Generator(device=device)
     generator.manual_seed(seed + epoch_increment)
@@ -303,20 +363,8 @@ def train(
             vr = validate(eval_step, val_loader, loss_fn, device, n_iterations)
             total_time += tr["compute_time"] + vr["compute_time"]
 
-            print(
-                f"Epoch:[{epoch + epoch_increment}/{n_epoch + epoch_increment}] \t "
-                f"train time:{tr['compute_time']:.0f}s \t "
-                f"val time:{vr['compute_time']:.0f}s \t ({total_time:.0f}s)"
-            )
-            print(
-                f"Train Loss:{tr['avg_loss']:.2f}\t "
-                f"Train ROC AUC: {tr['roc_auc']:.3f}\t Train PR AUC: {tr['pr_auc']:.3f}"
-            )
-            print(
-                f"Val Loss:{vr['avg_loss']:.2f} \t "
-                f"Val ROC AUC: {vr['roc_auc']:.3f}\t Val PR AUC: {vr['pr_auc']:.3f}"
-            )
-            print("=====================================")
+            if main_rank:
+                _print_epoch(epoch, epoch_increment, n_epoch, tr, vr, total_time)
 
             for key, val in tr.items():
                 train_results.setdefault(key, []).append(val)
@@ -337,19 +385,23 @@ def train(
             if save_dir is not None and (epoch + epoch_increment) % save_per_epoch == 0:
                 from .checkpoint import save_checkpoint
 
-                save_path = os.path.join(save_dir, "model_states", str(epoch + epoch_increment))
-                save_checkpoint(save_path, model, optimizer, epoch + epoch_increment)
+                if main_rank:
+                    save_path = os.path.join(save_dir, "model_states", str(epoch + epoch_increment))
+                    save_checkpoint(save_path, model, optimizer, epoch + epoch_increment)
+                if data_parallel is not None:
+                    data_parallel.barrier()  # the checkpoint is on disk for every rank
 
         if not stalled:
             return train_results, val_results
 
         attempt += 1
         derived = seed + 9973 * attempt  # deterministic, collision-free per attempt
-        print(
-            f"[stall] loss/ROC sat in the saturated noisy-OR plateau for "
-            f"{stall_patience} epochs — restarting with derived seed {derived} "
-            f"(attempt {attempt}/{max_restarts})"
-        )
+        if main_rank:
+            print(
+                f"[stall] loss/ROC sat in the saturated noisy-OR plateau for "
+                f"{stall_patience} epochs — restarting with derived seed {derived} "
+                f"(attempt {attempt}/{max_restarts})"
+            )
         init_fn(derived)
         optimizer.state.clear()
         generator.manual_seed(derived + epoch_increment)

@@ -28,7 +28,7 @@ class StageTimer:
 
     def summary(self) -> str:
         parts = [
-            f"{name}={self.totals[name]:.2f}s/{self.counts[name]}x"
+            f"{name}={self.totals[name]:.6f}s/{self.counts[name]}x"
             for name in sorted(self.totals, key=self.totals.get, reverse=True)
         ]
         return " ".join(parts)

@@ -744,3 +744,70 @@ def test_signal_config_under_auto_on_the_card_matches_cpu(cuda_device, tmp_path)
     assert (fik.launch_count, fik.site_reduce_launch_count, encoder_kernel.launch_count, mc_kernel.launch_count,
             dict(fik.tc_launch_counts)) == before
     _assert_runs_close(tmp_path / "card", tmp_path / "cpu", DEFAULT_READ_THRESHOLD, 1e-6)
+
+
+def _demo_store(root):
+    """A columnar store of the demo's sites, written by the port's writer
+    from tests/data's data.json."""
+    from m6anet_tpu_torch.data.columnar import ColumnarWriter
+    from m6anet_tpu_torch.data.dataset import SiteDataset
+
+    raw = SiteDataset(DATA_DIR, min_reads=0, norm_path=None)
+    raw.norm_dict = None
+    writer = ColumnarWriter(str(root), 3)
+    for site in raw.iter_sites():
+        writer.append_site(site.tx_id, site.tx_pos, site.sequence, site.features, site.read_ids)
+    writer.finalize()
+    return str(root)
+
+
+class _GenericFeed:
+    """A dataset's sites without its ``iter_packed``: the engine packs them
+    with ``pack_sites``."""
+
+    def __init__(self, dataset):
+        self.dataset, self.max_site_reads = dataset, dataset.max_site_reads
+
+    def __len__(self):
+        return len(self.dataset)
+
+    def iter_sites(self, n_threads=1):
+        return self.dataset.iter_sites(n_threads)
+
+
+def _same_csvs(a, b, suffix=""):
+    for name in ("data.site_proba.csv", "data.indiv_proba.csv"):
+        with open(os.path.join(a, name + suffix), "rb") as f, open(os.path.join(b, name), "rb") as g:
+            assert f.read() == g.read(), name
+
+
+@pytest.mark.parametrize("method", ["exact", "mc"])
+def test_columnar_feed_on_the_card_gives_the_generic_feeds_bytes(cuda_device, tmp_path, method):
+    """iter_packed's batches through the card's kernels (cuda_fused, f32x3;
+    the MC kernel after it) write the bytes the generic feed's batches do,
+    in batches of 16 sites, each launching each kernel of the path once."""
+    from m6anet_tpu_torch.data.columnar import ColumnarSiteDataset
+
+    ds = ColumnarSiteDataset(_demo_store(tmp_path / "store"), min_reads=DEFAULT_MIN_READS,
+                             norm_path=PRETRAINED_CONFIGS["HCT116_RNA002"][2])
+    kw = dict(read_capacity=4096, site_capacity=16, method=method, num_iterations=200, seed=3)
+    before = (fik.launch_count, fik.tc_launch_counts["f32x3"], mc_kernel.launch_count)
+    run_inference(_model(), ds, str(tmp_path / "columnar"), DEFAULT_READ_THRESHOLD, **kw)
+    launches = (fik.launch_count - before[0], fik.tc_launch_counts["f32x3"] - before[1],
+                mc_kernel.launch_count - before[2])
+    assert launches == (7, 7, 7 if method == "mc" else 0)  # 101 sites, 16 a batch
+    run_inference(_model(), _GenericFeed(ds), str(tmp_path / "generic"), DEFAULT_READ_THRESHOLD, **kw)
+    _same_csvs(tmp_path / "columnar", tmp_path / "generic")
+
+
+@pytest.mark.parametrize("method", ["exact", "mc"])
+def test_host_shards_on_the_card_merge_to_the_whole_run(cuda_device, tmp_path, method):
+    from m6anet_tpu_torch.inference.engine import merge_host_shards
+
+    ds = build_dataset(DATA_DIR, min_reads=DEFAULT_MIN_READS, norm_path=PRETRAINED_CONFIGS["HCT116_RNA002"][2])
+    kw = dict(site_capacity=32, method=method, num_iterations=200, seed=3)
+    run_inference(_model(), ds, str(tmp_path / "whole"), DEFAULT_READ_THRESHOLD, **kw)
+    for host in range(3):
+        run_inference(_model(), ds, str(tmp_path / "shards"), DEFAULT_READ_THRESHOLD, host_shard=(host, 3), **kw)
+    merge_host_shards(str(tmp_path / "shards"), 3)
+    _same_csvs(tmp_path / "shards", tmp_path / "whole")

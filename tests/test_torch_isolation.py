@@ -23,6 +23,9 @@ from m6anet_tpu_torch.constants import DEFAULT_MODEL_CONFIG, DEFAULT_MODEL_WEIGH
 from m6anet_tpu_torch.ops import fused_infer_kernel as fik
 from m6anet_tpu_torch.scripts import train  # noqa: F401
 from m6anet_tpu_torch.train import builder, checkpoint, loop, losses, metrics  # noqa: F401
+from m6anet_tpu_torch.data import columnar  # noqa: F401
+from m6anet_tpu_torch.data.dataset import ConcatSiteDataset  # noqa: F401
+from m6anet_tpu_torch.parallel import group, mesh  # noqa: F401
 import tomllib
 
 with open(DEFAULT_MODEL_CONFIG, "rb") as f:

@@ -683,17 +683,26 @@ def test_train_cli_needs_a_card_unless_asked_for_the_cpu(tmp_path):
     assert not os.path.exists(tmp_path / "out")
 
 
-def test_train_cli_refuses_what_is_not_ported(tmp_path, capsys):
+def test_train_cli_refuses_what_is_not_ported(tmp_path, monkeypatch):
+    """Named for what it held while ``--use_mesh on`` and ``format =
+    "columnar"`` were not ported.  Both are (tests/test_torch_distributed.py,
+    tests/test_torch_columnar.py); what is refused now is a run they cannot
+    make: ``--use_mesh on`` outside a launcher's job, and a columnar
+    dataset with no store."""
     from m6anet_tpu_torch.cli import main
     from m6anet_tpu_torch.scripts import train as train_script
 
     base = ["--train_config", "c.toml", "--save_dir", "out"]
-    with pytest.raises(SystemExit):
-        main(["train", *base, "--use_mesh", "on"])
-    assert "Multi-device runs" in capsys.readouterr().err
-    for value in ("auto", "off"):
+    for value in ("auto", "off", "on"):
         assert train_script.argparser().parse_args([*base, "--use_mesh", value]).use_mesh == value
+    for name in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(name, raising=False)
+    cfg = _write_train_config(tmp_path)
+    with pytest.raises(RuntimeError, match="launcher's environment"):
+        main(["train", "--train_config", cfg, "--save_dir", str(tmp_path / "mesh"), "--device", "cpu",
+              "--use_mesh", "on", "--epochs", "1", "--save_per_epoch", "1"])
+    assert not os.path.exists(tmp_path / "mesh")
     cfg = _write_train_config(tmp_path, format="columnar")
-    with pytest.raises(ValueError, match="Columnar store and concatenated shards"):
+    with pytest.raises(FileNotFoundError, match="--format columnar"):
         main(["train", "--train_config", cfg, "--save_dir", str(tmp_path / "out"), "--device", "cpu",
               "--epochs", "1", "--save_per_epoch", "1"])
