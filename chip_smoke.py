@@ -6,8 +6,9 @@ Drives m6anet_tpu_torch's paths on the card — ``inference`` with the
 production model and the exact site method (the main path, at the default
 precision, f32x3), the f32 and bf16 precisions, the MC site method, the
 encoder-kernel backend, training, all four released models, the generic
-model configs, the columnar store and multi-process runs — and holds every
-kernel against its plain PyTorch version:
+model configs, the columnar store, multi-process runs and the pipeline from
+eventalign.txt (the port's own dataprep) — and holds every kernel against
+its plain PyTorch version:
 
   1. device      require CUDA, print the card's name and power limit, TF32 off
   2. build       compile every ops/csrc/*.cu kernel (one nvcc each, in parallel)
@@ -152,11 +153,33 @@ kernel against its plain PyTorch version:
                  batches, the last wrap-padded) with one rank, the bits of
                  the step without the job, and with two ranks sharing the
                  card (gloo), within phase 14's tolerances of one rank
+ 20. pipeline    eventalign.txt to calls with the port alone (the port's
+                 native parser must build and load): python -m
+                 m6anet_tpu_torch dataprep on tests/data/eventalign.txt
+                 (--min_segment_count 1 --format both --n_processes 2),
+                 its index, data.info and data.json against the goldens as
+                 tests/test_dataprep.py compares them; inference on the card
+                 over it (auto = cuda_fused f32x3) against the golden CSVs,
+                 and --columnar within 5e-5 per read of that run, with the
+                 kernels each run launched; compute_norm_factors over the
+                 demo's labelled sites (the labels of
+                 tests/data/data.info.labelled on the port's data.info), its
+                 means and stds within 1e-9 relative of compute_norm_dict
+                 over tests/data/data.json, then train on the card with
+                 them (finite losses, a checkpoint); then a 1 GiB
+                 eventalign (512 copies of the demo, contigs renamed):
+                 dataprep --format both at min(cores, 16) processes and at
+                 1 (MB/s, sites/s, the same bytes in every file), the two
+                 --host_shard halves at once, inference --columnar on the
+                 card (wall, stages, sites/s, launches) and
+                 --concat_shards over the shards (the one-store bytes);
+                 every number beside the card, its power limit and the
+                 host CPU
 
 Any failure exits nonzero.  The last line is the
 ``{"ok": true, "device": {...}}`` result; before it come the MC floors' JSON
-line, the models and generic lines (phases 16 and 17), the columnar and
-shards lines (phases 18 and 19), the kernels' JSON
+line, the models and generic lines (phases 16 and 17), the columnar,
+shards and pipeline lines (phases 18 to 20), the kernels' JSON
 line (measured values and each kernel's bound, phase B's site_reduce_kernel
 with its own entry, and each kernel's launches by released model), the
 training line (phases 14 and 15), a timing line and the card's
@@ -563,7 +586,7 @@ def time_ms(fn, reps=30, flush_bytes=1 << 30):
 def run_cli(model_name, out_dir, extra=(), input_dir=os.path.join(ROOT, "tests", "data")):
     cmd = [
         sys.executable, "-m", "m6anet_tpu_torch", "inference",
-        "--input_dir", input_dir, "--out_dir", out_dir,
+        "--input_dir", *([input_dir] if isinstance(input_dir, str) else input_dir), "--out_dir", out_dir,
         "--pretrained_model", model_name, *extra,
     ]
     start = time.perf_counter()
@@ -1459,7 +1482,8 @@ def check_columnar(logs, work_dir):
 
 def cli_in_process(logs, out, *flags, input_dir):
     """The inference CLI's main() in this process on the card, every launch
-    count set to 0 just before it; returns its wall, launches and path."""
+    count set to 0 just before it; returns its wall, launches, path, stages
+    and batches."""
     from m6anet_tpu_torch.cli import main as cli_main
 
     reset_launch_counts()
@@ -1468,7 +1492,8 @@ def cli_in_process(logs, out, *flags, input_dir):
               "--out_dir", out, *flags])
     torch.cuda.synchronize()
     return {"wall_s": time.perf_counter() - start, "launches": read_launch_counts(),
-            "path": logs.last("inference path:")}
+            "path": logs.last("inference path:"), "stages": logs.last("inference stages:"),
+            "batches": int(logs.last("batches dispatched:"))}
 
 
 def dispatch_parts(model, batch, threshold, site_cap, reps=3):
@@ -1694,6 +1719,303 @@ def check_shards(logs, work_dir, demo_store):
     if first_rel > TRAIN_FIRST_LOSS_RTOL or loss_rel > TRAIN_LOSS_RTOL or max(gaps.values()) > TRAIN_PARAM_ATOL:
         fail("train --use_mesh on with two ranks is outside phase 14's tolerances of one rank")
     shutil.rmtree(work_dir, ignore_errors=True)
+    return report
+
+# ------------------------------------------------------------- pipeline
+# phase 20's full-size input: the demo eventalign.txt this many times, each
+# copy's contigs renamed (2.0 MB a copy: at least 1 GiB)
+PIPELINE_COPIES = 512
+PIPELINE_MAX_PROCESSES = 16
+NORM_RTOL = 1e-9
+
+
+def host_cpu():
+    """The host CPU (its model name, or vendor, family and model number
+    where the name is not given) and the cores this process may use:
+    dataprep is the host's work, so its rates are the host's."""
+    fields = {}
+    with open("/proc/cpuinfo") as f:
+        for line in f:
+            key, _, value = line.partition(":")
+            fields.setdefault(key.strip(), value.strip())
+            if not line.strip():
+                break
+    name = fields.get("model name", "unknown")
+    if name == "unknown":
+        name = (f"{fields.get('vendor_id', '?')} family {fields.get('cpu family', '?')} model "
+                f"{fields.get('model', '?')} (no model name given)")
+    return name, len(os.sched_getaffinity(0))
+
+
+def port_cli(label, *argv, timeout=600):
+    """``python -m m6anet_tpu_torch <argv>`` in a fresh process, as a user
+    runs it; fails the run if it exits nonzero.  Returns (wall, process)."""
+    start = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "m6anet_tpu_torch", *argv], cwd=ROOT, capture_output=True,
+                          text=True, timeout=timeout)
+    wall = time.perf_counter() - start
+    if proc.returncode != 0:
+        log(proc.stdout[-4000:] + proc.stderr[-4000:])
+        fail(f"{label}: m6anet_tpu_torch {argv[0]} exited {proc.returncode}")
+    return wall, proc
+
+
+def check_dataprep_golden(out_dir):
+    """The port's dataprep output against tests/data's goldens, as the JAX
+    suite holds its own (tests/test_dataprep.py): eventalign.index as a
+    sorted frame, data.info's sites and read counts, each site's k-mer
+    context, reads (sorted: the reference's read order differs) and
+    features."""
+    import pandas as pd
+
+    data = os.path.join(ROOT, "tests", "data")
+    index = [pd.read_csv(os.path.join(d, "eventalign.index")).sort_values(["transcript_id", "read_index"])
+             .reset_index(drop=True) for d in (out_dir, data)]
+    if not index[0].equals(index[1]):
+        fail("pipeline: eventalign.index differs from the golden")
+    keys = ["transcript_id", "transcript_position"]
+    got, want = (pd.read_csv(os.path.join(d, "data.info")).sort_values(keys).reset_index(drop=True)
+                 for d in (out_dir, data))
+    if len(got) != len(want) or not all((got[c].values == want[c].values).all() for c in (*keys, "n_reads")):
+        fail("pipeline: data.info's sites or read counts differ from the golden")
+
+    def payload(root, row):
+        with open(os.path.join(root, "data.json"), "rb") as f:
+            f.seek(row.start)
+            (kmer, rows), = json.loads(f.read(row.end - row.start))[row.transcript_id][
+                str(row.transcript_position)].items()
+        rows = np.asarray(rows)
+        order = np.argsort(rows[:, -1], kind="stable")
+        return kmer, rows[order]
+
+    worst = 0.0
+    for g, w in zip(got.itertuples(), want.itertuples()):
+        (kg, rg), (kw, rw) = payload(out_dir, g), payload(data, w)
+        if kg != kw or rg.shape != rw.shape or not np.array_equal(rg[:, -1], rw[:, -1]):
+            fail(f"pipeline: site {g.transcript_id}:{g.transcript_position}'s context or reads differ")
+        if not np.allclose(rg[:, :-1], rw[:, :-1], rtol=1e-7, atol=0):
+            fail(f"pipeline: site {g.transcript_id}:{g.transcript_position}'s features differ")
+        worst = max(worst, float(np.abs(rg[:, :-1] - rw[:, :-1]).max(initial=0.0)))
+    return {"sites": len(got), "reads": int(got.n_reads.sum()), "feature_max_abs_err": worst}
+
+
+def write_copies(path, copies):
+    """``copies`` copies of the demo eventalign.txt under one header, the
+    82 contigs of copy k renamed ``<contig>_c<k>``; returns the bytes."""
+    with open(os.path.join(ROOT, "tests", "data", "eventalign.txt"), "rb") as f:
+        header, body = f.readline(), f.read()
+    contigs = sorted({line.split(b"\t", 1)[0] for line in body.splitlines()})
+    # one %-template of the body: copy k is one C-level substitution
+    template = b"\n".join(b"%(" + str(contigs.index(line.split(b"\t", 1)[0])).encode() + b")s\t"
+                          + line.split(b"\t", 1)[1].replace(b"%", b"%%") for line in body.splitlines()) + b"\n"
+    with open(path, "wb") as out:
+        out.write(header)
+        for k in range(copies):
+            out.write(template % {str(i).encode(): c + b"_c%d" % k for i, c in enumerate(contigs)})
+    return os.path.getsize(path), len(contigs)
+
+
+def same_tree(a, b):
+    """The relative paths of the files under ``a`` and ``b`` whose bytes
+    differ (or that only one holds)."""
+    files = {d: sorted(os.path.relpath(os.path.join(r, f), d) for r, _, fs in os.walk(d) for f in fs) for d in (a, b)}
+    differ = sorted(set(files[a]) ^ set(files[b]))
+    for name in sorted(set(files[a]) & set(files[b])):
+        with open(os.path.join(a, name), "rb") as f, open(os.path.join(b, name), "rb") as g:
+            while True:
+                x, y = f.read(1 << 24), g.read(1 << 24)
+                if x != y:
+                    differ.append(name)
+                    break
+                if not x:
+                    break
+    return differ
+
+
+def check_pipeline(logs, work_dir, card):
+    """Phase 20: eventalign.txt to m6A calls with the port alone.  The demo
+    through the dataprep CLI (against the goldens), inference on the card
+    over it (the golden CSVs) and --columnar (against the data.json run);
+    compute_norm_factors over its labelled sites and train on the card
+    with them; then a 1 GiB eventalign through dataprep at N processes
+    and at 1 (the same bytes), two host shards, inference --columnar on
+    the card and --concat_shards over the shards (the one-store bytes)."""
+    import pandas as pd
+
+    from m6anet_tpu_torch import native
+    from m6anet_tpu_torch.constants import PRETRAINED_CONFIGS, TRAIN_CONFIG_TEMPLATE
+    from m6anet_tpu_torch.data.norm import compute_norm_dict, load_norm_factors
+    from m6anet_tpu_torch.utils.config import dump_toml, load_toml
+
+    phase_start = time.perf_counter()
+    if native.get_lib() is None:
+        fail("pipeline: the port's native library does not build or load (a dataprep timing on the numpy "
+             "fallback would say nothing)")
+    cpu_model, cores = host_cpu()
+    host = {"cpu": cpu_model, "cores": cores, "card": card}
+    report = {"host": host}
+    log(f"[pipeline] host CPU {cpu_model}, {cores} cores; card {card}")
+    threshold = PRETRAINED_CONFIGS["HCT116_RNA002"][1]
+    data = os.path.join(ROOT, "tests", "data")
+
+    # ---- the demo: dataprep, inference (data.json and --columnar)
+    demo = os.path.join(work_dir, "demo")
+    wall, _ = port_cli("pipeline demo dataprep", "dataprep", "--eventalign", os.path.join(data, "eventalign.txt"),
+                       "--out_dir", demo, "--min_segment_count", "1", "--format", "both", "--n_processes", "2")
+    golden = check_dataprep_golden(demo)
+    log(f"[pipeline] demo dataprep: {wall:.3f} s wall; eventalign.index, data.info and data.json the goldens' "
+        f"({golden})")
+    runs = {}
+    for label, flags in (("data.json", []), ("--columnar", ["--columnar"])):
+        out = os.path.join(work_dir, "demo_" + label.strip("-").replace(".", "_"))
+        run = cli_in_process(logs, out, *flags, input_dir=demo)
+        log(f"[pipeline] demo inference ({label}) on the card: {run['wall_s']:.3f} s wall; {run['path']}; stages "
+            f"{run['stages']}; {run['batches']} batches; kernel launches {run['launches']}")
+        if ("backend=cuda_fused" not in run["path"] or "precision=f32x3" not in run["path"]
+                or run["launches"]["read_prob_tc_f32x3"] < 1 or run["launches"]["site_reduce"] < 1):
+            fail(f"pipeline demo inference ({label}) ran as {run['path']!r} with launches {run['launches']}")
+        runs[label] = dict(run, out=out)
+    runs["data.json"]["golden_max_errors"] = check_golden(runs["data.json"]["out"], label="pipeline demo")
+    runs["--columnar"]["vs_data_json"] = hold_outputs(
+        runs["--columnar"]["out"], runs["data.json"]["out"], threshold, COLUMNAR_JSON_READ_ATOL, None,
+        "pipeline demo: --columnar vs data.json on the card")
+    report["demo"] = {"dataprep_wall_s": wall, "dataprep_vs_golden": golden,
+                      "inference": {k: {kk: vv for kk, vv in v.items() if kk != "out"} for k, v in runs.items()}}
+
+    # ---- norm factors and train.  tests/data/data.info.labelled's offsets
+    # point into the reference's data.json, so its labels go onto the
+    # port's own data.info
+    info = pd.read_csv(os.path.join(demo, "data.info"))
+    labels = pd.read_csv(os.path.join(data, "data.info.labelled"))
+    keys = ["transcript_id", "transcript_position"]
+    labelled = info.merge(labels[[*keys, "modification_status", "set_type"]], on=keys, how="inner")
+    if len(labelled) != len(labels):
+        fail("pipeline: the labelled sites are not all in the port's data.info")
+    labelled.to_csv(os.path.join(demo, "data.info.labelled"), index=False)
+    norm_dir = os.path.join(demo, "norm")
+    npz = os.path.join(norm_dir, "norm_dict_nanopolish.npz")
+    import importlib.util
+
+    if importlib.util.find_spec("joblib") is not None:
+        norm_wall, _ = port_cli("pipeline compute_norm_factors", "compute_norm_factors", "--input_dir", demo,
+                                "--out_dir", norm_dir)
+        written = sorted(os.listdir(norm_dir))
+        if written != ["norm_dict_nanopolish.joblib", "norm_dict_nanopolish.npz"]:
+            fail(f"pipeline: compute_norm_factors wrote {written}")
+        how = "the CLI (.npz and .joblib)"
+    else:
+        from m6anet_tpu_torch.data.norm import annotate_kmer_information, save_norm_factors
+
+        train_info = labelled[labelled.set_type == "Train"].copy()
+        start = time.perf_counter()
+        factors = compute_norm_dict(os.path.join(demo, "data.json"),
+                                    annotate_kmer_information(os.path.join(demo, "data.json"), train_info))
+        os.makedirs(norm_dir)
+        save_norm_factors(factors, npz)
+        norm_wall = time.perf_counter() - start
+        how = ("compute_norm_dict and save_norm_factors in this process: joblib does not import on this machine, "
+               "so the CLI would write the .npz and then raise ImportError for the .joblib")
+    log(f"[pipeline] norm factors by {how}: {norm_wall:.3f} s")
+    want_labels = labels[labels.set_type == "Train"]
+    want = compute_norm_dict(os.path.join(data, "data.json"), want_labels)
+    got = load_norm_factors(npz)
+    norm_rel = max(float(np.max(np.abs(got[k][i] - want[k][i]) / np.maximum(np.abs(want[k][i]), 1e-300)))
+                   for k in want for i in (0, 1)) if sorted(got) == sorted(want) else float("inf")
+    log(f"[pipeline] norm factors: {len(got)} 5-mers; means and stds against compute_norm_dict over "
+        f"tests/data/data.json: {norm_rel:.3e} relative (tolerance {NORM_RTOL})")
+    if norm_rel > NORM_RTOL:
+        fail("pipeline: the norm factors differ from the reference data.json's")
+    cfg = load_toml(TRAIN_CONFIG_TEMPLATE)
+    cfg["dataset"].update(root_dir=demo, norm_path=npz)
+    cfg_path, save_dir = os.path.join(work_dir, "train.toml"), os.path.join(work_dir, "train_out")
+    dump_toml(cfg, cfg_path)
+    train_wall, proc = port_cli("pipeline train", "train", "--train_config", cfg_path, "--save_dir", save_dir,
+                                "--epochs", "2", "--save_per_epoch", "2", "--num_iterations", "1")
+    with open(os.path.join(save_dir, "train_results.json")) as f:
+        losses = json.load(f)["avg_loss"]
+    ckpt = os.path.join(save_dir, "model_states", "2", "model_states.npz")
+    log(f"[pipeline] train on the card with those factors: {train_wall:.3f} s wall; train losses {losses}; "
+        f"checkpoint written: {os.path.exists(ckpt)}")
+    if not np.isfinite(losses).all() or not os.path.exists(ckpt) or "There are 57 train sites" not in proc.stdout:
+        fail("pipeline: train with the port's norm factors gave non-finite losses, no checkpoint or other sites")
+    report["norm"] = {"how": how, "wall_s": norm_wall, "kmers": len(got), "max_rel_vs_reference_json": norm_rel}
+    report["train"] = {"wall_s": train_wall, "losses": losses}
+    shutil.rmtree(demo)
+
+    # ---- full size
+    full = os.path.join(work_dir, "full")
+    os.makedirs(full)
+    eventalign = os.path.join(full, "eventalign.txt")
+    start = time.perf_counter()
+    size, n_contigs = write_copies(eventalign, PIPELINE_COPIES)
+    log(f"[pipeline] {eventalign}: {size} bytes ({PIPELINE_COPIES} copies of the demo, {n_contigs} contigs "
+        f"each), written in {time.perf_counter() - start:.3f} s")
+    if size < 1 << 30:
+        fail(f"pipeline: the synthetic eventalign holds {size} bytes, under 1 GiB")
+    procs = min(cores, PIPELINE_MAX_PROCESSES)
+    dataprep = {}
+    for n in (procs, 1):
+        out = os.path.join(full, f"np{n}")
+        wall, _ = port_cli(f"pipeline dataprep --n_processes {n}", "dataprep", "--eventalign", eventalign,
+                           "--out_dir", out, "--min_segment_count", "1", "--format", "both", "--n_processes", str(n))
+        with open(os.path.join(out, "data.info")) as f:
+            sites = sum(1 for _ in f) - 1
+        dataprep[n] = {"wall_s": wall, "MB_per_s": size / wall / 1e6, "sites": sites, "sites_per_s": sites / wall}
+        log(f"[pipeline] dataprep --format both --n_processes {n}: {wall:.3f} s wall, "
+            f"{dataprep[n]['MB_per_s']:.1f} MB/s, {sites} sites, {dataprep[n]['sites_per_s']:.0f} sites/s "
+            f"(host CPU {cpu_model}, {cores} cores; card {card})")
+    differ = same_tree(os.path.join(full, f"np{procs}"), os.path.join(full, "np1"))
+    log(f"[pipeline] --n_processes {procs} and 1: every output file the same bytes: {not differ}")
+    if differ:
+        fail(f"pipeline: --n_processes {procs} and 1 differ in {differ}")
+    shutil.rmtree(os.path.join(full, "np1"))
+    one = os.path.join(full, f"np{procs}")
+    # the two host shards at once, as two hosts would run them, half the
+    # processes each
+    shards = [os.path.join(full, f"shard{h}") for h in range(2)]
+    start = time.perf_counter()
+    shard_procs = [subprocess.Popen(
+        [sys.executable, "-m", "m6anet_tpu_torch", "dataprep", "--eventalign", eventalign, "--out_dir", out,
+         "--min_segment_count", "1", "--format", "columnar", "--n_processes", str(max(1, procs // 2)),
+         "--host_shard", str(h), "2"], cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for h, out in enumerate(shards)]
+    wait_ranks(shard_procs, "pipeline dataprep --host_shard", timeout=600)
+    shard_wall = time.perf_counter() - start
+    log(f"[pipeline] dataprep --host_shard 0 2 and 1 2 at once, {max(1, procs // 2)} processes each: "
+        f"{shard_wall:.3f} s wall")
+    os.remove(eventalign)
+    out_one, out_concat = os.path.join(full, "calls_one"), os.path.join(full, "calls_concat")
+    run = cli_in_process(logs, out_one, "--columnar", input_dir=one)
+    with open(os.path.join(out_one, "data.site_proba.csv")) as f:
+        scored = sum(1 for _ in f) - 1
+    with open(os.path.join(out_one, "data.indiv_proba.csv")) as f:
+        scored_reads = sum(1 for _ in f) - 1
+    run.update(stages_s=stage_seconds(run["stages"]), sites=scored, reads=scored_reads,
+               sites_per_s=scored / run["wall_s"])
+    log(f"[pipeline] inference --columnar on the card over the one store (in this process): {run['wall_s']:.3f} s "
+        f"wall; {run['path']}; stages {run['stages']}; {run['batches']} batches; kernel launches "
+        f"{run['launches']}; {scored} sites, {scored_reads} reads scored, {run['sites_per_s']:.0f} sites/s "
+        f"(card {card})")
+    n_batches = run["batches"]
+    if ("backend=cuda_fused" not in run["path"] or run["launches"]["read_prob_tc_f32x3"] != n_batches
+            or run["launches"]["site_reduce"] != n_batches):
+        fail(f"pipeline: the full-size inference ran as {run['path']!r} with launches {run['launches']}")
+    check_finite(out_one, scored, scored_reads)
+    concat = cli_in_process(logs, out_concat, "--columnar", "--concat_shards", input_dir=shards)
+    identical = same_csvs(out_concat, out_one)
+    log(f"[pipeline] inference --columnar --concat_shards over the two shards: {concat['wall_s']:.3f} s wall; "
+        f"launches {concat['launches']}; CSVs the one-store run's bytes: {identical}")
+    if not identical:
+        fail("pipeline: --concat_shards over the shards does not give the one-store run's bytes")
+    report["full"] = {
+        "eventalign_bytes": size, "copies": PIPELINE_COPIES,
+        "dataprep": {f"n_processes {n}": v for n, v in dataprep.items()}, "same_bytes_at_1_and_n": not differ,
+        "host_shards_wall_s": shard_wall, "inference_columnar": run,
+        "concat_shards": {"wall_s": concat["wall_s"], "launches": concat["launches"], "byte_identical": identical},
+    }
+    shutil.rmtree(work_dir, ignore_errors=True)
+    report["wall_s"] = time.perf_counter() - phase_start
+    log(f"[pipeline] phase 20: {report['wall_s']:.3f} s wall (host CPU {cpu_model}, {cores} cores; card {card})")
     return report
 
 
@@ -2170,6 +2492,9 @@ def main():
     shards = check_shards(logs, os.path.join(WORK_DIR, "shards"), demo_store)
     shutil.rmtree(WORK_DIR, ignore_errors=True)
 
+    # ---- 20. eventalign.txt to calls with the port alone
+    pipeline = check_pipeline(logs, os.path.join(WORK_DIR, "pipeline"), smi)
+
     for precision in P_ATOL:
         check_close_share(precision)
     log(json.dumps({"models": {
@@ -2186,6 +2511,7 @@ def main():
         for name, rep in generic.items()}}))
     log(json.dumps({"columnar": columnar}))
     log(json.dumps({"shards": shards}))
+    log(json.dumps({"pipeline": pipeline}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"training": training}))
     log(json.dumps({

@@ -1,16 +1,16 @@
 """Single `m6anet_tpu_torch` console entry point with a subcommand registry
-(reference: m6anet/__init__.py:11-30).  ``inference`` and ``train`` are
-ported; the other subcommands follow ROADMAP.md."""
+(reference: m6anet/__init__.py:11-30), in the JAX package's order."""
 from __future__ import annotations
 
 from argparse import ArgumentDefaultsHelpFormatter, ArgumentParser
 
+MODULES = ["dataprep", "inference", "train", "compute_norm_factors", "convert"]
+
 
 def main(argv=None):
-    from . import __version__
-    from .scripts import inference, train
+    import importlib
 
-    modules = {"inference": inference, "train": train}
+    from . import __version__
 
     parser = ArgumentParser(prog="m6anet_tpu_torch", formatter_class=ArgumentDefaultsHelpFormatter)
     parser.add_argument("-v", "--version", action="version", version=f"%(prog)s {__version__}")
@@ -19,7 +19,8 @@ def main(argv=None):
     )
     subparsers.required = True
 
-    for name, mod in modules.items():
+    for name in MODULES:
+        mod = importlib.import_module(f".scripts.{name}", __package__)
         p = subparsers.add_parser(name, parents=[mod.argparser()])
         p.set_defaults(func=mod.main)
 

@@ -4,8 +4,8 @@ The port's own copy of the JAX package's ``data/columnar.py``: the same
 files, byte for byte, and the same sites.  data.json random access costs a
 JSON parse per site (the reference's design,
 m6anet/utils/data_utils.py:182-190).  At millions of sites the host
-featurized-read path must be memory-mappable, so the JAX package's dataprep
-(``--format columnar`` or ``both``) can also emit:
+featurized-read path must be memory-mappable, so dataprep (``--format
+columnar`` or ``both``, in either package) can also emit:
 
   columnar/
     features.f32.bin   (total_reads, 3*(2w+1)) float32, row-major

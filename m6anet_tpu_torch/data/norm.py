@@ -32,6 +32,26 @@ def load_norm_factors(path: str) -> NormDict:
     return {str(k): (data["mean"][i], data["std"][i]) for i, k in enumerate(kmers)}
 
 
+def save_norm_factors(norm: NormDict, path: str) -> None:
+    """Write ``norm`` as .joblib (the reference's format; needs ``joblib``)
+    or, for any other name, as .npz."""
+    if path.endswith(".joblib"):
+        import joblib
+
+        joblib.dump(norm, path)
+        return
+    kmers = sorted(norm)
+    # write through a handle: np.savez(path) silently appends ".npz" when
+    # the extension differs, breaking a save/load round-trip
+    with open(path, "wb") as f:
+        np.savez(
+            f,
+            kmers=np.array(kmers),
+            mean=np.stack([np.asarray(norm[k][0], np.float64) for k in kmers]),
+            std=np.stack([np.asarray(norm[k][1], np.float64) for k in kmers]),
+        )
+
+
 def site_norm_vectors(norm: NormDict, sequence: str, n_positions: int) -> Tuple[np.ndarray, np.ndarray]:
     """(mean, std) 3*n_positions-vectors for a site's sequence context
     (reference: m6anet/utils/data_utils.py:233-248).
@@ -64,6 +84,26 @@ def finalize_norm_dict(sums, sqs, counts) -> NormDict:
 # Computation from a labelled Train split
 # (reference: m6anet/utils/norm_utils.py:13-180)
 # ---------------------------------------------------------------------------
+
+
+def _read_site_payload(json_path: str, tx_id: str, tx_pos: int, start: int, end: int):
+    with open(json_path, "r", encoding="utf-8") as f:
+        f.seek(start)
+        payload = json.loads(f.read(end - start))[tx_id][str(tx_pos)]
+    if len(payload) != 1:
+        raise ValueError(f"site {tx_id}:{tx_pos} of {json_path} holds {len(payload)} k-mer contexts, not 1")
+    kmer, features = next(iter(payload.items()))
+    return kmer, np.asarray(features, dtype=np.float64)
+
+
+def read_kmer(json_path: str, tx_id: str, tx_pos: int, start: int, end: int) -> str:
+    """Sequence context of one site (reference: m6anet/utils/norm_utils.py:78-96)."""
+    return _read_site_payload(json_path, tx_id, tx_pos, start, end)[0]
+
+
+def read_features(json_path: str, tx_id: str, tx_pos: int, start: int, end: int) -> np.ndarray:
+    """Feature matrix of one site (reference: m6anet/utils/norm_utils.py:99-121)."""
+    return _read_site_payload(json_path, tx_id, tx_pos, start, end)[1]
 
 
 def annotate_kmer_information(json_path: str, data_info, n_processes: int = 1):

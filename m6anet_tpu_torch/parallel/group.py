@@ -7,8 +7,14 @@ per rank, started by a launcher (``torchrun``, or anything that sets the
 ``env://`` variables), each bound to ``cuda:LOCAL_RANK`` (modulo the cards
 it sees, so ranks may share one card):
 
-* inference (``--distributed``) needs no tensor collective, only a barrier
-  and a word from every rank before rank 0 merges the CSV shards: gloo;
+* inference (``--distributed``) needs no tensor collective, only a word
+  from every rank before rank 0 merges the CSV shards, and rank 0's word
+  after it.  Those words go through the job's key-value store, whose waits
+  last up to :data:`STORE_TIMEOUT`: ranks may finish hours apart (the
+  last rank of a data.json run parses every site before its slice), and
+  the process group's collectives give up after their own timeout
+  (gloo's default is 30 minutes).  The job is gloo, for the final
+  barrier, which the ranks reach together;
 * data-parallel training (``train --use_mesh on``) all-reduces BatchNorm
   sums and gradients: nccl when every rank has a card of its own, gloo
   otherwise (nccl refuses two ranks on one card).  Under gloo a CUDA
@@ -21,12 +27,17 @@ from __future__ import annotations
 
 import os
 from dataclasses import dataclass
+from datetime import timedelta
 from typing import List, Sequence
 
 import torch
 import torch.distributed as dist
 
 LAUNCHER_ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")
+# How long a wait on the job's store lasts: longer than any scoring run.  A
+# rank that dies never publishes, and then the launcher (torchrun) ends the
+# job's other processes.
+STORE_TIMEOUT = timedelta(days=7)
 
 
 @dataclass
@@ -38,6 +49,19 @@ class Job:
     local_rank: int
     backend: str
     device: torch.device
+    store: dist.Store
+
+    def publish(self, key: str, value: str) -> None:
+        """Set ``key`` to ``value`` in the job's store, for every rank."""
+        self.store.set(f"m6anet_tpu_torch/{key}", value)
+
+    def wait_for(self, keys: Sequence[str]) -> List[str]:
+        """The values of ``keys`` in the job's store, once all are set;
+        waits up to :data:`STORE_TIMEOUT`, whatever the process group's
+        timeout."""
+        full = [f"m6anet_tpu_torch/{key}" for key in keys]
+        self.store.wait(full, STORE_TIMEOUT)
+        return [self.store.get(key).decode() for key in full]
 
     def barrier(self) -> None:
         if self.backend == "nccl":
@@ -62,11 +86,6 @@ class Job:
         parts = [torch.empty_like(staged) for _ in range(self.world_size)]
         dist.all_gather(parts, staged)
         return [p.to(tensor.device) for p in parts]
-
-    def all_gather_object(self, obj) -> list:
-        out = [None] * self.world_size
-        dist.all_gather_object(out, obj)
-        return out
 
     def close(self) -> None:
         dist.destroy_process_group()
@@ -104,10 +123,26 @@ def start_job(device: torch.device, device_collectives: bool, log) -> Job:
                else f"{local_world} local ranks share {torch.cuda.device_count()} card(s); nccl needs one each")
     else:
         backend, why = "gloo", "this run needs a barrier only, no tensor collective"
-    dist.init_process_group(backend, init_method="env://", rank=rank, world_size=world_size)
+    # the env:// rendezvous that init_process_group(init_method="env://")
+    # makes, kept here so that the job can wait on its store (Job.wait_for)
+    store, _, _ = next(dist.rendezvous("env://", rank=rank, world_size=world_size))
+    dist.init_process_group(backend, store=store, rank=rank, world_size=world_size)
     log.info("process group: rank %d of %d (local rank %d) on %s, backend %s (%s)",
              rank, world_size, local_rank, device, backend, why)
-    return Job(rank, world_size, local_rank, backend, device)
+    return Job(rank, world_size, local_rank, backend, device, store)
+
+
+def note_one_card(device: torch.device, log, how: str) -> None:
+    """Log that this run uses one card when more are visible and the
+    process is not one rank of a launcher's job: unlike the JAX package's
+    in-process mesh, the port takes several cards only through a launcher
+    (``how`` names its flag)."""
+    if device.type != "cuda" or any(os.environ.get(name) for name in ("RANK", "WORLD_SIZE")):
+        return
+    n_cards = torch.cuda.device_count()
+    if n_cards > 1:
+        log.info("this run uses one card of the %d visible; for all of them start it as "
+                 "torchrun --nproc_per_node %d -m m6anet_tpu_torch ... %s", n_cards, n_cards, how)
 
 
 class _AllReduceSum(torch.autograd.Function):

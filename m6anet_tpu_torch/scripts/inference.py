@@ -18,6 +18,7 @@ capacity-based and results are always flushed.
 """
 from __future__ import annotations
 
+import json
 import pathlib
 import warnings
 from argparse import ArgumentDefaultsHelpFormatter, ArgumentParser
@@ -134,35 +135,47 @@ def argparser():
 
 def main(args):
     from ..inference.engine import merge_host_shards, resolve_device
+    from ..parallel.group import note_one_card
+    from ..utils.logging import get_logger
 
+    log = get_logger("m6anet_tpu_torch.inference")
     device = resolve_device(args.device)  # fails here, before any work, without a card
     if not args.distributed:
+        note_one_card(device, log, "--distributed")
         host_shard = tuple(args.host_shard) if args.host_shard else None
         _score(args, device, host_shard)
         return
 
     from ..parallel.group import start_job
-    from ..utils.logging import get_logger
 
-    job = start_job(device, device_collectives=False, log=get_logger("m6anet_tpu_torch.inference"))
+    job = start_job(device, device_collectives=False, log=log)
     failure = None
     try:
         _score(args, job.device, (job.rank, job.world_size))
     except Exception as e:  # reported to every rank below, then raised
         failure = e
-    # every rank reports, then rank 0 merges: only after every rank has
-    # finished, and never over a failed rank's shard
-    reports = job.all_gather_object(None if failure is None else f"{type(failure).__name__}: {failure}")
-    failed = {rank: msg for rank, msg in enumerate(reports) if msg is not None}
-    if failed:
-        job.close()
-        if failure is not None:
-            raise failure
-        raise RuntimeError(f"--distributed: rank(s) failed, the CSV shards were not merged: {failed}")
+    # every rank reports through the job's store, then rank 0 merges: only
+    # after every rank has finished, however late, and never over a failed
+    # rank's shard; rank 0's outcome reaches every rank the same way
+    job.publish(f"inference/status/{job.rank}", "" if failure is None else f"{type(failure).__name__}: {failure}")
     if job.rank == 0:
-        merge_host_shards(args.out_dir, job.world_size, write_indiv=not args.skip_indiv_proba)
-    job.barrier()
+        reports = job.wait_for([f"inference/status/{rank}" for rank in range(job.world_size)])
+        failed = {rank: msg for rank, msg in enumerate(reports) if msg}
+        if not failed:
+            try:
+                merge_host_shards(args.out_dir, job.world_size, write_indiv=not args.skip_indiv_proba)
+            except Exception as e:  # reported to every rank below, then raised
+                failure = e
+                failed = {0: f"merging the shards: {type(e).__name__}: {e}"}
+        job.publish("inference/failed", json.dumps(failed))
+    else:
+        failed = {int(rank): msg for rank, msg in json.loads(job.wait_for(["inference/failed"])[0]).items()}
+    job.barrier()  # the store's host (rank 0 without torchrun's agent) stays until every rank has read it
     job.close()
+    if failure is not None:
+        raise failure
+    if failed:
+        raise RuntimeError(f"--distributed: rank(s) failed, the CSV shards were not merged: {failed}")
 
 
 def _score(args, device, host_shard):

@@ -93,9 +93,11 @@ def main(args):
     from ..inference.engine import resolve_device
     from ..models.convert import params_from_jax
     from ..models.mil import MILModel
+    from ..parallel.group import DataParallel, note_one_card, start_job
     from ..train.builder import build_dataloader, build_loss_function
     from ..train.loop import make_eval_step, make_optimizer, saturation_aware_init, train, validate
     from ..utils.config import dump_toml, load_toml
+    from ..utils.logging import get_logger
     from ..utils.treeio import load_tree, save_tree
 
     device = resolve_device(args.device)  # fails here, before any work, without a card
@@ -104,17 +106,17 @@ def main(args):
     model_config = load_toml(args.model_config)
     train_config = load_toml(args.train_config)
 
+    log = get_logger("m6anet_tpu_torch.train")
     data_parallel, n_processes = None, args.n_processes
     if args.use_mesh == "on" or (args.use_mesh == "auto" and int(os.environ.get("WORLD_SIZE", "1")) > 1):
-        from ..parallel.group import DataParallel, start_job
-        from ..utils.logging import get_logger
-
-        job = start_job(device, device_collectives=True, log=get_logger("m6anet_tpu_torch.train"))
+        job = start_job(device, device_collectives=True, log=log)
         device, data_parallel = job.device, DataParallel(job)
         for section in train_config["dataloader"].values():
             section["pad_to_multiple"] = job.world_size
         if job.world_size > 1:
             n_processes = 1  # one loader thread: every rank draws the same reads
+    else:
+        note_one_card(device, log, "--use_mesh on")
     main_rank = data_parallel is None or data_parallel.rank == 0
     if data_parallel is not None and main_rank:
         print(f"Data-parallel training over {data_parallel.world_size} ranks")

@@ -1,12 +1,14 @@
-"""Per-stage host timing.
+"""Per-stage timing + optional device profiling.
 
 ``StageTimer`` accumulates named host-side stage durations (the reference's
-only instrumentation is wall-clock ``compute_time`` fields — SURVEY.md §5).
-A device trace hook (``torch.profiler``) is a later item of ROADMAP.md.
+only instrumentation is wall-clock ``compute_time`` fields — SURVEY.md §5);
+``device_trace`` wraps ``torch.profiler`` so a run can write a
+TensorBoard-compatible trace with ``M6ANET_TPU_TRACE_DIR=/path`` set.
 """
 from __future__ import annotations
 
 import contextlib
+import os
 import time
 from collections import defaultdict
 from typing import Dict, Iterator
@@ -32,3 +34,22 @@ class StageTimer:
             for name in sorted(self.totals, key=self.totals.get, reverse=True)
         ]
         return " ".join(parts)
+
+
+@contextlib.contextmanager
+def device_trace() -> Iterator[None]:
+    """Write a ``torch.profiler`` trace of the body (host, and the card's
+    kernels where a card is usable) into ``$M6ANET_TPU_TRACE_DIR`` when it
+    is set; do nothing otherwise."""
+    trace_dir = os.environ.get("M6ANET_TPU_TRACE_DIR")
+    if not trace_dir:
+        yield
+        return
+    import torch
+    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities, on_trace_ready=tensorboard_trace_handler(trace_dir)):
+        yield

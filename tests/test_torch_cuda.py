@@ -811,3 +811,34 @@ def test_host_shards_on_the_card_merge_to_the_whole_run(cuda_device, tmp_path, m
         run_inference(_model(), ds, str(tmp_path / "shards"), DEFAULT_READ_THRESHOLD, host_shard=(host, 3), **kw)
     merge_host_shards(str(tmp_path / "shards"), 3)
     _same_csvs(tmp_path / "shards", tmp_path / "whole")
+
+
+def test_the_ports_dataprep_then_inference_on_the_card_matches_the_goldens(cuda_device, tmp_path):
+    """eventalign.txt to calls with the port alone: its dataprep (as the
+    goldens were made, both formats), then the inference CLI on the card
+    (auto = cuda_fused f32x3) within the golden CSVs' tolerances, and
+    --columnar over the same directory within 5e-5 per read of it."""
+    import pandas as pd
+
+    from m6anet_tpu_torch.cli import main
+    from m6anet_tpu_torch.inference.outputs import compare_runs
+
+    store = str(tmp_path / "dataprep")
+    main(["dataprep", "--eventalign", os.path.join(DATA_DIR, "eventalign.txt"), "--out_dir", store,
+          "--min_segment_count", "1", "--format", "both", "--n_processes", "2"])
+    before = (fik.tc_launch_counts["f32x3"], fik.site_reduce_launch_count)
+    main(["inference", "--input_dir", store, "--out_dir", str(tmp_path / "json")])
+    assert fik.tc_launch_counts["f32x3"] > before[0] and fik.site_reduce_launch_count > before[1]
+    main(["inference", "--input_dir", store, "--out_dir", str(tmp_path / "columnar"), "--columnar"])
+    ki, ks = ["transcript_id", "transcript_position", "read_index"], ["transcript_id", "transcript_position"]
+    got_i = pd.read_csv(tmp_path / "json" / "data.indiv_proba.csv").sort_values(ki).reset_index(drop=True)
+    got_s = pd.read_csv(tmp_path / "json" / "data.site_proba.csv").sort_values(ks).reset_index(drop=True)
+    want_i = pd.read_csv(os.path.join(DATA_DIR, "data.indiv_proba.csv.gz")).sort_values(ki).reset_index(drop=True)
+    want_s = pd.read_csv(os.path.join(DATA_DIR, "data.site_proba.csv.gz")).sort_values(ks).reset_index(drop=True)
+    assert (got_i[ki].values == want_i[ki].values).all() and (got_s[ks].values == want_s[ks].values).all()
+    assert (got_s.n_reads.values == want_s.n_reads.values).all() and (got_s.kmer.values == want_s.kmer.values).all()
+    np.testing.assert_allclose(got_i.probability_modified, want_i.probability_modified, rtol=0, atol=1e-5)
+    np.testing.assert_allclose(got_s.mod_ratio, want_s.mod_ratio, rtol=0, atol=1e-6)
+    np.testing.assert_allclose(got_s.probability_modified, want_s.probability_modified, rtol=0, atol=1e-2)
+    gaps = compare_runs(str(tmp_path / "columnar"), str(tmp_path / "json"), DEFAULT_READ_THRESHOLD, 5e-5, None)
+    assert gaps["ok"], gaps

@@ -2,7 +2,7 @@
 JAX nor the JAX package (m6anet_tpu), whose name the port's starts with, nor
 scikit-learn, which the card's machine lacks (the JAX package's training
 metrics use it).  tests/test_torch_train.py runs the train CLI with all
-three hidden."""
+three hidden, and this file the dataprep CLI."""
 import os
 import re
 import subprocess
@@ -26,6 +26,12 @@ from m6anet_tpu_torch.train import builder, checkpoint, loop, losses, metrics  #
 from m6anet_tpu_torch.data import columnar  # noqa: F401
 from m6anet_tpu_torch.data.dataset import ConcatSiteDataset  # noqa: F401
 from m6anet_tpu_torch.parallel import group, mesh  # noqa: F401
+from m6anet_tpu_torch import dataprep, deprecated  # noqa: F401
+from m6anet_tpu_torch.dataprep import combine, indexer, runner, windowing  # noqa: F401
+from m6anet_tpu_torch.deprecated import compute_norm_factors, inference, train as train_shim  # noqa: F401
+from m6anet_tpu_torch.deprecated import dataprep as dataprep_shim  # noqa: F401
+from m6anet_tpu_torch.scripts import compute_norm_factors, convert, dataprep as dataprep_script  # noqa: F401
+from m6anet_tpu_torch.utils import profiling  # noqa: F401
 import tomllib
 
 with open(DEFAULT_MODEL_CONFIG, "rb") as f:
@@ -56,6 +62,23 @@ def test_import_and_cpu_forward_load_no_jax():
     )
     assert proc.returncode == 0, proc.stderr[-2000:]
     assert "LOADED:\n" in proc.stdout, proc.stdout
+
+
+def test_dataprep_cli_runs_with_jax_the_jax_package_and_sklearn_hidden(tmp_path):
+    code = (
+        "import sys; sys.modules['sklearn'] = None; sys.modules['jax'] = None; sys.modules['m6anet_tpu'] = None; "
+        "from m6anet_tpu_torch.cli import main; main(sys.argv[1:])"
+    )
+    argv = ["dataprep", "--eventalign", os.path.join(REPO, "tests", "data", "eventalign.txt"),
+            "--out_dir", str(tmp_path), "--min_segment_count", "1", "--format", "both", "--n_processes", "2"]
+    proc = subprocess.run([sys.executable, "-c", code, *argv], cwd=REPO, capture_output=True, text=True,
+                          timeout=120, env=dict(os.environ, PYTHONPATH=REPO))
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    with open(tmp_path / "data.info") as f:
+        assert len(f.readlines()) == 249  # the header and the demo's 248 sites
+    assert os.path.exists(tmp_path / "columnar" / "meta.json")
+    with open(tmp_path / "data.log") as f:
+        assert f.readlines()[-1] == "--- SUCCESSFULLY FINISHED ---\n"
 
 
 def _sources():

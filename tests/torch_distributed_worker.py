@@ -1,5 +1,6 @@
-"""One rank of a data-parallel train-step job of the PyTorch port, on the
-CPU (gloo), for tests/test_torch_distributed.py.  Imports no JAX.
+"""One rank of a job of the PyTorch port on the CPU (gloo), for
+tests/test_torch_distributed.py and tests/test_torch_norm_cli.py.  Imports
+no JAX.
 
     RANK=r WORLD_SIZE=n LOCAL_RANK=r MASTER_ADDR=localhost MASTER_PORT=p \\
         python torch_distributed_worker.py <inputs.pt> <out_prefix>
@@ -12,6 +13,12 @@ data-parallel step over every batch in turn, then runs a dropout
 ``Linear`` on its rows of ``dropout_x``; it writes
 ``<out_prefix>.rank<r>.pt``: each step's loss, gathered predictions and
 resulting state, and the dropout output.
+
+    ... python torch_distributed_worker.py late <timeout_s> <late_rank> <delay_s> <CLI argv>
+
+runs ``m6anet_tpu_torch <CLI argv>`` with the process group's timeout cut
+to ``timeout_s`` seconds, rank ``late_rank`` starting its scoring
+``delay_s`` seconds late (``inference --distributed``).
 """
 import os
 import sys
@@ -21,7 +28,37 @@ import torch
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
 
 
+def late(timeout_s, late_rank, delay_s, argv):
+    import time
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    from m6anet_tpu_torch.cli import main as cli_main
+    from m6anet_tpu_torch.scripts import inference
+
+    init = dist.init_process_group
+
+    def short_init(*args, **kwargs):
+        return init(*args, **{**kwargs, "timeout": timedelta(seconds=float(timeout_s))})
+
+    score = inference._score
+
+    def late_score(args, device, host_shard):
+        if host_shard[0] == int(late_rank):
+            print(f"rank {late_rank} starts scoring {delay_s} s late", file=sys.stderr, flush=True)
+            time.sleep(float(delay_s))
+        return score(args, device, host_shard)
+
+    dist.init_process_group = short_init
+    inference._score = late_score
+    cli_main(argv)
+
+
 def main():
+    if sys.argv[1] == "late":
+        late(*sys.argv[2:5], sys.argv[5:])
+        return
     inputs_path, out_prefix = sys.argv[1:3]
     from m6anet_tpu_torch.constants import DEFAULT_MODEL_CONFIG
     from m6anet_tpu_torch.models.blocks import Linear
