@@ -175,11 +175,48 @@ its plain PyTorch version:
                  --concat_shards over the shards (the one-store bytes);
                  every number beside the card, its power limit and the
                  host CPU
+ 21. widths      the production architecture at eight widths (positions
+                 P, embedding E, hidden H1, H2): W0 (3, 2, 150, 32), the
+                 released models', W1 (5, 2, 150, 32), W2 (3, 3, 100, 20), W3
+                 (3, 4, 256, 64), W4 (11, 4, 96, 24), W5 (1, 1, 7, 3), and
+                 the envelope's corners W6 (11, 4, 256, 64) and W7 (1, 4,
+                 256, 64), seeded weights: each tuple's libraries (built in
+                 phase 2, ptxas registers and spills, the tensor-core
+                 blocks' shared memory within a block's), every precision
+                 against the plain
+                 versions at phase 12's tolerances on a small ragged batch,
+                 the ragged tails of each phase A's tile and a
+                 1,048,576-read batch, repeats bit-identical; both entry
+                 points at W3; each tuple's phase A timed beside its f32
+                 bound; W0 bit for bit against the older sources staged
+                 under build/parent/csrc (git show of the parent commit's;
+                 skipped with a note where none are staged) at the
+                 production batch, and its phase A times beside theirs;
+                 train --model_config (W3) on tests/data, 2 epochs, then
+                 inference --model_state_dict with --backend auto (must be
+                 cuda_fused f32x3, each kernel once a batch) against
+                 --backend torch and its plain version; the port's
+                 dataprep --n_neighbors 2 (the demo: no site; synthetic
+                 long runs: sites whose outer 5-mers the 66-k-mer
+                 vocabulary lacks, refused by the dataset in both
+                 packages) and run_inference over seeded 5-position sites
+                 with a seeded W1 model, auto against torch; a model
+                 outside the envelope refused before any launch
+ 22. MC shapes   mc_kernel.ragged_mc_batch with sites of 57,345, 100,000
+                 and 1,000,000 reads against the plain version (1e-6), the
+                 shorter sites the same bits as without the long ones, and
+                 through the long-site kernel (launched from count 0);
+                 n_samples 1,
+                 20, 32 against the plain version; MC through the engine
+                 over a columnar store holding a 100,000-read site,
+                 cuda_fused against --backend torch (site 1e-5); the
+                 long-site path timed at a 1,000,000-read site
 
 Any failure exits nonzero.  The last line is the
 ``{"ok": true, "device": {...}}`` result; before it come the MC floors' JSON
 line, the models and generic lines (phases 16 and 17), the columnar,
-shards and pipeline lines (phases 18 to 20), the kernels' JSON
+shards and pipeline lines (phases 18 to 20), the widths and MC shapes
+lines (phases 21 and 22), the kernels' JSON
 line (measured values and each kernel's bound, phase B's site_reduce_kernel
 with its own entry, and each kernel's launches by released model), the
 training line (phases 14 and 15), a timing line and the card's
@@ -275,11 +312,13 @@ def card_rates(name: str):
 
 
 # ------------------------------------------------------------------ batches
-def make_batch(rng, n_reads, n_sites, draw_count):
+def make_batch(rng, n_reads, n_sites, draw_count, widths=(3, 2, 150, 32)):
     """A pack_sites-shaped batch: sites back to back from read 0, padding
-    reads after sum(counts), padding sites (count 0) after the last site."""
-    features = rng.normal(size=(n_reads, 9)).astype(np.float32)
-    kmer = rng.integers(0, 66, size=(n_reads, 3)).astype(np.int8)
+    reads after sum(counts), padding sites (count 0) after the last site;
+    the reads of a model of ``widths`` (positions first)."""
+    positions = widths[0]
+    features = rng.normal(size=(n_reads, 3 * positions)).astype(np.float32)
+    kmer = rng.integers(0, 66, size=(n_reads, positions)).astype(np.int8)
     offsets = np.zeros(n_sites, np.int32)
     counts = np.zeros(n_sites, np.int32)
     cursor = 0
@@ -1045,6 +1084,7 @@ def reset_launch_counts():
         fused_infer_kernel.tc_launch_counts[mode] = 0
     encoder_kernel.launch_count = 0
     mc_kernel.launch_count = 0
+    mc_kernel.long_launch_count = 0
 
 
 def read_launch_counts():
@@ -1059,6 +1099,7 @@ def read_launch_counts():
         "fused_inference": fused_infer_kernel.fused_inference_launch_count,
         "site_reduce": fused_infer_kernel.site_reduce_launch_count,
         **{f"read_prob_tc_{mode}": n for mode, n in fused_infer_kernel.tc_launch_counts.items()},
+        "site_probability_mc_long": mc_kernel.long_launch_count,
     }
 
 
@@ -2019,6 +2060,527 @@ def check_pipeline(logs, work_dir, card):
     return report
 
 
+# ------------------------------------------------- widths and MC shapes
+# phase 21: the production architecture at other widths, as (positions P,
+# embedding E, hidden H1, hidden H2), each with seeded weights; W0 is the
+# released models' own
+WIDTHS = {"W0": (3, 2, 150, 32), "W1": (5, 2, 150, 32), "W2": (3, 3, 100, 20), "W3": (3, 4, 256, 64),
+          "W4": (11, 4, 96, 24), "W5": (1, 1, 7, 3), "W6": (11, 4, 256, 64), "W7": (1, 4, 256, 64)}
+WIDTHS_THRESHOLD = 0.5  # the seeded models' read threshold
+OUTSIDE_ENVELOPE = (3, 2, 150, 65)  # H2 above the envelope's 64
+# older fused_infer.cu and read_prob_tc.cu (the parent commit's, staged by
+# git show before a run) to hold W0's bits and times against, when present
+PARENT_CSRC = os.path.join(ROOT, "build", "parent", "csrc")
+# phase 22: draws per iteration, and the MC method of cuda_fused against the
+# same function of the torch run's reads (PERF.md section 2)
+MC_SAMPLES = (1, 20, 32)
+MC_TORCH_SITE_ATOL = 1e-5
+LONG_SITE = 100_000  # the long site of phase 22's columnar store
+
+
+def shape_variants():
+    """(source, defines) of every library phases 21 and 22 build besides
+    the defaults."""
+    from m6anet_tpu_torch.ops import fused_infer_kernel as fik
+    from m6anet_tpu_torch.ops import mc_kernel as mck
+
+    out = [(source, fik.kernel_defines(fik.Widths(*w))) for name, w in WIDTHS.items() if name != "W0"
+           for source in ("fused_infer", "read_prob_tc")]
+    return out + [("mc", mck.kernel_defines(n)) for n in MC_SAMPLES if n != mck.SAMPLES]
+
+
+def mc_through_long_kernel(mck, p, offsets, counts, u, n_iters):
+    """site_p with every site of 1 read or more through mc_long_site_kernel:
+    mc.cu's staged launch sized for count 0 (NaN at those sites), then its
+    long-site launch from count 0.  Counts no launch."""
+    lib = mck._kernel_lib()
+    n_sites = counts.shape[0]
+    site_p = torch.empty(n_sites, dtype=torch.float32, device=p.device)
+    stream = torch.cuda.current_stream(p.device).cuda_stream
+    args = (p.data_ptr(), offsets.data_ptr(), counts.data_ptr(), u.data_ptr(), site_p.data_ptr(), n_sites,
+            p.shape[0], n_iters, mck.SAMPLES)
+    for err in (lib.mc_site_launch(*args, 0, stream), lib.mc_long_site_launch(*args, 0, mck.LONG_GRID, stream)):
+        if err != 0:
+            fail(f"MC: a launch from count 0 failed: {lib.mc_error_string(err).decode()}")
+    return site_p
+
+
+def seeded_model(widths, seed=0):
+    """The production architecture at ``widths`` with the port's init law
+    (seeded), and BatchNorm's statistics and affine drawn as well, so that
+    folding it into layer 1 is no identity."""
+    from m6anet_tpu_torch.models.mil import MILModel
+    from m6anet_tpu_torch.ops import fused_infer_kernel as fik
+
+    model = MILModel(fik.widths_config(fik.Widths(*widths))).init(torch.Generator().manual_seed(seed))
+    bn = model.blocks[3].bn
+    g = torch.Generator().manual_seed(seed + 1)
+    n = bn.running_mean.shape[0]
+    with torch.no_grad():
+        bn.running_mean.copy_(0.2 * torch.randn(n, generator=g))
+        bn.running_var.copy_(0.5 + torch.rand(n, generator=g))
+        bn.weight.copy_(1 + 0.2 * torch.randn(n, generator=g))
+        bn.bias.copy_(0.2 * torch.randn(n, generator=g))
+    return model.eval()
+
+
+def widths_batch(widths, full_batch, seed):
+    """The production batch's sites (offsets and counts) with seeded reads
+    of a model of ``widths``: N(0, 1) features, k-mer ids uniform over 66."""
+    rng = np.random.default_rng(seed)
+    n, positions = full_batch[0].shape[0], widths[0]
+    features = rng.standard_normal(size=(n, 3 * positions), dtype=np.float32)
+    kmer = rng.integers(0, 66, size=(n, positions)).astype(np.int8)
+    return features, kmer, full_batch[2], full_batch[3]
+
+
+def write_long_runs(path, n_reads=30, n_pos=200):
+    """An eventalign.txt of reads over long runs of consecutive positions
+    (tests/test_dataprep.py's synthetic law; the demo's reads cover 3
+    positions around each DRACH site, so dataprep --n_neighbors 2 finds no
+    site in them): DRACH k-mers every 7 positions."""
+    import random
+
+    rng = random.Random(0)
+    seq = "".join(rng.choice("ACGT") for _ in range(n_pos + 10))
+    for i in range(5, n_pos, 7):
+        seq = seq[:i] + "GGACT" + seq[i + 5 :]
+    with open(os.path.join(ROOT, "tests", "data", "eventalign.txt")) as f:
+        header = f.readline()
+    with open(path, "w") as f:
+        f.write(header)
+        for read in range(n_reads):
+            for pos in range(n_pos):
+                kmer = seq[pos : pos + 5]
+                mean = 90 + (pos * 7 + read) % 40 + 0.25
+                f.write(f"SYNTX.1\t{pos}\t{kmer}\t{read}\tt\t{pos}\t{mean}\t2.5\t0.004\t"
+                        f"{kmer}\t100.0\t3.0\t0.5\t{pos * 10}\t{pos * 10 + 8}\n")
+
+
+def check_parent(fp, full_batch):
+    """W0 against the older sources under PARENT_CSRC: p, site_p and
+    mod_ratio the same bits in every precision at the production batch, and
+    each phase A's device time beside the older one's, interleaved (CUDA
+    events, L2 flushed; older, this, this, older).  None when no older
+    sources are staged."""
+    import ctypes
+
+    from m6anet_tpu_torch.ops import _build
+    from m6anet_tpu_torch.ops import fused_infer_kernel as fik
+    from m6anet_tpu_torch.scripts import _sweep
+
+    sources = [os.path.join(PARENT_CSRC, f"{name}.cu") for name in ("fused_infer", "read_prob_tc")]
+    if not all(os.path.exists(p) for p in sources):
+        log(f"[W0 parent] no older fused_infer.cu and read_prob_tc.cu under {PARENT_CSRC}: not compared")
+        return None
+    paths = _build.build_shared_libraries([(p, [_build.nvcc_path(), *_build.NVCC_FLAGS]) for p in sources],
+                                          out_dir=os.path.join(WORK_DIR, "parent_build"))
+    old, old_tc = (ctypes.CDLL(p) for p in paths)
+    old.fused_infer_launch.argtypes = fik.FUSED_ARGTYPES
+    old.read_prob_launch.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64, ctypes.c_void_p]
+    old.site_reduce_launch.argtypes = fik.SITE_REDUCE_ARGTYPES
+    old_tc.read_prob_tc_launch.argtypes = fik.TC_ARGTYPES
+    new, new_tc = fik.kernel_lib(), fik.tc_kernel_lib()
+    features, kmer, offsets, counts = (torch.from_numpy(a).cuda() for a in full_batch)
+    n, n_sites = features.shape[0], counts.shape[0]
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def outputs():
+        return (torch.empty(n, device="cuda"), torch.empty(n_sites, device="cuda"),
+                torch.empty(n_sites, device="cuda"))
+
+    def run_old(precision):
+        p, site_p, mr = outputs()
+        ptrs = (features.data_ptr(), kmer.data_ptr())
+        if precision == "f32":
+            err = old.fused_infer_launch(*ptrs, offsets.data_ptr(), counts.data_ptr(), fp.packed.data_ptr(),
+                                         p.data_ptr(), site_p.data_ptr(), mr.data_ptr(), n, n_sites, THRESHOLD, 20,
+                                         stream)
+        else:
+            err = old_tc.read_prob_tc_launch(*ptrs, fp.tc.data_ptr(), p.data_ptr(), n, fik.TC_MODES[precision], stream)
+            err = err or old.site_reduce_launch(p.data_ptr(), offsets.data_ptr(), counts.data_ptr(), site_p.data_ptr(),
+                                                mr.data_ptr(), n, n_sites, THRESHOLD, 20, stream)
+        if err:
+            fail(f"the older {precision} kernels did not launch: error {err}")
+        return p, site_p, mr
+
+    def phase_a(lib, precision):
+        p = torch.empty(n, device="cuda")
+        if precision == "f32":
+            return lambda: lib[0].read_prob_launch(features.data_ptr(), kmer.data_ptr(), fp.packed.data_ptr(),
+                                                   p.data_ptr(), n, stream)
+        return lambda: lib[1].read_prob_tc_launch(features.data_ptr(), kmer.data_ptr(), fp.tc.data_ptr(),
+                                                  p.data_ptr(), n, fik.TC_MODES[precision], stream)
+
+    host = fik.checked_kmer_ids(full_batch[1])
+    report = {}
+    for precision in ("f32", *MODES):
+        want = run_old(precision)
+        got = fik.fused_inference_t(fp, features, kmer, None, offsets, counts, THRESHOLD, 20, precision,
+                                    host_kmer_ids=host)
+        torch.cuda.synchronize()
+        same = {name: _sweep.same_bits(a, b) for name, a, b in zip(("p", "site_p", "mod_ratio"), got, want)}
+        times, clocks = _sweep.time_interleaved([phase_a((old, old_tc), precision), phase_a((new, new_tc), precision)],
+                                                reps=20)
+        old_ms, new_ms = (statistics.median(t) for t in times)
+        report[precision] = {"same_bits": same, "older_ms": old_ms, "ms": new_ms, "ratio": new_ms / old_ms,
+                             "sm_clocks": clocks}
+        log(f"[W0 parent] {precision}: the same bits as the older kernels {same}; phase A {new_ms:.4f} ms against "
+            f"the older {old_ms:.4f} ms ({new_ms / old_ms:.4f}x; SM clock {clocks})")
+        if not all(same.values()):
+            fail(f"W0 {precision}: the kernels at the production widths do not give the older kernels' bits")
+    return report
+
+
+def run_trained_widths(logs, work_dir, widths):
+    """The train CLI (2 epochs on tests/data) on a model of ``widths``
+    written as an m6anet.toml, then the inference CLI over tests/data with
+    --model_config and --model_state_dict on the card: --backend auto (it
+    must take cuda_fused at f32x3 and launch each of the path's kernels
+    once a batch) against --backend torch at phase 16's rule, and against
+    its own plain version."""
+    from m6anet_tpu_torch.constants import DEFAULT_NORM_PATH, TRAIN_CONFIG_TEMPLATE
+    from m6anet_tpu_torch.data.dataset import build_dataset
+    from m6anet_tpu_torch.models import load_model
+    from m6anet_tpu_torch.ops import fused_infer_kernel as fik
+    from m6anet_tpu_torch.utils.config import dump_toml, load_toml
+
+    os.makedirs(work_dir, exist_ok=True)
+    model_toml = os.path.join(work_dir, "m6anet_w.toml")
+    dump_toml(fik.widths_config(fik.Widths(*widths)), model_toml)
+    cfg = load_toml(TRAIN_CONFIG_TEMPLATE)
+    cfg["dataset"].update(root_dir=os.path.join(ROOT, "tests", "data"), norm_path=DEFAULT_NORM_PATH)
+    cfg_path, save_dir = os.path.join(work_dir, "train.toml"), os.path.join(work_dir, "train_out")
+    dump_toml(cfg, cfg_path)
+    start = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "m6anet_tpu_torch", "train", "--model_config", model_toml,
+                           "--train_config", cfg_path, "--save_dir", save_dir, "--epochs", "2",
+                           "--save_per_epoch", "2", "--num_iterations", "1"],
+                          cwd=ROOT, capture_output=True, text=True, timeout=600)
+    train_wall = time.perf_counter() - start
+    if proc.returncode != 0:
+        log(proc.stdout[-4000:] + proc.stderr[-4000:])
+        fail(f"train CLI at widths {widths} exited {proc.returncode}")
+    with open(os.path.join(save_dir, "train_results.json")) as f:
+        losses = json.load(f)["avg_loss"]
+    if not np.isfinite(losses).all():
+        fail(f"train CLI at widths {widths}: non-finite losses {losses}")
+    state = os.path.join(save_dir, "avg_loss.npz")
+    flags = ["--model_config", model_toml, "--model_state_dict", state,
+             "--read_proba_threshold", str(WIDTHS_THRESHOLD)]
+    out_auto, out_torch = os.path.join(work_dir, "auto"), os.path.join(work_dir, "torch")
+    wall, path, batches, launches = run_cli("HCT116_RNA002", out_auto, flags)
+    if "backend=cuda_fused" not in path or "precision=f32x3" not in path or "device=cuda" not in path:
+        fail(f"--backend auto at widths {widths} ran as {path!r}, not cuda_fused f32x3 on the card")
+    if any(launches[k] != batches for k in ("fused_inference_t", "read_prob_tc_f32x3", "site_reduce")):
+        fail(f"--backend auto at widths {widths}: launches {launches} in {batches} batches")
+    torch_wall, torch_path, _, torch_launches = run_cli("HCT116_RNA002", out_torch, [*flags, "--backend", "torch"])
+    if "backend=torch" not in torch_path or any(torch_launches.values()):
+        fail(f"--backend torch at widths {widths} ran as {torch_path!r} with launches {torch_launches}")
+    model = load_model(fik.widths_config(fik.Widths(*widths)), state)
+    dataset = build_dataset(os.path.join(ROOT, "tests", "data"), min_reads=20, norm_path=DEFAULT_NORM_PATH,
+                            mode="Inference")
+    errors, fp, batch, site_batch = mode_errors(model, dataset, WIDTHS_THRESHOLD)
+    read_atol = max(ENGINE_READ_ATOL["f32x3"], 2 * errors["f32x3"])
+    gaps = hold_outputs(out_auto, out_torch, WIDTHS_THRESHOLD, read_atol, None, f"W{widths} auto vs torch")
+    plain_dir = write_plain_outputs(fp, batch, site_batch, "f32x3", WIDTHS_THRESHOLD, out_auto + "_plain")
+    plain_gaps = hold_outputs(out_auto, plain_dir, WIDTHS_THRESHOLD, P_ATOL["f32x3"], SITE_ATOL,
+                              f"W{widths} auto vs plain f32x3")
+    log(f"[widths e2e] {widths}: train {train_wall:.1f} s (losses {losses}); inference auto {wall:.2f} s ({path}; "
+        f"{batches} batches; launches {launches}), torch {torch_wall:.2f} s; f32x3 error against f64 {errors}")
+    return {"train_wall_s": train_wall, "train_losses": losses, "auto_wall_s": wall, "path": path,
+            "batches": batches, "launches": launches, "vs_torch": gaps, "vs_plain": plain_gaps,
+            "mode_error_vs_f64": errors}
+
+
+class SyntheticSites:
+    """A feed of ``n_sites`` sites of 20 to 60 seeded reads at ``positions``
+    k-mer positions, as run_inference takes a dataset: N(0, 1) features,
+    k-mer ids uniform over the 66, a GGACT centre."""
+
+    def __init__(self, positions, n_sites=120, seed=0):
+        from m6anet_tpu_torch.data.dataset import Site
+
+        rng = np.random.default_rng(seed)
+        pad = "A" * ((positions - 1) // 2)
+        self.sites = []
+        for i in range(n_sites):
+            n = int(rng.integers(20, 61))
+            self.sites.append(Site(
+                tx_id=f"SYN{i // 40}", tx_pos=10 * i, read_ids=np.arange(n, dtype=np.int64),
+                features=rng.standard_normal(size=(n, 3 * positions), dtype=np.float32),
+                kmer_ids=rng.integers(0, 66, size=positions).astype(np.int32),
+                sequence=pad + "GGACT" + pad))
+        self.max_site_reads = max(len(site.read_ids) for site in self.sites)
+
+    def __len__(self):
+        return len(self.sites)
+
+    def iter_sites(self, n_threads=1):
+        return iter(self.sites)
+
+
+def run_neighbors(logs, work_dir, widths):
+    """Five k-mer positions (dataprep --n_neighbors 2): the port's dataprep
+    over tests/data/eventalign.txt (no site: the demo's reads cover 3
+    positions around each DRACH site) and over write_long_runs' reads (their
+    sites' outer 5-mers lie outside the 66 of the k-mer vocabulary, which
+    the dataset, as the JAX package's, refuses); then run_inference in this
+    process over SyntheticSites at 5 positions with a seeded model of
+    ``widths`` on cuda_fused (backend auto) against --backend torch on the
+    card, at phase 16's rule."""
+    import pandas as pd
+
+    from m6anet_tpu_torch.cli import main as cli_main
+    from m6anet_tpu_torch.constants import DEFAULT_NORM_PATH
+    from m6anet_tpu_torch.data.dataset import build_dataset
+
+    os.makedirs(work_dir, exist_ok=True)
+    demo_dp, synth_dp = os.path.join(work_dir, "demo_dp"), os.path.join(work_dir, "synth_dp")
+    synth = os.path.join(work_dir, "long_runs.txt")
+    write_long_runs(synth)
+    for source, out in ((os.path.join(ROOT, "tests", "data", "eventalign.txt"), demo_dp), (synth, synth_dp)):
+        cli_main(["dataprep", "--eventalign", source, "--out_dir", out, "--n_neighbors", "2",
+                  "--min_segment_count", "1", "--format", "both", "--n_processes", "2"])
+    demo_sites_n = len(pd.read_csv(os.path.join(demo_dp, "data.info")))
+    synth_sites_n = len(pd.read_csv(os.path.join(synth_dp, "data.info")))
+    try:
+        next(build_dataset(synth_dp, min_reads=20, norm_path=DEFAULT_NORM_PATH, num_neighboring_features=2,
+                           mode="Inference").iter_sites())
+        vocabulary = "the first site's k-mers lie in the vocabulary"
+    except KeyError as err:
+        vocabulary = f"the dataset refuses the k-mer {err} outside the 66 of the vocabulary"
+    dataset = SyntheticSites(widths[0])
+    model = seeded_model(widths, seed=1)
+    runs = {name: engine_run(logs, copy.deepcopy(model), dataset, os.path.join(work_dir, name), WIDTHS_THRESHOLD,
+                             backend=backend)
+            for name, backend in (("auto", "auto"), ("torch", "torch"))}
+    if "backend=cuda_fused" not in runs["auto"]["path"] or runs["auto"]["launches"]["read_prob_tc_f32x3"] < 1:
+        fail(f"5 positions: auto ran as {runs['auto']['path']!r} with launches {runs['auto']['launches']}")
+    errors, *_ = mode_errors(model, dataset, WIDTHS_THRESHOLD)
+    read_atol = max(ENGINE_READ_ATOL["f32x3"], 2 * errors["f32x3"])
+    rows = (sum(len(site.read_ids) for site in dataset.sites), len(dataset))
+    gaps = hold_outputs(os.path.join(work_dir, "auto"), os.path.join(work_dir, "torch"), WIDTHS_THRESHOLD, read_atol,
+                        None, "5 positions auto vs torch", rows=rows)
+    log(f"[widths 5 positions] dataprep --n_neighbors 2 on the demo: {demo_sites_n} sites; on long runs: "
+        f"{synth_sites_n} sites, and {vocabulary}; {rows[1]} synthetic sites of {rows[0]} reads: auto "
+        f"{runs['auto']['path']}, launches {runs['auto']['launches']}; f32x3 error against f64 {errors}")
+    return {"demo_sites": demo_sites_n, "long_run_sites": synth_sites_n, "vocabulary": vocabulary,
+            "sites": rows[1], "reads": rows[0], "vs_torch": gaps,
+            "auto": {k: v for k, v in runs["auto"].items()}}
+
+
+def check_widths(logs, work_dir, full_batch, peak_flops):
+    """Phase 21: every tuple of WIDTHS on the kernels against their plain
+    versions, W0 against the older sources, a model trained at W3 and a
+    5-position dataset end to end, and a model outside the envelope
+    refused before any launch."""
+    from m6anet_tpu_torch.ops import _build
+    from m6anet_tpu_torch.ops import encoder_kernel as enc
+    from m6anet_tpu_torch.ops import fused_infer_kernel as fik
+    from m6anet_tpu_torch.ops import site_ops
+
+    report = {}
+    rng = np.random.default_rng(21)
+    for k, (name, widths) in enumerate(WIDTHS.items()):
+        w = fik.Widths(*widths)
+        fp = fik.prepare_fused_params_t(seeded_model(widths).cuda())
+        defines = fik.kernel_defines(w)
+        f32_lib, tc_lib = (_build.cuda_library(src, defines) for src in ("fused_infer", "read_prob_tc"))
+        ptxas = {"read_prob_kernel": _build.ptxas_usage(f32_lib, "read_prob_kernel"),
+                 **{f"read_prob_tc_kernel {mode}": _build.ptxas_usage(tc_lib, f"read_prob_tc_kernelILi{fik.TC_MODES[mode]}E")
+                    for mode in MODES}}
+        configs = {mode: fik.tc_kernel_config(mode, w) for mode in MODES}
+        for mode in MODES:
+            if configs[mode]["dynamic_smem_bytes"] > fik.SHARED_LIMIT_BYTES:
+                fail(f"{name} {mode}: the kernel's shared memory {configs[mode]} passes a block's "
+                     f"{fik.SHARED_LIMIT_BYTES} bytes")
+        small = make_batch(rng, 4096, 128, small_count(rng), widths)
+        big = widths_batch(widths, full_batch, seed=100 + k)
+        errors = {}
+        for precision in ("f32", *MODES):
+            tile = fik.read_tile_reads(precision, w)
+            err = compare(fik, fp, small, f"{name} small", precision, WIDTHS_THRESHOLD)
+            for batch in fik.ragged_tail_batches(tile, seed=4 + k, widths=w):
+                err = max(err, compare(fik, fp, batch, f"{name} tail {batch[0].shape[0]}", precision,
+                                       WIDTHS_THRESHOLD))
+            errors[precision] = max(err, compare(fik, fp, big, f"{name} full", precision, WIDTHS_THRESHOLD))
+        if name == "W3":
+            for precision in ("f32", *MODES):
+                for batch in (small, big):
+                    compare_entries(fik, enc, site_ops, fp, batch, f"{name} entries {batch[0].shape[0]}", precision)
+        features, kmer = (torch.from_numpy(a).cuda() for a in big[:2])
+        host = fik.checked_kmer_ids(big[1])
+        phase_a_ms = {precision: time_ms(lambda: enc.fused_read_probability(fp, features, kmer, precision,
+                                                                              host_kmer_ids=host))
+                      for precision in ("f32", *MODES)}
+        flop = 2 * (w.n_in * w.hidden1 + w.hidden1 * w.hidden2 + w.hidden2) * features.shape[0]
+        bound_ms = flop / peak_flops * 1e3
+        f32_tile = fik.read_tile_reads("f32", w)
+        report[name] = {"widths": widths, "f32_tile_reads": f32_tile, "ptxas": ptxas,
+                        "tc_launch": configs, "max_abs_err": errors, "phase_a_ms": phase_a_ms,
+                        "f32_bound_ms": bound_ms, "reads": features.shape[0]}
+        log(f"[widths] {name} {widths}: f32 tile {f32_tile} reads, tensor-core blocks {configs}; ptxas {ptxas}; "
+            f"kernel vs plain {errors}; "
+            f"phase A at {features.shape[0]} reads {phase_a_ms} ms, f32 bound {bound_ms:.4f} ms")
+        if name == "W0":
+            report["W0 parent"] = check_parent(fp, full_batch)
+    report["W3 trained"] = run_trained_widths(logs, os.path.join(work_dir, "trained"), WIDTHS["W3"])
+    report["W1 5 positions"] = run_neighbors(logs, os.path.join(work_dir, "neighbors"), WIDTHS["W1"])
+    report["outside"] = check_outside_envelope(os.path.join(work_dir, "outside"))
+    return report
+
+
+def check_outside_envelope(out_dir):
+    """run_inference of a model outside the kernels' envelope on the card
+    (backend auto): a ValueError before any launch or CSV."""
+    from m6anet_tpu_torch.constants import DEFAULT_NORM_PATH
+    from m6anet_tpu_torch.data.dataset import build_dataset
+    from m6anet_tpu_torch.inference.engine import run_inference
+
+    dataset = build_dataset(os.path.join(ROOT, "tests", "data"), min_reads=20, norm_path=DEFAULT_NORM_PATH,
+                            mode="Inference")
+    reset_launch_counts()
+    try:
+        run_inference(seeded_model(OUTSIDE_ENVELOPE), dataset, out_dir, WIDTHS_THRESHOLD)
+    except ValueError as err:
+        refused = str(err)
+    else:
+        fail(f"a model of widths {OUTSIDE_ENVELOPE} ran on the card under auto")
+    if any(read_launch_counts().values()) or os.path.exists(os.path.join(out_dir, "data.site_proba.csv")):
+        fail(f"a model outside the envelope launched a kernel or wrote a CSV: {read_launch_counts()}")
+    log(f"[widths] {OUTSIDE_ENVELOPE} refused before any batch: {refused}")
+    return {"widths": OUTSIDE_ENVELOPE, "error": refused}
+
+
+def check_mc_shapes(logs, work_dir, peak_flops, peak_bw):
+    """Phase 22: the MC kernels on sites above the staged cap and at other
+    draws per iteration, against the plain version; the short sites' bits
+    with and without long ones beside them, and through the long-site
+    kernel; run_inference of a columnar store holding a 100,000-read site
+    against --backend torch; the long-site path timed at a 1,000,000-read
+    site."""
+    from m6anet_tpu_torch.constants import DEFAULT_NORM_PATH, PRETRAINED_CONFIGS
+    from m6anet_tpu_torch.data.columnar import ColumnarSiteDataset, ColumnarWriter
+    from m6anet_tpu_torch.data.norm import load_norm_factors, site_norm_vectors
+    from m6anet_tpu_torch.models import load_model
+    from m6anet_tpu_torch.ops import mc_kernel as mck
+    from m6anet_tpu_torch.ops import random as prng
+    from m6anet_tpu_torch.scripts._sweep import same_bits
+
+    report = {}
+    p, offsets, counts = (torch.from_numpy(a).cuda() for a in mck.ragged_mc_batch(long_sites=True))
+    p0, off0, cnt0 = (torch.from_numpy(a).cuda() for a in mck.ragged_mc_batch())
+    short = torch.cat([torch.arange(len(cnt0) - 16), torch.arange(len(counts) - 16, len(counts))]).cuda()
+    host = (offsets.cpu().numpy(), counts.cpu().numpy())
+    errs = []
+    for n_iters in (1500, 257):
+        u = torch.from_numpy(prng.shared_draws(0, n_iters)).cuda()
+        errs.append(compare_mc(mck, p, offsets, counts, host, u, n_iters, f"MC long sites T={n_iters}"))
+        alone = mck.site_probability_mc_cuda(p0, off0, cnt0, u, n_iters)
+        with_long = mck.site_probability_mc_cuda(p, offsets, counts, u, n_iters, host_sites=host)
+        through_long = mc_through_long_kernel(mck, p, offsets, counts, u, n_iters)
+        torch.cuda.synchronize()
+        kept = same_bits(with_long[short], alone)
+        same_path = same_bits(through_long, with_long)
+        log(f"[MC long sites] T={n_iters}: the sites of <= {mck.MAX_STAGED_READS} reads the same bits beside the "
+            f"long sites as without them: {kept}; every site through the long-site kernel the same bits: {same_path}")
+        if not (kept and same_path):
+            fail("MC: a site's value depends on the long sites beside it, or on the kernel that takes it")
+    for n_samples in MC_SAMPLES:
+        u = torch.from_numpy(prng.shared_draws(0, 1000, n_samples)).cuda()
+        got = mck.site_probability_mc_cuda(p, offsets, counts, u, 1000, n_samples, host_sites=host)
+        again = mck.site_probability_mc_cuda(p, offsets, counts, u, 1000, n_samples)
+        want = mck.site_probability_mc_plain(p, offsets, counts, u, 1000, n_samples)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        errs.append(err)
+        log(f"[MC n_samples] {n_samples}: max|dsite_p| {err:.3e} repeat_identical {torch.equal(got, again)}")
+        if err > MC_ATOL or not torch.equal(got, again) or not bool(torch.isfinite(got).all()):
+            fail(f"MC at n_samples={n_samples}: the kernel disagrees with its plain version")
+    report["max_abs_err"] = max(errs)
+
+    # a columnar store of the demo's sites and one of LONG_SITE reads
+    # (seeded reads, the demo's first sequence context), MC through the engine
+    root = os.path.join(work_dir, "store")
+    sites = demo_sites()
+    norm = load_norm_factors(DEFAULT_NORM_PATH)
+    mean, std = (v.astype(np.float32) for v in site_norm_vectors(norm, sites[0].sequence, 3))
+    rng = np.random.default_rng(22)
+    writer = ColumnarWriter(root, 3)
+    for site in sites:
+        writer.append_site(site.tx_id, site.tx_pos, site.sequence, site.features, site.read_ids)
+    writer.append_site("LONGSITE", 1000, sites[0].sequence,
+                       mean + std * rng.standard_normal(size=(LONG_SITE, 9), dtype=np.float32),
+                       np.arange(LONG_SITE, dtype=np.int64))
+    writer.finalize()
+    weights, threshold, norm_path = PRETRAINED_CONFIGS["HCT116_RNA002"]
+    with open(os.path.join(ROOT, "m6anet_tpu_torch", "models", "assets", "configs", "m6anet.toml"), "rb") as f:
+        import tomllib
+
+        model = load_model(tomllib.load(f), weights)
+    # cuda_fused (f32, so its reads agree with the torch modules' to 1e-6)
+    # against --backend torch: per read at P_ATOL, and per site against the
+    # MC function of the torch run's reads over the CUDA backends' draws
+    # (the torch backend draws in chunks of 64 iterations, so its own
+    # site_p is another sample of the estimator)
+    runs = {}
+    for name, kw in (("cuda_fused", dict(backend="cuda_fused", precision="f32")), ("torch", dict(backend="torch"))):
+        ds = ColumnarSiteDataset(root, min_reads=20, norm_path=norm_path)
+        runs[name] = engine_run(logs, model, ds, os.path.join(work_dir, name), threshold, method="mc",
+                                num_iterations=MC_ITERS, read_capacity=1 << 20, **kw)
+        runs[name]["out"] = os.path.join(work_dir, name)
+    launches = runs["cuda_fused"]["launches"]
+    if launches["site_probability_mc_long"] < 1 or launches["site_probability_mc"] < 1:
+        fail(f"MC over the store with a {LONG_SITE}-read site did not launch the long-site kernel: {launches}")
+    kept = [s for s in sites if len(s.read_ids) >= 20]
+    rows = (sum(len(s.read_ids) for s in kept) + LONG_SITE, len(kept) + 1)
+    gaps = hold_outputs(runs["cuda_fused"]["out"], runs["torch"]["out"], threshold, P_ATOL["f32"], None,
+                        "MC long site cuda_fused vs torch, per read", rows=rows)
+    import pandas as pd
+
+    site_csv = pd.read_csv(os.path.join(runs["cuda_fused"]["out"], "data.site_proba.csv"))
+    indiv = pd.read_csv(os.path.join(runs["torch"]["out"], "data.indiv_proba.csv"))
+    torch_p = torch.tensor(indiv.probability_modified.values, dtype=torch.float32, device="cuda")
+    site_counts = torch.tensor(site_csv.n_reads.values, dtype=torch.int32, device="cuda")
+    site_offsets = (torch.cumsum(site_counts, 0) - site_counts).to(torch.int32)
+    u = torch.from_numpy(prng.shared_draws(0, MC_ITERS)).cuda()
+    want = mck.site_probability_mc_plain(torch_p, site_offsets, site_counts, u, MC_ITERS)
+    got = torch.tensor(site_csv.probability_modified.values, dtype=torch.float32, device="cuda")
+    site_gap = float((got - want).abs().max())
+    log(f"[MC long site e2e] cuda_fused {runs['cuda_fused']['path']} launches {launches}; site_p against the MC "
+        f"function of the torch run's reads {site_gap:.3e} (tolerance {MC_TORCH_SITE_ATOL}); its largest site "
+        f"{int(site_csv.n_reads.max())} reads")
+    if site_gap > MC_TORCH_SITE_ATOL or int(site_csv.n_reads.max()) != LONG_SITE:
+        fail("MC over a long site: cuda_fused disagrees with the torch run's reads")
+    report["e2e"] = {"launches": launches, "batches": runs["cuda_fused"]["batches"], "site_vs_torch_reads": site_gap,
+                     "reads_vs_torch": gaps}
+
+    # the long-site path at a 1,000,000-read site, T = 1000
+    n_long = mck.LONG_SITE_COUNTS[-1]
+    p1 = torch.rand(n_long, generator=torch.Generator().manual_seed(23)).mul_(0.3).cuda()
+    off1, cnt1 = (torch.tensor([x], dtype=torch.int32, device="cuda") for x in (0, n_long))
+    host1 = (off1.cpu().numpy(), cnt1.cpu().numpy())
+    u = torch.from_numpy(prng.shared_draws(0, MC_ITERS)).cuda()
+    ms = time_ms(lambda: mck.site_probability_mc_cuda(p1, off1, cnt1, u, MC_ITERS, host_sites=host1))
+    plain_ms = time_ms(lambda: mck.site_probability_mc_plain(p1, off1, cnt1, u, MC_ITERS), reps=5)
+    split = device_split_ms(lambda: mck.site_probability_mc_cuda(p1, off1, cnt1, u, MC_ITERS, host_sites=host1))
+    got = mck.site_probability_mc_cuda(p1, off1, cnt1, u, MC_ITERS, host_sites=host1)
+    err = float((got - mck.site_probability_mc_plain(p1, off1, cnt1, u, MC_ITERS)).abs().max())
+    ops = MC_ITERS * (2 * mck.SAMPLES + 1)  # the draws' adds and log1p, each iteration's exp
+    bytes_moved = 4 * mck.SAMPLES * MC_ITERS + 4 * mck.SAMPLES * MC_ITERS + 8 + 4  # the draws' p and U, the site
+    op_ms, byte_ms = ops / peak_flops * 1e3, bytes_moved / peak_bw * 1e3
+    report["long_site"] = {"reads": n_long, "n_iters": MC_ITERS, "ms": ms, "plain_ms": plain_ms, "device_ms": split,
+                           "max_abs_err": err, "bound_ms": max(op_ms, byte_ms),
+                           "bound_by": "operations" if op_ms >= byte_ms else "bytes"}
+    log(f"[MC long site timing] {n_long} reads, T={MC_ITERS}: wrapper {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"device time per launch (torch.profiler, ms) {split or 'not measured'}, |dsite_p| {err:.3e}")
+    if err > MC_ATOL:
+        fail("MC: the long-site kernel disagrees with its plain version at the 1,000,000-read site")
+    report["max_abs_err"] = max(report["max_abs_err"], err)
+    return report
+
+
 def main():
     # ---- 1. device
     if not torch.cuda.is_available():
@@ -2043,8 +2605,8 @@ def main():
     from m6anet_tpu_torch.ops import random as prng
     from m6anet_tpu_torch.ops import site_ops
 
-    # ---- 2. build
-    built = _build.build_cuda()
+    # ---- 2. build: the defaults and every library phases 21 and 22 take
+    built = _build.build_cuda(names=("fused_infer", "mc", "read_prob_tc"), variants=shape_variants())
     for name in ("fused_infer", "mc", "read_prob_tc"):
         if name not in built:
             fail(f"ops/csrc/{name}.cu was not built")
@@ -2495,6 +3057,44 @@ def main():
     # ---- 20. eventalign.txt to calls with the port alone
     pipeline = check_pipeline(logs, os.path.join(WORK_DIR, "pipeline"), smi)
 
+    # ---- 21. other widths of the production architecture, 22. MC shapes
+    os.makedirs(WORK_DIR, exist_ok=True)
+    widths = check_widths(logs, os.path.join(WORK_DIR, "widths"), full_batch, peak_flops)
+    mc_shapes = check_mc_shapes(logs, os.path.join(WORK_DIR, "mc_shapes"), peak_flops, peak_bw)
+    shutil.rmtree(WORK_DIR, ignore_errors=True)
+    width_runs = {"fused_inference_t": "f32", "fused_read_probability": "f32", "fused_inference_t[f32x3]": "f32x3",
+                  "fused_inference_t[bf16]": "bf16"}
+    for entry in kernels:
+        if entry["name"] in width_runs:
+            precision = width_runs[entry["name"]]
+            entry["widths"] = {name: {"widths": rep["widths"], "phase_a_ms": rep["phase_a_ms"][precision],
+                                      "f32_bound_ms": rep["f32_bound_ms"], "max_abs_err": rep["max_abs_err"][precision]}
+                               for name, rep in widths.items() if name in WIDTHS}
+    trained = widths["W3 trained"]
+    kernels[[e["name"] for e in kernels].index("fused_inference_t[f32x3]")]["launches_w3_trained"] = {
+        "launches": trained["launches"]["read_prob_tc_f32x3"], "batches": trained["batches"],
+        "path": "inference --model_config (W3) --model_state_dict, auto (phase 21)"}
+    long_site = mc_shapes["long_site"]
+    kernels.append({
+        "name": "site_probability_mc[long sites]",
+        "route": "cuda",
+        "source": "m6anet_tpu_torch/ops/csrc/mc.cu",
+        "replaces": _replaces("mc.cu"),
+        "launches": mc_shapes["e2e"]["launches"]["site_probability_mc_long"],
+        "max_abs_err": mc_shapes["max_abs_err"],
+        "ms": long_site["ms"],
+        "plain_ms": long_site["plain_ms"],
+        "bound_ms": long_site["bound_ms"],
+        "bound_by": long_site["bound_by"],
+        "library_ms": None,
+        "library_note": "no single PyTorch call computes the sampled noisy-OR",
+        "launches_per_batch": mc_shapes["e2e"]["launches"]["site_probability_mc_long"] / mc_shapes["e2e"]["batches"],
+        "path": f"run_inference, MC, over a columnar store with a {LONG_SITE}-read site (phase 22); ms: "
+                "mc_site_kernel and mc_long_site_kernel at one 1,000,000-read site, T = 1000",
+        "kernels": "mc_site_kernel (the short sites) + mc_long_site_kernel",
+        "device_ms": long_site["device_ms"],
+    })
+
     for precision in P_ATOL:
         check_close_share(precision)
     log(json.dumps({"models": {
@@ -2512,6 +3112,8 @@ def main():
     log(json.dumps({"columnar": columnar}))
     log(json.dumps({"shards": shards}))
     log(json.dumps({"pipeline": pipeline}))
+    log(json.dumps({"widths": widths}))
+    log(json.dumps({"mc_shapes": mc_shapes}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"training": training}))
     log(json.dumps({

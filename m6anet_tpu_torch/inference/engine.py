@@ -19,9 +19,11 @@ Backends (the JAX package's ``pallas_fused``, ``pallas`` and ``xla``):
 kernel (``ops/encoder_kernel.py``) and the plain site ops;
 ``torch`` runs the model's modules and the plain site ops, for any model
 config whose pooling filter has a per-read probability layer.  The CUDA
-kernels cover the production architecture at its published widths; a
-config of other blocks resolves to ``torch``, as the JAX package's go to
-``xla`` (``resolve_backend``).  With the MC site
+kernels cover the production architecture at any widths within their
+envelope (``fused_infer_kernel.kernel_limit``: at least P <= 11 positions,
+E <= 4, H1 <= 256, H2 <= 64), each set of widths built at first use, as the
+JAX package's Pallas kernel takes any; a config of other blocks resolves to
+``torch``, as the JAX package's go to ``xla`` (``resolve_backend``).  With the MC site
 method (``method="mc"``) both CUDA backends take the site probability from
 the kernel of ``ops/mc_kernel.py``, and ``torch`` from
 ``site_ops.site_probability_mc``; the two draw different numbers for one
@@ -98,63 +100,38 @@ def production_architecture(model: MILModel) -> bool:
     return l1.activation_name == "relu" and l2.activation_name == "relu" and l2.bn is None
 
 
-def fused_backend_supported(model: MILModel) -> bool:
-    """True when the architecture matches the fused kernel's layout: the
-    production architecture (``production_architecture``) at the widths
-    the CUDA kernels are built for, KmerMultipleEmbedding(66 -> 2, 3
-    positions) -> Linear(15 -> 150) -> Linear(150 -> 32) — the production
-    MILModel all four released models share."""
-    if not production_architecture(model):
-        return False
-    emb, l1, l2 = model.blocks[1], model.blocks[3], model.blocks[4]
-    return (
-        emb.n_positions == fused_infer_kernel.N_POSITIONS
-        and tuple(emb.embedding.weight.shape) == (fused_infer_kernel.VOCAB, fused_infer_kernel.EMB_DIM)
-        and tuple(l1.linear.weight.shape) == (fused_infer_kernel.HIDDEN1, 15)
-        and tuple(l2.linear.weight.shape) == (fused_infer_kernel.HIDDEN2, fused_infer_kernel.HIDDEN1)
-    )
-
-
 def resolve_backend(
     model: MILModel, backend: str, precision: str, device: torch.device, log=None
 ) -> Tuple[str, str]:
     """Resolve 'auto' backend/precision, from the architecture, before
     anything launches.  On a card: the fused CUDA kernel at f32x3 for the
-    production architecture at the kernels' widths, and the torch modules
-    at f32 for an architecture of other block types or activations (the
-    JAX package's ``auto`` takes ``xla`` for the same configs).  The
-    production architecture at other widths raises: the JAX package runs
-    it on its width-generic Pallas kernel, the CUDA kernels are built for
-    150/32 (ROADMAP.md Queue 2 item 8), so the plain modules run it only
-    when asked for by name.  On the CPU the torch modules at f32.  An
-    explicit CUDA backend for an architecture its kernels do not cover
-    raises.  f32x3 and bf16 need a CUDA backend, as the JAX package's need
-    a Pallas one."""
+    production architecture at any widths (the JAX package's ``auto``
+    takes ``pallas_fused`` for it), and the torch modules at f32 for an
+    architecture of other block types or activations (the JAX package's
+    ``auto`` takes ``xla`` for the same configs).  The production
+    architecture at widths outside the kernels' envelope raises, naming the
+    widths and the limit that binds (``--backend torch`` runs it).  On the
+    CPU the torch modules at f32.  An explicit CUDA backend for an
+    architecture its kernels do not cover raises.  f32x3 and bf16 need a
+    CUDA backend, as the JAX package's need a Pallas one."""
     if backend not in BACKENDS:
         raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
     if precision not in PRECISIONS:
         raise ValueError(f"precision must be one of {PRECISIONS}, got {precision!r}")
     if backend == "auto" and device.type == "cuda":
-        if fused_backend_supported(model):
-            backend = "cuda_fused"
-        elif production_architecture(model):
-            raise ValueError(
-                "backend 'auto': the CUDA kernels are built for the production "
-                "architecture at its published widths (15 -> 150 -> 32), not at "
-                "this model's (ROADMAP.md Queue 2 item 8); run it with --backend torch"
-            )
-        else:
-            backend = "torch"
+        backend = "cuda_fused" if production_architecture(model) else "torch"
     elif backend == "auto":
         backend = "torch"
     elif backend in CUDA_BACKENDS and device.type != "cuda":
         raise ValueError(f"backend {backend!r} needs device 'cuda'; use --backend torch on the CPU")
-    elif backend in CUDA_BACKENDS and not fused_backend_supported(model):
+    elif backend in CUDA_BACKENDS and not production_architecture(model):
         raise ValueError(
             f"backend {backend!r}: the CUDA kernels support only the production "
-            "architecture at its published widths (the packaged m6anet.toml "
-            "config); run this model config with --backend torch"
+            "architecture (the packaged m6anet.toml config's blocks); run this "
+            "model config with --backend torch"
         )
+    if backend in CUDA_BACKENDS:
+        fused_infer_kernel.check_widths(fused_infer_kernel.model_widths(model))
     if precision == "auto":
         precision = "f32x3" if backend in CUDA_BACKENDS else "f32"
     elif precision != "f32" and backend not in CUDA_BACKENDS:
@@ -190,9 +167,9 @@ def make_infer_step(
     ``method="mc"`` replaces the exact site probability with the sampled
     estimator over ``n_iterations`` iterations drawn from ``seed``.  On the
     CUDA backends its draws ``U`` are made once here and stay on the device
-    for every batch (as the JAX engine passes one key to every step),
-    every site count must be <= ``mc_kernel.MAX_SITE_READS``, and
-    ``n_samples`` must be the kernel's ``mc_kernel.SAMPLES``.
+    for every batch (as the JAX engine passes one key to every step); a
+    site may hold up to ``mc_kernel.MAX_SITE_READS`` reads, and any
+    ``n_samples`` from 1 builds its own MC kernel at first use.
 
     ``precision`` is the CUDA backends' (``f32``, ``f32x3`` or ``bf16``);
     the torch backend takes only ``f32``, and a model whose pooling filter
@@ -204,11 +181,6 @@ def make_infer_step(
         raise ValueError(f"backend must be 'torch', 'cuda_fused' or 'cuda', got {backend!r}")
     if method == "mc" and n_iterations < 1:
         raise ValueError(f"num_iterations must be >= 1, got {n_iterations}")
-    if method == "mc" and backend in CUDA_BACKENDS and n_samples != mc_kernel.SAMPLES:
-        raise ValueError(
-            f"the MC kernel draws {mc_kernel.SAMPLES} reads per iteration, got "
-            f"n_samples={n_samples}; use backend 'torch'"
-        )
     fused_infer_kernel.check_precision(precision)
     if backend == "torch" and precision != "f32":
         raise ValueError(f"precision {precision!r} runs on the CUDA backends; backend 'torch' computes in f32")
@@ -393,8 +365,8 @@ def run_inference(
     log = get_logger("m6anet_tpu_torch.inference")
     model.to(device).eval()
     backend, precision = resolve_backend(model, backend, precision, device, log=log)
-    # every kernel wrapper's launch count, by the TPU kernel it ports, and
-    # the tensor-core phase A's, by precision
+    # every kernel wrapper's launch count, by the TPU kernel it ports, the
+    # tensor-core phase A's, by precision, and the MC long-site kernel's
     kernels = {
         "fused_inference_t": lambda: fused_infer_kernel.launch_count,
         "fused_read_probability": lambda: encoder_kernel.launch_count,
@@ -405,6 +377,7 @@ def run_inference(
             f"read_prob_tc_{mode}": (lambda mode=mode: fused_infer_kernel.tc_launch_counts[mode])
             for mode in fused_infer_kernel.tc_launch_counts
         },
+        "site_probability_mc_long": lambda: mc_kernel.long_launch_count,
     }
     launches_before = {name: count() for name, count in kernels.items()}
 
@@ -432,15 +405,6 @@ def run_inference(
             "sites at dataprep time with --readcount_max"
         )
 
-    if (
-        method == "mc" and backend in CUDA_BACKENDS
-        and max_reads is not None and max_reads > mc_kernel.MAX_SITE_READS
-    ):
-        raise ValueError(
-            f"the dataset has a site with {max_reads} reads, above the "
-            f"{mc_kernel.MAX_SITE_READS} the MC kernel holds; cap sites at "
-            "dataprep time with --readcount_max, or use --backend torch"
-        )
     step = make_infer_step(
         model, site_capacity, read_proba_threshold, n_samples, method, backend,
         n_iterations=num_iterations, seed=seed, precision=precision,
@@ -502,11 +466,14 @@ def run_inference(
 
         from ..data.prefetch import threaded_iter
 
+        vocab = (fused_infer_kernel.model_widths(model).vocab if backend in CUDA_BACKENDS
+                 else fused_infer_kernel.VOCAB)
+
         def checked(batches):
             # the k-mer range check, on the pack thread: the dispatch stage
             # then launches with no host sync and no host scan of the ids
             for batch in batches:
-                yield batch, fused_infer_kernel.checked_kmer_ids(batch.kmer_ids)
+                yield batch, fused_infer_kernel.checked_kmer_ids(batch.kmer_ids, vocab)
 
         if hasattr(dataset, "iter_packed"):
             # the columnar feed: whole batches straight off the memory map

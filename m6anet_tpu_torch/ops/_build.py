@@ -10,19 +10,25 @@ that build at the same time never load a half-written file.
 CUDA sources (``ops/csrc/*.cu``) are compiled with ``nvcc`` for ``sm_90a``
 into shared libraries with a plain C interface, loaded with ctypes; the
 compiler's register and shared-memory report (``-Xptxas -v``) is kept beside
-each library as ``<library>.log``.
+each library as ``<library>.log``.  A source may be built more than once
+with ``-D`` defines (the model's widths, the MC kernel's draws per
+iteration): each set of defines is part of the command, so it hashes into a
+library of its own, built at first use.  Without defines a source builds at
+the production model's widths, its macros' defaults.
 """
 from __future__ import annotations
 
+import ast
 import glob
 import hashlib
+import operator
 import os
 import re
 import shutil
 import subprocess
 import threading
 import time
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 _OPS_DIR = os.path.dirname(os.path.abspath(__file__))
 _PKG_DIR = os.path.dirname(_OPS_DIR)
@@ -105,39 +111,55 @@ def nvcc_path() -> str:
 
 
 _cuda_lock = threading.Lock()
-_cuda_libs: Dict[str, str] = {}
+# library paths by (source name, sorted defines)
+_cuda_libs: Dict[Tuple[str, Tuple[Tuple[str, int], ...]], str] = {}
 
 
 def cuda_sources() -> List[str]:
     return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
 
 
-def build_cuda(names: Sequence[str] = ()) -> Dict[str, Tuple[str, float]]:
-    """Build the named ``csrc/<name>.cu`` kernels (all of them when ``names``
-    is empty) with one nvcc each, started together.  Returns
-    ``{name: (library path, seconds)}``; the seconds are those of this call."""
-    sources = [
-        s for s in cuda_sources()
-        if not names or os.path.splitext(os.path.basename(s))[0] in names
-    ]
-    command = [nvcc_path(), *NVCC_FLAGS]
+def _defines_key(defines: Optional[Mapping[str, int]]) -> Tuple[Tuple[str, int], ...]:
+    return tuple(sorted((defines or {}).items()))
+
+
+def build_cuda(
+    names: Sequence[str] = (), variants: Sequence[Tuple[str, Mapping[str, int]]] = ()
+) -> Dict:
+    """Build the named ``csrc/<name>.cu`` kernels at their defaults (all of
+    them when neither ``names`` nor ``variants`` is given) and each
+    ``(name, defines)`` of ``variants``, with one nvcc each, started
+    together.  Returns ``{name: (library path, seconds)}`` for the defaults
+    and ``{(name, sorted defines): (library path, seconds)}`` for the
+    variants; the seconds are those of this call."""
+    by_name = {os.path.splitext(os.path.basename(s))[0]: s for s in cuda_sources()}
+    if not names and not variants:
+        names = list(by_name)
+    jobs = [(name, {}) for name in names] + [(name, dict(d)) for name, d in variants]
+    for name, _ in jobs:
+        if name not in by_name:
+            raise BuildError(f"no CUDA source csrc/{name}.cu")
+    base = [nvcc_path(), *NVCC_FLAGS]
+    commands = [base + [f"-D{k}={v}" for k, v in _defines_key(d)] for _, d in jobs]
     start = time.perf_counter()
     with _cuda_lock:
-        paths = build_shared_libraries([(s, command) for s in sources])
+        paths = build_shared_libraries([(by_name[name], cmd) for (name, _), cmd in zip(jobs, commands)])
     seconds = time.perf_counter() - start
     result = {}
-    for source, path in zip(sources, paths):
-        name = os.path.splitext(os.path.basename(source))[0]
-        _cuda_libs[name] = path
-        result[name] = (path, seconds)
+    for i, ((name, defines), path) in enumerate(zip(jobs, paths)):
+        key = (name, _defines_key(defines))
+        _cuda_libs[key] = path
+        result[name if i < len(names) else key] = (path, seconds)
     return result
 
 
-def cuda_library(name: str) -> str:
-    """Path of the built ``csrc/<name>.cu`` library, building it if needed."""
-    path = _cuda_libs.get(name)
+def cuda_library(name: str, defines: Optional[Mapping[str, int]] = None) -> str:
+    """Path of the ``csrc/<name>.cu`` library built with ``defines``,
+    building it if needed."""
+    key = (name, _defines_key(defines))
+    path = _cuda_libs.get(key)
     if path is None:
-        path = build_cuda([name])[name][0]
+        path = build_cuda(variants=[(name, defines or {})])[key][0]
     return path
 
 
@@ -168,3 +190,36 @@ def ptxas_usage(library: str, kernel: str) -> Dict[str, int]:
     if "registers" not in usage:
         raise BuildError(f"no ptxas report for an entry point named like {kernel!r} in {library}.log")
     return usage
+
+
+_OPS = {ast.Add: operator.add, ast.Sub: operator.sub, ast.Mult: operator.mul, ast.Div: operator.floordiv,
+        ast.BitOr: operator.or_}
+
+
+def cu_constants(name: str, defines: Optional[Mapping[str, int]] = None) -> Dict[str, int]:
+    """The ``constexpr int`` constants of ``csrc/<name>.cu`` whose values are
+    integer arithmetic (``+ - * / |`` of numbers, earlier constants and the
+    ``M6A_*`` macros), evaluated as a build with ``defines`` sees them; a
+    macro not in ``defines`` takes its ``#define`` default.  The CPU tests
+    hold the Python side's layouts against them."""
+    with open(os.path.join(CSRC_DIR, f"{name}.cu")) as f:
+        text = f.read()
+    macros = dict(re.findall(r"^#define (M6A_\w+) (\w+)$", text, re.M))
+    macros.update({k: str(v) for k, v in (defines or {}).items()})
+    values: Dict[str, int] = {}
+
+    def value(node):
+        if isinstance(node, ast.Constant) and isinstance(node.value, int):
+            return node.value
+        if isinstance(node, ast.Name):
+            if node.id in values:
+                return values[node.id]
+            return value(ast.parse(macros[node.id], mode="eval").body)
+        return _OPS[type(node.op)](value(node.left), value(node.right))
+
+    for const, expr in re.findall(r"^constexpr int (\w+) = ([^;]+);", text, re.M):
+        try:
+            values[const] = value(ast.parse(expr.strip(), mode="eval").body)
+        except (KeyError, SyntaxError, AttributeError, TypeError):
+            continue  # not integer arithmetic (a ternary, a cast)
+    return values

@@ -16,40 +16,52 @@
 //
 // What it computes, for a batch packed by data/batching.py::pack_sites
 // (site s owns the contiguous reads [offsets[s], offsets[s] + counts[s]);
-// padding reads sit past sum(counts) and padding sites have count 0):
+// padding reads sit past sum(counts) and padding sites have count 0), at
+// the model's widths: P k-mer positions with 3 P signal features, an
+// embedding of E dimensions over V k-mers, hidden widths H1 and H2 (the
+// released models: P = 3, E = 2, V = 66, H1 = 150, H2 = 32):
 //
-//   per read r   x = [features[r, 0:9], emb[k0], emb[k1], emb[k2]]   (15)
-//                h1 = relu(W1' x + b1')     (150; eval BatchNorm folded in)
-//                h2 = relu(W2 h1 + b2)      (32)
+//   per read r   x = [features[r, 0:3P], emb[k0], ..., emb[k(P-1)]]   (n_in = 3P + PE)
+//                h1 = relu(W1' x + b1')     (H1; eval BatchNorm folded in)
+//                h2 = relu(W2 h1 + b2)      (H2)
 //                p[r] = sigmoid(w3 . h2 + b3)
 //   per site s   site_p[s]    = 1 - (sum(1 - p) / max(n, 1)) ** n_samples
 //                mod_ratio[s] = #{p >= threshold} / max(n, 1)
+//
+// The widths are compile-time constants: the M6A_* macros below, set by
+// ops/fused_infer_kernel.py::kernel_defines for a model of other widths
+// (one library each, built at first use) and by default the released
+// models'.
 //
 // Padding sites give site_p = 1 and mod_ratio = 0, as the TPU kernel does.
 // A site whose span leaves [0, n_reads) (a negative offset or count, or
 // offset + count > n_reads; pack_sites never makes one) gives NaN for both,
 // as mc.cu does, and reads nothing.
 //
-// Bound on the card.  Each read costs 2 * (15*150 + 150*32 + 32) = 14,164
-// f32 FLOP and moves 43 bytes (36 B of features, 3 B of int8 k-mer ids, 4 B
-// of p): ~330 FLOP per byte, far above the H100's ~20 FLOP/B f32 ridge
-// (67 TFLOP/s over 3.35 TB/s on the SXM part), so the step is bound by the
-// f32 CUDA cores: ~0.22 ms for a 1,048,576-read batch on an H100 SXM.  The
-// per-site phase (phase B) reads p once more (4 B per read) and the spans
-// (8 B per site) and writes 8 B per site: 4.45 MB at the production batch
-// (16,384 sites), 1.3 us at 3.35 TB/s.  It is bound by latency, not bytes:
-// each site is a chain of dependent round trips to device memory (its span,
-// then its reads, then its results).
+// Bound on the card.  Each read costs 2 (n_in H1 + H1 H2 + H2) f32 FLOP
+// and moves 13 P + 4 bytes (12 P of features, P of int8 k-mer ids, 4 of
+// p).  At the released widths that is 14,164 FLOP and 43 bytes, ~330 FLOP
+// per byte, far above the H100's ~20 FLOP/B f32 ridge (67 TFLOP/s over
+// 3.35 TB/s on the SXM part), so the step is bound by the f32 CUDA cores:
+// ~0.22 ms for a 1,048,576-read batch on an H100 SXM; every width of the
+// envelope (ops/fused_infer_kernel.py::kernel_limit) is as far above it.
+// The per-site phase (phase B) reads p once more (4 B per read) and the
+// spans (8 B per site) and writes 8 B per site: 4.45 MB at the production
+// batch (16,384 sites), 1.3 us at 3.35 TB/s, whatever the widths.  It is
+// bound by latency, not bytes: each site is a chain of dependent round
+// trips to device memory (its span, then its reads, then its results).
 //
 // What this design does about it:
 //  * Phase A, R reads per thread (register blocking over reads, R =
-//    kReadTile), grid-stride over tiles of kReadThreads * R reads.  All
-//    ~30 KB of weights are staged in shared memory once per block and read
-//    as warp-uniform float4 broadcasts (no bank conflicts).  For each of
-//    the 150 hidden units a thread loads W1'/b1' row k (4 LDS.128) and
-//    W2's fan-out of unit k (8 LDS.128) once and uses them for all R of
-//    its reads: it forms h1_k of each read from that read's 15 inputs in
-//    registers and folds it at once into the read's 32 register
+//    kReads), grid-stride over tiles of kReadThreads * R reads.  All the
+//    weights (~30 KB at the released widths, at most 227 KB: the envelope
+//    checks it) are staged in shared memory once per block and read as
+//    warp-uniform float4 broadcasts (no bank conflicts); past 48 KB as
+//    dynamic shared memory.  For each of the H1 hidden units a thread loads
+//    W1'/b1' row k (n_in + 1 floats padded to float4s) and W2's fan-out of
+//    unit k (H2 padded to float4s) once and uses them for all R of its
+//    reads: it forms h1_k of each read from that read's n_in inputs in
+//    registers and folds it at once into the read's H2 register
 //    accumulators of layer 2.  h1 never leaves registers, and the only
 //    device-memory traffic is the inputs once and p once.  The k-mer
 //    embedding is a direct table read with the int8 id (no one-hot).
@@ -60,8 +72,10 @@
 //    warps fit on an SM (25% occupancy) to hide that chain.  With R reads a
 //    thread issues the same 12 loads per 49 * R FP32 instructions and runs R
 //    independent layer-1 chains, so latency is hidden inside the thread
-//    instead of by more warps; the price is R * (15 inputs + 32
-//    accumulators) registers.
+//    instead of by more warps; the price is R * (n_in inputs + H2
+//    accumulators) registers: 94 at the released widths.  Wider models
+//    take R = 1, and past 94 values one block an SM's registers (kReads,
+//    kReadBlocks below).
 //  * Each read keeps the exact operation sequence of the one-read design
 //    (layer 1: W1'[k,0] * x0, then fmaf in input order, + b1', relu;
 //    layer 2: fmaf in k order; head: fmaf in j order, + b3, 1 / (1 +
@@ -119,29 +133,51 @@
 
 namespace {
 
-constexpr int kFeat = 9;     // signal features per read
-constexpr int kPos = 3;      // k-mer positions per read
-constexpr int kVocab = 66;   // k-mer vocabulary
-constexpr int kEmb = 2;      // embedding width
-constexpr int kIn = kFeat + kPos * kEmb;  // 15
-constexpr int kH1 = 150;
-constexpr int kH2 = 32;
+// The widths (the released models' by default; ops/fused_infer_kernel.py
+// sets them for a model of other widths)
+#ifndef M6A_POS
+#define M6A_POS 3
+#endif
+#ifndef M6A_EMB
+#define M6A_EMB 2
+#endif
+#ifndef M6A_VOCAB
+#define M6A_VOCAB 66
+#endif
+#ifndef M6A_H1
+#define M6A_H1 150
+#endif
+#ifndef M6A_H2
+#define M6A_H2 32
+#endif
+constexpr int kPos = M6A_POS;                 // k-mer positions per read
+constexpr int kFeat = 3 * kPos;               // signal features per read
+constexpr int kVocab = M6A_VOCAB;             // k-mer vocabulary
+constexpr int kEmb = M6A_EMB;                 // embedding width
+constexpr int kIn = kFeat + kPos * kEmb;      // n_in, 15 at the released widths
+constexpr int kH1 = M6A_H1;
+constexpr int kH2 = M6A_H2;
 
-// Packed weight image (floats), written by prepare_fused_params_t:
-//   W1B [150][16]  row k = BN-folded W1'[k, 0:15], then b1'[k]
-//   EMB [66][2]    embedding table
-//   W2  [150][32]  row k = W2[:, k]  (hidden unit k's fan-out)
-//   B2  [32], W3 [32], B3 [1], zero padding to a multiple of 4
-constexpr int kW1Stride = 16;
+// Packed weight image (floats), written by prepare_fused_params_t
+// (ops/fused_infer_kernel.py::f32_layout):
+//   W1B [H1][kW1Stride]  row k = BN-folded W1'[k, 0:n_in], then b1'[k], zeros
+//   EMB [V][E]           embedding table, zeros to kEmbWords
+//   W2  [H1][kH2Pad]     row k = W2[:, k] (hidden unit k's fan-out), zero past H2
+//   B2 [kH2Pad], W3 [kH2Pad], B3 [1], zero padding to a multiple of 4
+constexpr int kW1Stride = (kIn + 4) / 4 * 4;           // n_in + 1, to float4s
+constexpr int kH2Pad = (kH2 + 3) / 4 * 4;              // float4s of layer 2
+constexpr int kEmbWords = (kVocab * kEmb + 3) / 4 * 4;
 constexpr int kOffW1B = 0;
 constexpr int kOffEmb = kOffW1B + kH1 * kW1Stride;  // 2400
-constexpr int kOffW2 = kOffEmb + kVocab * kEmb;     // 2532
-constexpr int kOffB2 = kOffW2 + kH1 * kH2;          // 7332
-constexpr int kOffW3 = kOffB2 + kH2;                // 7364
-constexpr int kOffB3 = kOffW3 + kH2;                // 7396
-constexpr int kWeights = 7400;
+constexpr int kOffW2 = kOffEmb + kEmbWords;         // 2532
+constexpr int kOffB2 = kOffW2 + kH1 * kH2Pad;       // 7332
+constexpr int kOffW3 = kOffB2 + kH2Pad;             // 7364
+constexpr int kOffB3 = kOffW3 + kH2Pad;             // 7396
+constexpr int kWeights = kOffB3 + 4;                // 7400
 static_assert(kOffW2 % 4 == 0 && kWeights % 4 == 0, "float4 alignment");
-static_assert(kIn + 1 == kW1Stride, "W1B row holds 15 weights and a bias");
+static_assert(kIn + 1 <= kW1Stride, "W1B row holds n_in weights and a bias");
+// past the 48 KB of static shared memory the image is dynamic
+constexpr bool kWeightsDynamic = kWeights * 4 > 48 * 1024;
 
 // Phase A's tiling: kReadTile reads per thread (R), kReadThreads threads per
 // block, kReadMinBlocks blocks per SM asked of __launch_bounds__ (which caps
@@ -152,11 +188,20 @@ static_assert(kIn + 1 == kW1Stride, "W1B row holds 15 weights and a bias");
 // takes 126 registers with no spills and keeps 16 warps on an SM, and ran
 // fastest; R = 3 and 4 (168 to 241 registers) fit only 8 to 10 warps on an
 // SM and lost more to the latency of the shared loads than they saved in
-// issue.
+// issue.  They hold wherever a read keeps no more values in registers than
+// at the released widths (kReadValues: its n_in inputs and H2 padded to 4
+// accumulators, 47 there).  A wider read takes R = 1, two blocks an SM up
+// to twice those values and one block (255 registers a thread) past them.
 constexpr int kReadTile = 2;
 constexpr int kReadThreads = 256;
 constexpr int kReadMinBlocks = 2;
 constexpr int kReadUnroll = 1;
+constexpr int kReadValues = kIn + kH2Pad;
+constexpr int kReleasedReadValues = 47;
+constexpr int kReads = kReadValues <= kReleasedReadValues ? kReadTile : 1;
+constexpr int kReadBlocks = kReadValues <= kReleasedReadValues ? kReadMinBlocks
+                            : kReadValues <= 2 * kReleasedReadValues ? 2 : 1;
+static_assert(kReadValues <= 144, "the envelope: kernel_limit in ops/fused_infer_kernel.py");
 // Phase B's shape: kSiteThreads threads a block (its occupancy is asked of
 // the card at launch), kSiteLanes lanes a site's reads are spread over (a
 // power of two, at most 32: 32 / kSiteLanes sites a warp) and kChunkLoads
@@ -170,19 +215,21 @@ static_assert(kSiteLanes >= 1 && kSiteLanes <= 32 && (kSiteLanes & (kSiteLanes -
               "a warp holds whole sites");
 static_assert(kChunkLoads >= 1 && kChunkLoads <= 32, "a lane's chunks of a round sum below 2^32");
 
-// kmer_ids are int8 ids in [0, 66); the Python wrapper checks the range
-__global__ void __launch_bounds__(kReadThreads, kReadMinBlocks)
+// kmer_ids are int8 ids in [0, kVocab); the Python wrapper checks the range
+__global__ void __launch_bounds__(kReadThreads, kReadBlocks)
 read_prob_kernel(const float* __restrict__ features,
                  const int8_t* __restrict__ kmer_ids,
                  const float* __restrict__ weights, int64_t n_reads,
                  float* __restrict__ p_out) {
-  __shared__ __align__(16) float w[kWeights];
+  extern __shared__ __align__(16) float dynamic_w[];
+  __shared__ __align__(16) float static_w[kWeightsDynamic ? 4 : kWeights];
+  float* const w = kWeightsDynamic ? dynamic_w : static_w;
   for (int i = threadIdx.x; i < kWeights / 4; i += kReadThreads) {
     reinterpret_cast<float4*>(w)[i] = reinterpret_cast<const float4*>(weights)[i];
   }
   __syncthreads();
 
-  constexpr int R = kReadTile;
+  constexpr int R = kReads;
   constexpr int64_t kTile = static_cast<int64_t>(kReadThreads) * R;
   const int64_t stride = static_cast<int64_t>(gridDim.x) * kTile;
   for (int64_t base = static_cast<int64_t>(blockIdx.x) * kTile; base < n_reads; base += stride) {
@@ -197,46 +244,46 @@ read_prob_kernel(const float* __restrict__ features,
 #pragma unroll
       for (int q = 0; q < kPos; ++q) {
         const int k = static_cast<int>(kmer_ids[r * kPos + q]);
-        x[j][kFeat + kEmb * q] = w[kOffEmb + kEmb * k];
-        x[j][kFeat + kEmb * q + 1] = w[kOffEmb + kEmb * k + 1];
+#pragma unroll
+        for (int e = 0; e < kEmb; ++e) x[j][kFeat + kEmb * q + e] = w[kOffEmb + kEmb * k + e];
       }
     }
 
-    float acc[R][kH2];
+    float acc[R][kH2Pad];
 #pragma unroll
     for (int j = 0; j < R; ++j) {
 #pragma unroll
-      for (int i = 0; i < kH2; ++i) acc[j][i] = 0.f;
+      for (int i = 0; i < kH2Pad; ++i) acc[j][i] = 0.f;
     }
 
 #pragma unroll (kReadUnroll)
     for (int k = 0; k < kH1; ++k) {
+      // W1'[k, i] . x[i] in input order (W1'[k, 0] x0, then fmaf), + b1'[k]
+      // (the row's entry n_in), relu
       const float4* row = reinterpret_cast<const float4*>(w + kOffW1B + k * kW1Stride);
-      const float4 a = row[0], b = row[1], c = row[2], d = row[3];
-      float h[R];
+      float t[R], h[R];
 #pragma unroll
-      for (int j = 0; j < R; ++j) {
-        const float* in = x[j];
-        float t = a.x * in[0];
-        t = fmaf(a.y, in[1], t);
-        t = fmaf(a.z, in[2], t);
-        t = fmaf(a.w, in[3], t);
-        t = fmaf(b.x, in[4], t);
-        t = fmaf(b.y, in[5], t);
-        t = fmaf(b.z, in[6], t);
-        t = fmaf(b.w, in[7], t);
-        t = fmaf(c.x, in[8], t);
-        t = fmaf(c.y, in[9], t);
-        t = fmaf(c.z, in[10], t);
-        t = fmaf(c.w, in[11], t);
-        t = fmaf(d.x, in[12], t);
-        t = fmaf(d.y, in[13], t);
-        t = fmaf(d.z, in[14], t);
-        h[j] = fmaxf(t + d.w, 0.f);  // + b1'[k], relu
+      for (int q = 0; q < kW1Stride / 4; ++q) {
+        const float4 v = row[q];
+        const float c[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = 4 * q + e;
+#pragma unroll
+          for (int j = 0; j < R; ++j) {
+            if (i == 0) {
+              t[j] = c[e] * x[j][0];
+            } else if (i < kIn) {
+              t[j] = fmaf(c[e], x[j][i], t[j]);
+            } else if (i == kIn) {
+              h[j] = fmaxf(t[j] + c[e], 0.f);  // + b1'[k], relu
+            }
+          }
+        }
       }
-      const float4* fan = reinterpret_cast<const float4*>(w + kOffW2 + k * kH2);
+      const float4* fan = reinterpret_cast<const float4*>(w + kOffW2 + k * kH2Pad);
 #pragma unroll
-      for (int q = 0; q < kH2 / 4; ++q) {
+      for (int q = 0; q < kH2Pad / 4; ++q) {
         const float4 v = fan[q];
 #pragma unroll
         for (int j = 0; j < R; ++j) {
@@ -369,19 +416,23 @@ site_reduce_kernel(const float* __restrict__ p, const int32_t* __restrict__ offs
 cudaError_t launch_read_prob(const float* features, const int8_t* kmer_ids,
                              const float* weights, int64_t n_reads, float* p,
                              cudaStream_t stream) {
+  constexpr int kDynamicBytes = kWeightsDynamic ? kWeights * 4 : 0;
   int device = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess && kWeightsDynamic) {
+    err = cudaFuncSetAttribute(read_prob_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kDynamicBytes);
+  }
   if (err == cudaSuccess) {
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, read_prob_kernel, kReadThreads, 0);
+        &per_sm, read_prob_kernel, kReadThreads, kDynamicBytes);
   }
   if (err != cudaSuccess) return err;
-  constexpr int64_t kTile = static_cast<int64_t>(kReadThreads) * kReadTile;
+  constexpr int64_t kTile = static_cast<int64_t>(kReadThreads) * kReads;
   const int64_t needed = (n_reads + kTile - 1) / kTile;
   const int64_t resident = static_cast<int64_t>(sms) * (per_sm > 0 ? per_sm : 1);
   const int grid = static_cast<int>(needed < resident ? needed : resident);
-  read_prob_kernel<<<grid, kReadThreads, 0, stream>>>(features, kmer_ids, weights, n_reads, p);
+  read_prob_kernel<<<grid, kReadThreads, kDynamicBytes, stream>>>(features, kmer_ids, weights, n_reads, p);
   return cudaGetLastError();
 }
 
@@ -455,7 +506,7 @@ int read_prob_launch(const float* features, const int8_t* kmer_ids,
 
 // Reads one block of phase A takes per tile (threads x reads per thread):
 // the tile whose ragged edge the tests and chip_smoke.py exercise.
-int read_prob_tile_reads(void) { return kReadThreads * kReadTile; }
+int read_prob_tile_reads(void) { return kReadThreads * kReads; }
 
 const char* fused_infer_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -5,28 +5,34 @@
 //
 // What it computes, for a batch packed by data/batching.py::pack_sites (site
 // s owns the contiguous reads [offsets[s], offsets[s] + counts[s])) and the
-// shared draws U (20, n_iters) of ops/random.py::shared_draws:
+// shared draws U (n_samples, n_iters) of ops/random.py::shared_draws:
 //
 //   per site s with c = counts[s] >= 1
 //     l[r]      = max(log1p(-p[offsets[s] + r]), -1e4)            r < c
-//     S_t       = sum_{j < 20} l[min(trunc(U[j, t] * c), c - 1)]
+//     S_t       = sum_{j < n_samples} l[min(trunc(U[j, t] * c), c - 1)]
 //     site_p[s] = 1 - (1 / n_iters) * sum_t exp(S_t)
 //   count 0 gives 0.
 //
-// exp(S_t) is the product of the iteration's 20 draws of (1 - p), so this is
+// n_samples is a compile-time constant, kSamples (M6A_SAMPLES): 20 by
+// default, the reference's; ops/mc_kernel.py builds a library for any other
+// at first use.  Counts go up to 2^23 - 1 (the draw index below).
+//
+// exp(S_t) is the product of the iteration's n_samples draws of (1 - p), so this is
 // the reference's estimator, 1 - mean_t prod_j (1 - p_draw)
 // (reference: m6anet/utils/inference_utils.py:74-87).  The -1e4 clamp keeps
 // a read with p == 1 finite, as the TPU kernel does; trunc(U * c) is the f32
 // product truncated to int32, as there.
 //
 // Bound on the card, counting what a batch's real sites need (S' sites with
-// a count >= 1, R of their reads, T iterations, 20 draws):
-//   operations  S' * T * (20 adds + 1 exp) + R log1p
-//               ~3.4e8 at the production batch (16,384 sites, T = 1000),
-//               ~5 us at 67 TFLOP/s f32;
-//   bytes       p once (4 R), U once (80 T), offsets and counts (8 S),
+// a count >= 1, R of their reads, T iterations, n = n_samples draws):
+//   operations  S' * T * (n adds + 1 exp) + R log1p
+//               ~3.4e8 at the production batch (16,384 sites, T = 1000,
+//               n = 20), ~5 us at 67 TFLOP/s f32;
+//   bytes       p once (4 R), U once (4 n T), offsets and counts (8 S),
 //               site_p (4 S): ~4.3 MB, ~1.3 us at 3.35 TB/s;
-// so the bound is the operations', ~5 us.  The bound counts no gathers and
+// so the bound is the operations', ~5 us.  A site past the staged cap
+// (mc_long_site_kernel, below) needs only its draws: T (2 n + 1)
+// operations and 8 n T bytes of p and U.  The bound counts no gathers and
 // no index arithmetic; every one of the S' * T * 20 = 3.3e8 draws needs
 // both, which gives this design two floors of its own at the production
 // batch (132 SMs at 1.98 GHz):
@@ -55,15 +61,17 @@
 //  * U is loaded once per block, not once per site.  A persistent grid (the
 //    blocks that fit on the card at once; twice as many gained nothing in
 //    the sweep, 0.1262 ms against 0.1244 ms) walks groups of sites.  Thread k of kThreads keeps iterations t = k + kThreads * i,
-//    i < kIters, and holds their 20 x kIters draws in registers (80 floats at
-//    T <= 1,024) for all of its block's sites, so U passes from L2 once per
-//    block (~21 MB a batch, not 1.3 GB) and a draw costs no global load.
-//    For T > kThreads * kIters the draws are loaded again per site and
-//    iteration chunk; each site's sum keeps its order across the chunks.
+//    i < kHeld, and holds their kSamples x kHeld draws in registers (80
+//    floats at 20 draws and T <= 1,024; kHeld shrinks as kSamples grows)
+//    for all of its block's sites, so U passes from L2 once per block (~21
+//    MB a batch, not 1.3 GB) and a draw costs no global load.  For T >
+//    kThreads * kHeld the draws are loaded again per site and iteration
+//    chunk; each site's sum keeps its order across the chunks, whatever
+//    kHeld (thread k adds t = k, k + kThreads, ... in order).
 //  * No F2I and no integer min.  The index is computed on the FP32 pipe:
 //    x = U * c rounded to nearest, as before; then __fadd_rz(x, 2^23) has
-//    the bits 0x4B000000 + trunc(x), exactly, for 0 <= x < 2^23 (c <=
-//    57,344 < 2^23).  The product may round up to exactly c, so the staged
+//    the bits 0x4B000000 + trunc(x), exactly, for 0 <= x < 2^23 (c <
+//    2^23).  The product may round up to exactly c, so the staged
 //    l holds l[c] = l[c - 1].  Both give the old index bit for bit.  The
 //    0x4B000000 and the 4-byte stride fold into one IMAD a draw.
 //  * Staging off the critical path.  A group of up to kGroup sites is
@@ -73,8 +81,18 @@
 //    the counts and offsets of the group after it, so no global load waits
 //    in the draw loop.  A batch whose largest site does not fit twice in
 //    kStagingBytes takes one buffer and loads p directly; any count up to
-//    the cap fits (57,345 floats, 224 KB).  Every branch on a count is
+//    57,344 fits (57,345 floats, 224 KB).  Every branch on a count is
 //    uniform across the block.
+//  * Sites longer than that (up to 2^23 - 1 reads) take mc_long_site_kernel
+//    in a second launch: a block a site, which computes each draw's l from
+//    p in device memory (n_samples log1p an iteration, not one a read: 2e4
+//    at 1,000 iterations against 1e6 for a 1,000,000-read site) and takes
+//    the index with the same __fadd_rz and the clamp to c - 1 as an integer
+//    min.  The same staged values, index, sum order over j, f64 sum order
+//    over t and reduction: the same site_p bits as this kernel would give
+//    (scripts and chip_smoke.py send short sites there to show it).
+//    mc_site_kernel marks such a site NaN, and the long kernel, after it on
+//    the stream, writes its value.
 //  * Each thread runs kTogether sites side by side over the same draws, for
 //    more independent sums (in the sweep at the production batch: 1 site at
 //    a time 0.1265 ms, 2 sites 0.1244 ms, 4 sites 0.1218 ms; a site past the
@@ -88,7 +106,7 @@
 //    before the launch, so this happens only when the arrays it checked are
 //    not the ones on the card; then no load or store leaves p or the slot.
 //  * Every site_p bit as in the kernel before it: the same staged values,
-//    indices and f32 sum in the order j = 0..19, exp of it added to an f64
+//    indices and f32 sum in the order j = 0..n_samples-1, exp of it added to an f64
 //    sum for t = k, k + 256, k + 512, ..., then the pairs a shuffle-down
 //    tree adds within each warp, and the warps in order.  No float atomics,
 //    so repeats are bit-identical, and a site's value does not depend on the
@@ -115,10 +133,21 @@ constexpr int kIters = 4;      // iterations a thread holds the draws of
 constexpr int kMinBlocks = 2;  // blocks per SM asked of __launch_bounds__
 constexpr int kGroup = 8;     // sites staged together, at most
 constexpr int kTogether = 4;   // sites whose draws a thread runs side by side
-constexpr int kSamples = 20;   // draws per iteration
+#ifndef M6A_SAMPLES
+#define M6A_SAMPLES 20
+#endif
+constexpr int kSamples = M6A_SAMPLES;  // draws per iteration
+static_assert(kSamples >= 1, "at least one draw an iteration");
+// a thread holds kHeld x kSamples draws in registers: kIters x 20 = 80 at
+// the default; fewer iterations (at least one) for more draws, and past 80
+// draws one block an SM's registers
+constexpr int kDrawRegisters = kIters * 20;
+constexpr int kHeld = kIters * kSamples <= kDrawRegisters ? kIters
+                      : (kDrawRegisters / kSamples > 1 ? kDrawRegisters / kSamples : 1);
+constexpr int kBlocks = kHeld * kSamples <= kDrawRegisters ? kMinBlocks : 1;
 constexpr int kWarps = kThreads / 32;
 static_assert((kThreads & (kThreads - 1)) == 0, "the row spread takes kThreads a power of two");
-constexpr int kChunk = kThreads * kIters;
+constexpr int kChunk = kThreads * kHeld;
 constexpr int kSharedLimitBytes = 232448;  // what one block may opt into on sm_90
 constexpr int kStagingBytes = 72 * 1024;   // a launch's staged l, unless one site needs more
 constexpr int kDefaultSharedBytes = 48 * 1024;
@@ -147,17 +176,38 @@ __device__ __forceinline__ void commit_copies() { asm volatile("cp.async.commit_
 
 __device__ __forceinline__ void wait_copies() { asm volatile("cp.async.wait_all;" ::: "memory"); }
 
-// The draws of iterations base + threadIdx.x + kThreads * i, i < kIters.
-__device__ __forceinline__ void load_draws(float (&draws)[kIters][kSamples],
+// The draws of iterations base + threadIdx.x + kThreads * i, i < kHeld.
+__device__ __forceinline__ void load_draws(float (&draws)[kHeld][kSamples],
                                            const float* __restrict__ u, int n_iters,
                                            int base) {
 #pragma unroll
-  for (int i = 0; i < kIters; ++i) {
+  for (int i = 0; i < kHeld; ++i) {
     const int t = base + i * kThreads + static_cast<int>(threadIdx.x);
 #pragma unroll
     for (int j = 0; j < kSamples; ++j)
       draws[i][j] = t < n_iters ? __ldg(u + static_cast<int64_t>(j) * n_iters + t) : 0.f;
   }
+}
+
+// The sum of a site's kThreads f64 sums `a` (one a thread), in lane 0 of the
+// warp that calls it: each warp's slice summed in place with the pairs a
+// shuffle-down reduction adds (own value + the one o lanes up), then the
+// warps' sums in order.
+__device__ __forceinline__ double threads_total(double* a, int lane) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    for (int i = lane; i < kWarps * o; i += 32) {
+      double* v = a + (i / o) * 32 + i % o;
+      v[0] += v[o];
+    }
+    __syncwarp();
+  }
+  double total = 0.0;
+  if (lane == 0) {
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) total += a[32 * w];
+  }
+  return total;
 }
 
 // p of read r of a site's c + 1 staged values (read c is read c - 1 again).
@@ -173,7 +223,7 @@ __device__ __forceinline__ const float* site_read(const float* __restrict__ p, i
 // turn into l itself, so no barrier sits between the copy and its use).
 // Otherwise one buffer, staged from p directly.  meta holds each site's
 // count and offset, copied two groups ahead, in a ring of four groups.
-__global__ void __launch_bounds__(kThreads, kMinBlocks)
+__global__ void __launch_bounds__(kThreads, kBlocks)
 mc_site_kernel(const float* __restrict__ p, const int32_t* __restrict__ offsets,
                const int32_t* __restrict__ counts, const float* __restrict__ u,
                int64_t n_sites, int64_t n_reads, int n_iters, int group, int slot,
@@ -189,7 +239,7 @@ mc_site_kernel(const float* __restrict__ p, const int32_t* __restrict__ offsets,
   const int n_chunks = (n_iters + kChunk - 1) / kChunk;
   const int64_t grid = gridDim.x;
   const int64_t n_groups = (n_sites + group - 1) / group;
-  float draws[kIters][kSamples];
+  float draws[kHeld][kSamples];
   bool held = false;
 
   // counts and offsets of the k-th group of this block into ring slot k % 4
@@ -241,19 +291,8 @@ mc_site_kernel(const float* __restrict__ p, const int32_t* __restrict__ offsets,
     const int g = tid >> 5, lane = tid & 31;
     const int64_t site = (blockIdx.x + k * grid) * group + g;
     if (g >= group || site >= n_sites) return;  // uniform across the warp
-    double* a = sums_of(k) + g * kThreads;
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) {
-      for (int i = lane; i < kWarps * o; i += 32) {
-        double* v = a + (i / o) * 32 + i % o;
-        v[0] += v[o];
-      }
-      __syncwarp();
-    }
+    const double total = threads_total(sums_of(k) + g * kThreads, lane);
     if (lane == 0) {
-      double total = 0.0;
-#pragma unroll
-      for (int w = 0; w < kWarps; ++w) total += a[32 * w];
       const int c = meta[k % 4][g][0];
       site_p[site] = c > 0             ? static_cast<float>(1.0 - total / n_iters)
                      : c == kBadSite ? __int_as_float(0x7fc00000)  // NaN
@@ -322,18 +361,18 @@ mc_site_kernel(const float* __restrict__ p, const int32_t* __restrict__ offsets,
           load_draws(draws, u, n_iters, base);
           held = n_chunks == 1;
         }
-        // the kIters sums of each site run side by side, each in the order
-        // j = 0..19; an iteration past n_iters (its draws are 0, so it
+        // the kHeld sums of each site run side by side, each in the order
+        // j = 0..kSamples-1; an iteration past n_iters (its draws are 0, so it
         // reads l[0]) adds nothing to acc
-        float s[kTogether][kIters];
+        float s[kTogether][kHeld];
 #pragma unroll
         for (int q = 0; q < kTogether; ++q)
 #pragma unroll
-          for (int i = 0; i < kIters; ++i) s[q][i] = 0.f;
+          for (int i = 0; i < kHeld; ++i) s[q][i] = 0.f;
 #pragma unroll
         for (int j = 0; j < kSamples; ++j) {
 #pragma unroll
-          for (int i = 0; i < kIters; ++i) {
+          for (int i = 0; i < kHeld; ++i) {
 #pragma unroll
             for (int q = 0; q < kTogether; ++q) {
               const float x = __fmul_rn(draws[i][j], cf[q]);
@@ -346,11 +385,11 @@ mc_site_kernel(const float* __restrict__ p, const int32_t* __restrict__ offsets,
         // leaves acc as it is
 #pragma unroll
         for (int q = 0; q < kTogether; ++q) {
-          float e[kIters];
+          float e[kHeld];
 #pragma unroll
-          for (int i = 0; i < kIters; ++i) e[i] = expf(s[q][i]);
+          for (int i = 0; i < kHeld; ++i) e[i] = expf(s[q][i]);
 #pragma unroll
-          for (int i = 0; i < kIters; ++i)
+          for (int i = 0; i < kHeld; ++i)
             acc[q] += base + i * kThreads + tid < n_iters ? static_cast<double>(e[i]) : 0.0;
         }
       }
@@ -364,6 +403,68 @@ mc_site_kernel(const float* __restrict__ p, const int32_t* __restrict__ offsets,
   if (k > 0) finish(k - 1);
 }
 
+// Sites with count > long_from, which mc_site_kernel's launch does not
+// stage: a block a site, the blockIdx.x-th of them in site order and every
+// gridDim.x-th after it.  Each thread takes iterations t = threadIdx.x +
+// kThreads i in order, as mc_site_kernel's threads do, and its draws' l
+// from p in device memory.  A count of 2^23 or more, or a span outside p,
+// gives NaN.
+__global__ void __launch_bounds__(kThreads)
+mc_long_site_kernel(const float* __restrict__ p, const int32_t* __restrict__ offsets,
+                    const int32_t* __restrict__ counts, const float* __restrict__ u,
+                    int64_t n_sites, int64_t n_reads, int n_iters, int long_from,
+                    float* __restrict__ site_p) {
+  __shared__ double sums[kThreads];
+  __shared__ int found[kThreads];       // a chunk's long sites, by position in the chunk
+  __shared__ int warp_found[kWarps];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  int64_t seen = 0;  // long sites before this chunk of sites
+  for (int64_t base = 0; base < n_sites; base += kThreads) {
+    const bool is_long = base + tid < n_sites && counts[base + tid] > long_from;
+    const unsigned ballot = __ballot_sync(0xffffffffu, is_long);
+    if (lane == 0) warp_found[warp] = __popc(ballot);
+    __syncthreads();
+    int before = 0, in_chunk = 0;
+    for (int w = 0; w < kWarps; ++w) {
+      before += w < warp ? warp_found[w] : 0;
+      in_chunk += warp_found[w];
+    }
+    if (is_long) found[before + __popc(ballot & ((1u << lane) - 1u))] = tid;
+    __syncthreads();
+    for (int m = 0; m < in_chunk; ++m) {
+      if ((seen + m) % gridDim.x != blockIdx.x) continue;  // uniform across the block
+      const int64_t site = base + found[m];
+      const int c = counts[site], offset = offsets[site];
+      if (c >= (1 << 23) || offset < 0 || static_cast<int64_t>(offset) + c > n_reads) {
+        if (tid == 0) site_p[site] = __int_as_float(0x7fc00000);  // NaN
+        continue;
+      }
+      const float cf = static_cast<float>(c);
+      const unsigned last = static_cast<unsigned>(c - 1);
+      double acc = 0.0;
+      for (int t = tid; t < n_iters; t += kThreads) {
+        float sum = 0.f;
+#pragma unroll 4
+        for (int d = 0; d < kSamples; ++d) {
+          const float x = __fmul_rn(__ldg(u + static_cast<int64_t>(d) * n_iters + t), cf);
+          const unsigned r = __float_as_uint(__fadd_rz(x, 8388608.f)) - kMagicBits;  // trunc(x)
+          sum += clamped_log1m(__ldg(p + offset + (r < last ? r : last)));
+        }
+        acc += static_cast<double>(expf(sum));
+      }
+      sums[tid] = acc;
+      __syncthreads();
+      if (warp == 0) {
+        const double total = threads_total(sums, lane);
+        if (lane == 0) site_p[site] = static_cast<float>(1.0 - total / n_iters);
+      }
+      __syncthreads();
+    }
+    seen += in_chunk;
+    __syncthreads();  // found and warp_found are written again
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -371,7 +472,7 @@ extern "C" {
 // MC site probabilities of n_sites sites on `stream`, p holding n_reads
 // values.  The caller passes the largest count (which sizes the staging)
 // and checks that every span lies inside p; a site that breaks either gives
-// NaN.  n_samples must be 20.  Returns the CUDA error code of the launch
+// NaN.  n_samples must be kSamples.  Returns the CUDA error code of the launch
 // (0 = success); cudaErrorInvalidValue for arguments the kernel does not
 // take.
 int mc_site_launch(const float* p, const int32_t* offsets, const int32_t* counts,
@@ -415,6 +516,22 @@ int mc_site_launch(const float* p, const int32_t* offsets, const int32_t* counts
   mc_site_kernel<<<grid, kThreads, shared, stream>>>(p, offsets, counts, u, n_sites, n_reads, n_iters,
                                                       static_cast<int>(group), static_cast<int>(slot),
                                                       pipelined, kMagicBits * 4u, site_p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The sites with count > long_from, after mc_site_launch on the same
+// `stream` (which gives them NaN): `grid` blocks, at most one a site.  The
+// caller checks every count below 2^23 and every span inside p; a site
+// that breaks either gives NaN.  n_samples must be kSamples.  Returns the
+// CUDA error code of the launch (0 = success); cudaErrorInvalidValue for
+// arguments the kernel does not take.
+int mc_long_site_launch(const float* p, const int32_t* offsets, const int32_t* counts,
+                        const float* u, float* site_p, int64_t n_sites, int64_t n_reads,
+                        int n_iters, int n_samples, int long_from, int grid, void* stream_ptr) {
+  if (n_sites <= 0 || grid <= 0) return static_cast<int>(cudaSuccess);
+  if (n_samples != kSamples || n_iters < 1 || long_from < 0) return static_cast<int>(cudaErrorInvalidValue);
+  mc_long_site_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream_ptr)>>>(
+      p, offsets, counts, u, n_sites, n_reads, n_iters, long_from, site_p);
   return static_cast<int>(cudaGetLastError());
 }
 

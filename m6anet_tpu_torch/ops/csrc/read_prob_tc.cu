@@ -12,9 +12,15 @@
 //   fused_read_probability  m6anet_tpu/ops/encoder_kernel.py:207 (policies :108-193)
 //   fused_inference         m6anet_tpu/ops/fused_infer_kernel.py:134 (body :83-92)
 //
-// What it computes, per read r (x = [features[r, 0:9], emb[k0], emb[k1],
-// emb[k2]], eval BatchNorm folded into W1', b1'), as the JAX kernel
-// _fused_infer_kernel_t (m6anet_tpu/ops/fused_infer_kernel.py:304-348):
+// What it computes, per read r (x = [features[r, 0:3P], emb[k0], ...,
+// emb[k(P-1)]], n_in = 3P + PE inputs, eval BatchNorm folded into W1', b1'),
+// as the JAX kernel _fused_infer_kernel_t
+// (m6anet_tpu/ops/fused_infer_kernel.py:304-348), at the model's widths:
+// P k-mer positions, an embedding of E dimensions over V k-mers, hidden
+// widths H1 and H2 (the released models: 3, 2, 66, 150, 32).  The widths
+// are compile-time constants, the M6A_* macros below: by default the
+// released models', else set by ops/fused_infer_kernel.py::kernel_defines
+// (one library a set of widths, built at first use).
 //
 //   f32x3  emb value hi + lo (hi = bf16(e), lo = bf16(e - hi));
 //          h1 = relu(W1' x + b1') in full f32, in fused_infer.cu's operation
@@ -26,11 +32,13 @@
 //
 // with hi/lo splits rounded to nearest even and every product summed in f32.
 //
-// Bound on an H100 SXM (1,048,576 reads): the reads move 45 MB (0.0135 ms
-// at 3.35 TB/s).  f32x3: layer 1 is 4.72 GFLOP on the FP32 cores (0.070 ms
-// at 67 TFLOP/s), the three-pass layer 2 and the head 30.4 GFLOP of bf16 on
-// the tensor cores (0.031 ms at 989 TFLOP/s, another pipe): 0.070 ms.
-// bf16: 14.85 GFLOP of bf16, 0.015 ms.
+// Bound on an H100 SXM, per read: 13 P + 4 bytes (features, int8 k-mer
+// ids, p); f32x3: layer 1's 2 n_in H1 FLOP on the FP32 cores (67 TFLOP/s)
+// beside the three-pass layer 2 and head's 6 (H1 H2 + H2) FLOP of bf16 on
+// the tensor cores (989 TFLOP/s, another pipe); bf16: 2 (n_in H1 + H1 H2 +
+// H2) FLOP on the tensor cores.  At the released widths and 1,048,576
+// reads: 45 MB (0.0135 ms at 3.35 TB/s); f32x3 4.72 GFLOP f32 (0.070 ms)
+// and 30.4 GFLOP bf16 (0.031 ms): 0.070 ms; bf16 14.85 GFLOP, 0.015 ms.
 //
 // Design.  The kernel before this one (a warp per 16 reads on mma.sync)
 // issued about half of its slots: each tile waited for its scalar input
@@ -51,7 +59,11 @@
 //    setmaxnreg moves the producer's registers to them.  Each consumer
 //    thread frees its stage as soon as its reads' inputs are in registers.
 //    Each mode has its own block (Cfg): f32x3 2 consumer warpgroups of 2
-//    tiles an item, bf16 3 of 1.
+//    tiles an item, bf16 3 of 1, at the released widths; wider models hold
+//    more a tile, so f32x3_plan gives f32x3 1 tile where H2 > 32 or n_in >
+//    32 and bf16_plan 2 consumer warpgroups (168 registers a thread in a
+//    block of 384, against 128 in 512) where H1 > 160 or H2 > 32, each with
+//    fewer stages where the block would pass a block's shared memory.
 //  * The weights are staged once per block (the mode's range of the image;
 //    prepare_fused_params_t lays it out).  Each wgmma B operand (bf16(W2),
 //    W2 - bf16(W2), bf16(W1')) sits in the canonical K-major layout without
@@ -65,25 +77,34 @@
 //    tiles, so the per-lane arithmetic is the earlier kernel's.
 //  * f32x3: layer 1 stays on the FP32 cores in fused_infer.cu's FMA order
 //    (h1 bit for bit as before), each lane for 2 reads of each of its
-//    tiles and the 4 units its A fragment holds per k step (the padded
-//    units 152-159 of step 9 are skipped: their h1 is 0).  Layer 2 runs on
-//    wgmma.m64n32k16 with A from registers: W2lo.h1hi then W2hi.h1lo
-//    accumulate in one accumulator, step by step; each step's W2hi.h1hi
+//    tiles and the 4 units its A fragment holds per k step (a group of 8
+//    padded units past H1, 152-159 of step 9 at H1 = 150, is skipped: its
+//    h1 is 0).  A lane keeps its reads' n_in inputs in registers (4 x 15
+//    at the released widths); where they do not fit (f32x3_plan: more
+//    than 60 values) it copies them from the stage into a shared-memory
+//    row per read (an odd stride, so the 8 rows a warp reads at once sit
+//    in 8 banks) and layer 1 reads them there.  Layer 2 runs on
+//    wgmma.m64nNk16 (N = H2 padded to 8, 32 at the released widths) with
+//    A from registers: W2lo.h1hi then W2hi.h1lo accumulate in one
+//    accumulator, step by step; each step's W2hi.h1hi
 //    goes into its own accumulator (scale-d = 0) and is added to the
 //    running f32 sum in step order.  The A fragments are double-buffered:
 //    layer 1 of step j + 1 runs while step j's wgmma is in flight.
-//  * bf16: layer 1 is one wgmma.m64n160k16 per tile (A the packed inputs,
-//    k = 15 zero, the bias never folded into the bf16 operand).  Its
-//    accumulators of n8 tiles 2j, 2j + 1 are exactly layer 2's A fragment
+//  * bf16: layer 1 is one wgmma.m64n160k16 per tile at the released
+//    widths (A the packed inputs, k = 15 zero, the bias never folded into
+//    the bf16 operand); at others ceil(n_in / 16) k steps into one
+//    accumulator, each as wgmma of N = H1 padded to 16 in pieces of at most
+//    64 (160 whole).  Its accumulators of n8 tiles 2j, 2j + 1 are exactly
+//    layer 2's A fragment
 //    of k step j: bias, relu and the bf16 pack happen in registers, so h1
 //    never leaves them.  Layer 2 takes one zero-accumulator wgmma a step,
 //    f32-added in order; its accumulator is double-buffered under
 //    wgmma.wait_group 1, so two steps are in flight.
 //  * Sums.  The tensor cores add a k16 step's products and truncate the
 //    sum toward zero; the zero-accumulator steps and f32 adds keep that
-//    from drifting over ten steps (the plain version models the same
+//    from drifting over the steps (the plain version models the same
 //    truncated k16 chunks).
-//  * The head (32 -> 1) is a dot over the lane's 8 entries of a read's
+//  * The head (H2 -> 1) is a dot over the lane's H2 / 4 entries of a read's
 //    layer-2 accumulators, summed across the quad with two xor shuffles;
 //    lane t = 0 stores read g, t = 1 read g + 8.  Repeats are
 //    bit-identical (no atomics), and a read's p does not depend on its
@@ -101,52 +122,78 @@
 
 namespace {
 
-constexpr int kFeat = 9;
-constexpr int kPos = 3;
-constexpr int kVocab = 66;
-constexpr int kEmb = 2;
-constexpr int kIn = kFeat + kPos * kEmb;  // 15
-constexpr int kH1Pad = 160;               // 150 hidden units, zero padded
-constexpr int kH2 = 32;
-constexpr int kKSteps = 10;   // layer 2's k16 steps
-constexpr int kTiles1 = 20;   // layer 1's n8 tiles (bf16)
-constexpr int kTiles2 = 4;    // layer 2's n8 tiles
-static_assert(kKSteps * 16 == kH1Pad && kTiles1 * 8 == kH1Pad && kTiles2 * 8 == kH2, "tiles");
+// The widths (the released models' by default)
+#ifndef M6A_POS
+#define M6A_POS 3
+#endif
+#ifndef M6A_EMB
+#define M6A_EMB 2
+#endif
+#ifndef M6A_VOCAB
+#define M6A_VOCAB 66
+#endif
+#ifndef M6A_H1
+#define M6A_H1 150
+#endif
+#ifndef M6A_H2
+#define M6A_H2 32
+#endif
+constexpr int kPos = M6A_POS;
+constexpr int kFeat = 3 * kPos;
+constexpr int kVocab = M6A_VOCAB;
+constexpr int kEmb = M6A_EMB;
+constexpr int kIn = kFeat + kPos * kEmb;        // n_in, 15
+constexpr int kH1 = M6A_H1;
+constexpr int kH2 = M6A_H2;
+constexpr int kH1Pad = (kH1 + 15) / 16 * 16;    // hidden units, zero padded (160)
+constexpr int kH2Pad = (kH2 + 7) / 8 * 8;       // (32)
+constexpr int kKSteps = kH1Pad / 16;   // layer 2's k16 steps (10)
+constexpr int kTiles1 = kH1Pad / 8;    // layer 1's n8 tiles, bf16 (20)
+constexpr int kTiles2 = kH2Pad / 8;    // layer 2's n8 tiles (4)
+constexpr int kK1Steps = (kIn + 15) / 16;       // layer 1's k16 steps, bf16 (1)
+constexpr int kW1Stride = (kIn + 4) / 4 * 4;    // f32x3 layer 1's row: n_in weights, the bias (16)
+constexpr int kW1Quads = kW1Stride / 4;
+constexpr int kEmbWords = (kVocab * kEmb + 3) / 4 * 4;
+static_assert(kKSteps * 16 == kH1Pad && kTiles1 * 8 == kH1Pad && kTiles2 * 8 == kH2Pad, "tiles");
+static_assert(kH1Pad <= 256 && kH2Pad <= 64, "the envelope: kernel_limit in ops/fused_infer_kernel.py");
 
-// Weight image (32-bit words), written by prepare_fused_params_t (a bf16x2
-// word holds the smaller k in its low half):
-//   W1F  [10 k steps][4 slots c][4 quads q][4 threads t] float4: f32x3
+// Weight image (32-bit words), written by prepare_fused_params_t
+// (ops/fused_infer_kernel.py::tc_layout; a bf16x2 word holds the smaller k
+// in its low half):
+//   W1F  [kKSteps][4 slots c][kW1Quads quads q][4 threads t] float4: f32x3
 //        layer 1, floats 4q..4q+3 of row u = 16j + 2t + (c & 1) + 8 (c >> 1)
-//        of [W1'[u, 0:15], b1'[u]] (zero for u >= 150)
-//   EMBX [66][2] f32: hi + lo of the embedding (f32x3)
-//   W3L  [32] f32: bf16(w3 - bf16(w3)) (f32x3)
-//   W2L  [10 k steps][4 n groups][2 k halves][8 n][8 k] bf16: W2 - bf16(W2)
+//        of [W1'[u, 0:n_in], b1'[u], zeros] (zero for u >= H1)
+//   EMBX [V][E] f32: hi + lo of the embedding (f32x3), zeros to kEmbWords
+//   W3L  [kH2Pad] f32: bf16(w3 - bf16(w3)) (f32x3)
+//   W2L  [kKSteps][kTiles2 n groups][2 k halves][8 n][8 k] bf16: W2 - bf16(W2)
 //        at n = 8 group + row, k = 16 step + 8 half + col (f32x3)
 //   W2H  the same for bf16(W2) (both modes)
-//   B2 [32], W3H [32] bf16(w3), B3 [1] + zero padding (both modes)
-//   W1H  [20 n groups][2 k halves][8 n][8 k] bf16: bf16(W1'), k = 15 zero
-//        (bf16)
-//   B1   [160] f32: b1', zero past 150 (bf16)
-//   EMBH [66][2] f32: bf16(e) (bf16)
+//   B2 [kH2Pad], W3H [kH2Pad] bf16(w3), B3 [1] + zero padding (both modes)
+//   W1H  [kK1Steps][kTiles1 n groups][2 k halves][8 n][8 k] bf16: bf16(W1'),
+//        zero for k >= n_in (bf16)
+//   B1   [kH1Pad] f32: b1', zero past H1 (bf16)
+//   EMBH [V][E] f32: bf16(e), zeros to kEmbWords (bf16)
 constexpr int kTcOffW1F = 0;
-constexpr int kTcOffEmbX = kTcOffW1F + kKSteps * 4 * 4 * 4 * 4;   // 2560
-constexpr int kTcOffW3L = kTcOffEmbX + kVocab * kEmb;             // 2692
-constexpr int kTcOffW2L = kTcOffW3L + kH2;                        // 2724
-constexpr int kTcOffW2H = kTcOffW2L + kKSteps * kTiles2 * 32 * 2;  // 5284
-constexpr int kTcOffB2 = kTcOffW2H + kKSteps * kTiles2 * 32 * 2;   // 7844
-constexpr int kTcOffW3H = kTcOffB2 + kH2;                         // 7876
-constexpr int kTcOffB3 = kTcOffW3H + kH2;                         // 7908
-constexpr int kTcOffW1H = kTcOffB3 + 4;                           // 7912
-constexpr int kTcOffB1 = kTcOffW1H + kTiles1 * 32 * 2;            // 9192
-constexpr int kTcOffEmbH = kTcOffB1 + kH1Pad;                     // 9352
-constexpr int kTcWords = kTcOffEmbH + kVocab * kEmb;              // 9484
+constexpr int kTcOffEmbX = kTcOffW1F + kKSteps * 4 * kW1Stride * 4;  // 2560
+constexpr int kTcOffW3L = kTcOffEmbX + kEmbWords;                     // 2692
+constexpr int kTcOffW2L = kTcOffW3L + kH2Pad;                         // 2724
+constexpr int kTcOffW2H = kTcOffW2L + kKSteps * kTiles2 * 32 * 2;     // 5284
+constexpr int kTcOffB2 = kTcOffW2H + kKSteps * kTiles2 * 32 * 2;      // 7844
+constexpr int kTcOffW3H = kTcOffB2 + kH2Pad;                          // 7876
+constexpr int kTcOffB3 = kTcOffW3H + kH2Pad;                          // 7908
+constexpr int kTcOffW1H = kTcOffB3 + 4;                               // 7912
+constexpr int kTcOffB1 = kTcOffW1H + kK1Steps * kTiles1 * 32 * 2;     // 9192
+constexpr int kTcOffEmbH = kTcOffB1 + kH1Pad;                         // 9352
+constexpr int kTcWords = kTcOffEmbH + kEmbWords;                      // 9484
 
 // The B operands' canonical K-major layout (bytes): a core matrix row of 8
-// k values, the two k halves of a k16 step, groups of 8 n, a k step of W2.
+// k values, the two k halves of a k16 step, groups of 8 n, a k step of W2
+// and of W1H.
 constexpr int kBRowBytes = 16;
 constexpr int kBLbo = 128;
 constexpr int kBSbo = 256;
 constexpr int kW2StepBytes = kTiles2 * kBSbo;  // 1024
+constexpr int kW1StepBytes = kTiles1 * kBSbo;  // 5120
 static_assert(8 * kBRowBytes == kBLbo && 2 * kBLbo == kBSbo, "core matrices back to back");
 static_assert(kKSteps * kW2StepBytes == kKSteps * kTiles2 * 32 * 2 * 4, "W2's size in the image");
 
@@ -160,7 +207,9 @@ static_assert(kTcOffW2L % 4 == 0 && kTcOffW2H % 4 == 0 && kTcOffW1H % 4 == 0 && 
 // each), and the registers setmaxnreg leaves a producer thread.
 // scripts/sweep_read_prob_tc.py rewrites them and times each build: f32x3
 // gains from 4 reads a lane (layer 1's W1 rows feed twice the reads), bf16
-// from a third consumer warpgroup (more wgmma chains in flight).
+// from a third consumer warpgroup (more wgmma chains in flight).  They hold
+// at the released widths; at others the block follows from the widths
+// (f32x3_plan, bf16_plan below).
 constexpr int kF32x3Consumers = 2;
 constexpr int kF32x3Stages = 4;
 constexpr int kF32x3Tiles = 2;
@@ -171,13 +220,64 @@ constexpr int kProducerRegs = 24;
 constexpr int kGroupThreads = 128;
 constexpr int kTileReads = 64;
 constexpr long long kWaitTrapCycles = 20000000000LL;  // ~10 s at 2 GHz
+constexpr int kSharedLimit = 232448;  // dynamic shared memory a block may opt into on sm_90
+constexpr int kLaneInputs = 60;       // f32x3 inputs a lane holds in registers: 4 reads x 15
+
+struct Plan {
+  int consumers;
+  int stages;
+  int tiles;       // 64-read tiles an item
+  bool x_shared;   // f32x3: a lane's inputs wait in a shared-memory row per read
+};
+
+// Dynamic shared memory of a block of `plan`: the mode's contiguous range
+// of the image (f32x3 everything before W1H, bf16 everything from W2H on),
+// the ring's stages (an item's features and k-mer ids, each with the up to
+// 15 bytes before a misaligned start), f32x3's input rows (kIn | 1 floats a
+// read, odd so the 8 rows a warp reads at once sit in 8 banks), the ring's
+// full and empty barriers.  ops/fused_infer_kernel.py::kernel_limit checks
+// that the smallest block (one tile, 2 stages, the rows) fits.
+constexpr int stage_bytes(int tiles) { return kTileReads * tiles * kFeat * 4 + 16 + kTileReads * tiles * kPos + 16; }
+constexpr int image_bytes(bool f32x3) { return (f32x3 ? kTcOffW1H - kTcOffW1F : kTcWords - kTcOffW2H) * 4; }
+constexpr int rows_bytes(const Plan& plan) {
+  return plan.x_shared ? plan.consumers * kTileReads * plan.tiles * (kIn | 1) * 4 : 0;
+}
+constexpr int smem_bytes(bool f32x3, const Plan& plan) {
+  return image_bytes(f32x3) + plan.stages * stage_bytes(plan.tiles) + rows_bytes(plan) + 2 * plan.stages * 8;
+}
+
+// f32x3: kF32x3Tiles tiles an item where a lane's three layer-2
+// accumulators (3 kH2Pad / 2 a tile) and layer-1 rows fit its registers
+// (H2 <= 32 and n_in <= 32), else 1; a lane's inputs in registers up to
+// kLaneInputs, else in shared memory; kF32x3Stages stages, or fewer where
+// the block would pass kSharedLimit.
+constexpr Plan f32x3_plan() {
+  for (int tiles = kH2Pad <= 32 && kIn <= 32 ? kF32x3Tiles : 1; tiles >= 1; --tiles) {
+    for (int stages = kF32x3Stages; stages >= kF32x3Consumers; stages -= kF32x3Consumers) {
+      const Plan plan{kF32x3Consumers, stages, tiles, 2 * tiles * kIn > kLaneInputs};
+      if (smem_bytes(true, plan) <= kSharedLimit) return plan;
+    }
+  }
+  return Plan{kF32x3Consumers, kF32x3Consumers, 1, 2 * kIn > kLaneInputs};  // past the envelope
+}
+
+// bf16: a consumer thread holds kH1Pad / 2 layer-1 accumulators; kBf16Consumers
+// warpgroups (128 registers a thread in a block of 512) up to the released
+// 160 / 32, else 2 (168 in a block of 384) over 4 stages, or 2 where the
+// block would pass kSharedLimit.
+constexpr Plan bf16_plan() {
+  const Plan plan = kH1Pad <= 160 && kH2Pad <= 32 ? Plan{kBf16Consumers, kBf16Stages, kBf16Tiles, false}
+                                                  : Plan{2, 4, kBf16Tiles, false};
+  return smem_bytes(false, plan) <= kSharedLimit ? plan : Plan{2, 2, kBf16Tiles, false};
+}
 
 template <int Mode>
 struct Cfg {
   static constexpr bool kF32x3 = Mode == kModeF32x3;
-  static constexpr int kConsumers = kF32x3 ? kF32x3Consumers : kBf16Consumers;
-  static constexpr int kStages = kF32x3 ? kF32x3Stages : kBf16Stages;
-  static constexpr int kTilesPerGroup = kF32x3 ? kF32x3Tiles : kBf16Tiles;
+  static constexpr Plan kPlan = kF32x3 ? f32x3_plan() : bf16_plan();
+  static constexpr int kConsumers = kPlan.consumers;
+  static constexpr int kStages = kPlan.stages;
+  static constexpr int kTilesPerGroup = kPlan.tiles;
   static constexpr int kThreads = kGroupThreads * (kConsumers + 1);
   // Item q goes to consumer warpgroup q % kConsumers and stage q % kStages,
   // so every use of a stage goes to the same warpgroup: it has seen the
@@ -192,19 +292,22 @@ struct Cfg {
   static_assert(kItemFeatBytes % 16 == 0 && kItemKmerBytes % 16 == 0, "items start 16-byte aligned");
   // a stage holds an item and the up to 15 bytes before it of a misaligned start
   static constexpr int kStageFeatBytes = kItemFeatBytes + 16;
-  static constexpr int kStageBytes = kStageFeatBytes + kItemKmerBytes + 16;
+  static constexpr int kStageBytes = stage_bytes(kTilesPerGroup);
   static_assert(kStageBytes % 16 == 0, "stages stay 16-byte aligned");
   // registers a consumer thread, after setmaxnreg (with two or more consumer groups)
   static constexpr int kConsumerRegs = (65536 / kGroupThreads - kProducerRegs) / kConsumers / 8 * 8;
   static_assert(kConsumers < 2 || kConsumerRegs <= 256, "setmaxnreg takes at most 256");
-  // shared memory: the mode's contiguous range of the image (f32x3
-  // everything before W1H, bf16 everything from W2H on), the ring, its
-  // full and empty barriers
+  static constexpr bool kXShared = kF32x3 && kPlan.x_shared;
+  static constexpr int kXStride = kIn | 1;
+  // shared memory, in smem_bytes' order
   static constexpr int kBegin = kF32x3 ? kTcOffW1F : kTcOffW2H;
-  static constexpr int kWords = (kF32x3 ? kTcOffW1H : kTcWords) - kBegin;
+  static constexpr int kWords = image_bytes(kF32x3) / 4;
   static constexpr int kStagesAt = kWords * 4;  // 16-byte aligned
-  static constexpr int kBarriersAt = kStagesAt + kStages * kStageBytes;
-  static constexpr int kSmemBytes = kBarriersAt + 2 * kStages * 8;
+  static constexpr int kRowsAt = kStagesAt + kStages * kStageBytes;
+  static constexpr int kBarriersAt = kRowsAt + rows_bytes(kPlan);
+  static constexpr int kSmemBytes = smem_bytes(kF32x3, kPlan);
+  static_assert(kBarriersAt + 2 * kStages * 8 == kSmemBytes && kSmemBytes <= kSharedLimit,
+                "the envelope: kernel_limit in ops/fused_infer_kernel.py");
 };
 using F32x3 = Cfg<kModeF32x3>;
 
@@ -269,40 +372,148 @@ __device__ __forceinline__ void fence_operands(float (&d)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// d (+)= a . B over one m64n32k16 step: A from registers, B by descriptor;
-// scale_d = 0 writes the product alone
-__device__ __forceinline__ void wgmma_n32(float (&d)[16], const uint32_t (&a)[4], uint64_t desc, int scale_d) {
+// d (+)= a . B over one m64nNk16 step: A from registers, B by descriptor;
+// scale_d = 0 writes the product alone.  The N this file takes: layer 2's
+// H2 padded to 8 (at most 64), and bf16 layer 1's pieces (16 to 64, or 160
+// whole).
+template <int N>
+__device__ __forceinline__ void wgmma(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t desc, int scale_d);
+
+template <>
+__device__ __forceinline__ void wgmma<8>(float (&d)[4], const uint32_t (&a)[4], uint64_t desc, int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %9, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3"
+      "}, {%4, %5, %6, %7}, %8, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma<16>(float (&d)[8], const uint32_t (&a)[4], uint64_t desc, int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %13, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma<24>(float (&d)[12], const uint32_t (&a)[4], uint64_t desc, int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %17, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n24k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11"
+      "}, {%12, %13, %14, %15}, %16, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma<32>(float (&d)[16], const uint32_t (&a)[4], uint64_t desc, int scale_d) {
   asm volatile(
       "{\n .reg .pred p;\n setp.ne.b32 p, %21, 0;\n"
-      " wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
-      "{%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+      " wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
 }
 
-// d = a . B over one m64n160k16 step (layer 1 of bf16; scale-d = 0)
-__device__ __forceinline__ void wgmma_n160(float (&d)[80], const uint32_t (&a)[4], uint64_t desc) {
+template <>
+__device__ __forceinline__ void wgmma<40>(float (&d)[20], const uint32_t (&a)[4], uint64_t desc, int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %25, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n40k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19"
+      "}, {%20, %21, %22, %23}, %24, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma<48>(float (&d)[24], const uint32_t (&a)[4], uint64_t desc, int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %29, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
+      "%20, %21, %22, %23"
+      "}, {%24, %25, %26, %27}, %28, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),
+        "+f"(d[22]), "+f"(d[23])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma<56>(float (&d)[28], const uint32_t (&a)[4], uint64_t desc, int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %33, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n56k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
+      "%20, %21, %22, %23, %24, %25, %26, %27"
+      "}, {%28, %29, %30, %31}, %32, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),
+        "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma<64>(float (&d)[32], const uint32_t (&a)[4], uint64_t desc, int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
+      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),
+        "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]),
+        "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma<160>(float (&d)[80], const uint32_t (&a)[4], uint64_t desc, int scale_d) {
   asm volatile(
       "{\n .reg .pred p;\n setp.ne.b32 p, %85, 0;\n"
-      " wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
-      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
-      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79}, "
-      "{%80, %81, %82, %83}, %84, p, 1, 1, 0;\n}\n"
+      " wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
+      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, "
+      "%74, %75, %76, %77, %78, %79"
+      "}, {%80, %81, %82, %83}, %84, p, 1, 1, 0;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
-        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
-        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(0));
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),
+        "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]),
+        "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),
+        "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]),
+        "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]),
+        "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+        "+f"(d[78]), "+f"(d[79])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+}
+
+// the accumulators of n8 tiles [n0 / 8, n0 / 8 + N / 8) of an m64nNk16 tile
+template <int N>
+__device__ __forceinline__ float (&tiles_at(float* d, int n0))[N / 2] {
+  return *reinterpret_cast<float(*)[N / 2]>(d + n0 / 2);
 }
 
 // ------------------------------------------------------------- arithmetic
@@ -330,55 +541,77 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v;
 }
 
-// the 15 inputs of one read: its features row `f` and k-mer ids `k` (shared
-// or device memory), with the mode's embedding table `emb` (shared)
+// input column c (0..n_in - 1, zero past it) of a read: its features row
+// `f` and k-mer ids `k` (shared or device memory), with the mode's
+// embedding table `emb` (shared)
+__device__ __forceinline__ float input_col(const float* f, const int8_t* k, const float* emb, int c) {
+  if (c < kFeat) return f[c];
+  if (c >= kIn) return 0.f;
+  return emb[kEmb * static_cast<int>(k[(c - kFeat) / kEmb]) + (c - kFeat) % kEmb];
+}
+
+// the n_in inputs of one read into registers
 __device__ __forceinline__ void load_inputs(const float* f, const int8_t* k, const float* emb, float (&x)[kIn]) {
 #pragma unroll
   for (int i = 0; i < kFeat; ++i) x[i] = f[i];
 #pragma unroll
   for (int q = 0; q < kPos; ++q) {
     const int id = static_cast<int>(k[q]);
-    x[kFeat + kEmb * q] = emb[kEmb * id];
-    x[kFeat + kEmb * q + 1] = emb[kEmb * id + 1];
+#pragma unroll
+    for (int e = 0; e < kEmb; ++e) x[kFeat + kEmb * q + e] = emb[kEmb * id + e];
   }
 }
+
+// f32x3's inputs of a lane's reads (read i: row g + 8 (i % 2) of tile i / 2)
+// in registers ...
+struct RegisterInputs {
+  float v[F32x3::kReads][kIn];
+  __device__ __forceinline__ float at(int i, int k) const { return v[i][k]; }
+};
+
+// ... or in shared memory, from this lane's row of its item
+struct SharedInputs {
+  const float* row;
+  __device__ __forceinline__ float at(int i, int k) const {
+    return row[(64 * (i / 2) + 8 * (i % 2)) * F32x3::kXStride + k];
+  }
+};
 
 // layer 1 of f32x3 for k step j: h1 of this lane's 4 units (slot c: unit
 // 16j + 2t + (c & 1) + 8 (c >> 1)) for each of its reads, split and packed
 // as the A fragments (hi, lo) of each tile
-template <int J>
-__device__ __forceinline__ void layer1_f32x3(const float4* w1, int t, const float (&x)[F32x3::kReads][kIn],
+template <int J, class X>
+__device__ __forceinline__ void layer1_f32x3(const float4* w1, int t, const X& x,
                                              uint32_t (&ahi)[F32x3::kTilesPerGroup][4],
                                              uint32_t (&alo)[F32x3::kTilesPerGroup][4]) {
   float h[4][F32x3::kReads];
 #pragma unroll
   for (int c = 0; c < 4; ++c) {
-    if (J == kKSteps - 1 && c >= 2) {  // units 152-159: zero weights and bias
+    if (16 * J + 8 * (c >> 1) >= kH1) {  // 8 units past H1: zero weights and bias
 #pragma unroll
       for (int i = 0; i < F32x3::kReads; ++i) h[c][i] = 0.f;
       continue;
     }
-    const float4* row = w1 + (J * 4 + c) * 16 + t;  // [j][c][q][t]
-    const float4 a = row[0], b = row[4], cc = row[8], d = row[12];
+    const float4* row = w1 + (J * 4 + c) * 4 * kW1Quads + t;  // [j][c][q][t]
+    float u[F32x3::kReads];
 #pragma unroll
-    for (int i = 0; i < F32x3::kReads; ++i) {
-      const float* in = x[i];
-      float u = a.x * in[0];  // fused_infer.cu's order
-      u = fmaf(a.y, in[1], u);
-      u = fmaf(a.z, in[2], u);
-      u = fmaf(a.w, in[3], u);
-      u = fmaf(b.x, in[4], u);
-      u = fmaf(b.y, in[5], u);
-      u = fmaf(b.z, in[6], u);
-      u = fmaf(b.w, in[7], u);
-      u = fmaf(cc.x, in[8], u);
-      u = fmaf(cc.y, in[9], u);
-      u = fmaf(cc.z, in[10], u);
-      u = fmaf(cc.w, in[11], u);
-      u = fmaf(d.x, in[12], u);
-      u = fmaf(d.y, in[13], u);
-      u = fmaf(d.z, in[14], u);
-      h[c][i] = fmaxf(u + d.w, 0.f);  // + b1', relu
+    for (int q = 0; q < kW1Quads; ++q) {
+      const float4 v = row[4 * q];
+      const float wq[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int k = 4 * q + e;
+#pragma unroll
+        for (int i = 0; i < F32x3::kReads; ++i) {
+          if (k == 0) {
+            u[i] = wq[e] * x.at(i, 0);  // fused_infer.cu's order
+          } else if (k < kIn) {
+            u[i] = fmaf(wq[e], x.at(i, k), u[i]);
+          } else if (k == kIn) {
+            h[c][i] = fmaxf(u[i] + wq[e], 0.f);  // + b1', relu
+          }
+        }
+      }
     }
   }
   // tile tt holds reads 2tt (row g) and 2tt + 1 (row g + 8):
@@ -393,14 +626,13 @@ __device__ __forceinline__ void layer1_f32x3(const float4* w1, int t, const floa
 }
 
 // one k step of f32x3's layer 2 and, while it runs, layer 1 of the next
-template <int J>
-__device__ __forceinline__ void step_f32x3(const float4* w1, uint32_t w2l, uint32_t w2h, int t,
-                                           const float (&x)[F32x3::kReads][kIn],
+template <int J, class X>
+__device__ __forceinline__ void step_f32x3(const float4* w1, uint32_t w2l, uint32_t w2h, int t, const X& x,
                                            uint32_t (&ahi)[2][F32x3::kTilesPerGroup][4],
                                            uint32_t (&alo)[2][F32x3::kTilesPerGroup][4],
-                                           float (&cross)[F32x3::kTilesPerGroup][16],
-                                           float (&high)[F32x3::kTilesPerGroup][16],
-                                           float (&part)[F32x3::kTilesPerGroup][16]) {
+                                           float (&cross)[F32x3::kTilesPerGroup][kH2Pad / 2],
+                                           float (&high)[F32x3::kTilesPerGroup][kH2Pad / 2],
+                                           float (&part)[F32x3::kTilesPerGroup][kH2Pad / 2]) {
   constexpr int B = J & 1;
   const uint64_t dl = b_desc(w2l + J * kW2StepBytes), dh = b_desc(w2h + J * kW2StepBytes);
 #pragma unroll
@@ -411,9 +643,9 @@ __device__ __forceinline__ void step_f32x3(const float4* w1, uint32_t w2l, uint3
   wgmma_fence();
 #pragma unroll
   for (int tt = 0; tt < F32x3::kTilesPerGroup; ++tt) {
-    wgmma_n32(cross[tt], ahi[B][tt], dl, 1);  // W2lo.h1hi
-    wgmma_n32(cross[tt], alo[B][tt], dh, 1);  // + W2hi.h1lo
-    wgmma_n32(part[tt], ahi[B][tt], dh, 0);   // W2hi.h1hi alone
+    wgmma<kH2Pad>(cross[tt], ahi[B][tt], dl, 1);  // W2lo.h1hi
+    wgmma<kH2Pad>(cross[tt], alo[B][tt], dh, 1);  // + W2hi.h1lo
+    wgmma<kH2Pad>(part[tt], ahi[B][tt], dh, 0);   // W2hi.h1hi alone
   }
   wgmma_commit();
   if constexpr (J + 1 < kKSteps) layer1_f32x3<J + 1>(w1, t, x, ahi[B ^ 1], alo[B ^ 1]);
@@ -422,24 +654,25 @@ __device__ __forceinline__ void step_f32x3(const float4* w1, uint32_t w2l, uint3
   for (int tt = 0; tt < F32x3::kTilesPerGroup; ++tt) {
     fence_operands(part[tt]);
 #pragma unroll
-    for (int i = 0; i < 16; ++i) high[tt][i] += part[tt][i];
+    for (int i = 0; i < kH2Pad / 2; ++i) high[tt][i] += part[tt][i];
   }
   if constexpr (J + 1 < kKSteps) step_f32x3<J + 1>(w1, w2l, w2h, t, x, ahi, alo, cross, high, part);
 }
 
 // z of this lane's reads (2tt: row g, 2tt + 1: row g + 8 of tile tt), f32x3;
 // s is the staged range [0, W1H)
-__device__ __forceinline__ void f32x3_reads(const uint32_t* s, int t, const float (&x)[F32x3::kReads][kIn],
-                                            float (&z)[F32x3::kReads]) {
+template <class X>
+__device__ __forceinline__ void f32x3_reads(const uint32_t* s, int t, const X& x, float (&z)[F32x3::kReads]) {
   const float* sf = reinterpret_cast<const float*>(s);
   const float4* w1 = reinterpret_cast<const float4*>(sf + kTcOffW1F);
   const uint32_t w2l = smem_addr(s + kTcOffW2L), w2h = smem_addr(s + kTcOffW2H);
   uint32_t ahi[2][F32x3::kTilesPerGroup][4], alo[2][F32x3::kTilesPerGroup][4];
-  float cross[F32x3::kTilesPerGroup][16], high[F32x3::kTilesPerGroup][16], part[F32x3::kTilesPerGroup][16];
+  float cross[F32x3::kTilesPerGroup][kH2Pad / 2], high[F32x3::kTilesPerGroup][kH2Pad / 2];
+  float part[F32x3::kTilesPerGroup][kH2Pad / 2];
 #pragma unroll
   for (int tt = 0; tt < F32x3::kTilesPerGroup; ++tt) {
 #pragma unroll
-    for (int i = 0; i < 16; ++i) cross[tt][i] = high[tt][i] = part[tt][i] = 0.f;
+    for (int i = 0; i < kH2Pad / 2; ++i) cross[tt][i] = high[tt][i] = part[tt][i] = 0.f;
   }
   layer1_f32x3<0>(w1, t, x, ahi[0], alo[0]);
   step_f32x3<0>(w1, w2l, w2h, t, x, ahi, alo, cross, high, part);
@@ -474,26 +707,24 @@ __device__ __forceinline__ void f32x3_reads(const uint32_t* s, int t, const floa
   }
 }
 
-// input column c (0..15; 15 is the zero padding) of a read
-__device__ __forceinline__ float input_col(const float* f, const int8_t* k, const float* emb, int c) {
-  if (c < kFeat) return f[c];
-  if (c >= kIn) return 0.f;
-  return emb[kEmb * static_cast<int>(k[(c - kFeat) / kEmb]) + (c - kFeat) % kEmb];
-}
-
-// layer 1's A fragment of one read pair: columns 2t, 2t + 1, 2t + 8, 2t + 9
-// of rows g (f0, k0) and g + 8 (f1, k1)
+// layer 1's A fragment of k step s of one read pair: columns 16s + 2t,
+// + 1, + 8, + 9 of rows g (f0, k0) and g + 8 (f1, k1)
 __device__ __forceinline__ void load_a1(const float* f0, const int8_t* k0, const float* f1, const int8_t* k1,
-                                        const float* emb, int t, uint32_t (&a)[4]) {
-  a[0] = pack_bf16x2(input_col(f0, k0, emb, 2 * t), input_col(f0, k0, emb, 2 * t + 1));
-  a[1] = pack_bf16x2(input_col(f1, k1, emb, 2 * t), input_col(f1, k1, emb, 2 * t + 1));
-  a[2] = pack_bf16x2(input_col(f0, k0, emb, 2 * t + 8), input_col(f0, k0, emb, 2 * t + 9));
-  a[3] = pack_bf16x2(input_col(f1, k1, emb, 2 * t + 8), input_col(f1, k1, emb, 2 * t + 9));
+                                        const float* emb, int t, uint32_t (&a)[kK1Steps][4]) {
+#pragma unroll
+  for (int s = 0; s < kK1Steps; ++s) {
+    const int c = 16 * s + 2 * t;
+    a[s][0] = pack_bf16x2(input_col(f0, k0, emb, c), input_col(f0, k0, emb, c + 1));
+    a[s][1] = pack_bf16x2(input_col(f1, k1, emb, c), input_col(f1, k1, emb, c + 1));
+    a[s][2] = pack_bf16x2(input_col(f0, k0, emb, c + 8), input_col(f0, k0, emb, c + 9));
+    a[s][3] = pack_bf16x2(input_col(f1, k1, emb, c + 8), input_col(f1, k1, emb, c + 9));
+  }
 }
 
 // layer 2's A fragment of k step j: layer 1's n8 tiles 2j, 2j + 1 with the
 // bias (units 16j + 2t.., 16j + 8 + 2t..), relu, packed to bf16
-__device__ __forceinline__ void pack_a2(const float (&h)[80], const float2* b1, int j, int t, uint32_t (&a)[4]) {
+__device__ __forceinline__ void pack_a2(const float (&h)[kH1Pad / 2], const float2* b1, int j, int t,
+                                        uint32_t (&a)[4]) {
   const float2 bl = b1[8 * j + t], bh = b1[8 * j + 4 + t];
   const float* c0 = h + 8 * j;
   const float* c1 = h + 8 * j + 4;
@@ -503,19 +734,34 @@ __device__ __forceinline__ void pack_a2(const float (&h)[80], const float2* b1, 
   a[3] = pack_bf16x2(fmaxf(c1[2] + bh.x, 0.f), fmaxf(c1[3] + bh.y, 0.f));
 }
 
+// bf16 layer 1's k step into h from unit n0 on: one wgmma.m64n160k16 at the
+// released widths, else pieces of N <= 64
+template <int N0>
+__device__ __forceinline__ void layer1_bf16(float (&h)[kH1Pad / 2], const uint32_t (&a)[4], uint32_t w1h,
+                                            int scale_d) {
+  if constexpr (N0 < kH1Pad) {
+    constexpr int N = kH1Pad == 160 ? 160 : (kH1Pad - N0 < 64 ? kH1Pad - N0 : 64);
+    wgmma<N>(tiles_at<N>(h, N0), a, b_desc(w1h + N0 / 8 * kBSbo), scale_d);
+    layer1_bf16<N0 + N>(h, a, w1h, scale_d);
+  }
+}
+
 // z of rows g (z[0]) and g + 8 (z[1]) of one tile, bf16, from its layer-1
-// A fragment; s is the staged range [W2H, end)
-__device__ __forceinline__ void bf16_tile(const uint32_t* s, int t, const uint32_t (&a1)[4], float (&z)[2]) {
+// A fragments; s is the staged range [W2H, end)
+__device__ __forceinline__ void bf16_tile(const uint32_t* s, int t, const uint32_t (&a1)[kK1Steps][4],
+                                          float (&z)[2]) {
   constexpr int kBase = kTcOffW2H;
   const float* sf = reinterpret_cast<const float*>(s);
   const uint32_t w2h = smem_addr(s + (kTcOffW2H - kBase));
   const float2* b1 = reinterpret_cast<const float2*>(sf + (kTcOffB1 - kBase));
-  float h[80];
+  const uint32_t w1h = smem_addr(s + (kTcOffW1H - kBase));
+  float h[kH1Pad / 2];
 #pragma unroll
-  for (int i = 0; i < 80; ++i) h[i] = 0.f;
+  for (int i = 0; i < kH1Pad / 2; ++i) h[i] = 0.f;
   fence_operands(h);
   wgmma_fence();
-  wgmma_n160(h, a1, b_desc(smem_addr(s + (kTcOffW1H - kBase))));
+#pragma unroll
+  for (int k1 = 0; k1 < kK1Steps; ++k1) layer1_bf16<0>(h, a1[k1], w1h + k1 * kW1StepBytes, k1 > 0 ? 1 : 0);
   wgmma_commit();
   wgmma_wait_all();
   fence_operands(h);
@@ -525,19 +771,19 @@ __device__ __forceinline__ void bf16_tile(const uint32_t* s, int t, const uint32
   for (int j = 0; j < kKSteps; ++j) pack_a2(h, b1, j, t, a2[j]);
   // two steps in flight: step j + 1 is issued before step j's product,
   // in its own accumulator, is added to the sum
-  float acc[16], part[2][16];
+  float acc[kH2Pad / 2], part[2][kH2Pad / 2];
 #pragma unroll
-  for (int i = 0; i < 16; ++i) acc[i] = part[0][i] = part[1][i] = 0.f;
+  for (int i = 0; i < kH2Pad / 2; ++i) acc[i] = part[0][i] = part[1][i] = 0.f;
   fence_operands(part[0]);
   wgmma_fence();
-  wgmma_n32(part[0], a2[0], b_desc(w2h), 0);
+  wgmma<kH2Pad>(part[0], a2[0], b_desc(w2h), 0);
   wgmma_commit();
 #pragma unroll
   for (int j = 0; j < kKSteps; ++j) {
     if (j + 1 < kKSteps) {
       fence_operands(part[(j + 1) & 1]);
       wgmma_fence();
-      wgmma_n32(part[(j + 1) & 1], a2[j + 1], b_desc(w2h + (j + 1) * kW2StepBytes), 0);
+      wgmma<kH2Pad>(part[(j + 1) & 1], a2[j + 1], b_desc(w2h + (j + 1) * kW2StepBytes), 0);
       wgmma_commit();
       wgmma_wait_one();
     } else {
@@ -545,7 +791,7 @@ __device__ __forceinline__ void bf16_tile(const uint32_t* s, int t, const uint32
     }
     fence_operands(part[j & 1]);
 #pragma unroll
-    for (int i = 0; i < 16; ++i) acc[i] += part[j & 1][i];
+    for (int i = 0; i < kH2Pad / 2; ++i) acc[i] += part[j & 1][i];
   }
 
   float zz[2] = {0.f, 0.f};
@@ -585,7 +831,7 @@ struct Stream {
   __device__ uint32_t kmer_bytes() const { return C::kItemKmerBytes + (kmer_skew ? 16 : 0); }
 };
 
-// kmer_ids are int8 ids in [0, 66); the Python wrapper checks the range
+// kmer_ids are int8 ids in [0, kVocab); the Python wrapper checks the range
 template <int Mode>
 __global__ void __launch_bounds__(Cfg<Mode>::kThreads, 1)
 read_prob_tc_kernel(const float* __restrict__ features, const int8_t* __restrict__ kmer_ids,
@@ -655,23 +901,40 @@ read_prob_tc_kernel(const float* __restrict__ features, const int8_t* __restrict
     const float* stage_f = reinterpret_cast<const float*>(stage + in.feat_skew);
     const int8_t* stage_k = reinterpret_cast<const int8_t*>(stage + C::kStageFeatBytes + in.kmer_skew);
     float z[C::kReads];
-    if constexpr (Mode == kModeF32x3) {
-      float x[C::kReads][kIn];
+    if constexpr (Mode == kModeF32x3 && C::kXShared) {
+      // this warp's rows of its warpgroup's item: lane t of a quad copies
+      // inputs t, t + 4, ... of the quad's reads, once the warp is done
+      // with the last item's
+      float* rows = reinterpret_cast<float*>(smem + C::kRowsAt) + group * C::kItemReads * C::kXStride;
+      __syncwarp();
+#pragma unroll
+      for (int i = 0; i < C::kReads; ++i) {
+        const int r = 64 * (i / 2) + row + 8 * (i % 2);  // read of the item
+        const int64_t want = first + r, l = want < n_reads ? want : n_reads - 1;  // valid; not stored
+        const float* f = bulk ? stage_f + r * kFeat : features + l * kFeat;
+        const int8_t* ids = bulk ? stage_k + r * kPos : kmer_ids + l * kPos;
+        for (int c = t; c < kIn; c += 4) rows[r * C::kXStride + c] = input_col(f, ids, sf + kTcOffEmbX, c);
+      }
+      bar_arrive(smem_addr(bars + kStages + k));  // the stage is free
+      __syncwarp();
+      f32x3_reads(s, t, SharedInputs{rows + row * C::kXStride}, z);
+    } else if constexpr (Mode == kModeF32x3) {
+      RegisterInputs x;
 #pragma unroll
       for (int i = 0; i < C::kReads; ++i) {
         const int r = 64 * (i / 2) + row + 8 * (i % 2);  // read of the item
         if (bulk) {
-          load_inputs(stage_f + r * kFeat, stage_k + r * kPos, sf + kTcOffEmbX, x[i]);
+          load_inputs(stage_f + r * kFeat, stage_k + r * kPos, sf + kTcOffEmbX, x.v[i]);
         } else {
           const int64_t want = first + r, l = want < n_reads ? want : n_reads - 1;  // valid; not stored
-          load_inputs(features + l * kFeat, kmer_ids + l * kPos, sf + kTcOffEmbX, x[i]);
+          load_inputs(features + l * kFeat, kmer_ids + l * kPos, sf + kTcOffEmbX, x.v[i]);
         }
       }
       bar_arrive(smem_addr(bars + kStages + k));  // the stage is free
       f32x3_reads(s, t, x, z);
     } else {
       const float* emb = sf + (kTcOffEmbH - kTcOffW2H);
-      uint32_t a1[C::kTilesPerGroup][4];
+      uint32_t a1[C::kTilesPerGroup][kK1Steps][4];
 #pragma unroll
       for (int tt = 0; tt < C::kTilesPerGroup; ++tt) {
         const int r = 64 * tt + row;

@@ -2,8 +2,10 @@
 
 The port of ``fused_read_probability`` in the JAX package's
 ``ops/encoder_kernel.py``: the encoder forward (k-mer embedding, concat,
-Linear 15->150 with eval BatchNorm folded in, ReLU, Linear 150->32, ReLU,
-Linear 32->1, sigmoid) for every read of a batch, with no site statistics.
+Linear n_in->H1 with eval BatchNorm folded in, ReLU, Linear H1->H2, ReLU,
+Linear H2->1, sigmoid; 15 -> 150 -> 32 in the released models, any widths
+within the kernels' envelope, ``fused_infer_kernel.kernel_limit``) for
+every read of a batch, with no site statistics.
 
 The JAX package folds the embedding into per-position (66, 150) tables for
 its MXU; the port keeps one parameter layout for this function and the
@@ -46,8 +48,8 @@ launch_count = 0
 
 def fused_read_probability(
     fp: FusedParamsT,
-    features: torch.Tensor,  # (N, 9) f32
-    kmer_ids: torch.Tensor,  # (N, 3) int8 or int32
+    features: torch.Tensor,  # (N, 3P) f32
+    kmer_ids: torch.Tensor,  # (N, P) int8 or int32
     precision: str = "f32",
     host_kmer_ids: Optional[CheckedKmerIds] = None,
 ) -> torch.Tensor:
@@ -60,7 +62,7 @@ def fused_read_probability(
     global launch_count
     check_precision(precision)
     if host_kmer_ids is not None:
-        check_host_kmer_ids(host_kmer_ids, kmer_ids)
+        check_host_kmer_ids(host_kmer_ids, kmer_ids, fp.widths.vocab)
     if features.device.type == "cpu":
         return fused_read_probability_plain(fp, features, kmer_ids, precision)
     kmer_ids = check_read_inputs(
@@ -72,7 +74,7 @@ def fused_read_probability(
         launch_read_prob_tc(fp, features, kmer_ids, p, precision)
         launch_count += 1
         return p
-    lib = kernel_lib()
+    lib = kernel_lib(fp.widths)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.read_prob_launch(

@@ -22,7 +22,16 @@ The site phase (phase B, ``site_reduce_kernel`` of ``csrc/fused_infer.cu``)
 runs after every phase A of the fused entry points; its launches are
 counted in ``site_reduce_launch_count``.
 
-The k-mer ids must lie in [0, 66) (the kernels read the embedding table
+The kernels take the production architecture at any widths within their
+envelope (``kernel_limit``): P k-mer positions (3 P signal features), an
+embedding of E dimensions over a vocabulary of V k-mers, hidden widths H1
+and H2.  The widths are compile-time constants of each kernel: a model of
+other widths than the released ones (``PRODUCTION``) builds its own
+libraries at first use, from the same sources with ``-D`` defines
+(``kernel_defines``), and packs its weights by the layouts of those
+widths (``f32_layout``, ``tc_layout``).
+
+The k-mer ids must lie in [0, V) (the kernels read the embedding table
 with them unchecked).  By default the wrappers check the tensor on its
 device, which on the card costs one host sync a call.  Given
 ``host_kmer_ids``, the host array the tensor was copied from as
@@ -58,7 +67,7 @@ from __future__ import annotations
 
 import ctypes
 import threading
-from typing import NamedTuple, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -76,59 +85,203 @@ fused_inference_launch_count = 0
 site_reduce_launch_count = 0
 tc_launch_counts = {"f32x3": 0, "bf16": 0}
 
-N_FEATURES, N_POSITIONS, VOCAB, EMB_DIM, HIDDEN1, HIDDEN2 = 9, 3, 66, 2, 150, 32
-PACKED_WEIGHTS = 7400  # float count of the kernel's weight image (see the .cu)
+VOCAB = 66  # the data's k-mer vocabulary (constants.KMER_TO_INT: 5-mers near a DRACH centre)
 PRECISIONS = ("f32", "f32x3", "bf16")
 # the tensor-core kernel's mode argument (kModeF32x3, kModeBf16 in the .cu)
 TC_MODES = {"f32x3": 1, "bf16": 2}
 # what read_prob_tc_config reports of the tensor-core kernel's launch
 TC_CONFIG_KEYS = ("threads", "consumer_warpgroups", "stages", "tile_reads", "dynamic_smem_bytes")
+# shared memory one block may opt into on sm_90 (bytes)
+SHARED_LIMIT_BYTES = 232448
 
-# The tensor-core image (32-bit words; csrc/read_prob_tc.cu documents it).
-# Hidden units are padded to 160 with zero weights and zero bias: layer 1's
-# N is 20 n8 tiles, layer 2's K is 10 k16 steps.
-HIDDEN1_PAD = 160
-TC_K_STEPS, TC_TILES1, TC_TILES2 = HIDDEN1_PAD // 16, HIDDEN1_PAD // 8, HIDDEN2 // 8
-TC_OFF_W1F = 0
-TC_OFF_EMBX = TC_OFF_W1F + HIDDEN1_PAD * 16
-TC_OFF_W3L = TC_OFF_EMBX + VOCAB * EMB_DIM
-TC_OFF_W2L = TC_OFF_W3L + HIDDEN2
-TC_OFF_W2H = TC_OFF_W2L + TC_K_STEPS * TC_TILES2 * 64
-TC_OFF_B2 = TC_OFF_W2H + TC_K_STEPS * TC_TILES2 * 64
-TC_OFF_W3H = TC_OFF_B2 + HIDDEN2
-TC_OFF_B3 = TC_OFF_W3H + HIDDEN2
-TC_OFF_W1H = TC_OFF_B3 + 4
-TC_OFF_B1 = TC_OFF_W1H + TC_TILES1 * 64
-TC_OFF_EMBH = TC_OFF_B1 + HIDDEN1_PAD
-TC_WORDS = TC_OFF_EMBH + VOCAB * EMB_DIM  # 9484
+
+class Widths(NamedTuple):
+    """The widths of the production architecture: ``positions`` k-mer
+    positions (3 signal features each), an embedding of ``emb`` dimensions
+    over ``vocab`` k-mers, then Linear(n_in -> hidden1) and
+    Linear(hidden1 -> hidden2)."""
+
+    positions: int = 3
+    emb: int = 2
+    hidden1: int = 150
+    hidden2: int = 32
+    vocab: int = VOCAB
+
+    @property
+    def features(self) -> int:
+        return 3 * self.positions
+
+    @property
+    def n_in(self) -> int:
+        return self.features + self.positions * self.emb
+
+
+# the released models' widths: the kernels' sources default to them
+PRODUCTION = Widths()
+
+
+def _up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def f32_layout(w: Widths) -> Dict[str, int]:
+    """The f32 weight image of csrc/fused_infer.cu (floats), by the .cu's
+    constant names: W1B [H1][kW1Stride] (row k: W1'[k, :n_in], b1'[k],
+    zeros), EMB [V][E] padded to kEmbWords, W2 [H1][kH2Pad] (row k: hidden
+    unit k's fan-out, zero past H2), B2 and W3 [kH2Pad], B3 and zeros to a
+    multiple of 4."""
+    stride, h2_pad, emb_words = _up(w.n_in + 1, 4), _up(w.hidden2, 4), _up(w.vocab * w.emb, 4)
+    lay = {"kW1Stride": stride, "kH2Pad": h2_pad, "kEmbWords": emb_words, "kOffW1B": 0}
+    lay["kOffEmb"] = w.hidden1 * stride
+    lay["kOffW2"] = lay["kOffEmb"] + emb_words
+    lay["kOffB2"] = lay["kOffW2"] + w.hidden1 * h2_pad
+    lay["kOffW3"] = lay["kOffB2"] + h2_pad
+    lay["kOffB3"] = lay["kOffW3"] + h2_pad
+    lay["kWeights"] = lay["kOffB3"] + 4
+    return lay
+
+
+def tc_layout(w: Widths) -> Dict[str, int]:
+    """The tensor-core image of csrc/read_prob_tc.cu (32-bit words), by the
+    .cu's constant names.  Hidden units are padded with zero weights and
+    zero bias, H1 to a multiple of 16 (kH1Pad: layer 2's kKSteps k16 steps,
+    layer 1's kTiles1 n8 tiles) and H2 to a multiple of 8 (kH2Pad, kTiles2);
+    bf16's layer 1 takes kK1Steps k16 steps over the n_in inputs."""
+    h1_pad, h2_pad = _up(w.hidden1, 16), _up(w.hidden2, 8)
+    stride, emb_words = _up(w.n_in + 1, 4), _up(w.vocab * w.emb, 4)
+    lay = {
+        "kH1Pad": h1_pad, "kKSteps": h1_pad // 16, "kTiles1": h1_pad // 8, "kH2Pad": h2_pad,
+        "kTiles2": h2_pad // 8, "kW1Stride": stride, "kW1Quads": stride // 4, "kK1Steps": _up(w.n_in, 16) // 16,
+        "kEmbWords": emb_words, "kTcOffW1F": 0,
+    }
+    lay["kTcOffEmbX"] = lay["kTcOffW1F"] + lay["kKSteps"] * 4 * stride * 4
+    lay["kTcOffW3L"] = lay["kTcOffEmbX"] + emb_words
+    lay["kTcOffW2L"] = lay["kTcOffW3L"] + h2_pad
+    lay["kTcOffW2H"] = lay["kTcOffW2L"] + lay["kKSteps"] * lay["kTiles2"] * 64
+    lay["kTcOffB2"] = lay["kTcOffW2H"] + lay["kKSteps"] * lay["kTiles2"] * 64
+    lay["kTcOffW3H"] = lay["kTcOffB2"] + h2_pad
+    lay["kTcOffB3"] = lay["kTcOffW3H"] + h2_pad
+    lay["kTcOffW1H"] = lay["kTcOffB3"] + 4
+    lay["kTcOffB1"] = lay["kTcOffW1H"] + lay["kK1Steps"] * lay["kTiles1"] * 64
+    lay["kTcOffEmbH"] = lay["kTcOffB1"] + h1_pad
+    lay["kTcWords"] = lay["kTcOffEmbH"] + emb_words
+    return lay
+
+
+def _tc_smem_bound(w: Widths, mode: str) -> int:
+    """No less than the dynamic shared memory of read_prob_tc.cu's smallest
+    block in ``mode`` at ``w``, which the kernel falls back to where its
+    plan (``f32x3_plan``, ``bf16_plan``) would not fit: its ``smem_bytes``
+    at one 64-read tile an item and 2 ring stages, with f32x3's input rows
+    of its 2 consumer warpgroups counted whether or not its lanes keep
+    their inputs there.  That is the mode's range of the image, the stages
+    (an item's features and k-mer ids, each with 16 bytes before a
+    misaligned start), the rows (n_in rounded up to odd floats a read) and
+    the stages' full and empty barriers."""
+    lay = tc_layout(w)
+    words = lay["kTcOffW1H"] if mode == "f32x3" else lay["kTcWords"] - lay["kTcOffW2H"]
+    stages, reads = 2, 64
+    stage = reads * w.features * 4 + 16 + reads * w.positions + 16
+    rows = 2 * reads * (w.n_in | 1) * 4 if mode == "f32x3" else 0
+    return words * 4 + stages * stage + rows + 2 * stages * 8
+
+
+# the envelope's register limits: bf16's layer-1 accumulators (kH1Pad / 2 a
+# thread), f32x3's three layer-2 accumulators (3 kH2Pad / 2 a tile) and f32
+# phase A's inputs and accumulators of one read (n_in + H2 padded to 4)
+MAX_HIDDEN1, MAX_HIDDEN2, MAX_READ_VALUES = 256, 64, 144
+
+
+def kernel_limit(w: Widths) -> Optional[str]:
+    """None when the CUDA kernels take the widths ``w``, else the limit
+    that binds, in words.  The envelope holds at least every P in 1-11, E
+    <= 4, V = 66, H1 <= 256 and H2 <= 64."""
+    if min(w) < 1:
+        return "every width must be at least 1"
+    if w.vocab > 127:
+        return f"the kernels read int8 k-mer ids: a vocabulary of at most 127, not {w.vocab}"
+    if w.hidden1 > MAX_HIDDEN1:
+        return (f"registers: bf16's layer 1 holds H1 padded to 16 / 2 accumulators a thread, "
+                f"H1 <= {MAX_HIDDEN1}, not {w.hidden1}")
+    if w.hidden2 > MAX_HIDDEN2:
+        return (f"registers: f32x3's layer 2 holds three accumulators of H2 padded to 8 / 2 a thread, "
+                f"H2 <= {MAX_HIDDEN2}, not {w.hidden2}")
+    if w.n_in + _up(w.hidden2, 4) > MAX_READ_VALUES:
+        return (f"registers: f32 phase A holds a read's {w.n_in} inputs and H2 padded to 4 accumulators, "
+                f"at most {MAX_READ_VALUES} values")
+    f32_bytes = 4 * f32_layout(w)["kWeights"]
+    if f32_bytes > SHARED_LIMIT_BYTES:
+        return f"shared memory: the f32 weight image takes {f32_bytes} bytes, above {SHARED_LIMIT_BYTES}"
+    for mode in TC_MODES:
+        need = _tc_smem_bound(w, mode)
+        if need > SHARED_LIMIT_BYTES:
+            return f"shared memory: the {mode} tensor-core block takes {need} bytes, above {SHARED_LIMIT_BYTES}"
+    return None
+
+
+def kernel_defines(w: Widths) -> Dict[str, int]:
+    """The ``-D`` defines that build the kernels for ``w``: none at the
+    production widths (the sources' defaults), else the widths, from which
+    the sources derive their tiling."""
+    if w == PRODUCTION:
+        return {}
+    return {"M6A_POS": w.positions, "M6A_EMB": w.emb, "M6A_VOCAB": w.vocab, "M6A_H1": w.hidden1,
+            "M6A_H2": w.hidden2}
+
+
+def widths_config(w: Widths) -> dict:
+    """The packaged ``m6anet.toml`` (the production architecture) at widths
+    ``w``, as the dict ``MILModel`` and ``train --model_config`` take: the
+    model a user retrains at other widths.  P must be odd (2n + 1 for n
+    neighbouring positions on each side)."""
+    import copy
+    import tomllib
+
+    from ..constants import DEFAULT_MODEL_CONFIG
+
+    if w.positions % 2 != 1:
+        raise ValueError(f"positions must be odd (2n + 1), got {w.positions}")
+    with open(DEFAULT_MODEL_CONFIG, "rb") as f:
+        config = copy.deepcopy(tomllib.load(f))
+    deagg, emb, _, l1, l2, pool = config["block"]
+    deagg["num_neighboring_features"] = emb["num_neighboring_features"] = w.positions // 2
+    emb["input_channel"], emb["output_channel"] = w.vocab, w.emb
+    l1["input_channel"], l1["output_channel"] = w.n_in, w.hidden1
+    l2["input_channel"], l2["output_channel"] = w.hidden1, w.hidden2
+    pool["input_channel"] = w.hidden2
+    return config
 
 
 class FusedParamsT(NamedTuple):
     """Transposed parameter set (the JAX package's ``FusedEncoderParamsT``)
-    plus the packed weight images the CUDA kernels stage in shared memory."""
+    plus the packed weight images the CUDA kernels stage in shared memory,
+    and the widths they were packed for."""
 
-    w1t: torch.Tensor  # (150, 15) BN-folded first linear
-    embt: torch.Tensor  # (2, 66) embedding, transposed
-    b1t: torch.Tensor  # (150, 1)
-    w2t: torch.Tensor  # (32, 150)
-    b2t: torch.Tensor  # (32, 1)
-    w3t: torch.Tensor  # (1, 32)
+    w1t: torch.Tensor  # (H1, n_in) BN-folded first linear
+    embt: torch.Tensor  # (E, V) embedding, transposed
+    b1t: torch.Tensor  # (H1, 1)
+    w2t: torch.Tensor  # (H2, H1)
+    b2t: torch.Tensor  # (H2, 1)
+    w3t: torch.Tensor  # (1, H2)
     b3t: torch.Tensor  # (1, 1)
-    packed: torch.Tensor  # (7400,) f32, layout documented in csrc/fused_infer.cu
-    tc: torch.Tensor  # (9484,) int32 words, layout documented in csrc/read_prob_tc.cu
+    packed: torch.Tensor  # f32, f32_layout(widths), documented in csrc/fused_infer.cu
+    tc: torch.Tensor  # int32 words, tc_layout(widths), documented in csrc/read_prob_tc.cu
+    widths: Widths = PRODUCTION
 
 
-def _pack(w1t, embt, b1t, w2t, b2t, w3t, b3t) -> torch.Tensor:
-    parts = [
-        torch.cat([w1t, b1t], dim=1).reshape(-1),  # W1B [150][16]
-        embt.t().reshape(-1),  # EMB [66][2]
-        w2t.t().reshape(-1),  # W2 [150][32]
-        b2t.reshape(-1),
-        w3t.reshape(-1),
-        b3t.reshape(-1),
-    ]
-    flat = torch.cat(parts)
-    return torch.cat([flat, flat.new_zeros(PACKED_WEIGHTS - flat.numel())]).contiguous()
+def _pack(w: Widths, w1t, embt, b1t, w2t, b2t, w3t, b3t) -> torch.Tensor:
+    lay = f32_layout(w)
+    image = w1t.new_zeros(lay["kWeights"])
+    w1b = image[: w.hidden1 * lay["kW1Stride"]].view(w.hidden1, lay["kW1Stride"])
+    w1b[:, : w.n_in] = w1t
+    w1b[:, w.n_in] = b1t[:, 0]
+    image[lay["kOffEmb"] : lay["kOffEmb"] + w.vocab * w.emb] = embt.t().reshape(-1)
+    w2 = image[lay["kOffW2"] : lay["kOffB2"]].view(w.hidden1, lay["kH2Pad"])
+    w2[:, : w.hidden2] = w2t.t()  # row k: hidden unit k's fan-out
+    image[lay["kOffB2"] : lay["kOffB2"] + w.hidden2] = b2t.reshape(-1)
+    image[lay["kOffW3"] : lay["kOffW3"] + w.hidden2] = w3t.reshape(-1)
+    image[lay["kOffB3"]] = b3t.reshape(-1)[0]
+    return image
 
 
 def bf16_round(t: torch.Tensor) -> torch.Tensor:
@@ -149,63 +302,71 @@ def _bf16x2_words(pairs: torch.Tensor) -> torch.Tensor:
     return (bits[..., 0] & 0xFFFF) | (bits[..., 1] << 16)
 
 
-def _pack_tc(w1t, embt, b1t, w2t, b2t, w3t, b3t) -> torch.Tensor:
-    """The tensor-core kernel's image: layer 1 of f32x3 in the order its
-    lanes read it (lane t of a quad computes 4 units a k step), and each
-    ``wgmma`` B operand in the canonical K-major layout without swizzle."""
-    pad = HIDDEN1_PAD - HIDDEN1
-    w1b = torch.cat([w1t, b1t], dim=1)  # (150, 16): W1'[n, 0:15], b1'[n]
-    w1b = torch.cat([w1b, w1b.new_zeros(pad, 16)])  # (160, 16)
-    j, c, t = torch.meshgrid(torch.arange(TC_K_STEPS), torch.arange(4), torch.arange(4), indexing="ij")
+def _pack_tc(w: Widths, w1t, embt, b1t, w2t, b2t, w3t, b3t) -> torch.Tensor:
+    """The tensor-core kernel's image at widths ``w`` (``tc_layout``):
+    layer 1 of f32x3 in the order its lanes read it (lane t of a quad
+    computes 4 units a k step), and each ``wgmma`` B operand in the
+    canonical K-major layout without swizzle."""
+    lay = tc_layout(w)
+    h1_pad, h2_pad, steps, k1 = lay["kH1Pad"], lay["kH2Pad"], lay["kKSteps"], lay["kK1Steps"]
+    stride = lay["kW1Stride"]
+    w1b = w1t.new_zeros(h1_pad, stride)  # row u: W1'[u, :n_in], b1'[u], zeros
+    w1b[: w.hidden1, : w.n_in] = w1t
+    w1b[: w.hidden1, w.n_in] = b1t[:, 0]
+    j, c, t = torch.meshgrid(torch.arange(steps), torch.arange(4), torch.arange(4), indexing="ij")
     unit = 16 * j + 2 * t + (c & 1) + 8 * (c >> 1)  # the 4 units lane t computes in k step j
-    w1f = w1b.view(HIDDEN1_PAD, 4, 4)[unit].permute(0, 1, 3, 2, 4)  # [j][c][q][t][4]
+    w1f = w1b.view(h1_pad, stride // 4, 4)[unit].permute(0, 1, 3, 2, 4)  # [j][c][q][t][4]
 
     # B (n x k16): core matrices of 8 n x 8 k, the two k halves of a k16
-    # step side by side, then the groups of 8 n
-    w1k = torch.cat([w1t, w1t.new_zeros(HIDDEN1, 1)], dim=1)  # k = 15 is zero, never the bias
-    w1k = torch.cat([w1k, w1k.new_zeros(pad, 16)])  # (160, 16)
-    w1h = w1k.reshape(TC_TILES1, 8, 2, 8).permute(0, 2, 1, 3)  # [n group][k half][n][k]
-    w2k = torch.cat([w2t, w2t.new_zeros(HIDDEN2, pad)], dim=1)  # (32, 160)
-    w2 = w2k.reshape(TC_TILES2, 8, TC_K_STEPS, 2, 8).permute(2, 0, 3, 1, 4)  # [step][n group][k half][n][k]
+    # step side by side, then the groups of 8 n, then the k steps
+    w1k = w1t.new_zeros(h1_pad, 16 * k1)  # columns past n_in are zero, never the bias
+    w1k[: w.hidden1, : w.n_in] = w1t
+    w1h = w1k.reshape(lay["kTiles1"], 8, k1, 2, 8).permute(2, 0, 3, 1, 4)  # [step][n group][k half][n][k]
+    w2k = w2t.new_zeros(h2_pad, h1_pad)
+    w2k[: w.hidden2, : w.hidden1] = w2t
+    w2 = w2k.reshape(lay["kTiles2"], 8, steps, 2, 8).permute(2, 0, 3, 1, 4)  # [step][n group][k half][n][k]
     w2_hi, w2_lo = bf16_split(w2)
-    emb = embt.t()
+    emb = embt.t().reshape(-1)
     emb_hi, emb_lo = bf16_split(emb)
     w3_hi, w3_lo = bf16_split(w3t.reshape(-1))
 
-    def words(f32: torch.Tensor) -> torch.Tensor:
-        return f32.contiguous().view(torch.int32).reshape(-1)
+    def words(f32: torch.Tensor, n: Optional[int] = None) -> torch.Tensor:
+        f32 = f32.reshape(-1)
+        if n is not None:  # zero padding to n words
+            f32 = torch.cat([f32, f32.new_zeros(n - f32.numel())])
+        return f32.contiguous().view(torch.int32)
 
     parts = [
         words(w1f),  # W1F
-        words(emb_hi + emb_lo),  # EMBX
-        words(w3_lo),  # W3L
+        words(emb_hi + emb_lo, lay["kEmbWords"]),  # EMBX
+        words(w3_lo, h2_pad),  # W3L
         _bf16x2_words(w2_lo.reshape(-1, 2)),  # W2L
         _bf16x2_words(w2_hi.reshape(-1, 2)),  # W2H
-        words(b2t.reshape(-1)),  # B2
-        words(w3_hi),  # W3H
-        words(torch.cat([b3t.reshape(-1), b3t.new_zeros(3)])),  # B3, zero padding
+        words(b2t, h2_pad),  # B2
+        words(w3_hi, h2_pad),  # W3H
+        words(b3t, 4),  # B3, zero padding
         _bf16x2_words(w1h.reshape(-1, 2)),  # W1H
-        words(torch.cat([b1t.reshape(-1), b1t.new_zeros(pad)])),  # B1
-        words(bf16_round(emb)),  # EMBH
+        words(b1t, h1_pad),  # B1
+        words(bf16_round(emb), lay["kEmbWords"]),  # EMBH
     ]
     image = torch.cat(parts).contiguous()
-    assert image.numel() == TC_WORDS
+    assert image.numel() == lay["kTcWords"]
     return image
 
 
-def prepare_fused_params_t(model: nn.Module) -> FusedParamsT:
-    """Fold eval BatchNorm into the first linear layer and lay the weights
-    out for the kernel, on the model's device.  The model must have the
-    production architecture (``engine.fused_backend_supported``)."""
-    blocks = list(model.blocks)
-    emb = next(b for b in blocks if isinstance(b, KmerMultipleEmbedding)).embedding.weight
-    l1, l2 = [b for b in blocks if isinstance(b, Linear)]
+def model_tensors(model: nn.Module) -> Tuple[Widths, Dict[str, torch.Tensor]]:
+    """The widths of a model of the production architecture and its
+    parameters as the kernels take them: eval BatchNorm folded into the
+    first linear layer, every tensor an f32 copy detached from the model."""
+    widths = model_widths(model)
+    emb = next(b for b in model.blocks if isinstance(b, KmerMultipleEmbedding)).embedding.weight
+    l1, l2 = [b for b in model.blocks if isinstance(b, Linear)]
     head = model.pooling.linear
 
     def f32(t: torch.Tensor) -> torch.Tensor:  # a copy, detached from the model
         return t.detach().float().clone()
 
-    w1, b1 = f32(l1.linear.weight), f32(l1.linear.bias)  # (150, 15), (150,)
+    w1, b1 = f32(l1.linear.weight), f32(l1.linear.bias)  # (H1, n_in), (H1,)
     if l1.bn is not None:
         bn = l1.bn
         scale = f32(bn.weight) / torch.sqrt(f32(bn.running_var) + BN_EPS)
@@ -220,15 +381,36 @@ def prepare_fused_params_t(model: nn.Module) -> FusedParamsT:
         w3t=f32(head.weight),
         b3t=f32(head.bias)[:, None].contiguous(),
     )
+    h1, h2 = widths.hidden1, widths.hidden2
     expected = dict(
-        w1t=(HIDDEN1, N_FEATURES + N_POSITIONS * EMB_DIM), embt=(EMB_DIM, VOCAB),
-        b1t=(HIDDEN1, 1), w2t=(HIDDEN2, HIDDEN1), b2t=(HIDDEN2, 1), w3t=(1, HIDDEN2), b3t=(1, 1),
+        w1t=(h1, widths.n_in), embt=(widths.emb, widths.vocab), b1t=(h1, 1), w2t=(h2, h1), b2t=(h2, 1),
+        w3t=(1, h2), b3t=(1, 1),
     )
     for name, shape in expected.items():
         if tuple(tensors[name].shape) != shape:
             raise ValueError(f"fused kernel expects {name} of shape {shape}, got {tuple(tensors[name].shape)}")
-    tc = _pack_tc(**{name: t.cpu() for name, t in tensors.items()}).to(tensors["w1t"].device)
-    return FusedParamsT(**tensors, packed=_pack(**tensors), tc=tc)
+    return widths, tensors
+
+
+def model_widths(model: nn.Module) -> Widths:
+    """The widths of a model of the production architecture, read from
+    its parameters' shapes."""
+    emb_block = next(b for b in model.blocks if isinstance(b, KmerMultipleEmbedding))
+    vocab, emb = emb_block.embedding.weight.shape
+    l1, l2 = [b for b in model.blocks if isinstance(b, Linear)]
+    return Widths(emb_block.n_positions, emb, l1.linear.weight.shape[0], l2.linear.weight.shape[0], vocab)
+
+
+def prepare_fused_params_t(model: nn.Module) -> FusedParamsT:
+    """Fold eval BatchNorm into the first linear layer and lay the weights
+    out for the kernels at the model's widths, on the model's device.  The
+    model must have the production architecture
+    (``engine.production_architecture``); its widths may lie outside the
+    kernels' envelope (the plain versions take any), which the engine
+    checks before it launches (``kernel_limit``)."""
+    widths, tensors = model_tensors(model)
+    tc = _pack_tc(widths, **{name: t.cpu() for name, t in tensors.items()}).to(tensors["w1t"].device)
+    return FusedParamsT(**tensors, packed=_pack(widths, **tensors), tc=tc, widths=widths)
 
 
 def check_precision(precision: str) -> None:
@@ -283,17 +465,19 @@ def _fma_chain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def _lane_dot(v: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``v @ w`` (v (N, 32), w (32,)) in the order of read_prob_tc.cu's
+    """``v @ w`` (v (N, H2), w (H2,)) in the order of read_prob_tc.cu's
     head: lane t of a quad takes units 8 nt + 2t + e (nt, then e, in order)
     with ``fmaf`` from 0, and the quad adds its four sums as
-    (t0 + t1) + (t2 + t3) (two xor shuffles)."""
+    (t0 + t1) + (t2 + t3) (two xor shuffles).  The kernel's padded units
+    past H2 add fmaf(0, 0, acc), which leaves acc as it is."""
     lanes = []
     for t in range(4):
         acc = v.new_zeros(v.shape[0])
-        for nt in range(HIDDEN2 // 8):
+        for nt in range(-(-w.shape[0] // 8)):
             for e in range(2):
                 n = 8 * nt + 2 * t + e
-                acc = _fma(w[n], v[:, n], acc)
+                if n < w.shape[0]:
+                    acc = _fma(w[n], v[:, n], acc)
         lanes.append(acc)
     return (lanes[0] + lanes[1]) + (lanes[2] + lanes[3])
 
@@ -308,9 +492,11 @@ def read_probability_plain(
     the head's per-lane FMAs and quad sum, the biases where the kernel adds
     them), and every product the kernel takes on the tensor cores summed as
     they do, in k16 chunks truncated toward zero (``_tensor_core_matmul``;
-    f32x3's cross products in one accumulator, ``_tensor_core_accumulate``)."""
+    f32x3's cross products and bf16's layer 1, whose k16 steps take one
+    accumulator, ``_tensor_core_accumulate``).  Any widths: a k16 chunk past
+    H1 or n_in holds the kernel's zero padding."""
     check_precision(precision)
-    _check_kmer_range(kmer_ids)
+    _check_kmer_range(kmer_ids, vocab=fp.widths.vocab)
     n = features.shape[0]
     table = fp.embt.t()
     if precision == "f32x3":
@@ -328,8 +514,8 @@ def read_probability_plain(
         h = torch.relu(_fma_chain(x, fp.w1t) + b1)  # layer 1 stays f32 (the JAX kernel's dot1)
         h_hi, h_lo = bf16_split(h)
         w2_hi, w2_lo = bf16_split(fp.w2t)
-        cross = h.new_zeros(n, HIDDEN2)
-        for k in range(0, HIDDEN1, 16):  # W2lo.h1hi, then W2hi.h1lo, a k16 step at a time
+        cross = h.new_zeros(n, fp.w2t.shape[0])
+        for k in range(0, fp.w2t.shape[1], 16):  # W2lo.h1hi, then W2hi.h1lo, a k16 step at a time
             ks = slice(k, k + 16)
             cross = _tensor_core_accumulate(cross, h_hi[:, ks], w2_lo[:, ks])
             cross = _tensor_core_accumulate(cross, h_lo[:, ks], w2_hi[:, ks])
@@ -338,7 +524,8 @@ def read_probability_plain(
         w3_hi, w3_lo = bf16_split(fp.w3t.reshape(-1))
         z = ((_lane_dot(v_hi, w3_lo) + _lane_dot(v_lo, w3_hi)) + _lane_dot(v_hi, w3_hi)) + b3
     else:
-        h = torch.relu(_tensor_core_matmul(bf16_round(x), bf16_round(fp.w1t)) + b1)
+        h1 = _tensor_core_accumulate(x.new_zeros(n, fp.w1t.shape[0]), bf16_round(x), bf16_round(fp.w1t))
+        h = torch.relu(h1 + b1)
         h = torch.relu(_tensor_core_matmul(bf16_round(h), bf16_round(fp.w2t)) + b2)
         z = _lane_dot(bf16_round(h), bf16_round(fp.w3t.reshape(-1))) + b3
     return 1.0 / (1.0 + torch.exp(-z))
@@ -378,66 +565,80 @@ SITE_REDUCE_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int64, ctypes.c_int64, 
                                                 ctypes.c_void_p]
 TC_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int64, ctypes.c_int, ctypes.c_void_p]
 _lib_lock = threading.Lock()
-_lib: Optional[ctypes.CDLL] = None
+# loaded libraries by (source, widths)
+_libs: Dict[Tuple[str, Widths], ctypes.CDLL] = {}
 
 
-def kernel_lib() -> ctypes.CDLL:
-    global _lib
+def _load(source: str, widths: Widths) -> ctypes.CDLL:
+    """The ``csrc/<source>.cu`` library for ``widths``, built if needed,
+    with its C interface declared; raises (``check_widths``) for widths
+    the kernels do not take, before the first build."""
     with _lib_lock:
-        if _lib is None:
+        lib = _libs.get((source, widths))
+        if lib is None:
             from ._build import cuda_library
 
-            lib = ctypes.CDLL(cuda_library("fused_infer"))
-            lib.fused_infer_launch.restype = ctypes.c_int
-            lib.fused_infer_launch.argtypes = FUSED_ARGTYPES
-            lib.read_prob_launch.restype = ctypes.c_int
-            lib.read_prob_launch.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64, ctypes.c_void_p]
-            lib.read_prob_tile_reads.restype = ctypes.c_int
-            lib.read_prob_tile_reads.argtypes = []
-            lib.site_reduce_launch.restype = ctypes.c_int
-            lib.site_reduce_launch.argtypes = SITE_REDUCE_ARGTYPES
-            lib.fused_infer_error_string.restype = ctypes.c_char_p
-            lib.fused_infer_error_string.argtypes = [ctypes.c_int]
-            _lib = lib
-    return _lib
+            check_widths(widths)
+            lib = ctypes.CDLL(cuda_library(source, kernel_defines(widths)))
+            if source == "fused_infer":
+                lib.fused_infer_launch.restype = ctypes.c_int
+                lib.fused_infer_launch.argtypes = FUSED_ARGTYPES
+                lib.read_prob_launch.restype = ctypes.c_int
+                lib.read_prob_launch.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64, ctypes.c_void_p]
+                lib.read_prob_tile_reads.restype = ctypes.c_int
+                lib.read_prob_tile_reads.argtypes = []
+                lib.site_reduce_launch.restype = ctypes.c_int
+                lib.site_reduce_launch.argtypes = SITE_REDUCE_ARGTYPES
+                lib.fused_infer_error_string.restype = ctypes.c_char_p
+                lib.fused_infer_error_string.argtypes = [ctypes.c_int]
+            else:
+                lib.read_prob_tc_launch.restype = ctypes.c_int
+                lib.read_prob_tc_launch.argtypes = TC_ARGTYPES
+                lib.read_prob_tc_config.restype = ctypes.c_int
+                lib.read_prob_tc_config.argtypes = [ctypes.c_int, ctypes.c_void_p]
+                lib.read_prob_tc_error_string.restype = ctypes.c_char_p
+                lib.read_prob_tc_error_string.argtypes = [ctypes.c_int]
+            _libs[(source, widths)] = lib
+    return lib
 
 
-_tc_lib: Optional[ctypes.CDLL] = None
+def kernel_lib(widths: Widths = PRODUCTION) -> ctypes.CDLL:
+    """csrc/fused_infer.cu built for ``widths``, built if needed."""
+    return _load("fused_infer", widths)
 
 
-def tc_kernel_lib() -> ctypes.CDLL:
-    """The tensor-core phase A of csrc/read_prob_tc.cu, built if needed."""
-    global _tc_lib
-    with _lib_lock:
-        if _tc_lib is None:
-            from ._build import cuda_library
-
-            lib = ctypes.CDLL(cuda_library("read_prob_tc"))
-            lib.read_prob_tc_launch.restype = ctypes.c_int
-            lib.read_prob_tc_launch.argtypes = TC_ARGTYPES
-            lib.read_prob_tc_config.restype = ctypes.c_int
-            lib.read_prob_tc_config.argtypes = [ctypes.c_int, ctypes.c_void_p]
-            lib.read_prob_tc_error_string.restype = ctypes.c_char_p
-            lib.read_prob_tc_error_string.argtypes = [ctypes.c_int]
-            _tc_lib = lib
-    return _tc_lib
+def tc_kernel_lib(widths: Widths = PRODUCTION) -> ctypes.CDLL:
+    """The tensor-core phase A of csrc/read_prob_tc.cu for ``widths``,
+    built if needed."""
+    return _load("read_prob_tc", widths)
 
 
-def read_tile_reads(precision: str = "f32") -> int:
+def check_widths(widths: Widths) -> None:
+    """Raise unless the CUDA kernels take ``widths`` (``kernel_limit``)."""
+    limit = kernel_limit(widths)
+    if limit is not None:
+        raise ValueError(
+            f"the CUDA kernels do not take this model's widths (positions {widths.positions}, embedding "
+            f"{widths.emb} over {widths.vocab} k-mers, hidden {widths.hidden1} -> {widths.hidden2}): {limit}; "
+            "run it with --backend torch"
+        )
+
+
+def read_tile_reads(precision: str = "f32", widths: Widths = PRODUCTION) -> int:
     """Reads phase A takes per tile (f32: threads per block x reads per
     thread; the reduced modes: the 64-read tiles of one consumer
     warpgroup's item, which differ by mode); builds the kernel if needed."""
     check_precision(precision)
     if precision == "f32":
-        return int(kernel_lib().read_prob_tile_reads())
-    return tc_kernel_config(precision)["tile_reads"]
+        return int(kernel_lib(widths).read_prob_tile_reads())
+    return tc_kernel_config(precision, widths)["tile_reads"]
 
 
-def tc_kernel_config(precision: str) -> dict:
+def tc_kernel_config(precision: str, widths: Widths = PRODUCTION) -> dict:
     """The tensor-core kernel's launch in ``precision`` ("f32x3" or "bf16"),
     by ``TC_CONFIG_KEYS``; builds the kernel if needed."""
     out = (ctypes.c_int32 * len(TC_CONFIG_KEYS))()
-    if tc_kernel_lib().read_prob_tc_config(TC_MODES[precision], out) != 0:
+    if tc_kernel_lib(widths).read_prob_tc_config(TC_MODES[precision], out) != 0:
         raise RuntimeError(f"read_prob_tc has no launch for precision {precision!r}")
     return dict(zip(TC_CONFIG_KEYS, out))
 
@@ -447,8 +648,8 @@ def launch_read_prob_tc(fp: FusedParamsT, features: torch.Tensor, kmer_ids: torc
     """Launch the tensor-core phase A of ``precision`` ("f32x3" or "bf16")
     into ``p`` on the current stream, on inputs that check_read_inputs has
     checked, and count the launch."""
-    check_tensor("fp.tc", fp.tc, (torch.int32,), (TC_WORDS,), features.device)
-    lib = tc_kernel_lib()
+    check_tensor("fp.tc", fp.tc, (torch.int32,), (tc_layout(fp.widths)["kTcWords"],), features.device)
+    lib = tc_kernel_lib(fp.widths)
     with torch.cuda.device(features.device):
         stream = torch.cuda.current_stream(features.device).cuda_stream
         err = lib.read_prob_tc_launch(
@@ -460,13 +661,14 @@ def launch_read_prob_tc(fp: FusedParamsT, features: torch.Tensor, kmer_ids: torc
     tc_launch_counts[precision] += 1
 
 
-def ragged_tail_batches(tile: int, seed: int = 1):
+def ragged_tail_batches(tile: int, seed: int = 1, widths: Widths = PRODUCTION):
     """``pack_sites`` batches whose read counts end phase A's tile of
     ``tile`` reads raggedly: 1, 2, 3, 255, 257, tile - 1, tile + 1 and 4097
     reads.  Each is sites of 1 to 8 reads, then n // 8 padding reads and two
     padding sites, as numpy ``(features, kmer_ids, offsets, counts)`` drawn
-    from ``seed``: the cases on which the card tests and ``chip_smoke.py``
-    hold the kernel against its plain version."""
+    from ``seed``, with the reads of ``widths``: the cases on which the
+    card tests and ``chip_smoke.py`` hold the kernel against its plain
+    version."""
     rng = np.random.default_rng(seed)
     batches = []
     for n in sorted({1, 2, 3, 255, 257, tile - 1, tile + 1, 4097}):
@@ -476,8 +678,8 @@ def ragged_tail_batches(tile: int, seed: int = 1):
             left -= counts[-1]
         counts = np.array(counts + [0, 0], np.int32)
         offsets = np.where(counts > 0, np.cumsum(counts) - counts, 0).astype(np.int32)
-        features = rng.normal(size=(n, N_FEATURES)).astype(np.float32)
-        kmer_ids = rng.integers(0, VOCAB, size=(n, N_POSITIONS)).astype(np.int8)
+        features = rng.normal(size=(n, widths.features)).astype(np.float32)
+        kmer_ids = rng.integers(0, widths.vocab, size=(n, widths.positions)).astype(np.int8)
         batches.append((features, kmer_ids, offsets, counts))
     return batches
 
@@ -500,59 +702,64 @@ SITE_IDS_ERROR = (
 
 
 class CheckedKmerIds(NamedTuple):
-    """Host k-mer ids (N, 3) int8 whose range :func:`checked_kmer_ids` has
-    checked: what a wrapper's ``host_kmer_ids`` takes."""
+    """Host k-mer ids (N, P) int8 whose range :func:`checked_kmer_ids` has
+    checked, [0, ``vocab``): what a wrapper's ``host_kmer_ids`` takes."""
 
     ids: np.ndarray
+    vocab: int = VOCAB
 
 
-def checked_kmer_ids(kmer_ids: np.ndarray) -> CheckedKmerIds:
-    """Check host k-mer ids for the range [0, 66) on the host and return
-    them as int8, marked as checked; raise ValueError on any other id.  An
-    int8 array takes one pass as uint8, where negative ids read as >= 128;
-    wider ids are checked before they are narrowed."""
+def checked_kmer_ids(kmer_ids: np.ndarray, vocab: int = VOCAB) -> CheckedKmerIds:
+    """Check host k-mer ids for the range [0, vocab) on the host and
+    return them as int8, marked as checked; raise ValueError on any other
+    id.  An int8 array takes one pass as uint8, where negative ids read as
+    >= 128; wider ids are checked before they are narrowed."""
     ids = np.asarray(kmer_ids)
     if not np.issubdtype(ids.dtype, np.integer):
         raise ValueError(f"kmer_ids must be integers, got {ids.dtype}")
     if ids.dtype == np.int8:
-        bad = ids.size > 0 and int(ids.view(np.uint8).max()) >= VOCAB
+        bad = ids.size > 0 and int(ids.view(np.uint8).max()) >= vocab
     else:
-        bad = ids.size > 0 and (int(ids.min()) < 0 or int(ids.max()) >= VOCAB)
+        bad = ids.size > 0 and (int(ids.min()) < 0 or int(ids.max()) >= vocab)
     if bad:
-        raise ValueError(f"kmer_ids must lie in [0, {VOCAB})")
-    return CheckedKmerIds(ids.astype(np.int8, copy=False))
+        raise ValueError(f"kmer_ids must lie in [0, {vocab})")
+    return CheckedKmerIds(ids.astype(np.int8, copy=False), vocab)
 
 
-def check_host_kmer_ids(host_kmer_ids: CheckedKmerIds, kmer_ids: torch.Tensor) -> None:
+def check_host_kmer_ids(host_kmer_ids: CheckedKmerIds, kmer_ids: torch.Tensor, vocab: int = VOCAB) -> None:
     """Raise unless ``host_kmer_ids`` is checked_kmer_ids' result for an
-    array of ``kmer_ids``' shape."""
+    array of ``kmer_ids``' shape, checked against at most ``vocab``."""
     if not isinstance(host_kmer_ids, CheckedKmerIds):
         raise TypeError("host_kmer_ids must be what checked_kmer_ids returns")
     if host_kmer_ids.ids.shape != tuple(kmer_ids.shape):
         raise ValueError(
             f"host_kmer_ids have shape {host_kmer_ids.ids.shape}, expected {tuple(kmer_ids.shape)} like kmer_ids"
         )
+    if host_kmer_ids.vocab > vocab:
+        raise ValueError(f"host_kmer_ids were checked for [0, {host_kmer_ids.vocab}), the model takes [0, {vocab})")
 
 
-def _check_kmer_range(kmer_ids: torch.Tensor, bad_site_ids: Optional[torch.Tensor] = None) -> None:
-    """Raise on a k-mer id outside [0, 66) (pack_sites never makes one) and,
-    given ``bad_site_ids`` (a 0-d bool tensor), on site ids off the dense
-    layout, on either device; on the card this waits for the checks'
-    results, in one host sync."""
-    flags = [((kmer_ids < 0) | (kmer_ids >= VOCAB)).any()]
+def _check_kmer_range(
+    kmer_ids: torch.Tensor, bad_site_ids: Optional[torch.Tensor] = None, vocab: int = VOCAB
+) -> None:
+    """Raise on a k-mer id outside [0, vocab) (pack_sites never makes one
+    for the data's 66 k-mers) and, given ``bad_site_ids`` (a 0-d bool
+    tensor), on site ids off the dense layout, on either device; on the
+    card this waits for the checks' results, in one host sync."""
+    flags = [((kmer_ids < 0) | (kmer_ids >= vocab)).any()]
     if bad_site_ids is not None:
         flags.append(bad_site_ids)
     bad_kmer, *bad_ids = torch.stack(flags).tolist()
     if bad_kmer:
-        raise ValueError(f"kmer_ids must lie in [0, {VOCAB})")
+        raise ValueError(f"kmer_ids must lie in [0, {vocab})")
     if any(bad_ids):
         raise ValueError(SITE_IDS_ERROR)
 
 
 def fused_inference_t(
     fp: FusedParamsT,
-    features: torch.Tensor,  # (N, 9) f32
-    kmer_ids: torch.Tensor,  # (N, 3) int8 or int32
+    features: torch.Tensor,  # (N, 3P) f32
+    kmer_ids: torch.Tensor,  # (N, P) int8 or int32
     site_ids: Optional[torch.Tensor],  # (N,) i32, or None (derived from offsets/counts)
     offsets: torch.Tensor,  # (S,) i32 first read of each site
     counts: torch.Tensor,  # (S,) i32 reads per site, 0 = padding site
@@ -571,7 +778,7 @@ def fused_inference_t(
     global launch_count
     check_precision(precision)
     if host_kmer_ids is not None:
-        check_host_kmer_ids(host_kmer_ids, kmer_ids)
+        check_host_kmer_ids(host_kmer_ids, kmer_ids, fp.widths.vocab)
     if features.device.type == "cpu":
         return fused_inference_t_plain(
             fp, features, kmer_ids, site_ids, offsets, counts, threshold, n_samples, precision
@@ -593,18 +800,19 @@ def check_read_inputs(
     host_checked: bool = False,
 ) -> torch.Tensor:
     """Check the per-read inputs of a kernel launch (and ``bad_site_ids``,
-    in the same host sync); return the k-mer ids as the int8 the kernel
-    reads.  ``host_checked``: the caller checked the ids' range on the host
-    (``host_kmer_ids``), so only their type and shape are checked here, and
-    nothing waits for the device."""
+    in the same host sync); return the k-mer ids as the int8 the kernel reads.  ``host_checked``:
+    the caller checked the ids' range on the host (``host_kmer_ids``), so
+    only their type and shape are checked here, and nothing waits for the
+    device."""
     if features.device.type != "cuda":
         raise ValueError(f"{name} runs on cpu or cuda, got {features.device}")
+    w = fp.widths
     device, n = features.device, features.shape[0]
-    check_tensor("features", features, (torch.float32,), (n, N_FEATURES), device)
-    check_tensor("kmer_ids", kmer_ids, (torch.int8, torch.int32), (n, N_POSITIONS), device)
-    check_tensor("fp.packed", fp.packed, (torch.float32,), (PACKED_WEIGHTS,), device)
+    check_tensor("features", features, (torch.float32,), (n, w.features), device)
+    check_tensor("kmer_ids", kmer_ids, (torch.int8, torch.int32), (n, w.positions), device)
+    check_tensor("fp.packed", fp.packed, (torch.float32,), (f32_layout(w)["kWeights"],), device)
     if not host_checked:
-        _check_kmer_range(kmer_ids, bad_site_ids)
+        _check_kmer_range(kmer_ids, bad_site_ids, w.vocab)
     return kmer_ids.to(torch.int8)
 
 
@@ -627,7 +835,7 @@ def _launch_fused(fp, features, kmer_ids, offsets, counts, threshold, n_samples,
         raise ValueError(f"n_samples must be >= 0, got {n_samples}")
     kmer_ids = check_read_inputs(fp, features, kmer_ids, name, bad_site_ids, host_checked)
 
-    lib = kernel_lib()
+    lib = kernel_lib(fp.widths)
     p = torch.empty(n, dtype=torch.float32, device=device)
     site_p = torch.empty(n_sites, dtype=torch.float32, device=device)
     mod_ratio = torch.empty(n_sites, dtype=torch.float32, device=device)
@@ -724,7 +932,7 @@ PHASE_B_EDGES = np.array([0.0, 2.0**-149, 2.0**-25, 0.5 - 2.0**-25, 0.5, 1 - 2.0
 def site_reduce_batch(seed: int = 3, nan_reads: bool = True):
     """``(p, offsets, counts)`` (numpy) on which the card tests and
     ``chip_smoke.py`` hold phase B alone against its plain version: sites of
-    1, 20-1,000 and 57,344 reads (``mc_kernel.MAX_SITE_READS``), count-0
+    1, 20-1,000 and 57,344 reads (``mc_kernel.MAX_STAGED_READS``), count-0
     sites between real ones and at the end, a 1,000-read site of p = 0
     (every step's warp sum at its 2^31 ceiling) and one of p = 1,
     ``PHASE_B_EDGES`` at every seventh read, with ``nan_reads`` a NaN read
@@ -769,8 +977,8 @@ def fused_inference_plain(
 
 def fused_inference(
     fp: FusedParamsT,
-    features: torch.Tensor,  # (N, 9) f32
-    kmer_ids: torch.Tensor,  # (N, 3) int8 or int32
+    features: torch.Tensor,  # (N, 3P) f32
+    kmer_ids: torch.Tensor,  # (N, P) int8 or int32
     site_ids: torch.Tensor,  # (N,) i32, consecutive per pack_sites; padding == S
     counts: torch.Tensor,  # (S,) i32 reads per site, 0 = padding site
     threshold: float,

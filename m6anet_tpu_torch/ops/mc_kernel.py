@@ -9,18 +9,26 @@ with ``U`` (n_samples, n_iters) from ``random.shared_draws`` (iteration
 chunks of ``min(n_iters, 1024)`` columns, chunk ``ci`` drawn from
 ``fold_in(key, ci)``), the same for every site and every batch, so a site's
 value depends only on (seed, its reads) and not on its place in a batch.
-Count-0 sites give 0.  A site may hold at most ``MAX_SITE_READS`` reads
-on either device: the kernel stages a site's values in shared memory, sized
-at each launch to the batch's largest count.
+Count-0 sites give 0.  A site may hold up to ``MAX_SITE_READS`` (2^23 - 1)
+reads on either device, the range of the kernel's draw index.  The kernel
+stages a site of up to ``MAX_STAGED_READS`` reads in shared memory, sized at
+each launch to the batch's largest such count; a longer site takes a second
+kernel of ``csrc/mc.cu``, ``mc_long_site_kernel``, which reads its values
+from device memory and gives the same site_p bits as the staged kernel
+would.  ``n_samples`` may be any count from 1: the kernel holds the draws of
+an iteration in registers, so each count builds its own library at first
+use (``SAMPLES`` = 20, the reference's, is the sources' default).
 
 On a CUDA tensor :func:`site_probability_mc_cuda` launches the hand-written
-Hopper kernel in ``csrc/mc.cu`` and counts the launch in ``launch_count``;
-on a CPU tensor it runs :func:`site_probability_mc_plain`, the same function
-in plain PyTorch.  There is no fallback from one to the other.  The kernel
+Hopper kernel in ``csrc/mc.cu`` and counts the launch in ``launch_count``
+(and that of the long-site kernel, where a batch has such sites, in
+``long_launch_count``); on a CPU tensor it runs
+:func:`site_probability_mc_plain`, the same function in plain PyTorch.  There is no fallback from one to the other.  The kernel
 file's header states its bound on the card and its design.
 
 The wrapper checks the sites before it launches (a count above
-``MAX_SITE_READS``, a span outside ``p``) and needs the largest count.  From
+``MAX_SITE_READS``, a span outside ``p``) and needs the largest staged
+count and the number of longer sites.  From
 the device tensors that costs a host sync; a caller that holds the same
 offsets and counts as numpy arrays (the engine does) passes them as
 ``host_sites``, and the check runs on the host without touching the device.
@@ -33,49 +41,60 @@ from __future__ import annotations
 
 import ctypes
 import threading
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from .fused_infer_kernel import check_tensor
 
-# launches of the CUDA kernel in this process
+# launches of the CUDA kernels in this process: mc_site_kernel, and
+# mc_long_site_kernel for the sites above MAX_STAGED_READS
 launch_count = 0
+long_launch_count = 0
 
-# reads of one site: 224 KB of f32 values (with the copy of the last one
-# the kernel stages), within the 227 KB of shared memory one block may opt
-# into on sm_90
-MAX_SITE_READS = 56 * 1024
-# draws per iteration, which the kernel holds in registers (kSamples)
+# reads of one site that mc_site_kernel stages: 224 KB of f32 values (with
+# the copy of the last one it stages), within the 227 KB of shared memory
+# one block may opt into on sm_90
+MAX_STAGED_READS = 56 * 1024
+# reads of one site: the draw index is exact below 2^23 (csrc/mc.cu)
+MAX_SITE_READS = (1 << 23) - 1
+# draws per iteration of the sources' default build (kSamples); others build
+# at first use
 SAMPLES = 20
 # elements of the plain version's (n_samples, n_iters, sites) gather per site chunk
 _PLAIN_CHUNK = 1 << 24
 
 
-def _check_sites(offsets, counts, n_reads: int) -> int:
+def _check_sites(offsets, counts, n_reads: int) -> Tuple[int, int]:
     """Raise on a count above ``MAX_SITE_READS`` or a span outside ``p``;
-    return the largest count.  ``offsets`` and ``counts`` are tensors (one
-    host sync on the card) or numpy arrays (no device access)."""
+    return the largest count of at most ``MAX_STAGED_READS`` reads (the
+    staged sites) and the number of longer sites.  ``offsets`` and ``counts`` are
+    tensors (one host sync on the card) or numpy arrays (no device
+    access)."""
     if not len(counts):
-        return 0
+        return 0, 0
     if isinstance(counts, torch.Tensor):
         real = counts > 0
         outside = real & ((offsets < 0) | (offsets.long() + counts.long() > n_reads))
-        biggest, n_outside = torch.stack([counts.max().long(), outside.sum()]).tolist()
+        staged = torch.where(counts <= MAX_STAGED_READS, counts, torch.zeros_like(counts))
+        biggest, largest, n_long, n_outside = torch.stack(
+            [counts.max().long(), staged.max().long(), (counts > MAX_STAGED_READS).sum(), outside.sum()]
+        ).tolist()
     else:
         offsets, counts = np.asarray(offsets, np.int64), np.asarray(counts, np.int64)
         outside = (counts > 0) & ((offsets < 0) | (offsets + counts > n_reads))
         biggest, n_outside = int(counts.max()), int(outside.sum())
+        largest = int(np.where(counts <= MAX_STAGED_READS, counts, 0).max())
+        n_long = int((counts > MAX_STAGED_READS).sum())
     if biggest > MAX_SITE_READS:
         raise ValueError(
-            f"a site has {biggest} reads, above the {MAX_SITE_READS} the MC "
-            "kernel holds in shared memory; rerun dataprep with a lower "
-            "--readcount_max, or use --backend torch"
+            f"a site has {biggest} reads, above the {MAX_SITE_READS} (2^23 - 1) the MC kernel's draw index "
+            "holds; rerun dataprep with a lower --readcount_max, or use --backend torch"
         )
     if n_outside:
         raise ValueError(f"{n_outside} site spans (offsets, counts) reach outside p")
-    return biggest
+    return max(largest, 0), n_long
 
 
 def site_probability_mc_plain(
@@ -110,50 +129,81 @@ def site_probability_mc_plain(
     return torch.where(counts > 0, site_p, torch.zeros_like(site_p))
 
 
-def ragged_mc_batch(seed: int = 5):
+# the sites ragged_mc_batch(long_sites=True) adds: one read above the
+# staged cap, and two far above it
+LONG_SITE_COUNTS = (MAX_STAGED_READS + 1, 100_000, 1_000_000)
+
+
+def ragged_mc_batch(seed: int = 5, long_sites: bool = False):
     """A pack_sites-shaped MC batch ``(p, offsets, counts)`` (numpy) with
     the cases the kernel must take: counts 1, 32, 33 and 64, 65 (around a
     bank's width), 128, 129, 1000, 1024 and 20,000, one at exactly
-    ``MAX_SITE_READS``, a run with counts 1-40, three sites of 25,000 reads
+    ``MAX_STAGED_READS``, a run with counts 1-40, three sites of 25,000 reads
     in a row (more than one block's shared memory holds at once), a site
     whose only read has p = 1 (the -1e4 clamp), count-0 sites between real
-    ones and padding sites and reads at the end.  Its own seed, so it draws
+    ones and padding sites and reads at the end.  With ``long_sites`` the
+    sites of ``LONG_SITE_COUNTS`` follow the others, before the padding
+    sites, their reads after the others' and before the padding reads:
+    every other site keeps its offset and reads.  Its own seed, so it draws
     nothing from a caller's generator."""
     rng = np.random.default_rng(seed)
-    head = [1, 128, 129, 1000, 1024, 0, 20000, 1, 32, 33, 64, 65, MAX_SITE_READS, 0]
+    head = [1, 128, 129, 1000, 1024, 0, 20000, 1, 32, 33, 64, 65, MAX_STAGED_READS, 0]
     tail = rng.integers(2, 200, size=200)
     tail[::25] = 0
-    counts = np.array(head + list(range(1, 41)) + [0] + [25000] * 3 + list(tail) + [0] * 16, np.int32)
+    body = head + list(range(1, 41)) + [0] + [25000] * 3 + list(tail)
+    counts = np.array(body + [0] * 16, np.int32)
     offsets = np.zeros_like(counts)
     offsets[1:] = np.cumsum(counts)[:-1]
     offsets[counts == 0] = 0
     p = rng.uniform(0.0, 0.3, size=int(counts.sum()) + 100).astype(np.float32)
     p[offsets[7]] = 1.0
-    return p, offsets, counts
+    if not long_sites:
+        return p, offsets, counts
+    n_short = int(counts.sum())
+    extra = np.array(LONG_SITE_COUNTS, np.int32)
+    long_offsets = (n_short + np.cumsum(extra) - extra).astype(np.int32)
+    long_p = rng.uniform(0.0, 0.3, size=int(extra.sum())).astype(np.float32)
+    counts = np.concatenate([counts[: len(body)], extra, counts[len(body) :]])
+    offsets = np.concatenate([offsets[: len(body)], long_offsets, offsets[len(body) :]])
+    return np.concatenate([p[:n_short], long_p, p[n_short:]]), offsets, counts
 
 
 # mc_site_launch(p, offsets, counts, u, site_p, n_sites, n_reads, n_iters,
-# n_samples, max_count, stream)
+# n_samples, max_count, stream); mc_long_site_launch(p, offsets, counts, u,
+# site_p, n_sites, n_reads, n_iters, n_samples, long_from, grid, stream)
 LAUNCH_ARGTYPES = [ctypes.c_void_p] * 5 + [
     ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
 ]
+LONG_LAUNCH_ARGTYPES = [ctypes.c_void_p] * 5 + [
+    ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+]
+# the long-site kernel's blocks, at most (one a site below it)
+LONG_GRID = 1024
 _lib_lock = threading.Lock()
-_lib: Optional[ctypes.CDLL] = None
+_libs: Dict[int, ctypes.CDLL] = {}
 
 
-def _kernel_lib() -> ctypes.CDLL:
-    global _lib
+def kernel_defines(n_samples: int) -> Dict[str, int]:
+    """The ``-D`` defines that build mc.cu for ``n_samples`` draws an
+    iteration: none at the default ``SAMPLES``."""
+    return {} if n_samples == SAMPLES else {"M6A_SAMPLES": n_samples}
+
+
+def _kernel_lib(n_samples: int = SAMPLES) -> ctypes.CDLL:
     with _lib_lock:
-        if _lib is None:
+        lib = _libs.get(n_samples)
+        if lib is None:
             from ._build import cuda_library
 
-            lib = ctypes.CDLL(cuda_library("mc"))
+            lib = ctypes.CDLL(cuda_library("mc", kernel_defines(n_samples)))
             lib.mc_site_launch.restype = ctypes.c_int
             lib.mc_site_launch.argtypes = LAUNCH_ARGTYPES
+            lib.mc_long_site_launch.restype = ctypes.c_int
+            lib.mc_long_site_launch.argtypes = LONG_LAUNCH_ARGTYPES
             lib.mc_error_string.restype = ctypes.c_char_p
             lib.mc_error_string.argtypes = [ctypes.c_int]
-            _lib = lib
-    return _lib
+            _libs[n_samples] = lib
+    return lib
 
 
 def site_probability_mc_cuda(
@@ -166,15 +216,17 @@ def site_probability_mc_cuda(
     host_sites: Optional[Tuple[np.ndarray, np.ndarray]] = None,
 ) -> torch.Tensor:
     """MC site probabilities (S,), 0 for count-0 sites.  CPU tensors run the
-    plain version; CUDA tensors launch the kernel, which draws ``SAMPLES``
-    reads per iteration.  Both raise when a count exceeds ``MAX_SITE_READS``
-    or a span leaves ``p``.  ``host_sites``, the numpy arrays ``offsets``
-    and ``counts`` were copied from, moves that check to the host: no host
-    sync.  On the card a site that differs from them so that the launch
-    cannot take it gives NaN (see the module docstring)."""
-    global launch_count
+    plain version; CUDA tensors launch the kernel (built for ``n_samples``
+    draws an iteration), and the long-site kernel for the sites above
+    ``MAX_STAGED_READS`` reads.  Both raise when a
+    count exceeds ``MAX_SITE_READS`` or a span leaves ``p``.
+    ``host_sites``, the numpy arrays ``offsets`` and ``counts`` were copied
+    from, moves that check to the host: no host sync.  On the card a site
+    that differs from them so that the launch cannot take it gives NaN (see
+    the module docstring)."""
+    global launch_count, long_launch_count
     n_sites = counts.shape[0]
-    max_count = None
+    sites = None
     if host_sites is not None:
         host_offsets, host_counts = host_sites
         if np.shape(host_offsets) != (n_sites,) or np.shape(host_counts) != (n_sites,):
@@ -182,7 +234,7 @@ def site_probability_mc_cuda(
                 f"host_sites have shapes {np.shape(host_offsets)} and {np.shape(host_counts)}, "
                 f"expected ({n_sites},) like counts"
             )
-        max_count = _check_sites(host_offsets, host_counts, p.shape[0])
+        sites = _check_sites(host_offsets, host_counts, p.shape[0])
     if p.device.type == "cpu":
         return site_probability_mc_plain(p, offsets, counts, u, n_iters, n_samples)
     if p.device.type != "cuda":
@@ -192,23 +244,26 @@ def site_probability_mc_cuda(
     check_tensor("offsets", offsets, (torch.int32,), (n_sites,), device)
     check_tensor("counts", counts, (torch.int32,), (n_sites,), device)
     check_tensor("u", u, (torch.float32,), (n_samples, n_iters), device)
-    if n_iters < 1 or n_samples != SAMPLES:
-        raise ValueError(
-            f"the MC kernel takes n_iters >= 1 and n_samples == {SAMPLES}, got {n_iters}, "
-            f"{n_samples}; use --backend torch"
-        )
-    if max_count is None:
-        max_count = _check_sites(offsets, counts, p.shape[0])
+    if n_iters < 1 or n_samples < 1:
+        raise ValueError(f"the MC kernel takes n_iters >= 1 and n_samples >= 1, got {n_iters}, {n_samples}")
+    if sites is None:
+        sites = _check_sites(offsets, counts, p.shape[0])
+    max_count, n_long = sites
 
-    lib = _kernel_lib()
+    lib = _kernel_lib(n_samples)
     site_p = torch.empty(n_sites, dtype=torch.float32, device=device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.mc_site_launch(
-            p.data_ptr(), offsets.data_ptr(), counts.data_ptr(), u.data_ptr(), site_p.data_ptr(),
-            n_sites, p.shape[0], int(n_iters), int(n_samples), max_count, stream,
-        )
+        args = (p.data_ptr(), offsets.data_ptr(), counts.data_ptr(), u.data_ptr(), site_p.data_ptr(),
+                n_sites, p.shape[0], int(n_iters), int(n_samples))
+        _raise_on(lib, lib.mc_site_launch(*args, max_count, stream))
+        launch_count += 1
+        if n_long:
+            _raise_on(lib, lib.mc_long_site_launch(*args, MAX_STAGED_READS, min(n_long, LONG_GRID), stream))
+            long_launch_count += 1
+    return site_p
+
+
+def _raise_on(lib: ctypes.CDLL, err: int) -> None:
     if err != 0:
         raise RuntimeError(f"mc kernel launch failed: {lib.mc_error_string(err).decode()}")
-    launch_count += 1
-    return site_p

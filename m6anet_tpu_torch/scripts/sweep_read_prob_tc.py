@@ -170,50 +170,36 @@ _WGMMA_ABLATIONS = {  # a persistent warp-specialised block on wgmma and bulk co
     # (b) layer 2's wgmma gone: each k step's A fragments folded into the
     # accumulators by one integer op a register
     "b: no layer-2 wgmma": [
-        ("""    wgmma_n32(cross[tt], ahi[B][tt], dl, 1);  // W2lo.h1hi
-    wgmma_n32(cross[tt], alo[B][tt], dh, 1);  // + W2hi.h1lo
-    wgmma_n32(part[tt], ahi[B][tt], dh, 0);   // W2hi.h1hi alone""",
+        ("""    wgmma<kH2Pad>(cross[tt], ahi[B][tt], dl, 1);  // W2lo.h1hi
+    wgmma<kH2Pad>(cross[tt], alo[B][tt], dh, 1);  // + W2hi.h1lo
+    wgmma<kH2Pad>(part[tt], ahi[B][tt], dh, 0);   // W2hi.h1hi alone""",
          """#pragma unroll
     for (int i = 0; i < 4; ++i) {
       cross[tt][i] += __uint_as_float(ahi[B][tt][i] & 0x3f7fffffu);
       part[tt][i] = __uint_as_float(alo[B][tt][i] & 0x3f7fffffu);
     }
     (void)dl, (void)dh;"""),
-        ("""  wgmma_n32(part[0], a2[0], b_desc(w2h), 0);""",
+        ("""  wgmma<kH2Pad>(part[0], a2[0], b_desc(w2h), 0);""",
          """  for (int i = 0; i < 4; ++i) part[0][i] = __uint_as_float(a2[0][i] & 0x3f7fffffu);"""),
-        ("""      wgmma_n32(part[(j + 1) & 1], a2[j + 1], b_desc(w2h + (j + 1) * kW2StepBytes), 0);""",
+        ("""      wgmma<kH2Pad>(part[(j + 1) & 1], a2[j + 1], b_desc(w2h + (j + 1) * kW2StepBytes), 0);""",
          """      for (int i = 0; i < 4; ++i) part[(j + 1) & 1][i] = __uint_as_float(a2[j + 1][i] & 0x3f7fffffu);"""),
     ],
-    # (c) layer 1 replaced by 4 operations a unit that read the same W1 rows
-    # and all 15 inputs of each read; in bf16 its wgmma by a mix of the A
-    # fragment
+    # (c) layer 1 cut to about 4 operations a unit that read the same W1 rows
+    # (an FMA every fourth input at the released widths); in bf16 its
+    # wgmma by a mix of the A fragment
     "c: layer-1 stand-in": [
-        ("""      float u = a.x * in[0];  // fused_infer.cu's order
-      u = fmaf(a.y, in[1], u);
-      u = fmaf(a.z, in[2], u);
-      u = fmaf(a.w, in[3], u);
-      u = fmaf(b.x, in[4], u);
-      u = fmaf(b.y, in[5], u);
-      u = fmaf(b.z, in[6], u);
-      u = fmaf(b.w, in[7], u);
-      u = fmaf(cc.x, in[8], u);
-      u = fmaf(cc.y, in[9], u);
-      u = fmaf(cc.z, in[10], u);
-      u = fmaf(cc.w, in[11], u);
-      u = fmaf(d.x, in[12], u);
-      u = fmaf(d.y, in[13], u);
-      u = fmaf(d.z, in[14], u);
-      h[c][i] = fmaxf(u + d.w, 0.f);  // + b1', relu""",
-         """      h[c][i] = fmaxf(fmaf(a.x, in[c], fmaf(b.y, in[4 + c], fmaf(cc.z, in[8 + c], d.w * in[12 + c % 3]))), 0.f);"""),
-        ("""  wgmma_n160(h, a1, b_desc(smem_addr(s + (kTcOffW1H - kBase))));""",
+        ("""            u[i] = fmaf(wq[e], x.at(i, k), u[i]);""",
+         """            u[i] = k % 4 == 0 ? fmaf(wq[e], x.at(i, k), u[i]) : u[i];"""),
+        ("""  for (int k1 = 0; k1 < kK1Steps; ++k1) layer1_bf16<0>(h, a1[k1], w1h + k1 * kW1StepBytes, k1 > 0 ? 1 : 0);""",
          """#pragma unroll
-  for (int i = 0; i < 80; ++i) h[i] = __uint_as_float((a1[i & 3] ^ (i << 7)) & 0x3f7fffffu);"""),
+  for (int i = 0; i < kH1Pad / 2; ++i) h[i] = __uint_as_float((a1[0][i & 3] ^ (i << 7)) & 0x3f7fffffu);
+  (void)w1h;"""),
     ],
     # (d) f32x3: every lane of a warp loads the W1 rows of thread t = 0, so
     # each LDS.128 reads one address (a broadcast) instead of four
     "d: one W1 row address a warp": [
-        ("""    const float4* row = w1 + (J * 4 + c) * 16 + t;  // [j][c][q][t]""",
-         """    const float4* row = w1 + (J * 4 + c) * 16;  // [j][c][q][0] in every lane"""),
+        ("""    const float4* row = w1 + (J * 4 + c) * 4 * kW1Quads + t;  // [j][c][q][t]""",
+         """    const float4* row = w1 + (J * 4 + c) * 4 * kW1Quads;  // [j][c][q][0] in every lane"""),
     ],
 }
 ABLATIONS = {"mma.sync": _MMA_SYNC_ABLATIONS, "wgmma": _WGMMA_ABLATIONS}

@@ -234,22 +234,95 @@ def test_mc_kernel_matches_plain_and_repeats(cuda_device):
         assert torch.equal(got, again), n_iters
         assert torch.equal(elsewhere, got[torch.from_numpy(order).to(cuda_device)]), n_iters
         assert bool((got[counts == 0] == 0).all()) and bool(torch.isfinite(got).all())
-    cap = mc_kernel.MAX_SITE_READS
-    big = torch.tensor([cap + 1], dtype=torch.int32, device=cuda_device)
+    # a count past the draw index's range, or a span outside p, raises on
+    # both routes of the check
+    top = mc_kernel.MAX_SITE_READS
+    big = torch.tensor([top + 1], dtype=torch.int32, device=cuda_device)
     zero = torch.zeros(1, dtype=torch.int32, device=cuda_device)
-    host = (np.zeros(1, np.int32), np.array([cap + 1], np.int32))
+    host = (np.zeros(1, np.int32), np.array([top + 1], np.int32))
     for host_sites in (None, host):  # the device check and the host check
-        with pytest.raises(ValueError, match=f"above the {cap}"):
+        with pytest.raises(ValueError, match=f"above the {top}"):
             mc_kernel.site_probability_mc_cuda(
-                torch.rand(cap + 1, device=cuda_device), zero, big, u, 2000, host_sites=host_sites)
+                torch.rand(64, device=cuda_device), zero, big, u, 2000, host_sites=host_sites)
+        cap = mc_kernel.MAX_STAGED_READS
         with pytest.raises(ValueError, match="reach outside p"):
             mc_kernel.site_probability_mc_cuda(
-                torch.rand(cap, device=cuda_device), zero + 1, big - 1, u, 2000,
-                host_sites=None if host_sites is None else (host[0] + 1, host[1] - 1))
+                torch.rand(cap, device=cuda_device), zero + 1, zero + cap, u, 2000,
+                host_sites=None if host_sites is None else (host[0] + 1, host[1] * 0 + cap))
     with pytest.raises(ValueError, match="u has shape"):
         mc_kernel.site_probability_mc_cuda(p, offsets, counts, u[:, :100], 2000)
-    with pytest.raises(ValueError, match="n_samples == 20"):
-        mc_kernel.site_probability_mc_cuda(p, offsets, counts, u[:7].contiguous(), 2000, 7)
+    # another number of draws an iteration builds its own kernel
+    u7 = torch.from_numpy(random.shared_draws(3, 2000, 7)).to(cuda_device)
+    got = mc_kernel.site_probability_mc_cuda(p, offsets, counts, u7, 2000, 7)
+    torch.testing.assert_close(got, mc_kernel.site_probability_mc_plain(p, offsets, counts, u7, 2000, 7),
+                               rtol=0, atol=1e-6)
+
+
+def _mc_through_long_kernel(p, offsets, counts, u, n_iters):
+    """site_p with every site of 1 read or more through mc_long_site_kernel:
+    mc.cu's staged launch sized for count 0 (NaN at those sites), then its
+    long-site launch from count 0.  No launch is counted."""
+    lib = mc_kernel._kernel_lib()
+    n_sites = counts.shape[0]
+    site_p = torch.empty(n_sites, dtype=torch.float32, device=p.device)
+    stream = torch.cuda.current_stream(p.device).cuda_stream
+    args = (p.data_ptr(), offsets.data_ptr(), counts.data_ptr(), u.data_ptr(), site_p.data_ptr(), n_sites,
+            p.shape[0], n_iters, mc_kernel.SAMPLES)
+    assert lib.mc_site_launch(*args, 0, stream) == 0
+    assert lib.mc_long_site_launch(*args, 0, mc_kernel.LONG_GRID, stream) == 0
+    return site_p
+
+
+def test_mc_long_sites_on_the_card(cuda_device):
+    """Sites of 57,345, 100,000 and 1,000,000 reads beside the ragged
+    batch's (mc_kernel.ragged_mc_batch(long_sites=True)): within 1e-6 of the
+    plain version; every other site the same bits as without them; every
+    site sent through the long-site kernel the same bits as the staged
+    kernel gives; one launch of each kernel a call."""
+    p, offsets, counts = (torch.from_numpy(a).to(cuda_device) for a in mc_kernel.ragged_mc_batch(long_sites=True))
+    p0, off0, cnt0 = (torch.from_numpy(a).to(cuda_device) for a in mc_kernel.ragged_mc_batch())
+    keep = torch.cat([torch.arange(len(cnt0) - 16), torch.arange(len(counts) - 16, len(counts))]).to(cuda_device)
+    u = torch.from_numpy(random.shared_draws(5, 1000)).to(cuda_device)
+    before = mc_kernel.launch_count, mc_kernel.long_launch_count
+    got = mc_kernel.site_probability_mc_cuda(p, offsets, counts, u, 1000)
+    assert (mc_kernel.launch_count, mc_kernel.long_launch_count) == (before[0] + 1, before[1] + 1)
+    alone = mc_kernel.site_probability_mc_cuda(p0, off0, cnt0, u, 1000)
+    through_long = _mc_through_long_kernel(p, offsets, counts, u, 1000)
+    want = mc_kernel.site_probability_mc_plain(p, offsets, counts, u, 1000)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
+    assert same_bits(got[keep], alone) and same_bits(through_long, got)
+    assert bool(torch.isfinite(got).all()) and bool((got[counts > mc_kernel.MAX_STAGED_READS] > 0).all())
+
+
+@pytest.mark.parametrize("precision", ["f32", "f32x3", "bf16"])
+@pytest.mark.parametrize("widths", [(3, 3, 100, 20), (11, 4, 96, 24), (11, 4, 256, 64), (1, 4, 256, 64)])
+def test_kernels_at_other_widths_match_plain(cuda_device, widths, precision):
+    """The production architecture at other widths (seeded weights, their
+    own libraries built at first use): fused_inference_t against its plain
+    version at chip_smoke.py's phase 12 tolerances, repeats bit-identical,
+    and phase A alone the same p."""
+    from m6anet_tpu_torch.models.mil import MILModel
+
+    model = MILModel(fik.widths_config(fik.Widths(*widths))).init(torch.Generator().manual_seed(3))
+    fp = fik.prepare_fused_params_t(model.eval().to(cuda_device))
+    rng = np.random.default_rng(9)
+    n, positions = 8192, widths[0]
+    X = torch.from_numpy(rng.normal(size=(n, 3 * positions)).astype(np.float32)).to(cuda_device)
+    K = torch.from_numpy(rng.integers(0, 66, size=(n, positions)).astype(np.int8)).to(cuda_device)
+    counts = torch.from_numpy(rng.integers(1, 40, size=300).astype(np.int32)).to(cuda_device)
+    offsets = (torch.cumsum(counts, 0) - counts).to(torch.int32)
+    args = (X, K, None, offsets, counts, 0.5, 20, precision)
+    got = fik.fused_inference_t(fp, *args)
+    again = fik.fused_inference_t(fp, *args)
+    want = fik.fused_inference_t_plain(fp, *args)
+    alone = encoder_kernel.fused_read_probability(fp, X, K, precision)
+    torch.cuda.synchronize()
+    atol = {"f32": 1e-6, "f32x3": 2e-6, "bf16": 1e-3}[precision]
+    err = float((got[0] - want[0]).abs().max())
+    assert err <= atol
+    torch.testing.assert_close(got[1], want[1], rtol=0, atol=1e-5 + 20 * err)
+    assert all(torch.equal(a, b) for a, b in zip(got, again)) and torch.equal(alone, got[0])
 
 
 def test_mc_kernel_gives_nan_for_sites_the_launch_cannot_take(cuda_device):

@@ -241,7 +241,8 @@ def test_merge_host_shards(port_out, tmp_path):
 def test_backend_resolution():
     model = _model()
     cpu, cuda = torch.device("cpu"), torch.device("cuda")
-    assert engine.fused_backend_supported(model)
+    assert engine.production_architecture(model)
+    assert fused_infer_kernel.kernel_limit(fused_infer_kernel.model_widths(model)) is None
     assert engine.resolve_backend(model, "auto", "auto", cpu) == ("torch", "f32")
     # auto is f32x3 on the CUDA backends, f32 on torch (the JAX package's
     # resolution: pallas backends f32x3, xla f32)
@@ -252,21 +253,26 @@ def test_backend_resolution():
     for precision in ("f32", "f32x3", "bf16"):
         assert engine.resolve_backend(model, "auto", precision, cuda) == ("cuda_fused", precision)
     # the production architecture at other widths: the JAX package runs it
-    # on its width-generic Pallas kernel, the CUDA kernels are built for
-    # 150/32, so on the card the torch modules run it only when asked for
+    # on its width-generic Pallas kernel, and so does the port on its
+    # kernels built for those widths; outside their envelope it raises,
+    # naming the limit and --backend torch
     with open(DEFAULT_MODEL_CONFIG, "rb") as f:
         config = tomllib.load(f)
     config["block"][4]["output_channel"] = config["block"][5]["input_channel"] = 16
     narrow = load_model(config)
-    assert not engine.fused_backend_supported(narrow)
     assert engine.production_architecture(narrow)
+    assert fused_infer_kernel.kernel_limit(fused_infer_kernel.model_widths(narrow)) is None
     assert engine.resolve_backend(narrow, "auto", "auto", cpu) == ("torch", "f32")
     assert engine.resolve_backend(narrow, "torch", "auto", cuda) == ("torch", "f32")
     for backend in ("auto", "cuda_fused"):
-        with pytest.raises(ValueError, match="--backend torch"):
-            engine.resolve_backend(narrow, backend, "auto", cuda)
-    with pytest.raises(ValueError, match="Queue 2 item 8.*--backend torch"):
-        engine.resolve_backend(narrow, "auto", "auto", cuda)
+        assert engine.resolve_backend(narrow, backend, "auto", cuda) == ("cuda_fused", "f32x3")
+    config["block"][4]["output_channel"] = config["block"][5]["input_channel"] = 65
+    wide = load_model(config)
+    assert engine.production_architecture(wide)
+    assert "registers" in fused_infer_kernel.kernel_limit(fused_infer_kernel.model_widths(wide))
+    for backend in ("auto", "cuda_fused", "cuda"):
+        with pytest.raises(ValueError, match="hidden 150 -> 65.*registers.*--backend torch"):
+            engine.resolve_backend(wide, backend, "auto", cuda)
     with pytest.raises(ValueError, match="needs device 'cuda'"):
         engine.resolve_backend(model, "cuda_fused", "auto", cpu)
     # the reduced modes need a CUDA backend, as the JAX package's need a
@@ -284,8 +290,7 @@ def test_backend_resolution():
     assert engine.resolve_backend(model, "cuda", "bf16", cuda) == ("cuda", "bf16")
     with pytest.raises(ValueError, match="backend 'cuda' needs device 'cuda'"):
         engine.resolve_backend(model, "cuda", "auto", cpu)
-    with pytest.raises(ValueError, match="--backend torch"):
-        engine.resolve_backend(narrow, "cuda", "auto", cuda)
+    assert engine.resolve_backend(narrow, "cuda", "auto", cuda) == ("cuda", "f32x3")
 
 
 def test_default_device_without_a_card_raises(tmp_path, monkeypatch):
@@ -356,7 +361,7 @@ def test_cli_subprocess_on_cpu(port_out, tmp_path):
     assert "batches dispatched: 1" in proc.stderr
     assert ('kernel launches: {"fused_inference_t": 0, "fused_read_probability": 0, '
             '"site_probability_mc": 0, "fused_inference": 0, "site_reduce": 0, "read_prob_tc_f32x3": 0, '
-            '"read_prob_tc_bf16": 0}') in proc.stderr
+            '"read_prob_tc_bf16": 0, "site_probability_mc_long": 0}') in proc.stderr
     for name in ("data.site_proba.csv", "data.indiv_proba.csv"):
         assert (out / name).read_bytes() == (port_out / name).read_bytes()
 
@@ -468,33 +473,50 @@ def test_cuda_backend_steps_on_cpu_tensors(backend, method):
 
 
 def test_cuda_backends_take_the_mc_kernels_samples():
-    """The MC kernel draws mc_kernel.SAMPLES reads per iteration: the CUDA
-    backends refuse another n_samples when the step is built, on either
-    device; the torch backend takes any."""
+    """The MC kernel builds for any n_samples from 1: the CUDA backends
+    take another n_samples than mc_kernel.SAMPLES, as the torch backend
+    does, and on CPU tensors the step gives the plain version's values."""
     model = _model().eval()
+    rng = np.random.default_rng(4)
+    features = torch.from_numpy(rng.normal(size=(16, 9)).astype(np.float32))
+    kmer = torch.from_numpy(rng.integers(0, 66, size=(16, 3)).astype(np.int8))
+    offsets = torch.tensor([0, 3, 0, 0], dtype=torch.int32)
+    counts = torch.tensor([3, 12, 0, 0], dtype=torch.int32)
     for backend in ("cuda_fused", "cuda"):
-        with pytest.raises(ValueError, match=f"draws {mc_kernel.SAMPLES} reads.*backend 'torch'"):
-            engine.make_infer_step(model, 4, THRESHOLD, 7, "mc", backend, n_iterations=10)
+        step = engine.make_infer_step(model, 4, THRESHOLD, 7, "mc", backend, n_iterations=10)
+        with torch.no_grad():
+            p, site_p, _ = step(features, kmer, offsets, counts)
+        u = torch.from_numpy(random.shared_draws(0, 10, 7))
+        want = mc_kernel.site_probability_mc_plain(p, offsets, counts, u, 10, 7)
+        assert torch.equal(site_p, want), backend
     engine.make_infer_step(model, 4, THRESHOLD, 7, "mc", "torch", n_iterations=10)
 
 
 def test_mc_read_window_is_checked_before_the_launch():
-    """On the CUDA backends a site above the reads the MC kernel holds in
-    shared memory fails the step before the kernel launches, naming
-    --backend torch (the JAX engine's check, engine.py:572-577, names
-    --backend xla)."""
+    """On the CUDA backends a site above the reads the MC kernels' draw
+    index takes (mc_kernel.MAX_SITE_READS, 2^23 - 1) fails the step before
+    the MC kernel launches, naming --backend torch (the JAX engine's check,
+    engine.py:572-577, names --backend xla); a site above the staged cap is
+    taken."""
     model = _model().eval()
     step = engine.make_infer_step(model, 4, THRESHOLD, 20, "mc", "cuda_fused", n_iterations=10)
     big = mc_kernel.MAX_SITE_READS + 1
     rng = np.random.default_rng(2)
-    features = torch.from_numpy(rng.normal(size=(big + 8, 9)).astype(np.float32))
-    kmer = torch.from_numpy(rng.integers(0, 66, size=(big + 8, 3)).astype(np.int8))
+    features = torch.from_numpy(rng.normal(size=(16, 9)).astype(np.float32))
+    kmer = torch.from_numpy(rng.integers(0, 66, size=(16, 3)).astype(np.int8))
     offsets = torch.tensor([0, 3, 0, 0], dtype=torch.int32)
     counts = torch.tensor([3, big, 0, 0], dtype=torch.int32)
     before = mc_kernel.launch_count
     with torch.no_grad(), pytest.raises(ValueError, match=f"{big} reads.*--backend torch"):
-        step(features, kmer, offsets, counts)
+        step(features, kmer, offsets, counts, host_sites=(offsets.numpy(), counts.numpy()))
     assert mc_kernel.launch_count == before
+    long = mc_kernel.MAX_STAGED_READS + 1
+    features = torch.from_numpy(rng.normal(size=(long + 8, 9)).astype(np.float32))
+    kmer = torch.from_numpy(rng.integers(0, 66, size=(long + 8, 3)).astype(np.int8))
+    counts = torch.tensor([3, long, 0, 0], dtype=torch.int32)
+    with torch.no_grad():
+        _, site_p, _ = step(features, kmer, offsets, counts)
+    assert bool(torch.isfinite(site_p).all()) and float(site_p[1]) > 0
 
 
 def test_compare_runs_holds_each_rule(tmp_path):

@@ -32,7 +32,7 @@ from m6anet_tpu_torch.data.batching import pack_sites
 from m6anet_tpu_torch.data.dataset import build_dataset
 from m6anet_tpu_torch.inference.engine import derive_site_ids
 from m6anet_tpu_torch.models import load_model
-from m6anet_tpu_torch.ops import encoder_kernel
+from m6anet_tpu_torch.ops import _build, encoder_kernel
 from m6anet_tpu_torch.ops import fused_infer_kernel as fik
 from m6anet_tpu_torch.ops import site_ops
 
@@ -254,26 +254,9 @@ def test_derive_site_ids_matches_jax_and_packer():
 
 
 def _kernel_constants():
-    """The ``constexpr int`` constants of csrc/fused_infer.cu, evaluated."""
-    import ast
-    import operator
-    import re
-
-    path = os.path.join(os.path.dirname(fik.__file__), "csrc", "fused_infer.cu")
-    ops = {ast.Add: operator.add, ast.Sub: operator.sub, ast.Mult: operator.mul}
-    values = {}
-
-    def value(node):
-        if isinstance(node, ast.Constant):
-            return node.value
-        if isinstance(node, ast.Name):
-            return values[node.id]
-        return ops[type(node.op)](value(node.left), value(node.right))
-
-    with open(path) as f:
-        for name, expr in re.findall(r"^constexpr int (\w+) = ([^;]+);", f.read(), re.M):
-            values[name] = value(ast.parse(expr, mode="eval").body)
-    return values
+    """The ``constexpr int`` constants of csrc/fused_infer.cu, evaluated
+    at the released widths (the macros' defaults)."""
+    return _build.cu_constants("fused_infer")
 
 
 def test_packed_weight_layout_matches_the_kernel(models):
@@ -283,17 +266,18 @@ def test_packed_weight_layout_matches_the_kernel(models):
     c = _kernel_constants()
     fp = fik.prepare_fused_params_t(port)
     w = fp.packed
-    assert c["kWeights"] == fik.PACKED_WEIGHTS == w.numel()
-    assert (c["kH1"], c["kH2"], c["kVocab"], c["kEmb"]) == (fik.HIDDEN1, fik.HIDDEN2, fik.VOCAB, fik.EMB_DIM)
-    n_in = fik.N_FEATURES + fik.N_POSITIONS * fik.EMB_DIM
-    w1b = w[c["kOffW1B"] : c["kOffW1B"] + fik.HIDDEN1 * c["kW1Stride"]].reshape(fik.HIDDEN1, c["kW1Stride"])
+    wd = fp.widths
+    assert c["kWeights"] == fik.f32_layout(wd)["kWeights"] == w.numel()
+    assert (c["kH1"], c["kH2"], c["kVocab"], c["kEmb"]) == (wd.hidden1, wd.hidden2, wd.vocab, wd.emb)
+    n_in = wd.features + wd.positions * wd.emb
+    w1b = w[c["kOffW1B"] : c["kOffW1B"] + wd.hidden1 * c["kW1Stride"]].reshape(wd.hidden1, c["kW1Stride"])
     assert torch.equal(w1b[:, :n_in], fp.w1t) and torch.equal(w1b[:, n_in], fp.b1t[:, 0])
-    emb = w[c["kOffEmb"] : c["kOffEmb"] + fik.VOCAB * c["kEmb"]].reshape(fik.VOCAB, c["kEmb"])
+    emb = w[c["kOffEmb"] : c["kOffEmb"] + wd.vocab * c["kEmb"]].reshape(wd.vocab, c["kEmb"])
     assert torch.equal(emb, fp.embt.t())
-    w2 = w[c["kOffW2"] : c["kOffW2"] + fik.HIDDEN1 * c["kH2"]].reshape(fik.HIDDEN1, c["kH2"])
+    w2 = w[c["kOffW2"] : c["kOffW2"] + wd.hidden1 * c["kH2"]].reshape(wd.hidden1, c["kH2"])
     assert torch.equal(w2, fp.w2t.t())  # row k: hidden unit k's fan-out
-    assert torch.equal(w[c["kOffB2"] : c["kOffB2"] + fik.HIDDEN2], fp.b2t[:, 0])
-    assert torch.equal(w[c["kOffW3"] : c["kOffW3"] + fik.HIDDEN2], fp.w3t[0])
+    assert torch.equal(w[c["kOffB2"] : c["kOffB2"] + wd.hidden2], fp.b2t[:, 0])
+    assert torch.equal(w[c["kOffW3"] : c["kOffW3"] + wd.hidden2], fp.w3t[0])
     assert w[c["kOffB3"]] == fp.b3t[0, 0]
     assert not w[c["kOffB3"] + 1 :].any()  # zero padding to a multiple of 4
     assert c["kOffW2"] % 4 == 0 and c["kW1Stride"] % 4 == 0  # float4 rows

@@ -323,7 +323,7 @@ def test_signal_config_is_the_jax_packages():
         "DeaggregateNanopolish", "ExtractSignal", "Linear", "Linear", "SigmoidProdPooling"]
     assert tuple(model.blocks[2].linear.weight.shape) == (150, 9)
     assert tuple(model.blocks[3].linear.weight.shape) == (32, 150)
-    assert not engine.fused_backend_supported(model)
+    assert not engine.production_architecture(model)
 
 
 @pytest.mark.parametrize("name", ["signal", "attention_decoder", "summary_stats", "probability_attention",

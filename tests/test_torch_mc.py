@@ -12,9 +12,7 @@ order); the kernel's plain version 1e-6 against the numpy oracle of
 tests/test_ops.py (the same arithmetic, the sum over iterations in another
 precision) and 2e-4 against the Pallas kernel (its bf16 hi/lo split, the
 bound tests/test_ops.py holds it to)."""
-import ast
 import ctypes
-import operator
 import os
 import re
 
@@ -26,7 +24,7 @@ import torch
 
 from m6anet_tpu.ops import site_ops as jax_site_ops
 from m6anet_tpu.ops.mc_kernel import site_probability_mc_pallas
-from m6anet_tpu_torch.ops import mc_kernel, random, site_ops
+from m6anet_tpu_torch.ops import _build, mc_kernel, random, site_ops
 
 SEEDS = [0, 7, 2**33 + 5]
 
@@ -192,8 +190,8 @@ def test_count_zero_gives_zero_and_oversized_sites_raise():
     assert (got[counts == 0] == 0).all() and (got[counts > 0] > 0).all()
     torch_backend = site_ops.site_probability_mc(*t, random.key_from_seed(0), n_iters=100).numpy()
     assert (torch_backend[counts == 0] == 0).all()
-    # a site above the shared memory the kernel sizes per launch raises on
-    # either device, naming the backend that has no such limit
+    # a site above the range of the kernel's draw index (2^23 - 1 reads)
+    # raises on either device, naming the backend that has no such limit
     cap = mc_kernel.MAX_SITE_READS
     p, offsets, counts = _layout(rng, 2, 4, counts=np.array([3, cap + 1]))
     big = [torch.from_numpy(a) for a in (p, offsets, counts)]
@@ -201,7 +199,7 @@ def test_count_zero_gives_zero_and_oversized_sites_raise():
     for fn in (mc_kernel.site_probability_mc_cuda, mc_kernel.site_probability_mc_plain):
         with pytest.raises(ValueError, match=f"{cap + 1} reads, above the {cap}.*--backend torch"):
             fn(*big, u, 4)
-    big[2][1] = cap  # the largest site the kernel holds
+    big[2][1] = cap  # the largest site the kernels take
     assert bool(torch.isfinite(mc_kernel.site_probability_mc_cuda(*big, u, 4)).all())
     with pytest.raises(ValueError, match="shape"):
         mc_kernel.site_probability_mc_plain(*t, u[:, :50], 100)
@@ -211,30 +209,17 @@ def test_count_zero_gives_zero_and_oversized_sites_raise():
 
 
 def _mc_constants():
-    """The ``constexpr int`` constants of csrc/mc.cu, evaluated."""
-    path = os.path.join(os.path.dirname(mc_kernel.__file__), "csrc", "mc.cu")
-    ops = {ast.Add: operator.add, ast.Sub: operator.sub, ast.Mult: operator.mul, ast.Div: operator.floordiv}
-    values = {}
-
-    def value(node):
-        if isinstance(node, ast.Constant):
-            return node.value
-        if isinstance(node, ast.Name):
-            return values[node.id]
-        return ops[type(node.op)](value(node.left), value(node.right))
-
-    with open(path) as f:
-        for name, expr in re.findall(r"^constexpr int (\w+) = ([^;]+);", f.read(), re.M):
-            values[name] = value(ast.parse(expr, mode="eval").body)
-    return values
+    """The ``constexpr int`` constants of csrc/mc.cu, evaluated at its
+    default draws per iteration."""
+    return _build.cu_constants("mc")
 
 
 def test_mc_kernel_constants_hold_the_cap_and_the_published_iterations():
-    """MAX_SITE_READS and SAMPLES against mc.cu's constants and the shared
+    """MAX_STAGED_READS and SAMPLES against mc.cu's constants and the shared
     memory plan of its mc_site_launch: a slot of max_count + 1 floats per
     site, two buffers when two slots fit kStagingBytes, as many sites a
     group as fit (1 to kGroup), and beside each site's slot its threads' f64
-    sums."""
+    sums; MAX_SITE_READS is the draw index's range."""
     c = _mc_constants()
     assert c["kSamples"] == mc_kernel.SAMPLES
     # the published 1,000 iterations, and shared_draws' 1,024-column chunks,
@@ -248,10 +233,11 @@ def test_mc_kernel_constants_hold_the_cap_and_the_published_iterations():
         return buffers, group, buffers * group * (8 * c["kThreads"] + slot)
 
     meta = 4 * c["kGroup"] * 2 * 4  # the static ring of counts and offsets
-    buffers, group, shared = plan(mc_kernel.MAX_SITE_READS)
+    buffers, group, shared = plan(mc_kernel.MAX_STAGED_READS)
     assert (buffers, group) == (1, 1) and shared + meta <= c["kSharedLimitBytes"]
-    # the cap is the largest multiple of 1,024 reads that fits
-    assert plan(mc_kernel.MAX_SITE_READS + 1024)[2] + meta > c["kSharedLimitBytes"]
+    # the staged cap is the largest multiple of 1,024 reads that fits
+    assert plan(mc_kernel.MAX_STAGED_READS + 1024)[2] + meta > c["kSharedLimitBytes"]
+    assert mc_kernel.MAX_SITE_READS == 2**23 - 1  # __fadd_rz(x, 2^23) truncates x < 2^23
     # dataprep's default cap of 1,000 reads: pipelined, full groups, and two
     # blocks on an SM (228 KB, 1 KB of it reserved per block)
     buffers, group, shared = plan(1000)
@@ -294,7 +280,7 @@ def test_ragged_mc_batch_covers_the_kernels_cases():
     the plain version on it is finite, 0 at count 0."""
     p, offsets, counts = mc_kernel.ragged_mc_batch()
     real = counts > 0
-    assert mc_kernel.MAX_SITE_READS in counts
+    assert mc_kernel.MAX_STAGED_READS in counts
     assert set(range(1, 41)) | {32, 33, 64, 65, 128, 129, 1000, 1024, 20000} <= set(counts.tolist())
     run = np.flatnonzero(counts == 25000)
     assert list(np.diff(run)) == [1, 1] and 3 * 25000 * 4 > _mc_constants()["kStagingBytes"]

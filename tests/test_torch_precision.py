@@ -17,10 +17,7 @@ Against the JAX ``fused_read_probability`` and
 ``fused_inference``, whose own splits differ (f32x3 also on layer 1,
 premultiplied embedding tables): the mode's tolerance against f32, 2e-5 for
 f32x3 (tests/test_ops.py:429) and 2e-2 for bf16 (tests/test_ops.py:325)."""
-import ast
-import operator
 import os
-import re
 
 import jax
 import jax.numpy as jnp
@@ -42,7 +39,7 @@ from m6anet_tpu_torch.data.batching import pack_sites
 from m6anet_tpu_torch.data.dataset import build_dataset
 from m6anet_tpu_torch.inference import engine
 from m6anet_tpu_torch.models import load_model
-from m6anet_tpu_torch.ops import encoder_kernel
+from m6anet_tpu_torch.ops import _build, encoder_kernel
 from m6anet_tpu_torch.ops import fused_infer_kernel as fik
 
 DATA_DIR = os.path.join(os.path.dirname(__file__), "data")
@@ -226,22 +223,9 @@ def assert_reads_close(got, want, mode):
 
 
 def _tc_constants():
-    """The ``constexpr int`` constants of csrc/read_prob_tc.cu, evaluated."""
-    path = os.path.join(os.path.dirname(fik.__file__), "csrc", "read_prob_tc.cu")
-    ops = {ast.Add: operator.add, ast.Sub: operator.sub, ast.Mult: operator.mul, ast.Div: operator.floordiv}
-    values = {}
-
-    def value(node):
-        if isinstance(node, ast.Constant):
-            return node.value
-        if isinstance(node, ast.Name):
-            return values[node.id]
-        return ops[type(node.op)](value(node.left), value(node.right))
-
-    with open(path) as f:
-        for name, expr in re.findall(r"^constexpr int (\w+) = ([^;]+);", f.read(), re.M):
-            values[name] = value(ast.parse(expr, mode="eval").body)
-    return values
+    """The ``constexpr int`` constants of csrc/read_prob_tc.cu, evaluated
+    at the released widths (the macros' defaults)."""
+    return _build.cu_constants("read_prob_tc")
 
 
 def _bf16_pairs(words: torch.Tensor) -> torch.Tensor:
@@ -259,12 +243,13 @@ def test_tc_image_layout_matches_the_kernel(models):
     c = _tc_constants()
     fp = fik.prepare_fused_params_t(port)
     img = fp.tc
-    assert img.dtype == torch.int32 and img.numel() == c["kTcWords"] == fik.TC_WORDS
+    wd, lay = fp.widths, fik.tc_layout(fp.widths)
+    assert img.dtype == torch.int32 and img.numel() == c["kTcWords"] == lay["kTcWords"]
     for name in ("W1F", "EmbX", "W3L", "W2L", "W2H", "B2", "W3H", "B3", "W1H", "B1", "EmbH"):
-        assert c[f"kTcOff{name}"] == getattr(fik, f"TC_OFF_{name.upper()}"), name
+        assert c[f"kTcOff{name}"] == lay[f"kTcOff{name}"], name
     assert (c["kH1Pad"], c["kKSteps"], c["kTiles1"], c["kTiles2"]) == (
-        fik.HIDDEN1_PAD, fik.TC_K_STEPS, fik.TC_TILES1, fik.TC_TILES2)
-    pad = c["kH1Pad"] - fik.HIDDEN1
+        lay["kH1Pad"], lay["kKSteps"], lay["kTiles1"], lay["kTiles2"])
+    pad = c["kH1Pad"] - wd.hidden1
     f32 = img.view(torch.float32)
 
     def part(name, n):
@@ -278,7 +263,7 @@ def test_tc_image_layout_matches_the_kernel(models):
             for t in range(4):
                 u = 16 * j + 2 * t + (slot & 1) + 8 * (slot >> 1)
                 row = w1f[j, slot, :, t].reshape(16)
-                assert torch.equal(row, w1b[u]) if u < fik.HIDDEN1 else not row.any(), (j, slot, t)
+                assert torch.equal(row, w1b[u]) if u < wd.hidden1 else not row.any(), (j, slot, t)
     # embeddings and the head
     emb = fp.embt.t()
     hi, lo = fik.bf16_split(emb)
@@ -290,7 +275,7 @@ def test_tc_image_layout_matches_the_kernel(models):
     assert torch.equal(part("B2", 32).view(torch.float32), fp.b2t[:, 0])
     assert f32[c["kTcOffB3"]] == fp.b3t[0, 0] and not img[c["kTcOffB3"] + 1 : c["kTcOffW1H"]].any()
     b1 = part("B1", c["kH1Pad"]).view(torch.float32)
-    assert torch.equal(b1[: fik.HIDDEN1], fp.b1t[:, 0]) and not b1[fik.HIDDEN1 :].any()
+    assert torch.equal(b1[: wd.hidden1], fp.b1t[:, 0]) and not b1[wd.hidden1 :].any()
 
     # wgmma B operands, K-major without swizzle: bf16 (n, k) of a k16 step at
     # byte (n // 8) SBO + (k // 8) LBO + (n % 8) row bytes + 2 (k % 8)
@@ -301,11 +286,11 @@ def test_tc_image_layout_matches_the_kernel(models):
         return vals[at // 2]  # [step][n][k]
 
     w1k = torch.zeros(c["kH1Pad"], 16)
-    w1k[: fik.HIDDEN1, :15] = fp.w1t  # column 15 stays zero: never the bias
+    w1k[: wd.hidden1, :15] = fp.w1t  # column 15 stays zero: never the bias
     assert torch.equal(operand("W1H", 1, c["kH1Pad"], 0)[0], fik.bf16_round(w1k))
     assert c["kTcOffB1"] - c["kTcOffW1H"] == c["kH1Pad"] * 16 // 2  # W1H fills its range
-    w2k = torch.cat([fp.w2t, torch.zeros(fik.HIDDEN2, pad)], dim=1)  # (32, 160)
-    w2_hi, w2_lo = fik.bf16_split(w2k.reshape(fik.HIDDEN2, c["kKSteps"], 16).permute(1, 0, 2))  # [step][n][k]
+    w2k = torch.cat([fp.w2t, torch.zeros(wd.hidden2, pad)], dim=1)  # (32, 160)
+    w2_hi, w2_lo = fik.bf16_split(w2k.reshape(wd.hidden2, c["kKSteps"], 16).permute(1, 0, 2))  # [step][n][k]
     for name, want in (("W2H", w2_hi), ("W2L", w2_lo)):
         assert torch.equal(operand(name, c["kKSteps"], c["kH2"], c["kW2StepBytes"]), want), name
     assert c["kKSteps"] * c["kW2StepBytes"] == 4 * (c["kTcOffW2H"] - c["kTcOffW2L"])  # W2L fills its range

@@ -318,4 +318,4 @@ def test_sweep_rewrites_phase_bs_constants():
             assert f"constexpr int {name} = {value};" in rewritten
     for _, old, _ in sweep.ABLATIONS:
         assert text.count(old) == 1, old
-    assert mc_kernel.MAX_SITE_READS in fik.site_reduce_batch()[2].tolist()
+    assert mc_kernel.MAX_STAGED_READS in fik.site_reduce_batch()[2].tolist()

@@ -1,0 +1,429 @@
+"""The port's kernels at other widths of the production architecture than
+the released models': positions P (3 P signal features), an embedding of E
+dimensions, hidden widths H1 and H2, as a retrained m6anet.toml or dataprep
+--n_neighbors gives them.
+
+On the CPU every wrapper runs its plain version; the JAX kernels run in
+Pallas interpret mode, as tests/test_ops.py runs them.  The eight tuples are
+``chip_smoke.py`` phase 21's, which holds the CUDA kernels against the same
+plain versions on the card.  Tolerances (PERF.md section 2, the CPU row):
+p 1e-6 and site_p 1e-5 in every precision against ``fused_inference_t``,
+mod_ratio equal but at reads within 1e-6 of the threshold; the entry points
+of another JAX split (``fused_read_probability``, ``fused_inference``) at
+their reduced mode's tolerance against f32 (2e-5 f32x3, 2e-2 bf16), as
+tests/test_torch_precision.py holds them at the released widths.  The
+JAX parameters are prepared with ``n_features = 3 P``: at the default 9,
+which the JAX engine passes, its ``prepare_fused_params_t`` refuses the
+widths where E does not divide 3 (P - 3), W7 among them.
+"""
+import itertools
+import os
+import re
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pandas as pd
+import pytest
+import torch
+
+from m6anet_tpu.data.dataset import build_dataset as jax_build_dataset
+from m6anet_tpu.inference.engine import run_inference as jax_run_inference
+from m6anet_tpu.models.mil import MILModel as JaxMILModel
+from m6anet_tpu.ops.encoder_kernel import fused_read_probability as jax_fused_read_probability
+from m6anet_tpu.ops.encoder_kernel import prepare_fused_params as jax_prepare_fused_params
+from m6anet_tpu.ops.fused_infer_kernel import fused_inference as jax_fused_inference
+from m6anet_tpu.ops.fused_infer_kernel import fused_inference_t as jax_fused_inference_t
+from m6anet_tpu.ops.fused_infer_kernel import prepare_fused_params_t as jax_prepare_fused_params_t
+from m6anet_tpu_torch.constants import DEFAULT_NORM_PATH
+from m6anet_tpu_torch.data.dataset import build_dataset
+from m6anet_tpu_torch.dataprep.runner import run_dataprep
+from m6anet_tpu_torch.inference import engine
+from m6anet_tpu_torch.inference.outputs import compare_runs
+from m6anet_tpu_torch.models.convert import params_from_jax
+from m6anet_tpu_torch.models.mil import MILModel
+from m6anet_tpu_torch.ops import _build, encoder_kernel
+from m6anet_tpu_torch.ops import fused_infer_kernel as fik
+
+WIDTHS = {"W0": (3, 2, 150, 32), "W1": (5, 2, 150, 32), "W2": (3, 3, 100, 20), "W3": (3, 4, 256, 64),
+          "W4": (11, 4, 96, 24), "W5": (1, 1, 7, 3), "W6": (11, 4, 256, 64), "W7": (1, 4, 256, 64)}
+PRECISIONS = ["f32", "f32x3", "bf16"]
+JAX_DTYPE = {"f32": jnp.float32, "f32x3": "f32x3", "bf16": jnp.bfloat16}
+ENTRY_ATOL = {"f32": 1e-6, "f32x3": 2e-5, "bf16": 2e-2}
+THRESHOLD = 0.5
+
+
+def _models(widths, seed=0):
+    """A JAX model of ``widths`` with params from its own init and
+    BatchNorm statistics and affine drawn from ``seed`` (so that the fold
+    into layer 1 is no identity), and the port's model with the same
+    weights, carried across by models/convert.py."""
+    config = fik.widths_config(fik.Widths(*widths))
+    jax_model = JaxMILModel(config)
+    params = jax.tree.map(np.asarray, jax_model.init(jax.random.PRNGKey(seed)))
+    rng = np.random.default_rng(seed)
+    bn = params["block3"]
+    n = bn["bn_mean"].shape[0]
+    bn["bn_mean"] = (0.2 * rng.normal(size=n)).astype(np.float32)
+    bn["bn_var"] = (0.5 + rng.uniform(size=n)).astype(np.float32)
+    bn["bn_scale"] = (1 + 0.2 * rng.normal(size=n)).astype(np.float32)
+    bn["bn_bias"] = (0.2 * rng.normal(size=n)).astype(np.float32)
+    port = MILModel(config)
+    port.load_state_dict(params_from_jax(params))
+    return jax_model, jax.tree.map(jnp.asarray, params), port.eval()
+
+
+@pytest.fixture(scope="module")
+def width_models():
+    return {name: _models(widths) for name, widths in WIDTHS.items()}
+
+
+def _batch(widths, seed=5, n=384, s=40):
+    """pack_sites layout at ``widths``: sites of 1 to 19 reads, padding reads
+    and padding sites."""
+    rng = np.random.default_rng(seed)
+    positions = widths[0]
+    X = rng.normal(size=(n, 3 * positions)).astype(np.float32)
+    K = rng.integers(0, 66, size=(n, positions)).astype(np.int8)
+    site_ids = np.full(n, s, np.int32)
+    offsets = np.zeros(s, np.int32)
+    counts = np.zeros(s, np.int32)
+    cursor = 0
+    for i in range(s - 4):
+        c = 1 if i % 7 == 0 else int(rng.integers(2, 20))
+        if cursor + c > n - 16:
+            break
+        site_ids[cursor : cursor + c] = i
+        offsets[i], counts[i] = cursor, c
+        cursor += c
+    return X, K, site_ids, offsets, counts
+
+
+def _t(*arrays):
+    return [torch.from_numpy(a) for a in arrays]
+
+
+@pytest.mark.parametrize("name", WIDTHS)
+def test_weights_carried_across_give_the_jax_kernels_parameters(width_models, name):
+    """models/convert.py carries a JAX model of each width into the port,
+    and the port's FusedParamsT is the JAX FusedEncoderParamsT, with the
+    widths read from the model: the same f32 values, bit for bit but in
+    the BatchNorm fold, where XLA fuses (b - mean) * scale + bias into one
+    multiply-add: there within 1e-7 (an ulp at 1)."""
+    _, params, port = width_models[name]
+    fp = fik.prepare_fused_params_t(port)
+    want = jax_prepare_fused_params_t(params, n_features=3 * WIDTHS[name][0])
+    assert fp.widths == fik.Widths(*WIDTHS[name])
+    for field in want._fields:
+        got, jax_value = getattr(fp, field).numpy(), np.asarray(getattr(want, field))
+        assert got.shape == jax_value.shape, field
+        if field in ("w1t", "b1t"):
+            np.testing.assert_allclose(got, jax_value, rtol=2e-7, atol=1e-7, err_msg=field)
+        else:
+            np.testing.assert_array_equal(got, jax_value, err_msg=field)
+
+
+@pytest.mark.parametrize("precision", PRECISIONS)
+@pytest.mark.parametrize("name", WIDTHS)
+def test_plain_versions_match_jax_fused_inference_t(width_models, name, precision):
+    """The port's fused_inference_t on CPU tensors (its plain version)
+    against the JAX kernel at the same widths and compute_dtype."""
+    _, params, port = width_models[name]
+    X, K, site_ids, offsets, counts = _batch(WIDTHS[name])
+    want = [np.asarray(w) for w in jax_fused_inference_t(
+        jax_prepare_fused_params_t(params, n_features=3 * WIDTHS[name][0]), jnp.asarray(X), jnp.asarray(K.astype(np.int32)),
+        jnp.asarray(site_ids), jnp.asarray(counts), THRESHOLD, block_reads=256, interpret=True,
+        compute_dtype=JAX_DTYPE[precision])]
+    fp = fik.prepare_fused_params_t(port)
+    launches = fik.launch_count, dict(fik.tc_launch_counts)
+    p, site_p, mod_ratio = (t.numpy() for t in fik.fused_inference_t(
+        fp, *_t(X, K), None, *_t(offsets, counts), THRESHOLD, 20, precision))
+    np.testing.assert_allclose(p, want[0], rtol=0, atol=1e-6)
+    np.testing.assert_allclose(site_p, want[1], rtol=0, atol=1e-5)
+    near = np.abs(p - THRESHOLD) < 1e-6
+    sites_near = np.zeros(len(counts) + 1, bool)
+    np.logical_or.at(sites_near, site_ids, near)
+    np.testing.assert_array_equal(mod_ratio[~sites_near[:-1]], want[2][~sites_near[:-1]])
+    with torch.no_grad():
+        model_p = port.per_read_probability({"X": torch.from_numpy(X), "kmer": torch.from_numpy(K)}).numpy()
+    np.testing.assert_allclose(p, model_p, rtol=0, atol=1e-6 if precision == "f32" else ENTRY_ATOL[precision])
+    assert (fik.launch_count, fik.tc_launch_counts) == launches  # CPU tensors: no launch
+
+
+@pytest.mark.parametrize("precision", PRECISIONS)
+def test_entry_points_at_w3_match_their_jax_kernels(width_models, precision):
+    """fused_read_probability and fused_inference at W3 against their own
+    JAX kernels: f32 at 1e-6, a reduced mode at its tolerance against f32
+    (their JAX splits differ from fused_inference_t's)."""
+    _, params, port = width_models["W3"]
+    X, K, site_ids, offsets, counts = _batch(WIDTHS["W3"], seed=8, n=512)
+    jfp = jax_prepare_fused_params(params)
+    want_p = np.asarray(jax_fused_read_probability(
+        jfp, jnp.asarray(X), jnp.asarray(K.astype(np.int32)), block_reads=256, interpret=True,
+        compute_dtype=JAX_DTYPE[precision]))
+    want = [np.asarray(w) for w in jax_fused_inference(
+        jfp, jnp.asarray(X), jnp.asarray(K.astype(np.int32)), jnp.asarray(site_ids), jnp.asarray(counts),
+        THRESHOLD, block_reads=256, interpret=True, compute_dtype=JAX_DTYPE[precision])]
+    fp = encoder_kernel.prepare_fused_params(port)
+    tol = ENTRY_ATOL[precision]
+    p = encoder_kernel.fused_read_probability(fp, *_t(X, K), precision).numpy()
+    np.testing.assert_allclose(p, want_p, rtol=0, atol=tol)
+    got = [t.numpy() for t in fik.fused_inference(fp, *_t(X, K, site_ids, counts), THRESHOLD, 20, precision)]
+    np.testing.assert_array_equal(got[0], p)
+    np.testing.assert_allclose(got[0], want[0], rtol=0, atol=tol)
+    np.testing.assert_allclose(got[1], want[1], rtol=0, atol=1e-5 + 20 * tol)
+
+
+def _bf16_pairs(words: torch.Tensor) -> torch.Tensor:
+    """The two bf16 values of each int32 word (low half first), in f32."""
+    halves = torch.stack([words & 0xFFFF, (words >> 16) & 0xFFFF], dim=-1)
+    return (halves.to(torch.int32) << 16).view(torch.float32)
+
+
+@pytest.mark.parametrize("name", WIDTHS)
+def test_packed_images_sit_where_the_kernels_read_them(width_models, name):
+    """Both weight images at each width against the .cu's constants, as a
+    build with the width's defines evaluates them (kernel_defines): f32's
+    rows and fan-outs, and the tensor-core image's f32x3 layer-1 rows in
+    their lanes' order and every wgmma B operand decoded by its
+    descriptor's layout; every padded unit and column zero."""
+    _, _, port = width_models[name]
+    fp = fik.prepare_fused_params_t(port)
+    w = fp.widths
+    defines = fik.kernel_defines(w)
+    assert (defines == {}) == (name == "W0")
+    c = _build.cu_constants("fused_infer", defines)
+    lay = fik.f32_layout(w)
+    assert {k: c[k] for k in lay} == lay and fp.packed.numel() == lay["kWeights"]
+    assert (c["kIn"], c["kH1"], c["kH2"], c["kVocab"], c["kEmb"]) == (w.n_in, w.hidden1, w.hidden2, w.vocab, w.emb)
+    img = fp.packed
+    w1b = img[: w.hidden1 * c["kW1Stride"]].reshape(w.hidden1, c["kW1Stride"])
+    assert torch.equal(w1b[:, : w.n_in], fp.w1t) and torch.equal(w1b[:, w.n_in], fp.b1t[:, 0])
+    assert not w1b[:, w.n_in + 1 :].any()
+    emb = img[c["kOffEmb"] : c["kOffEmb"] + w.vocab * w.emb].reshape(w.vocab, w.emb)
+    assert torch.equal(emb, fp.embt.t()) and not img[c["kOffEmb"] + w.vocab * w.emb : c["kOffW2"]].any()
+    w2 = img[c["kOffW2"] : c["kOffB2"]].reshape(w.hidden1, c["kH2Pad"])
+    assert torch.equal(w2[:, : w.hidden2], fp.w2t.t()) and not w2[:, w.hidden2 :].any()
+    for off, want in (("kOffB2", fp.b2t[:, 0]), ("kOffW3", fp.w3t[0])):
+        part = img[c[off] : c[off] + c["kH2Pad"]]
+        assert torch.equal(part[: w.hidden2], want) and not part[w.hidden2 :].any()
+    assert img[c["kOffB3"]] == fp.b3t[0, 0] and not img[c["kOffB3"] + 1 :].any()
+
+    t = _build.cu_constants("read_prob_tc", defines)
+    lay = fik.tc_layout(w)
+    assert {k: t[k] for k in lay} == lay and fp.tc.numel() == lay["kTcWords"]
+    image, f32 = fp.tc, fp.tc.view(torch.float32)
+    h1p, h2p, steps, k1 = t["kH1Pad"], t["kH2Pad"], t["kKSteps"], t["kK1Steps"]
+    rows = torch.zeros(h1p, t["kW1Stride"])
+    rows[: w.hidden1, : w.n_in], rows[: w.hidden1, w.n_in] = fp.w1t, fp.b1t[:, 0]
+    w1f = f32[: t["kTcOffEmbX"]].reshape(steps, 4, t["kW1Quads"], 4, 4)  # [j][c][q][t][4]
+    for j, slot, lane in itertools.product(range(steps), range(4), range(4)):
+        u = 16 * j + 2 * lane + (slot & 1) + 8 * (slot >> 1)
+        assert torch.equal(w1f[j, slot, :, lane].reshape(-1), rows[u]), (j, slot, lane)
+
+    def padded(off, n, want):
+        part = f32[t[off] : t[off] + n]
+        return torch.equal(part[: want.numel()], want) and not part[want.numel() :].any()
+
+    hi, lo = fik.bf16_split(fp.embt.t().reshape(-1))
+    w3_hi, w3_lo = fik.bf16_split(fp.w3t[0])
+    assert padded("kTcOffEmbX", t["kEmbWords"], hi + lo) and padded("kTcOffEmbH", t["kEmbWords"], hi)
+    assert padded("kTcOffW3L", h2p, w3_lo) and padded("kTcOffW3H", h2p, w3_hi)
+    assert padded("kTcOffB2", h2p, fp.b2t[:, 0]) and padded("kTcOffB1", h1p, fp.b1t[:, 0])
+    assert padded("kTcOffB3", 4, fp.b3t[0])
+
+    def operand(off, n_steps, n_rows, step_bytes):
+        vals = _bf16_pairs(image[t[off] :]).reshape(-1)
+        step, n, k = torch.meshgrid(torch.arange(n_steps), torch.arange(n_rows), torch.arange(16), indexing="ij")
+        at = step * step_bytes + (n // 8) * t["kBSbo"] + (k // 8) * t["kBLbo"] + (n % 8) * t["kBRowBytes"] + 2 * (k % 8)
+        return vals[at // 2]  # [step][n][k]
+
+    w1k = torch.zeros(h1p, 16 * k1)
+    w1k[: w.hidden1, : w.n_in] = fp.w1t  # never the bias
+    assert torch.equal(operand("kTcOffW1H", k1, h1p, t["kW1StepBytes"]),
+                       fik.bf16_round(w1k).reshape(h1p, k1, 16).permute(1, 0, 2))
+    w2k = torch.zeros(h2p, h1p)
+    w2k[: w.hidden2, : w.hidden1] = fp.w2t
+    w2_hi, w2_lo = fik.bf16_split(w2k.reshape(h2p, steps, 16).permute(1, 0, 2))
+    assert torch.equal(operand("kTcOffW2H", steps, h2p, t["kW2StepBytes"]), w2_hi)
+    assert torch.equal(operand("kTcOffW2L", steps, h2p, t["kW2StepBytes"]), w2_lo)
+    for off in ("kTcOffW2L", "kTcOffW2H", "kTcOffW1H", "kTcWords"):
+        assert t[off] % 4 == 0, off  # 16-byte aligned: a descriptor's address is in 16-byte units
+
+
+def test_the_envelope_on_the_card():
+    """resolve_backend on the card: cuda_fused for the production
+    architecture at every P of SiteDataset, E <= 4 and the corners of H1
+    <= 256 and H2 <= 64; outside it, a ValueError before anything launches
+    that names the widths, the limit that binds and --backend torch."""
+    cuda = torch.device("cuda")
+    for positions, emb, (h1, h2) in itertools.product((1, 3, 5, 7, 9, 11), (1, 2, 3, 4),
+                                                      ((1, 1), (7, 3), (150, 32), (256, 64), (96, 24))):
+        model = MILModel(fik.widths_config(fik.Widths(positions, emb, h1, h2)))
+        assert fik.kernel_limit(fik.model_widths(model)) is None
+        assert engine.resolve_backend(model, "auto", "auto", cuda) == ("cuda_fused", "f32x3")
+        assert engine.resolve_backend(model, "cuda", "bf16", cuda) == ("cuda", "bf16")
+    for widths, limit in (((3, 2, 257, 32), "registers"), ((3, 2, 150, 65), "registers"),
+                          ((11, 5, 256, 64), "registers"), ((3, 2, 150, 32, 200), "int8 k-mer ids")):
+        model = MILModel(fik.widths_config(fik.Widths(*widths)))
+        assert engine.production_architecture(model) and limit in fik.kernel_limit(fik.model_widths(model))
+        for backend in ("auto", "cuda_fused", "cuda"):
+            with pytest.raises(ValueError, match=f"hidden {widths[2]} -> {widths[3]}.*{limit}.*--backend torch"):
+                engine.resolve_backend(model, backend, "auto", cuda)
+        assert engine.resolve_backend(model, "torch", "auto", cuda) == ("torch", "f32")
+
+
+PLAN_KEYS = ("reads", "read_blocks", "f32x3_tiles", "f32x3_stages", "f32x3_x_shared", "f32x3_smem",
+             "bf16_consumers", "bf16_stages", "bf16_smem")
+
+
+def _source_plans(widths, work):
+    """The tiling that csrc/fused_infer.cu and csrc/read_prob_tc.cu derive
+    at each of ``widths``, by ``PLAN_KEYS``: their constants (everything
+    before the first device function) compiled for the host with g++, one
+    namespace a set of widths, in one program.  A plan past the shared
+    memory of a block fails the sources' static_assert, so the build."""
+    import subprocess
+
+    def constants(name):
+        with open(os.path.join(_build.CSRC_DIR, f"{name}.cu")) as f:
+            text = f.read()
+        body = text[text.index("namespace {") + len("namespace {") :]
+        return body[: re.search(r"^(__global__|__device__|// -{10})", body, re.M).start()]
+
+    f32, tc = constants("fused_infer"), constants("read_prob_tc")
+    parts, prints = ["#include <cstdint>\n#include <cstdio>\n"], []
+    for i, w in enumerate(widths):
+        defines = {"M6A_POS": w.positions, "M6A_EMB": w.emb, "M6A_VOCAB": w.vocab, "M6A_H1": w.hidden1,
+                   "M6A_H2": w.hidden2}
+        parts += [f"#undef {k}\n#define {k} {v}\n" for k, v in defines.items()]
+        parts += [f"namespace f{i} {{\n{f32}}}\nnamespace t{i} {{\n{tc}}}\n"]
+        a, b = f"t{i}::Cfg<t{i}::kModeF32x3>", f"t{i}::Cfg<t{i}::kModeBf16>"
+        values = [f"f{i}::kReads", f"f{i}::kReadBlocks", f"{a}::kTilesPerGroup", f"{a}::kStages",
+                  f"(int){a}::kXShared", f"{a}::kSmemBytes", f"{b}::kConsumers", f"{b}::kStages", f"{b}::kSmemBytes"]
+        prints.append(f'  std::printf("{" ".join(["%d"] * len(values))}\\n", {", ".join(values)});')
+    parts.append("int main() {\n" + "\n".join(prints) + "\n}\n")
+    src, exe = os.path.join(work, "plans.cpp"), os.path.join(work, "plans")
+    with open(src, "w") as f:
+        f.write("".join(parts))
+    subprocess.run(["g++", "-std=c++17", "-O0", "-o", exe, src], check=True, capture_output=True)
+    out = subprocess.run([exe], check=True, capture_output=True, text=True).stdout.split("\n")
+    return [dict(zip(PLAN_KEYS, map(int, line.split()))) for line in out[: len(widths)]]
+
+
+def test_kernel_plan_keeps_the_sources_tuning_at_the_released_widths(tmp_path):
+    """The released widths build with no defines, and the sources' plan
+    there is the constants the sweeps tuned (f32x3's shared memory as
+    read_prob_tc_config reports it on the card); at the other widths of the
+    card tests the plan is the one that phase 21 ran; over the envelope's
+    corners every plan builds (its shared memory fits a block), f32 phase A
+    takes 1 read a thread past the released widths' 47 values a read, and
+    kernel_limit takes the widths."""
+    assert fik.kernel_defines(fik.PRODUCTION) == {}
+    c, t = _build.cu_constants("fused_infer"), _build.cu_constants("read_prob_tc")
+    released = dict(reads=c["kReadTile"], read_blocks=c["kReadMinBlocks"], f32x3_tiles=t["kF32x3Tiles"],
+                    f32x3_stages=t["kF32x3Stages"], f32x3_x_shared=0, f32x3_smem=51808,
+                    bf16_consumers=t["kBf16Consumers"], bf16_stages=t["kBf16Stages"], bf16_smem=24432)
+    grid = [fik.Widths(*w) for w in itertools.product((1, 3, 11), (1, 4), (1, 150, 256), (1, 32, 64))]
+    card = [fik.Widths(*w) for w in WIDTHS.values()]
+    plans = _source_plans([fik.PRODUCTION] + card + grid, str(tmp_path))
+    assert plans[0] == released
+    # (reads, blocks an SM, f32x3 tiles / stages / rows, bf16 warpgroups / stages) at W1-W7
+    assert [tuple(plan[k] for k in PLAN_KEYS if "smem" not in k) for plan in plans[2 : 1 + len(card)]] == [
+        (1, 2, 2, 4, 1, 3, 3), (2, 2, 2, 4, 1, 3, 3), (1, 2, 1, 4, 0, 2, 4), (1, 1, 1, 4, 1, 3, 3),
+        (2, 2, 2, 4, 0, 3, 3), (1, 1, 1, 4, 1, 2, 4), (1, 2, 1, 4, 0, 2, 4)]
+    for w, plan in zip(card + grid, plans[1:]):
+        assert fik.kernel_limit(w) is None, w
+        assert plan["reads"] == (c["kReadTile"] if w.n_in + -(-w.hidden2 // 4) * 4 <= 47 else 1), w
+        assert plan["f32x3_stages"] % 2 == 0 and plan["bf16_stages"] % plan["bf16_consumers"] == 0
+        assert max(plan["f32x3_smem"], plan["bf16_smem"]) <= fik.SHARED_LIMIT_BYTES, w
+
+
+def _write_long_runs(path, n_reads=30, n_pos=120):
+    """Reads over long runs of consecutive positions, DRACH k-mers every 7
+    (tests/test_dataprep.py's synthetic law): the demo's reads cover only 3
+    positions around each site, so dataprep --n_neighbors 2 finds none
+    there."""
+    import random
+
+    rng = random.Random(0)
+    seq = "".join(rng.choice("ACGT") for _ in range(n_pos + 10))
+    for i in range(5, n_pos, 7):
+        seq = seq[:i] + "GGACT" + seq[i + 5 :]
+    with open(os.path.join(os.path.dirname(__file__), "data", "eventalign.txt")) as f:
+        header = f.readline()
+    with open(path, "w") as f:
+        f.write(header)
+        for read in range(n_reads):
+            for pos in range(n_pos):
+                kmer = seq[pos : pos + 5]
+                mean = 90 + (pos * 7 + read) % 40 + 0.25
+                f.write(f"SYNTX.1\t{pos}\t{kmer}\t{read}\tt\t{pos}\t{mean}\t2.5\t0.004\t"
+                        f"{kmer}\t100.0\t3.0\t0.5\t{pos * 10}\t{pos * 10 + 8}\n")
+
+
+class _Sites:
+    """A feed of seeded sites at ``positions`` k-mer positions, as either
+    package's run_inference takes a dataset (``site_cls``: its Site)."""
+
+    def __init__(self, site_cls, positions, n_sites=40, seed=0):
+        rng = np.random.default_rng(seed)
+        pad = "A" * ((positions - 1) // 2)
+        self.sites = []
+        for i in range(n_sites):
+            n = int(rng.integers(20, 41))
+            self.sites.append(site_cls(
+                tx_id=f"SYN{i // 20}", tx_pos=10 * i, read_ids=np.arange(n, dtype=np.int64),
+                features=rng.standard_normal(size=(n, 3 * positions), dtype=np.float32),
+                kmer_ids=rng.integers(0, 66, size=positions).astype(np.int32), sequence=pad + "GGACT" + pad))
+        self.max_site_reads = max(len(site.read_ids) for site in self.sites)
+
+    def __len__(self):
+        return len(self.sites)
+
+    def iter_sites(self, n_threads=1):
+        return iter(self.sites)
+
+
+def test_two_neighbours_run_matches_the_jax_engine(width_models, tmp_path):
+    """Five k-mer positions (dataprep --n_neighbors 2).  The port's dataprep
+    finds the sites of reads over long runs; their outer 5-mers lie outside
+    the 66 of the k-mer vocabulary, which both packages' datasets refuse
+    alike.  Over seeded 5-position sites, the port's run_inference with a
+    W1 model (--backend torch) against the JAX engine's: per read 1e-6,
+    site 1e-5, mod_ratio equal off the threshold; and the CUDA backend's
+    step on CPU tensors (its wrappers' plain versions) gives the modules'
+    reads."""
+    from m6anet_tpu.data.dataset import Site as JaxSite
+    from m6anet_tpu_torch.data.dataset import Site
+
+    source = str(tmp_path / "long_runs.txt")
+    _write_long_runs(source)
+    out = str(tmp_path / "dp")
+    run_dataprep(source, out, n_processes=1, readcount_min=1, readcount_max=1000, min_segment_count=1,
+                 n_neighbors=2, output_format="both")
+    info = pd.read_csv(os.path.join(out, "data.info"))
+    assert len(info) > 5 and (info.n_reads == 30).all()
+    errors = []
+    for build in (build_dataset, jax_build_dataset):
+        with pytest.raises(KeyError) as raised:
+            next(build(out, min_reads=20, norm_path=DEFAULT_NORM_PATH, num_neighboring_features=2).iter_sites())
+        errors.append(str(raised.value))
+    assert errors[0] == errors[1]
+
+    jax_model, params, port = width_models["W1"]
+    engine.run_inference(port, _Sites(Site, 5), str(tmp_path / "port"), THRESHOLD, backend="torch", device="cpu")
+    jax_run_inference(jax_model, params, _Sites(JaxSite, 5), str(tmp_path / "jax"), read_proba_threshold=THRESHOLD,
+                      backend="xla")
+    feed = _Sites(Site, 5)
+    gaps = compare_runs(str(tmp_path / "port"), str(tmp_path / "jax"), THRESHOLD, 1e-6, 1e-5)
+    assert gaps["ok"] and gaps["rows"] == [sum(len(s.read_ids) for s in feed.sites), len(feed)], gaps
+    step = engine.make_infer_step(port, 64, THRESHOLD, backend="cuda_fused", precision="f32")
+    site = feed.sites[0]
+    X = torch.from_numpy(site.features)
+    K = torch.from_numpy(np.tile(site.kmer_ids, (X.shape[0], 1)))
+    with torch.no_grad():
+        p, *_ = step(X, K.to(torch.int8), torch.tensor([0], dtype=torch.int32),
+                     torch.tensor([X.shape[0]], dtype=torch.int32))
+        want = port.per_read_probability({"X": X, "kmer": K})
+    torch.testing.assert_close(p, want, rtol=0, atol=1e-6)
