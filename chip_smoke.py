@@ -200,8 +200,11 @@ its plain PyTorch version:
                  long runs: sites whose outer 5-mers the 66-k-mer
                  vocabulary lacks, refused by the dataset in both
                  packages) and run_inference over seeded 5-position sites
-                 with a seeded W1 model, auto against torch; a model
-                 outside the envelope refused before any launch
+                 with a seeded W1 model, auto against torch; a model of
+                 (3, 2, 150, 65), past the fast plans' H2, through auto
+                 (cuda_fused f32x3 on the wide plan, each kernel once a
+                 batch) against torch, and one of 32,768 k-mers (past the
+                 int16 ids) refused before any launch
  22. MC shapes   mc_kernel.ragged_mc_batch with sites of 57,345, 100,000
                  and 1,000,000 reads against the plain version (1e-6), the
                  shorter sites the same bits as without the long ones, and
@@ -211,12 +214,31 @@ its plain PyTorch version:
                  over a columnar store holding a 100,000-read site,
                  cuda_fused against --backend torch (site 1e-5); the
                  long-site path timed at a 1,000,000-read site
+ 23. past        the production architecture past the widths of the
+                 kernels' fast plans: W8 (3, 2, 512, 32), W9 (3, 2, 150,
+                 128), W10 (11, 8, 256, 64), W11 (3, 2, 150, 32) over 1,024
+                 k-mers and W12 (11, 8, 512, 128) over 1,024, seeded
+                 weights: each tuple's libraries (built in phase 2; ptxas
+                 registers and spills of the kernel each phase A launches,
+                 the wide plan's or the fast one's), every precision
+                 against the plain versions at phase 12's tolerances on a
+                 small ragged batch (the dataset's int8 ids), the ragged
+                 tails of each phase A's tile and a 1,048,576-read batch
+                 (ids over the whole vocabulary, int16 past 128 k-mers),
+                 repeats bit-identical; each phase A timed beside its
+                 bound; both entry points at W12 with int32 ids up to
+                 V - 1; a W12 model through run_inference in each
+                 precision (the wide kernels once a batch) against
+                 --backend torch and its plain version; train
+                 --model_config (W9) on tests/data, 2 epochs, then
+                 inference --backend auto (cuda_fused f32x3 on the wide
+                 plan, each kernel once a batch) against --backend torch
 
 Any failure exits nonzero.  The last line is the
 ``{"ok": true, "device": {...}}`` result; before it come the MC floors' JSON
 line, the models and generic lines (phases 16 and 17), the columnar,
 shards and pipeline lines (phases 18 to 20), the widths and MC shapes
-lines (phases 21 and 22), the kernels' JSON
+lines (phases 21 and 22), the past-envelope line (phase 23), the kernels' JSON
 line (measured values and each kernel's bound, phase B's site_reduce_kernel
 with its own entry, and each kernel's launches by released model), the
 training line (phases 14 and 15), a timing line and the card's
@@ -580,7 +602,7 @@ def compare_mc(mck, p, offsets, counts, host_sites, u, n_iters, label):
     return err
 
 
-def device_split_ms(fn, reps=5):
+def device_split_ms(fn, reps=20):
     """Device time per launch of each CUDA kernel ``fn`` runs, from
     torch.profiler (its total over the launches the profiler recorded, which
     may be fewer than ``reps``); empty when it sees no device activity."""
@@ -1082,6 +1104,8 @@ def reset_launch_counts():
     fused_infer_kernel.site_reduce_launch_count = 0
     for mode in fused_infer_kernel.tc_launch_counts:
         fused_infer_kernel.tc_launch_counts[mode] = 0
+    for precision in fused_infer_kernel.wide_launch_counts:
+        fused_infer_kernel.wide_launch_counts[precision] = 0
     encoder_kernel.launch_count = 0
     mc_kernel.launch_count = 0
     mc_kernel.long_launch_count = 0
@@ -1099,6 +1123,7 @@ def read_launch_counts():
         "fused_inference": fused_infer_kernel.fused_inference_launch_count,
         "site_reduce": fused_infer_kernel.site_reduce_launch_count,
         **{f"read_prob_tc_{mode}": n for mode, n in fused_infer_kernel.tc_launch_counts.items()},
+        **{f"read_prob_wide_{precision}": n for precision, n in fused_infer_kernel.wide_launch_counts.items()},
         "site_probability_mc_long": mc_kernel.long_launch_count,
     }
 
@@ -2067,7 +2092,12 @@ def check_pipeline(logs, work_dir, card):
 WIDTHS = {"W0": (3, 2, 150, 32), "W1": (5, 2, 150, 32), "W2": (3, 3, 100, 20), "W3": (3, 4, 256, 64),
           "W4": (11, 4, 96, 24), "W5": (1, 1, 7, 3), "W6": (11, 4, 256, 64), "W7": (1, 4, 256, 64)}
 WIDTHS_THRESHOLD = 0.5  # the seeded models' read threshold
-OUTSIDE_ENVELOPE = (3, 2, 150, 65)  # H2 above the envelope's 64
+OUTSIDE_ENVELOPE = (3, 2, 150, 65)  # H2 past the fast plans' 64: f32x3 and bf16 take their wide plans
+VAST_VOCAB = (3, 2, 150, 32, 32768)  # a vocabulary past the int16 k-mer ids: refused
+# phase 23: past the widths of the kernels' fast plans (positions P,
+# embedding E, hidden H1, H2, vocabulary V where not 66)
+PAST_WIDTHS = {"W8": (3, 2, 512, 32), "W9": (3, 2, 150, 128), "W10": (11, 8, 256, 64),
+               "W11": (3, 2, 150, 32, 1024), "W12": (11, 8, 512, 128, 1024)}
 # older fused_infer.cu and read_prob_tc.cu (the parent commit's, staged by
 # git show before a run) to hold W0's bits and times against, when present
 PARENT_CSRC = os.path.join(ROOT, "build", "parent", "csrc")
@@ -2079,13 +2109,15 @@ LONG_SITE = 100_000  # the long site of phase 22's columnar store
 
 
 def shape_variants():
-    """(source, defines) of every library phases 21 and 22 build besides
-    the defaults."""
+    """(source, defines) of every library phases 21 to 23 build besides
+    the defaults (past 128 k-mers, with int8 and with int16 ids)."""
     from m6anet_tpu_torch.ops import fused_infer_kernel as fik
     from m6anet_tpu_torch.ops import mc_kernel as mck
 
-    out = [(source, fik.kernel_defines(fik.Widths(*w))) for name, w in WIDTHS.items() if name != "W0"
-           for source in ("fused_infer", "read_prob_tc")]
+    widths = [fik.Widths(*w) for name, w in {**WIDTHS, **PAST_WIDTHS}.items() if name != "W0"]
+    widths.append(fik.Widths(*OUTSIDE_ENVELOPE))
+    out = [(source, fik.kernel_defines(w, id_bytes)) for w in widths for id_bytes in (1, 2)
+           if id_bytes == 1 or w.vocab > 128 for source in ("fused_infer", "read_prob_tc")]
     return out + [("mc", mck.kernel_defines(n)) for n in MC_SAMPLES if n != mck.SAMPLES]
 
 
@@ -2272,7 +2304,9 @@ def run_trained_widths(logs, work_dir, widths):
     wall, path, batches, launches = run_cli("HCT116_RNA002", out_auto, flags)
     if "backend=cuda_fused" not in path or "precision=f32x3" not in path or "device=cuda" not in path:
         fail(f"--backend auto at widths {widths} ran as {path!r}, not cuda_fused f32x3 on the card")
-    if any(launches[k] != batches for k in ("fused_inference_t", "read_prob_tc_f32x3", "site_reduce")):
+    wide = batches if fik.phase_a_wide("f32x3", fik.Widths(*widths)) else 0
+    if (any(launches[k] != batches for k in ("fused_inference_t", "read_prob_tc_f32x3", "site_reduce"))
+            or launches["read_prob_wide_f32x3"] != wide):
         fail(f"--backend auto at widths {widths}: launches {launches} in {batches} batches")
     torch_wall, torch_path, _, torch_launches = run_cli("HCT116_RNA002", out_torch, [*flags, "--backend", "torch"])
     if "backend=torch" not in torch_path or any(torch_launches.values()):
@@ -2427,30 +2461,166 @@ def check_widths(logs, work_dir, full_batch, peak_flops):
             report["W0 parent"] = check_parent(fp, full_batch)
     report["W3 trained"] = run_trained_widths(logs, os.path.join(work_dir, "trained"), WIDTHS["W3"])
     report["W1 5 positions"] = run_neighbors(logs, os.path.join(work_dir, "neighbors"), WIDTHS["W1"])
-    report["outside"] = check_outside_envelope(os.path.join(work_dir, "outside"))
+    report["outside"] = check_outside_envelope(logs, os.path.join(work_dir, "outside"))
     return report
 
 
-def check_outside_envelope(out_dir):
-    """run_inference of a model outside the kernels' envelope on the card
-    (backend auto): a ValueError before any launch or CSV."""
+def check_outside_envelope(logs, out_dir):
+    """A model of OUTSIDE_ENVELOPE's widths (H2 past the fast plans)
+    through run_inference on the card with backend auto: cuda_fused at
+    f32x3, on the wide plan, each kernel once a batch, against --backend
+    torch at phase 16's rule; and a model of VAST_VOCAB (a vocabulary past
+    the int16 k-mer ids): a ValueError before any launch or CSV."""
     from m6anet_tpu_torch.constants import DEFAULT_NORM_PATH
     from m6anet_tpu_torch.data.dataset import build_dataset
     from m6anet_tpu_torch.inference.engine import run_inference
 
     dataset = build_dataset(os.path.join(ROOT, "tests", "data"), min_reads=20, norm_path=DEFAULT_NORM_PATH,
                             mode="Inference")
+    model = seeded_model(OUTSIDE_ENVELOPE)
+    runs = {name: engine_run(logs, copy.deepcopy(model), dataset, os.path.join(out_dir, name), WIDTHS_THRESHOLD,
+                             backend=backend) for name, backend in (("auto", "auto"), ("torch", "torch"))}
+    auto = runs["auto"]
+    if ("backend=cuda_fused" not in auto["path"] or "precision=f32x3" not in auto["path"]
+            or any(auto["launches"][k] != auto["batches"]
+                   for k in ("fused_inference_t", "read_prob_tc_f32x3", "read_prob_wide_f32x3", "site_reduce"))):
+        fail(f"{OUTSIDE_ENVELOPE} under auto ran as {auto['path']!r} with launches {auto['launches']}")
+    errors, *_ = mode_errors(model, dataset, WIDTHS_THRESHOLD)
+    gaps = hold_outputs(os.path.join(out_dir, "auto"), os.path.join(out_dir, "torch"), WIDTHS_THRESHOLD,
+                        max(ENGINE_READ_ATOL["f32x3"], 2 * errors["f32x3"]), None, f"{OUTSIDE_ENVELOPE} auto vs torch")
+    log(f"[widths] {OUTSIDE_ENVELOPE} on {auto['path']}: launches {auto['launches']} in {auto['batches']} batches")
+    refused_dir = os.path.join(out_dir, "vast")
     reset_launch_counts()
     try:
-        run_inference(seeded_model(OUTSIDE_ENVELOPE), dataset, out_dir, WIDTHS_THRESHOLD)
+        run_inference(seeded_model(VAST_VOCAB), dataset, refused_dir, WIDTHS_THRESHOLD)
     except ValueError as err:
         refused = str(err)
     else:
-        fail(f"a model of widths {OUTSIDE_ENVELOPE} ran on the card under auto")
-    if any(read_launch_counts().values()) or os.path.exists(os.path.join(out_dir, "data.site_proba.csv")):
-        fail(f"a model outside the envelope launched a kernel or wrote a CSV: {read_launch_counts()}")
-    log(f"[widths] {OUTSIDE_ENVELOPE} refused before any batch: {refused}")
-    return {"widths": OUTSIDE_ENVELOPE, "error": refused}
+        fail(f"a model of widths {VAST_VOCAB} ran on the card under auto")
+    if any(read_launch_counts().values()) or os.path.exists(os.path.join(refused_dir, "data.site_proba.csv")):
+        fail(f"a model past the int16 k-mer ids launched a kernel or wrote a CSV: {read_launch_counts()}")
+    log(f"[widths] {VAST_VOCAB} refused before any batch: {refused}")
+    return {"widths": OUTSIDE_ENVELOPE, "path": auto["path"], "launches": auto["launches"],
+            "batches": auto["batches"], "vs_torch": gaps, "mode_error_vs_f64": errors,
+            "refused": {"widths": VAST_VOCAB, "error": refused}}
+
+
+def phase_a_bound_ms(w, precision, n_reads, id_bytes, peak_flops, peak_bw):
+    """The least time phase A of ``precision`` could take at widths ``w``
+    over ``n_reads`` reads, and what bounds it: the larger of its bytes
+    (features, k-mer ids of ``id_bytes``, p) over ``peak_bw`` and its
+    operations over their pipe's peak (f32 on the FP32 cores; f32x3 layer
+    1 there and its three bf16 passes over layer 2 and the head on the
+    tensor cores, another pipe; bf16 all on the tensor cores)."""
+    f32 = 2 * (w.n_in * w.hidden1 + w.hidden1 * w.hidden2 + w.hidden2)
+    flop = {"f32": (f32, 0), "f32x3": (2 * w.n_in * w.hidden1, 3 * 2 * (w.hidden1 * w.hidden2 + w.hidden2)),
+            "bf16": (0, f32)}[precision]
+    op_ms = max(flop[0] / peak_flops, flop[1] / BF16_TENSOR_FLOPS) * n_reads * 1e3
+    byte_ms = (12 * w.positions + id_bytes * w.positions + 4) * n_reads / peak_bw * 1e3
+    return max(op_ms, byte_ms), "operations" if op_ms >= byte_ms else "bytes"
+
+
+def run_wide_engine(logs, work_dir, widths):
+    """A seeded model of ``widths`` (past every fast plan) through
+    run_inference over SyntheticSites on the card in each precision of
+    cuda_fused: each kernel of the path once a batch, the wide phase A
+    among them; each run against --backend torch at phase 16's rule and
+    against its own plain version.  Returns the runs' reports."""
+    from m6anet_tpu_torch.ops import fused_infer_kernel as fik
+
+    w = fik.Widths(*widths)
+    dataset = SyntheticSites(w.positions)
+    model = seeded_model(widths, seed=2)
+    rows = (sum(len(site.read_ids) for site in dataset.sites), len(dataset))
+    out = {name: os.path.join(work_dir, name) for name in ("torch", *P_ATOL)}
+    runs = {"torch": engine_run(logs, copy.deepcopy(model), dataset, out["torch"], WIDTHS_THRESHOLD, backend="torch")}
+    errors, fp, batch, site_batch = mode_errors(model, dataset, WIDTHS_THRESHOLD)
+    report = {"widths": widths, "mode_error_vs_f64": errors}
+    for precision in P_ATOL:
+        runs[precision] = rep = engine_run(logs, copy.deepcopy(model), dataset, out[precision], WIDTHS_THRESHOLD,
+                                           backend="cuda_fused", precision=precision)
+        wide = rep["batches"] if fik.phase_a_wide(precision, w) else 0
+        path = ["fused_inference_t", "site_reduce"] + ([f"read_prob_tc_{precision}"] if precision in MODES else [])
+        if (f"backend=cuda_fused precision={precision}" not in rep["path"]
+                or any(rep["launches"][k] != rep["batches"] for k in path)
+                or rep["launches"][f"read_prob_wide_{precision}"] != wide):
+            fail(f"[{widths} {precision}] ran as {rep['path']!r} with launches {rep['launches']}")
+        read_atol = max(ENGINE_READ_ATOL[precision], 2 * errors[precision])
+        vs_torch = hold_outputs(out[precision], out["torch"], WIDTHS_THRESHOLD, read_atol,
+                                SITE_ATOL if precision == "f32" else None, f"{widths} {precision} vs torch", rows=rows)
+        plain_dir = write_plain_outputs(fp, batch, site_batch, precision, WIDTHS_THRESHOLD, out[precision] + "_plain")
+        vs_plain = hold_outputs(out[precision], plain_dir, WIDTHS_THRESHOLD, P_ATOL[precision], SITE_ATOL,
+                                f"{widths} {precision} vs plain", rows=rows)
+        report[precision] = {"wall_s": rep["wall_s"], "path": rep["path"], "batches": rep["batches"],
+                             "launches": rep["launches"], "vs_torch": vs_torch, "vs_plain": vs_plain}
+        log(f"[past e2e] {widths} {precision}: {rep['wall_s']:.2f} s; {rep['path']}; {rep['batches']} batches; "
+            f"launches {rep['launches']}")
+    return report
+
+
+def check_past_envelope(logs, work_dir, full_batch, peak_flops, peak_bw):
+    """Phase 23: every tuple of PAST_WIDTHS on the kernels against their
+    plain versions in all three precisions (a small ragged batch with the
+    dataset's int8 ids, the ragged tails of each phase A's tile and a
+    1,048,576-read batch with ids over the whole vocabulary, int16 past 128
+    k-mers; repeats bit-identical), each library's ptxas report, each
+    phase A timed beside its f32 bound; both entry points at W12 with int32
+    ids up to V - 1; a W12 model through run_inference in each precision;
+    a model trained at W9 through the CLI with --backend auto."""
+    from m6anet_tpu_torch.ops import _build
+    from m6anet_tpu_torch.ops import encoder_kernel as enc
+    from m6anet_tpu_torch.ops import fused_infer_kernel as fik
+    from m6anet_tpu_torch.ops import site_ops
+
+    report = {}
+    rng = np.random.default_rng(23)
+    for k, (name, widths) in enumerate(PAST_WIDTHS.items()):
+        w = fik.Widths(*widths)
+        fp = fik.prepare_fused_params_t(seeded_model(widths).cuda())
+        id_bytes = 2 if w.vocab > 128 else 1
+        libs = {src: _build.cuda_library(src, fik.kernel_defines(w, id_bytes)) for src in ("fused_infer", "read_prob_tc")}
+        kernels = {precision: fik.phase_a_kernel(precision, w, id_bytes) for precision in P_ATOL}
+        ptxas = {precision: {"kernel": kernel, **_build.ptxas_usage(libs["fused_infer" if precision == "f32" else
+                                                                          "read_prob_tc"], kernel)}
+                 for precision, kernel in kernels.items()}
+        configs = {mode: fik.tc_kernel_config(mode, w, id_bytes) for mode in MODES}
+        small = make_batch(rng, 4096, 128, small_count(rng), widths)
+        brng = np.random.default_rng(200 + k)
+        n = full_batch[0].shape[0]
+        big = (brng.standard_normal(size=(n, w.features), dtype=np.float32),
+               brng.integers(0, w.vocab, size=(n, w.positions)).astype(fik.kmer_dtype(w.vocab)),
+               full_batch[2], full_batch[3])
+        errors = {}
+        for precision in P_ATOL:
+            err = compare(fik, fp, small, f"{name} small", precision, WIDTHS_THRESHOLD)
+            for batch in fik.ragged_tail_batches(fik.read_tile_reads(precision, w), seed=40 + k, widths=w):
+                err = max(err, compare(fik, fp, batch, f"{name} tail {batch[0].shape[0]}", precision,
+                                       WIDTHS_THRESHOLD))
+            errors[precision] = max(err, compare(fik, fp, big, f"{name} full", precision, WIDTHS_THRESHOLD))
+        features, kmer = (torch.from_numpy(a).cuda() for a in big[:2])
+        host = fik.checked_kmer_ids(big[1], w.vocab)
+        phase_a_ms = {precision: time_ms(lambda: enc.fused_read_probability(fp, features, kmer, precision,
+                                                                              host_kmer_ids=host), reps=10)
+                      for precision in P_ATOL}
+        bounds = {precision: phase_a_bound_ms(w, precision, n, id_bytes, peak_flops, peak_bw) for precision in P_ATOL}
+        f32_bound_ms = bounds["f32"][0]
+        report[name] = {"widths": widths, "ptxas": ptxas, "tc_launch": configs, "max_abs_err": errors,
+                        "phase_a_ms": phase_a_ms, "f32_bound_ms": f32_bound_ms,
+                        "bound_ms": {p: b[0] for p, b in bounds.items()},
+                        "bound_by": {p: b[1] for p, b in bounds.items()}, "reads": n, "id_bytes": id_bytes}
+        if name == "W12":
+            ids32 = (small[0], rng.integers(0, w.vocab, size=small[1].shape).astype(np.int32), small[2], small[3])
+            ids32[1][0] = w.vocab - 1
+            report[name]["entries_int32"] = {precision: compare_entries(fik, enc, site_ops, fp, ids32,
+                                                                        f"{name} entries int32", precision)
+                                             for precision in P_ATOL}
+            report[name]["plain_ms"] = {precision: time_ms(lambda: enc.fused_read_probability_plain(
+                fp, features, kmer, precision), reps=1) for precision in P_ATOL}
+        log(f"[past] {name} {widths}: kernels {kernels}; ptxas {ptxas}; tensor-core launches {configs}; kernel vs "
+            f"plain {errors}; phase A at {n} reads {phase_a_ms} ms, bounds {bounds}")
+    report["W12 engine"] = run_wide_engine(logs, os.path.join(work_dir, "w12"), PAST_WIDTHS["W12"])
+    report["W9 trained"] = run_trained_widths(logs, os.path.join(work_dir, "trained"), PAST_WIDTHS["W9"])
+    return report
 
 
 def check_mc_shapes(logs, work_dir, peak_flops, peak_bw):
@@ -2565,16 +2735,27 @@ def check_mc_shapes(logs, work_dir, peak_flops, peak_bw):
     ms = time_ms(lambda: mck.site_probability_mc_cuda(p1, off1, cnt1, u, MC_ITERS, host_sites=host1))
     plain_ms = time_ms(lambda: mck.site_probability_mc_plain(p1, off1, cnt1, u, MC_ITERS), reps=5)
     split = device_split_ms(lambda: mck.site_probability_mc_cuda(p1, off1, cnt1, u, MC_ITERS, host_sites=host1))
+    # mc_long_site_kernel alone (launched from count 0 over the site), by
+    # CUDA events: its device time, whether or not the profiler records it
+    lib, stream = mck._kernel_lib(), torch.cuda.current_stream().cuda_stream
+    long_out = torch.empty(1, dtype=torch.float32, device="cuda")
+    long_args = (p1.data_ptr(), off1.data_ptr(), cnt1.data_ptr(), u.data_ptr(), long_out.data_ptr(), 1, n_long,
+                 MC_ITERS, mck.SAMPLES, 0, mck.LONG_GRID, stream)
+    if lib.mc_long_site_launch(*long_args) != 0:
+        fail("MC: mc_long_site_kernel did not launch alone")
+    long_kernel_ms = time_ms(lambda: lib.mc_long_site_launch(*long_args))
     got = mck.site_probability_mc_cuda(p1, off1, cnt1, u, MC_ITERS, host_sites=host1)
     err = float((got - mck.site_probability_mc_plain(p1, off1, cnt1, u, MC_ITERS)).abs().max())
     ops = MC_ITERS * (2 * mck.SAMPLES + 1)  # the draws' adds and log1p, each iteration's exp
     bytes_moved = 4 * mck.SAMPLES * MC_ITERS + 4 * mck.SAMPLES * MC_ITERS + 8 + 4  # the draws' p and U, the site
     op_ms, byte_ms = ops / peak_flops * 1e3, bytes_moved / peak_bw * 1e3
     report["long_site"] = {"reads": n_long, "n_iters": MC_ITERS, "ms": ms, "plain_ms": plain_ms, "device_ms": split,
+                           "long_kernel_ms": long_kernel_ms,
                            "max_abs_err": err, "bound_ms": max(op_ms, byte_ms),
                            "bound_by": "operations" if op_ms >= byte_ms else "bytes"}
     log(f"[MC long site timing] {n_long} reads, T={MC_ITERS}: wrapper {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"device time per launch (torch.profiler, ms) {split or 'not measured'}, |dsite_p| {err:.3e}")
+        f"device time per launch (torch.profiler, ms) {split or 'not measured'}, mc_long_site_kernel alone "
+        f"{long_kernel_ms:.4f} ms (CUDA events), |dsite_p| {err:.3e}")
     if err > MC_ATOL:
         fail("MC: the long-site kernel disagrees with its plain version at the 1,000,000-read site")
     report["max_abs_err"] = max(report["max_abs_err"], err)
@@ -3057,10 +3238,12 @@ def main():
     # ---- 20. eventalign.txt to calls with the port alone
     pipeline = check_pipeline(logs, os.path.join(WORK_DIR, "pipeline"), smi)
 
-    # ---- 21. other widths of the production architecture, 22. MC shapes
+    # ---- 21. other widths of the production architecture, 22. MC shapes,
+    # 23. past the widths of the kernels' fast plans
     os.makedirs(WORK_DIR, exist_ok=True)
     widths = check_widths(logs, os.path.join(WORK_DIR, "widths"), full_batch, peak_flops)
     mc_shapes = check_mc_shapes(logs, os.path.join(WORK_DIR, "mc_shapes"), peak_flops, peak_bw)
+    past = check_past_envelope(logs, os.path.join(WORK_DIR, "past"), full_batch, peak_flops, peak_bw)
     shutil.rmtree(WORK_DIR, ignore_errors=True)
     width_runs = {"fused_inference_t": "f32", "fused_read_probability": "f32", "fused_inference_t[f32x3]": "f32x3",
                   "fused_inference_t[bf16]": "bf16"}
@@ -3093,7 +3276,46 @@ def main():
                 "mc_site_kernel and mc_long_site_kernel at one 1,000,000-read site, T = 1000",
         "kernels": "mc_site_kernel (the short sites) + mc_long_site_kernel",
         "device_ms": long_site["device_ms"],
+        "long_kernel_ms": long_site["long_kernel_ms"],
     })
+
+    # the wide plans' kernels: launches from phase 23's W12 run of each
+    # precision (f32x3 also from W9's trained model), times and plain
+    # versions at W12 (1,048,576 reads), errors over every width where the
+    # precision's phase A is wide
+    w12, w12_engine = past["W12"], past["W12 engine"]
+    for precision, (name, source, kernel) in {
+            "f32": ("fused_inference_t[f32, wide plan]", "fused_infer.cu", "read_prob_wide_kernel"),
+            "f32x3": ("fused_inference_t[f32x3, wide plan]", "read_prob_tc.cu", "read_prob_tc_wide_kernel<1>"),
+            "bf16": ("fused_inference_t[bf16, wide plan]", "read_prob_tc.cu", "read_prob_tc_wide_kernel<2>")}.items():
+        run = w12_engine[precision]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"m6anet_tpu_torch/ops/csrc/{source}",
+            "replaces": _replaces(source),
+            "launches": run["launches"][f"read_prob_wide_{precision}"],
+            "max_abs_err": max(rep["max_abs_err"][precision] for key, rep in past.items()
+                               if key in PAST_WIDTHS and "wide" in rep["ptxas"][precision]["kernel"]),
+            "ms": w12["phase_a_ms"][precision],
+            "plain_ms": w12["plain_ms"][precision],
+            "bound_ms": w12["bound_ms"][precision],
+            "bound_by": w12["bound_by"][precision],
+            "library_ms": None,
+            "library_note": "no single PyTorch call computes the encoder",
+            "launches_per_batch": run["launches"][f"read_prob_wide_{precision}"] / run["batches"],
+            "path": f"run_inference, cuda_fused --precision {precision}, a seeded W12 model {PAST_WIDTHS['W12']} "
+                    f"(phase 23); ms: phase A alone at W12, {w12['reads']} reads",
+            "kernel": kernel,
+            "ptxas": w12["ptxas"][precision],
+            "widths": {key: {"widths": rep["widths"], "phase_a_ms": rep["phase_a_ms"][precision],
+                             "bound_ms": rep["bound_ms"][precision], "max_abs_err": rep["max_abs_err"][precision]}
+                       for key, rep in past.items()
+                       if key in PAST_WIDTHS and "wide" in rep["ptxas"][precision]["kernel"]},
+        })
+    kernels[-2]["launches_w9_trained"] = {
+        "launches": past["W9 trained"]["launches"]["read_prob_wide_f32x3"], "batches": past["W9 trained"]["batches"],
+        "path": "inference --model_config (W9) --model_state_dict, auto (phase 23)"}
 
     for precision in P_ATOL:
         check_close_share(precision)
@@ -3114,6 +3336,7 @@ def main():
     log(json.dumps({"pipeline": pipeline}))
     log(json.dumps({"widths": widths}))
     log(json.dumps({"mc_shapes": mc_shapes}))
+    log(json.dumps({"past_envelope": past}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"training": training}))
     log(json.dumps({

@@ -19,11 +19,12 @@ Backends (the JAX package's ``pallas_fused``, ``pallas`` and ``xla``):
 kernel (``ops/encoder_kernel.py``) and the plain site ops;
 ``torch`` runs the model's modules and the plain site ops, for any model
 config whose pooling filter has a per-read probability layer.  The CUDA
-kernels cover the production architecture at any widths within their
-envelope (``fused_infer_kernel.kernel_limit``: at least P <= 11 positions,
-E <= 4, H1 <= 256, H2 <= 64), each set of widths built at first use, as the
-JAX package's Pallas kernel takes any; a config of other blocks resolves to
-``torch``, as the JAX package's go to ``xla`` (``resolve_backend``).  With the MC site
+kernels cover the production architecture at any widths (but a vocabulary
+past 32,767 k-mers or a read of more than 1,816 inputs:
+``fused_infer_kernel.kernel_limit``), each set of widths built at first
+use, as the JAX package's Pallas kernel takes any; a config of other
+blocks resolves to ``torch``, as the JAX package's go to ``xla``
+(``resolve_backend``).  With the MC site
 method (``method="mc"``) both CUDA backends take the site probability from
 the kernel of ``ops/mc_kernel.py``, and ``torch`` from
 ``site_ops.site_probability_mc``; the two draw different numbers for one
@@ -109,9 +110,10 @@ def resolve_backend(
     takes ``pallas_fused`` for it), and the torch modules at f32 for an
     architecture of other block types or activations (the JAX package's
     ``auto`` takes ``xla`` for the same configs).  The production
-    architecture at widths outside the kernels' envelope raises, naming the
-    widths and the limit that binds (``--backend torch`` runs it).  On the
-    CPU the torch modules at f32.  An explicit CUDA backend for an
+    architecture at widths ``fused_infer_kernel.kernel_limit`` names (a
+    vocabulary past the int16 k-mer ids, a read of more than 1,816 inputs)
+    raises, naming the widths and the limit (``--backend torch`` runs it).
+    On the CPU the torch modules at f32.  An explicit CUDA backend for an
     architecture its kernels do not cover raises.  f32x3 and bf16 need a
     CUDA backend, as the JAX package's need a Pallas one."""
     if backend not in BACKENDS:
@@ -366,7 +368,8 @@ def run_inference(
     model.to(device).eval()
     backend, precision = resolve_backend(model, backend, precision, device, log=log)
     # every kernel wrapper's launch count, by the TPU kernel it ports, the
-    # tensor-core phase A's, by precision, and the MC long-site kernel's
+    # tensor-core phase A's, by precision, those of a phase A of the wide
+    # plan, by precision, and the MC long-site kernel's
     kernels = {
         "fused_inference_t": lambda: fused_infer_kernel.launch_count,
         "fused_read_probability": lambda: encoder_kernel.launch_count,
@@ -376,6 +379,10 @@ def run_inference(
         **{
             f"read_prob_tc_{mode}": (lambda mode=mode: fused_infer_kernel.tc_launch_counts[mode])
             for mode in fused_infer_kernel.tc_launch_counts
+        },
+        **{
+            f"read_prob_wide_{precision}": (lambda precision=precision: fused_infer_kernel.wide_launch_counts[precision])
+            for precision in fused_infer_kernel.wide_launch_counts
         },
         "site_probability_mc_long": lambda: mc_kernel.long_launch_count,
     }

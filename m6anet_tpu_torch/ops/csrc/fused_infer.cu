@@ -43,8 +43,8 @@
 // p).  At the released widths that is 14,164 FLOP and 43 bytes, ~330 FLOP
 // per byte, far above the H100's ~20 FLOP/B f32 ridge (67 TFLOP/s over
 // 3.35 TB/s on the SXM part), so the step is bound by the f32 CUDA cores:
-// ~0.22 ms for a 1,048,576-read batch on an H100 SXM; every width of the
-// envelope (ops/fused_infer_kernel.py::kernel_limit) is as far above it.
+// ~0.22 ms for a 1,048,576-read batch on an H100 SXM; every width is as far
+// above it (4.0 ms at P = 11, E = 8, H1 = 512, H2 = 128).
 // The per-site phase (phase B) reads p once more (4 B per read) and the
 // spans (8 B per site) and writes 8 B per site: 4.45 MB at the production
 // batch (16,384 sites), 1.3 us at 3.35 TB/s, whatever the widths.  It is
@@ -54,8 +54,8 @@
 // What this design does about it:
 //  * Phase A, R reads per thread (register blocking over reads, R =
 //    kReads), grid-stride over tiles of kReadThreads * R reads.  All the
-//    weights (~30 KB at the released widths, at most 227 KB: the envelope
-//    checks it) are staged in shared memory once per block and read as
+//    weights (~30 KB at the released widths, at most 227 KB: past that the
+//    wide plan below) are staged in shared memory once per block and read as
 //    warp-uniform float4 broadcasts (no bank conflicts); past 48 KB as
 //    dynamic shared memory.  For each of the H1 hidden units a thread loads
 //    W1'/b1' row k (n_in + 1 floats padded to float4s) and W2's fan-out of
@@ -76,6 +76,16 @@
 //    accumulators) registers: 94 at the released widths.  Wider models
 //    take R = 1, and past 94 values one block an SM's registers (kReads,
 //    kReadBlocks below).
+//  * The wide plan (kWide: past 144 values a read or a 227 KB image, e.g.
+//    121 inputs and H2 = 128, a 0.55 MB image) keeps each read's operation
+//    sequence, so p is the same bits, but not its registers: a thread takes
+//    one read, its n_in inputs wait in a column of shared memory, layer 2's
+//    accumulators in registers in passes of at most 128 outputs (a later
+//    pass forms h1 again), and the weights stream from device memory as
+//    warp-uniform loads that L1 and L2 serve (the image is read once a
+//    tile, far below what L2 holds).  A thread forms kWideUnits hidden
+//    units at once, so each input it loads from shared memory feeds that
+//    many FMAs: right, not fast (PERF.md section 6).
 //  * Each read keeps the exact operation sequence of the one-read design
 //    (layer 1: W1'[k,0] * x0, then fmaf in input order, + b1', relu;
 //    layer 2: fmaf in k order; head: fmaf in j order, + b3, 1 / (1 +
@@ -150,6 +160,18 @@ namespace {
 #ifndef M6A_H2
 #define M6A_H2 32
 #endif
+// bytes of a k-mer id the kernels read: 1 (int8) by default, 2 (int16) for
+// ids of a vocabulary past 127 (ops/fused_infer_kernel.py::kernel_defines)
+#ifndef M6A_KMER_ID_BYTES
+#define M6A_KMER_ID_BYTES 1
+#endif
+#if M6A_KMER_ID_BYTES == 2
+using KmerId = int16_t;
+#else
+using KmerId = int8_t;
+#endif
+constexpr int kIdBytes = M6A_KMER_ID_BYTES;
+static_assert(kIdBytes == sizeof(KmerId), "k-mer ids of 1 or 2 bytes");
 constexpr int kPos = M6A_POS;                 // k-mer positions per read
 constexpr int kFeat = 3 * kPos;               // signal features per read
 constexpr int kVocab = M6A_VOCAB;             // k-mer vocabulary
@@ -201,7 +223,28 @@ constexpr int kReleasedReadValues = 47;
 constexpr int kReads = kReadValues <= kReleasedReadValues ? kReadTile : 1;
 constexpr int kReadBlocks = kReadValues <= kReleasedReadValues ? kReadMinBlocks
                             : kReadValues <= 2 * kReleasedReadValues ? 2 : 1;
-static_assert(kReadValues <= 144, "the envelope: kernel_limit in ops/fused_infer_kernel.py");
+// Past 144 values a read (a thread's registers) or past a block's shared
+// memory for the image, phase A takes the wide plan: read_prob_wide_kernel,
+// one read a thread, its n_in inputs in shared memory (a column a thread),
+// layer 2's accumulators in passes of at most kWidePass outputs, and the
+// weights read from device memory (through L1 and L2) instead of staged.
+constexpr int kMaxReadValues = 144;
+constexpr int kSharedLimit = 232448;  // dynamic shared memory a block may opt into on sm_90
+constexpr bool kWide = kReadValues > kMaxReadValues || kWeights * 4 > kSharedLimit;
+// Layer-2 outputs a pass holds at most, and hidden units a thread forms at
+// once: 4 where a pass holds at most 64 outputs, else 2 (4 units beside 128
+// accumulators take 254 registers and ran slower).  scripts/sweep_wide.py
+// builds copies with these lines rewritten and times each on the card
+// (PERF.md section 6).
+constexpr int kWidePassCap = 128;
+constexpr int kWidePass = kH2Pad < kWidePassCap ? kH2Pad : kWidePassCap;
+constexpr int kWideUnits = kWidePass <= 64 ? 4 : 2;
+constexpr int kWidePasses = (kH2Pad + kWidePass - 1) / kWidePass;
+// threads a block of the wide plan: 128, fewer where a block's inputs
+// would pass the shared memory (ops/fused_infer_kernel.py::MAX_N_IN)
+constexpr int kWideCap = kSharedLimit / (4 * kIn) / 32 * 32;
+constexpr int kWideThreads = kWideCap < 128 ? kWideCap : 128;
+static_assert(!kWide || kWideThreads >= 32, "a warp's inputs fit a block: kernel_limit in ops/fused_infer_kernel.py");
 // Phase B's shape: kSiteThreads threads a block (its occupancy is asked of
 // the card at launch), kSiteLanes lanes a site's reads are spread over (a
 // power of two, at most 32: 32 / kSiteLanes sites a warp) and kChunkLoads
@@ -215,12 +258,15 @@ static_assert(kSiteLanes >= 1 && kSiteLanes <= 32 && (kSiteLanes & (kSiteLanes -
               "a warp holds whole sites");
 static_assert(kChunkLoads >= 1 && kChunkLoads <= 32, "a lane's chunks of a round sum below 2^32");
 
-// kmer_ids are int8 ids in [0, kVocab); the Python wrapper checks the range
+// kmer_ids are ids in [0, kVocab); the Python wrapper checks the range.
+// R = kReads (a template, so that only the plan the widths take is built)
+template <int R>
 __global__ void __launch_bounds__(kReadThreads, kReadBlocks)
 read_prob_kernel(const float* __restrict__ features,
-                 const int8_t* __restrict__ kmer_ids,
+                 const KmerId* __restrict__ kmer_ids,
                  const float* __restrict__ weights, int64_t n_reads,
                  float* __restrict__ p_out) {
+  static_assert(R > 0 && !kWide, "the wide plan runs read_prob_wide_kernel");
   extern __shared__ __align__(16) float dynamic_w[];
   __shared__ __align__(16) float static_w[kWeightsDynamic ? 4 : kWeights];
   float* const w = kWeightsDynamic ? dynamic_w : static_w;
@@ -229,7 +275,6 @@ read_prob_kernel(const float* __restrict__ features,
   }
   __syncthreads();
 
-  constexpr int R = kReads;
   constexpr int64_t kTile = static_cast<int64_t>(kReadThreads) * R;
   const int64_t stride = static_cast<int64_t>(gridDim.x) * kTile;
   for (int64_t base = static_cast<int64_t>(blockIdx.x) * kTile; base < n_reads; base += stride) {
@@ -306,6 +351,96 @@ read_prob_kernel(const float* __restrict__ features,
       const int64_t r = base + threadIdx.x + static_cast<int64_t>(j) * kReadThreads;
       if (r < n_reads) p_out[r] = 1.f / (1.f + expf(-z));
     }
+  }
+}
+
+// Phase A of the wide plan (kWide): the function of read_prob_kernel, in
+// its operation sequence for every read, so p is the same bits.  Thread t
+// takes read base + t; its inputs wait in column t of shared memory (input
+// i at xs[i * Threads + t], no bank conflicts); layer 2's accumulators of
+// one pass of kWidePass outputs stay in registers, and a later pass forms
+// h1 again (none at H2 <= 128); the head's sum runs across the passes in
+// unit order.  The weights come from the image in device memory as
+// warp-uniform float4 loads (one transaction a warp, cached in L1 and L2).
+template <int Threads>
+__global__ void __launch_bounds__(Threads)
+read_prob_wide_kernel(const float* __restrict__ features,
+                      const KmerId* __restrict__ kmer_ids,
+                      const float* __restrict__ weights, int64_t n_reads,
+                      float* __restrict__ p_out) {
+  extern __shared__ __align__(16) float xs[];
+  float* const x = xs + threadIdx.x;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * Threads;
+  for (int64_t base = static_cast<int64_t>(blockIdx.x) * Threads; base < n_reads; base += stride) {
+    const int64_t want = base + threadIdx.x;
+    const int64_t r = want < n_reads ? want : n_reads - 1;  // a valid read; not stored
+    const float* f = features + r * kFeat;
+    for (int i = 0; i < kFeat; ++i) x[i * Threads] = __ldg(f + i);
+    for (int q = 0; q < kPos; ++q) {
+      const int k = static_cast<int>(kmer_ids[r * kPos + q]);
+      for (int e = 0; e < kEmb; ++e) x[(kFeat + kEmb * q + e) * Threads] = __ldg(weights + kOffEmb + kEmb * k + e);
+    }
+    float z = 0.f;
+    for (int pass = 0; pass < kWidePasses; ++pass) {
+      const int j0 = pass * kWidePass;  // this pass's first output
+      float acc[kWidePass];
+#pragma unroll
+      for (int i = 0; i < kWidePass; ++i) acc[i] = 0.f;
+#pragma unroll 1
+      for (int k0 = 0; k0 < kH1; k0 += kWideUnits) {
+        // layer 1 of kWideUnits units at once (each input read once from
+        // shared memory for all of them), each unit's FMA chain in input
+        // order; a unit past H1 is not computed
+        float t[kWideUnits], h[kWideUnits];
+#pragma unroll
+        for (int q = 0; q < kW1Stride / 4; ++q) {
+          float4 v[kWideUnits];
+#pragma unroll
+          for (int u = 0; u < kWideUnits; ++u) {
+            v[u] = k0 + u < kH1 ? __ldg(reinterpret_cast<const float4*>(weights + kOffW1B + (k0 + u) * kW1Stride) + q)
+                                : make_float4(0.f, 0.f, 0.f, 0.f);
+          }
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int i = 4 * q + e;
+            const float xi = i < kIn ? x[i * Threads] : 0.f;
+#pragma unroll
+            for (int u = 0; u < kWideUnits; ++u) {
+              const float c = e == 0 ? v[u].x : e == 1 ? v[u].y : e == 2 ? v[u].z : v[u].w;
+              if (i == 0) {
+                t[u] = c * xi;
+              } else if (i < kIn) {
+                t[u] = fmaf(c, xi, t[u]);
+              } else if (i == kIn) {
+                h[u] = fmaxf(t[u] + c, 0.f);  // + b1'[k], relu
+              }
+            }
+          }
+        }
+        // layer 2: the units' fan-outs in unit order
+#pragma unroll
+        for (int u = 0; u < kWideUnits; ++u) {
+          if (k0 + u >= kH1) continue;
+          const float4* fan = reinterpret_cast<const float4*>(weights + kOffW2 + (k0 + u) * kH2Pad + j0);
+#pragma unroll
+          for (int q = 0; q < kWidePass / 4; ++q) {
+            if (j0 + 4 * q < kH2Pad) {  // the last pass may hold fewer
+              const float4 w2 = __ldg(fan + q);
+              acc[4 * q] = fmaf(w2.x, h[u], acc[4 * q]);
+              acc[4 * q + 1] = fmaf(w2.y, h[u], acc[4 * q + 1]);
+              acc[4 * q + 2] = fmaf(w2.z, h[u], acc[4 * q + 2]);
+              acc[4 * q + 3] = fmaf(w2.w, h[u], acc[4 * q + 3]);
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < kWidePass; ++i) {
+        if (j0 + i < kH2) z = fmaf(__ldg(weights + kOffW3 + j0 + i), fmaxf(acc[i] + __ldg(weights + kOffB2 + j0 + i), 0.f), z);
+      }
+    }
+    z += __ldg(weights + kOffB3);
+    if (want < n_reads) p_out[want] = 1.f / (1.f + expf(-z));
   }
 }
 
@@ -413,27 +548,40 @@ site_reduce_kernel(const float* __restrict__ p, const int32_t* __restrict__ offs
   }
 }
 
-cudaError_t launch_read_prob(const float* features, const int8_t* kmer_ids,
-                             const float* weights, int64_t n_reads, float* p,
-                             cudaStream_t stream) {
-  constexpr int kDynamicBytes = kWeightsDynamic ? kWeights * 4 : 0;
+// `kernel` (a phase A of `threads` threads a block taking `tile` reads a
+// block and round, with `smem` bytes of dynamic shared memory) over the
+// batch, on a grid of the blocks that fit the card at once
+template <class Kernel>
+cudaError_t launch_phase_a(Kernel kernel, int threads, int64_t tile, int smem, const float* features,
+                           const KmerId* kmer_ids, const float* weights, int64_t n_reads, float* p,
+                           cudaStream_t stream) {
   int device = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err == cudaSuccess && kWeightsDynamic) {
-    err = cudaFuncSetAttribute(read_prob_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kDynamicBytes);
+  if (err == cudaSuccess && smem > 0) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   }
-  if (err == cudaSuccess) {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, read_prob_kernel, kReadThreads, kDynamicBytes);
-  }
+  if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
   if (err != cudaSuccess) return err;
-  constexpr int64_t kTile = static_cast<int64_t>(kReadThreads) * kReads;
-  const int64_t needed = (n_reads + kTile - 1) / kTile;
+  const int64_t needed = (n_reads + tile - 1) / tile;
   const int64_t resident = static_cast<int64_t>(sms) * (per_sm > 0 ? per_sm : 1);
   const int grid = static_cast<int>(needed < resident ? needed : resident);
-  read_prob_kernel<<<grid, kReadThreads, kDynamicBytes, stream>>>(features, kmer_ids, weights, n_reads, p);
+  kernel<<<grid, threads, smem, stream>>>(features, kmer_ids, weights, n_reads, p);
   return cudaGetLastError();
+}
+
+// (a template, so that only the kernel of the widths' plan is built)
+template <bool Wide = kWide>
+cudaError_t launch_read_prob(const float* features, const KmerId* kmer_ids,
+                             const float* weights, int64_t n_reads, float* p,
+                             cudaStream_t stream) {
+  if constexpr (Wide) {
+    return launch_phase_a(read_prob_wide_kernel<kWideThreads>, kWideThreads, kWideThreads,
+                          kWideThreads * kIn * 4, features, kmer_ids, weights, n_reads, p, stream);
+  } else {
+    return launch_phase_a(read_prob_kernel<kReads>, kReadThreads, static_cast<int64_t>(kReadThreads) * kReads,
+                          kWeightsDynamic ? kWeights * 4 : 0, features, kmer_ids, weights, n_reads, p, stream);
+  }
 }
 
 cudaError_t launch_site_reduce(const float* p, const int32_t* offsets, const int32_t* counts,
@@ -463,7 +611,7 @@ extern "C" {
 // One inference step: phase A (per-read p) then phase B (per-site
 // reductions), both on `stream`.  Returns the CUDA error code of the
 // launches (0 = success).
-int fused_infer_launch(const float* features, const int8_t* kmer_ids,
+int fused_infer_launch(const float* features, const KmerId* kmer_ids,
                        const int32_t* offsets, const int32_t* counts,
                        const float* weights, float* p, float* site_p,
                        float* mod_ratio, int64_t n_reads, int64_t n_sites,
@@ -496,7 +644,7 @@ int site_reduce_launch(const float* p, const int32_t* offsets, const int32_t* co
 // Phase A alone: per-read p, on `stream` (the encoder-only entry point,
 // replacing m6anet_tpu/ops/encoder_kernel.py:207 fused_read_probability).
 // Returns the CUDA error code of the launch (0 = success).
-int read_prob_launch(const float* features, const int8_t* kmer_ids,
+int read_prob_launch(const float* features, const KmerId* kmer_ids,
                      const float* weights, float* p, int64_t n_reads,
                      void* stream_ptr) {
   if (n_reads <= 0) return static_cast<int>(cudaSuccess);
@@ -506,7 +654,10 @@ int read_prob_launch(const float* features, const int8_t* kmer_ids,
 
 // Reads one block of phase A takes per tile (threads x reads per thread):
 // the tile whose ragged edge the tests and chip_smoke.py exercise.
-int read_prob_tile_reads(void) { return kReadThreads * kReads; }
+int read_prob_tile_reads(void) { return kWide ? kWideThreads : kReadThreads * kReads; }
+
+// 1 where phase A takes the wide plan (read_prob_wide_kernel), else 0.
+int read_prob_wide(void) { return kWide ? 1 : 0; }
 
 const char* fused_infer_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

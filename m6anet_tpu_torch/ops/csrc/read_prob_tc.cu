@@ -64,6 +64,17 @@
 //    32 and bf16_plan 2 consumer warpgroups (168 registers a thread in a
 //    block of 384, against 128 in 512) where H1 > 160 or H2 > 32, each with
 //    fewer stages where the block would pass a block's shared memory.
+//  * Past H1 = 256 or H2 = 64 (a thread's accumulators) or where even the
+//    smallest block passes the shared memory, a mode takes the wide plan
+//    (wide() below): read_prob_tc_wide_kernel, a warp per 16 reads on
+//    mma.sync.m16n8k16 (whose fragments are the layouts wgmma gives each
+//    warp here, so every sum is the same chunked tensor-core sum), the
+//    weights read from the same image in device memory through L1 and L2,
+//    the inputs in shared memory.  Layer 1 runs a k16 step of H1 at a time
+//    and feeds that step of layer 2 at once (no thread holds all of H1);
+//    layer 2 runs in passes of at most 8 n8 tiles of H2 (64 outputs),
+//    forming h1 again for a later pass, and the head's per-lane sums run on
+//    across the passes in unit order, the plain version's order.
 //  * The weights are staged once per block (the mode's range of the image;
 //    prepare_fused_params_t lays it out).  Each wgmma B operand (bf16(W2),
 //    W2 - bf16(W2), bf16(W1')) sits in the canonical K-major layout without
@@ -138,6 +149,17 @@ namespace {
 #ifndef M6A_H2
 #define M6A_H2 32
 #endif
+// bytes of a k-mer id: 1 (int8) by default, 2 (int16) for ids past 127
+#ifndef M6A_KMER_ID_BYTES
+#define M6A_KMER_ID_BYTES 1
+#endif
+#if M6A_KMER_ID_BYTES == 2
+using KmerId = int16_t;
+#else
+using KmerId = int8_t;
+#endif
+constexpr int kIdBytes = M6A_KMER_ID_BYTES;
+static_assert(kIdBytes == sizeof(KmerId), "k-mer ids of 1 or 2 bytes");
 constexpr int kPos = M6A_POS;
 constexpr int kFeat = 3 * kPos;
 constexpr int kVocab = M6A_VOCAB;
@@ -155,7 +177,6 @@ constexpr int kW1Stride = (kIn + 4) / 4 * 4;    // f32x3 layer 1's row: n_in wei
 constexpr int kW1Quads = kW1Stride / 4;
 constexpr int kEmbWords = (kVocab * kEmb + 3) / 4 * 4;
 static_assert(kKSteps * 16 == kH1Pad && kTiles1 * 8 == kH1Pad && kTiles2 * 8 == kH2Pad, "tiles");
-static_assert(kH1Pad <= 256 && kH2Pad <= 64, "the envelope: kernel_limit in ops/fused_infer_kernel.py");
 
 // Weight image (32-bit words), written by prepare_fused_params_t
 // (ops/fused_infer_kernel.py::tc_layout; a bf16x2 word holds the smaller k
@@ -237,7 +258,9 @@ struct Plan {
 // read, odd so the 8 rows a warp reads at once sit in 8 banks), the ring's
 // full and empty barriers.  ops/fused_infer_kernel.py::kernel_limit checks
 // that the smallest block (one tile, 2 stages, the rows) fits.
-constexpr int stage_bytes(int tiles) { return kTileReads * tiles * kFeat * 4 + 16 + kTileReads * tiles * kPos + 16; }
+constexpr int stage_bytes(int tiles) {
+  return kTileReads * tiles * kFeat * 4 + 16 + kTileReads * tiles * kPos * kIdBytes + 16;
+}
 constexpr int image_bytes(bool f32x3) { return (f32x3 ? kTcOffW1H - kTcOffW1F : kTcWords - kTcOffW2H) * 4; }
 constexpr int rows_bytes(const Plan& plan) {
   return plan.x_shared ? plan.consumers * kTileReads * plan.tiles * (kIn | 1) * 4 : 0;
@@ -258,7 +281,7 @@ constexpr Plan f32x3_plan() {
       if (smem_bytes(true, plan) <= kSharedLimit) return plan;
     }
   }
-  return Plan{kF32x3Consumers, kF32x3Consumers, 1, 2 * kIn > kLaneInputs};  // past the envelope
+  return Plan{kF32x3Consumers, kF32x3Consumers, 1, 2 * kIn > kLaneInputs};  // the smallest: kWide below
 }
 
 // bf16: a consumer thread holds kH1Pad / 2 layer-1 accumulators; kBf16Consumers
@@ -271,9 +294,31 @@ constexpr Plan bf16_plan() {
   return smem_bytes(false, plan) <= kSharedLimit ? plan : Plan{2, 2, kBf16Tiles, false};
 }
 
+// The warpgroup kernel above takes H1 <= 256 and H2 <= 64 (a thread's
+// accumulators) where its smallest block fits the shared memory.  Past
+// that a mode takes the wide plan: read_prob_tc_wide_kernel, a warp per 16
+// reads on mma.sync.m16n8k16, the weights read from device memory (through
+// L1 and L2), layer 1 in k16 steps of H1 that feed layer 2 at once, and
+// layer 2 in passes of at most kWidePassTiles n8 tiles of H2.
+constexpr bool wide(bool f32x3) {
+  return kH1Pad > 256 || kH2Pad > 64 || smem_bytes(f32x3, f32x3 ? f32x3_plan() : bf16_plan()) > kSharedLimit;
+}
+// layer-2 n8 tiles a pass holds at most: 8 (64 outputs) ran fastest of 4,
+// 8 and 16 at (11, 8, 512, 128), where 16 spills (scripts/sweep_wide.py
+// rewrites this line and times each build on the card; PERF.md section 6)
+constexpr int kWidePassCap = 8;
+constexpr int kWidePassTiles = kTiles2 < kWidePassCap ? kTiles2 : kWidePassCap;
+constexpr int kWidePasses = (kTiles2 + kWidePassTiles - 1) / kWidePassTiles;
+constexpr int kWideRowBytes = 16 * (kIn | 1) * 4;  // a warp's 16 reads' inputs (an odd stride)
+// warps a block of the wide plan: 4, fewer where their inputs would pass
+// the shared memory
+constexpr int kWideWarps = 4 * kWideRowBytes <= kSharedLimit ? 4 : 2 * kWideRowBytes <= kSharedLimit ? 2 : 1;
+static_assert(kWideRowBytes <= kSharedLimit, "a warp's inputs fit a block: kernel_limit in ops/fused_infer_kernel.py");
+
 template <int Mode>
 struct Cfg {
   static constexpr bool kF32x3 = Mode == kModeF32x3;
+  static constexpr bool kWide = wide(kF32x3);
   static constexpr Plan kPlan = kF32x3 ? f32x3_plan() : bf16_plan();
   static constexpr int kConsumers = kPlan.consumers;
   static constexpr int kStages = kPlan.stages;
@@ -288,7 +333,7 @@ struct Cfg {
   static constexpr int kItemReads = kTileReads * kTilesPerGroup;
   static constexpr int kReads = 2 * kTilesPerGroup;  // reads a lane holds
   static constexpr int kItemFeatBytes = kItemReads * kFeat * 4;
-  static constexpr int kItemKmerBytes = kItemReads * kPos;
+  static constexpr int kItemKmerBytes = kItemReads * kPos * kIdBytes;
   static_assert(kItemFeatBytes % 16 == 0 && kItemKmerBytes % 16 == 0, "items start 16-byte aligned");
   // a stage holds an item and the up to 15 bytes before it of a misaligned start
   static constexpr int kStageFeatBytes = kItemFeatBytes + 16;
@@ -306,8 +351,8 @@ struct Cfg {
   static constexpr int kRowsAt = kStagesAt + kStages * kStageBytes;
   static constexpr int kBarriersAt = kRowsAt + rows_bytes(kPlan);
   static constexpr int kSmemBytes = smem_bytes(kF32x3, kPlan);
-  static_assert(kBarriersAt + 2 * kStages * 8 == kSmemBytes && kSmemBytes <= kSharedLimit,
-                "the envelope: kernel_limit in ops/fused_infer_kernel.py");
+  static_assert(kBarriersAt + 2 * kStages * 8 == kSmemBytes && (kWide || kSmemBytes <= kSharedLimit),
+                "a warpgroup block fits the shared memory");
 };
 using F32x3 = Cfg<kModeF32x3>;
 
@@ -510,6 +555,16 @@ __device__ __forceinline__ void wgmma<160>(float (&d)[80], const uint32_t (&a)[4
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
 }
 
+// d += a . b over one m16n8k16 step of a warp (the wide plan): A's
+// fragment as wgmma's register A holds it for the warp's 16 rows, B's two
+// registers (k = 2t.., 2t + 8.. of column g)
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
 // the accumulators of n8 tiles [n0 / 8, n0 / 8 + N / 8) of an m64nNk16 tile
 template <int N>
 __device__ __forceinline__ float (&tiles_at(float* d, int n0))[N / 2] {
@@ -544,14 +599,14 @@ __device__ __forceinline__ float quad_sum(float v) {
 // input column c (0..n_in - 1, zero past it) of a read: its features row
 // `f` and k-mer ids `k` (shared or device memory), with the mode's
 // embedding table `emb` (shared)
-__device__ __forceinline__ float input_col(const float* f, const int8_t* k, const float* emb, int c) {
+__device__ __forceinline__ float input_col(const float* f, const KmerId* k, const float* emb, int c) {
   if (c < kFeat) return f[c];
   if (c >= kIn) return 0.f;
   return emb[kEmb * static_cast<int>(k[(c - kFeat) / kEmb]) + (c - kFeat) % kEmb];
 }
 
 // the n_in inputs of one read into registers
-__device__ __forceinline__ void load_inputs(const float* f, const int8_t* k, const float* emb, float (&x)[kIn]) {
+__device__ __forceinline__ void load_inputs(const float* f, const KmerId* k, const float* emb, float (&x)[kIn]) {
 #pragma unroll
   for (int i = 0; i < kFeat; ++i) x[i] = f[i];
 #pragma unroll
@@ -709,7 +764,7 @@ __device__ __forceinline__ void f32x3_reads(const uint32_t* s, int t, const X& x
 
 // layer 1's A fragment of k step s of one read pair: columns 16s + 2t,
 // + 1, + 8, + 9 of rows g (f0, k0) and g + 8 (f1, k1)
-__device__ __forceinline__ void load_a1(const float* f0, const int8_t* k0, const float* f1, const int8_t* k1,
+__device__ __forceinline__ void load_a1(const float* f0, const KmerId* k0, const float* f1, const KmerId* k1,
                                         const float* emb, int t, uint32_t (&a)[kK1Steps][4]) {
 #pragma unroll
   for (int s = 0; s < kK1Steps; ++s) {
@@ -747,7 +802,9 @@ __device__ __forceinline__ void layer1_bf16(float (&h)[kH1Pad / 2], const uint32
 }
 
 // z of rows g (z[0]) and g + 8 (z[1]) of one tile, bf16, from its layer-1
-// A fragments; s is the staged range [W2H, end)
+// A fragments; s is the staged range [W2H, end).  A template, so that it is
+// built only where the warpgroup kernel runs (its wgmma takes N <= 64).
+template <int Mode>
 __device__ __forceinline__ void bf16_tile(const uint32_t* s, int t, const uint32_t (&a1)[kK1Steps][4],
                                           float (&z)[2]) {
   constexpr int kBase = kTcOffW2H;
@@ -818,25 +875,26 @@ __device__ __forceinline__ void bf16_tile(const uint32_t* s, int t, const uint32
 template <class C>
 struct Stream {
   const float* features;
-  const int8_t* kmer_ids;
+  const KmerId* kmer_ids;
   int64_t n_reads;
   uint32_t feat_skew, kmer_skew;  // bytes the tensors start past a 16-byte boundary
 
   __device__ bool bulk(int64_t item) const {
     const int64_t rest = n_reads - (item + 1) * C::kItemReads;  // reads after the item
     return rest >= 0 && rest * kFeat * 4 >= (feat_skew ? 16 - feat_skew : 0) &&
-           rest * kPos >= (kmer_skew ? 16 - kmer_skew : 0);
+           rest * kPos * kIdBytes >= (kmer_skew ? 16 - kmer_skew : 0);
   }
   __device__ uint32_t feat_bytes() const { return C::kItemFeatBytes + (feat_skew ? 16 : 0); }
   __device__ uint32_t kmer_bytes() const { return C::kItemKmerBytes + (kmer_skew ? 16 : 0); }
 };
 
-// kmer_ids are int8 ids in [0, kVocab); the Python wrapper checks the range
+// kmer_ids are ids in [0, kVocab); the Python wrapper checks the range
 template <int Mode>
 __global__ void __launch_bounds__(Cfg<Mode>::kThreads, 1)
-read_prob_tc_kernel(const float* __restrict__ features, const int8_t* __restrict__ kmer_ids,
+read_prob_tc_kernel(const float* __restrict__ features, const KmerId* __restrict__ kmer_ids,
                     const uint32_t* __restrict__ image, int64_t n_reads, float* __restrict__ p_out) {
   using C = Cfg<Mode>;
+  static_assert(!C::kWide, "the wide plan runs read_prob_tc_wide_kernel");
   constexpr int kStages = C::kStages;
   extern __shared__ __align__(128) uint8_t smem[];
   uint32_t* s = reinterpret_cast<uint32_t*>(smem);
@@ -899,7 +957,7 @@ read_prob_tc_kernel(const float* __restrict__ features, const int8_t* __restrict
     const bool bulk = in.bulk(item);
     const uint8_t* stage = stages + k * C::kStageBytes;
     const float* stage_f = reinterpret_cast<const float*>(stage + in.feat_skew);
-    const int8_t* stage_k = reinterpret_cast<const int8_t*>(stage + C::kStageFeatBytes + in.kmer_skew);
+    const KmerId* stage_k = reinterpret_cast<const KmerId*>(stage + C::kStageFeatBytes + in.kmer_skew);
     float z[C::kReads];
     if constexpr (Mode == kModeF32x3 && C::kXShared) {
       // this warp's rows of its warpgroup's item: lane t of a quad copies
@@ -912,7 +970,7 @@ read_prob_tc_kernel(const float* __restrict__ features, const int8_t* __restrict
         const int r = 64 * (i / 2) + row + 8 * (i % 2);  // read of the item
         const int64_t want = first + r, l = want < n_reads ? want : n_reads - 1;  // valid; not stored
         const float* f = bulk ? stage_f + r * kFeat : features + l * kFeat;
-        const int8_t* ids = bulk ? stage_k + r * kPos : kmer_ids + l * kPos;
+        const KmerId* ids = bulk ? stage_k + r * kPos : kmer_ids + l * kPos;
         for (int c = t; c < kIn; c += 4) rows[r * C::kXStride + c] = input_col(f, ids, sf + kTcOffEmbX, c);
       }
       bar_arrive(smem_addr(bars + kStages + k));  // the stage is free
@@ -952,7 +1010,7 @@ read_prob_tc_kernel(const float* __restrict__ features, const int8_t* __restrict
 #pragma unroll
       for (int tt = 0; tt < C::kTilesPerGroup; ++tt) {
         float zt[2];
-        bf16_tile(s, t, a1[tt], zt);
+        bf16_tile<Mode>(s, t, a1[tt], zt);
         z[2 * tt] = zt[0];
         z[2 * tt + 1] = zt[1];
       }
@@ -965,32 +1023,278 @@ read_prob_tc_kernel(const float* __restrict__ features, const int8_t* __restrict
   }
 }
 
+// ------------------------------------------------------ the wide plan
+// Layer 1 of f32x3 for k step j of the wide plan: h1 of this lane's 4 units
+// (slot c: unit 16j + 2t + (c & 1) + 8 (c >> 1)) for rows g (x0) and g + 8
+// (x1), in fused_infer.cu's FMA order, split and packed as the A fragments
+// (hi, lo): layer1_f32x3's arithmetic, the W1F rows read from device memory.
+__device__ __forceinline__ void wide_layer1_f32x3(const float4* w1, int j, int t, const float* x0, const float* x1,
+                                                  uint32_t (&ahi)[4], uint32_t (&alo)[4]) {
+  // the inputs run outermost, so that each is read from shared memory once
+  // for the lane's 4 units; each unit's chain stays in input order
+  float u[4][2], h[4][2];
+  const float4* row = w1 + j * 4 * 4 * kW1Quads + t;  // [j][c][q][t]: slot c at row + 4 c kW1Quads
+#pragma unroll
+  for (int q = 0; q < kW1Quads; ++q) {
+    float4 v[4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) v[c] = __ldg(row + 4 * (c * kW1Quads + q));
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int k = 4 * q + e;
+      const float a0 = k < kIn ? x0[k] : 0.f, a1 = k < kIn ? x1[k] : 0.f;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const float w = e == 0 ? v[c].x : e == 1 ? v[c].y : e == 2 ? v[c].z : v[c].w;
+        if (k == 0) {
+          u[c][0] = w * a0;  // fused_infer.cu's order
+          u[c][1] = w * a1;
+        } else if (k < kIn) {
+          u[c][0] = fmaf(w, a0, u[c][0]);
+          u[c][1] = fmaf(w, a1, u[c][1]);
+        } else if (k == kIn) {
+          h[c][0] = fmaxf(u[c][0] + w, 0.f);  // + b1', relu
+          h[c][1] = fmaxf(u[c][1] + w, 0.f);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    if (16 * j + 8 * (c >> 1) >= kH1) h[c][0] = h[c][1] = 0.f;  // 8 units past H1: zero weights and bias
+  }
+  split_pack(h[0][0], h[1][0], ahi[0], alo[0]);
+  split_pack(h[0][1], h[1][1], ahi[1], alo[1]);
+  split_pack(h[2][0], h[3][0], ahi[2], alo[2]);
+  split_pack(h[2][1], h[3][1], ahi[3], alo[3]);
+}
+
+// B fragment (b0, b1) of n8 group `group` of k step `step` of a K-major
+// operand at word `base` of the image: lane (g, t) holds k = 2t, 2t + 1 of
+// column g (half 0) and k = 2t + 8, 2t + 9 (half 1), kBLbo bytes on
+__device__ __forceinline__ void b_frag(const uint32_t* image, int base, int groups, int step, int group, int g,
+                                       int t, uint32_t& b0, uint32_t& b1) {
+  const uint32_t* at = image + base + (step * groups + group) * (kBSbo / 4) + g * (kBRowBytes / 4) + t;
+  b0 = __ldg(at);
+  b1 = __ldg(at + kBLbo / 4);
+}
+
+// z of rows g (z[0]) and g + 8 (z[1]) of a warp's 16 reads, f32x3, from
+// their inputs (rows x0, x1): for each pass over H2, every k step's layer 1
+// then its three products on each n8 tile of the pass (W2lo.h1hi and
+// W2hi.h1lo into one accumulator, W2hi.h1hi alone, f32-added), as
+// f32x3_reads takes them; the head's sums run on across the passes in
+// unit order (the plain version's _lane_dot).
+__device__ __forceinline__ void wide_f32x3(const uint32_t* image, int g, int t, const float* x0, const float* x1,
+                                           float (&z)[2]) {
+  const float* imf = reinterpret_cast<const float*>(image);
+  const float4* w1 = reinterpret_cast<const float4*>(imf + kTcOffW1F);
+  float zx[2][2] = {}, zh[2] = {};  // w3lo.h2hi, w3hi.h2lo; w3hi.h2hi
+  for (int pass = 0; pass < kWidePasses; ++pass) {
+    const int nt0 = pass * kWidePassTiles;
+    float cross[kWidePassTiles][4], high[kWidePassTiles][4];
+#pragma unroll
+    for (int i = 0; i < kWidePassTiles; ++i) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) cross[i][e] = high[i][e] = 0.f;
+    }
+#pragma unroll 1
+    for (int j = 0; j < kKSteps; ++j) {
+      uint32_t ahi[4], alo[4];
+      wide_layer1_f32x3(w1, j, t, x0, x1, ahi, alo);
+#pragma unroll
+      for (int i = 0; i < kWidePassTiles; ++i) {
+        if (nt0 + i >= kTiles2) continue;  // the last pass may hold fewer
+        uint32_t l0, l1, h0, h1;
+        b_frag(image, kTcOffW2L, kTiles2, j, nt0 + i, g, t, l0, l1);
+        b_frag(image, kTcOffW2H, kTiles2, j, nt0 + i, g, t, h0, h1);
+        mma_bf16(cross[i], ahi, l0, l1);  // W2lo.h1hi
+        mma_bf16(cross[i], alo, h0, h1);  // + W2hi.h1lo
+        float part[4] = {0.f, 0.f, 0.f, 0.f};
+        mma_bf16(part, ahi, h0, h1);  // W2hi.h1hi alone
+#pragma unroll
+        for (int e = 0; e < 4; ++e) high[i][e] += part[e];
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kWidePassTiles; ++i) {
+      if (nt0 + i >= kTiles2) continue;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int n = 8 * (nt0 + i) + 2 * t + e;
+        const float b2 = __ldg(imf + kTcOffB2 + n), w3h = __ldg(imf + kTcOffW3H + n), w3l = __ldg(imf + kTcOffW3L + n);
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const float v = fmaxf(cross[i][2 * r + e] + high[i][2 * r + e] + b2, 0.f);
+          const float vh = bf16_round(v), vl = bf16_round(v - vh);
+          zx[r][0] = fmaf(w3l, vh, zx[r][0]);
+          zx[r][1] = fmaf(w3h, vl, zx[r][1]);
+          zh[r] = fmaf(w3h, vh, zh[r]);
+        }
+      }
+    }
+  }
+  const float b3 = __ldg(imf + kTcOffB3);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) z[r] = ((quad_sum(zx[r][0]) + quad_sum(zx[r][1])) + quad_sum(zh[r])) + b3;
+}
+
+// z of rows g and g + 8 of a warp's 16 reads, bf16: for each pass over H2,
+// layer 1 a k16 step of H1 at a time (its two n8 tiles over every k16 step
+// of n_in, one accumulator each), bias, relu and the bf16 pack in
+// registers, then that step of layer 2 on each n8 tile of the pass (a zero
+// accumulator, f32-added in step order), as bf16_tile takes them.
+__device__ __forceinline__ void wide_bf16(const uint32_t* image, int g, int t, const float* x0, const float* x1,
+                                          float (&z)[2]) {
+  const float* imf = reinterpret_cast<const float*>(image);
+  uint32_t a1[kK1Steps][4];  // layer 1's A fragments: columns 16s + 2t.., + 8.. of rows g, g + 8
+#pragma unroll
+  for (int s = 0; s < kK1Steps; ++s) {
+    const int c = 16 * s + 2 * t;
+    const auto col = [](const float* x, int k) { return k < kIn ? x[k] : 0.f; };
+    a1[s][0] = pack_bf16x2(col(x0, c), col(x0, c + 1));
+    a1[s][1] = pack_bf16x2(col(x1, c), col(x1, c + 1));
+    a1[s][2] = pack_bf16x2(col(x0, c + 8), col(x0, c + 9));
+    a1[s][3] = pack_bf16x2(col(x1, c + 8), col(x1, c + 9));
+  }
+  float zz[2] = {0.f, 0.f};
+  for (int pass = 0; pass < kWidePasses; ++pass) {
+    const int nt0 = pass * kWidePassTiles;
+    float acc[kWidePassTiles][4];
+#pragma unroll
+    for (int i = 0; i < kWidePassTiles; ++i) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
+    }
+#pragma unroll 1
+    for (int j = 0; j < kKSteps; ++j) {
+      float h[2][4] = {};  // layer 1's n8 tiles 2j, 2j + 1
+#pragma unroll
+      for (int s = 0; s < kK1Steps; ++s) {
+#pragma unroll
+        for (int tile = 0; tile < 2; ++tile) {
+          uint32_t b0, b1;
+          b_frag(image, kTcOffW1H, kTiles1, s, 2 * j + tile, g, t, b0, b1);
+          mma_bf16(h[tile], a1[s], b0, b1);
+        }
+      }
+      const float2 bl = __ldg(reinterpret_cast<const float2*>(imf + kTcOffB1) + 8 * j + t);
+      const float2 bh = __ldg(reinterpret_cast<const float2*>(imf + kTcOffB1) + 8 * j + 4 + t);
+      const uint32_t a2[4] = {pack_bf16x2(fmaxf(h[0][0] + bl.x, 0.f), fmaxf(h[0][1] + bl.y, 0.f)),
+                              pack_bf16x2(fmaxf(h[0][2] + bl.x, 0.f), fmaxf(h[0][3] + bl.y, 0.f)),
+                              pack_bf16x2(fmaxf(h[1][0] + bh.x, 0.f), fmaxf(h[1][1] + bh.y, 0.f)),
+                              pack_bf16x2(fmaxf(h[1][2] + bh.x, 0.f), fmaxf(h[1][3] + bh.y, 0.f))};
+#pragma unroll
+      for (int i = 0; i < kWidePassTiles; ++i) {
+        if (nt0 + i >= kTiles2) continue;
+        uint32_t b0, b1;
+        b_frag(image, kTcOffW2H, kTiles2, j, nt0 + i, g, t, b0, b1);
+        float part[4] = {0.f, 0.f, 0.f, 0.f};
+        mma_bf16(part, a2, b0, b1);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][e] += part[e];
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kWidePassTiles; ++i) {
+      if (nt0 + i >= kTiles2) continue;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int n = 8 * (nt0 + i) + 2 * t + e;
+        const float b2 = __ldg(imf + kTcOffB2 + n), w3 = __ldg(imf + kTcOffW3H + n);
+#pragma unroll
+        for (int r = 0; r < 2; ++r) zz[r] = fmaf(w3, bf16_round(fmaxf(acc[i][2 * r + e] + b2, 0.f)), zz[r]);
+      }
+    }
+  }
+  const float b3 = __ldg(imf + kTcOffB3);
+  z[0] = quad_sum(zz[0]) + b3;
+  z[1] = quad_sum(zz[1]) + b3;
+}
+
+// Phase A of the wide plan: each warp takes 16-read tiles in turn (a
+// grid-stride loop), copies their n_in inputs into its rows of shared
+// memory (lanes over the columns; past n_reads the last read again, not
+// stored), and computes the tile's p.  Repeats are bit-identical, and a
+// read's p does not depend on its place in the batch.
 template <int Mode>
-cudaError_t launch(const float* features, const int8_t* kmer_ids, const uint32_t* image,
+__global__ void __launch_bounds__(kWideWarps * 32)
+read_prob_tc_wide_kernel(const float* __restrict__ features, const KmerId* __restrict__ kmer_ids,
+                         const uint32_t* __restrict__ image, int64_t n_reads, float* __restrict__ p_out) {
+  static_assert(Cfg<Mode>::kWide, "the warpgroup plan runs read_prob_tc_kernel");
+  constexpr int kStride = kIn | 1;
+  extern __shared__ __align__(16) float wide_rows[];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x & 31, g = lane / 4, t = lane & 3;
+  float* rows = wide_rows + warp * 16 * kStride;
+  const float* emb = reinterpret_cast<const float*>(image) + (Mode == kModeF32x3 ? kTcOffEmbX : kTcOffEmbH);
+  const int64_t n_tiles = (n_reads + 15) / 16;
+  for (int64_t tile = static_cast<int64_t>(blockIdx.x) * kWideWarps + warp; tile < n_tiles;
+       tile += static_cast<int64_t>(gridDim.x) * kWideWarps) {
+    const int64_t first = tile * 16;
+    __syncwarp();  // the warp is done with the last tile's rows
+    for (int r = 0; r < 16; ++r) {
+      const int64_t l = first + r < n_reads ? first + r : n_reads - 1;
+      for (int c = lane; c < kIn; c += 32) rows[r * kStride + c] = input_col(features + l * kFeat, kmer_ids + l * kPos, emb, c);
+    }
+    __syncwarp();
+    float z[2];
+    if constexpr (Mode == kModeF32x3) {
+      wide_f32x3(image, g, t, rows + g * kStride, rows + (g + 8) * kStride, z);
+    } else {
+      wide_bf16(image, g, t, rows + g * kStride, rows + (g + 8) * kStride, z);
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int64_t read = first + g + 8 * r;
+      if (t == r && read < n_reads) p_out[read] = 1.f / (1.f + expf(-z[r]));
+    }
+  }
+}
+
+template <int Mode>
+cudaError_t launch(const float* features, const KmerId* kmer_ids, const uint32_t* image,
                    int64_t n_reads, float* p, cudaStream_t stream) {
   using C = Cfg<Mode>;
   int device = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err == cudaSuccess) {
-    err = cudaFuncSetAttribute(read_prob_tc_kernel<Mode>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               C::kSmemBytes);
+  if constexpr (C::kWide) {
+    constexpr int kSmem = kWideWarps * kWideRowBytes;
+    int per_sm = 0;
+    if (err == cudaSuccess) {
+      err = cudaFuncSetAttribute(read_prob_tc_wide_kernel<Mode>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+    }
+    if (err == cudaSuccess) {
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, read_prob_tc_wide_kernel<Mode>, kWideWarps * 32,
+                                                          kSmem);
+    }
+    if (err != cudaSuccess) return err;
+    const int64_t needed = ((n_reads + 15) / 16 + kWideWarps - 1) / kWideWarps;
+    const int64_t resident = static_cast<int64_t>(sms) * (per_sm > 0 ? per_sm : 1);
+    const int grid = static_cast<int>(needed < resident ? needed : resident);
+    read_prob_tc_wide_kernel<Mode><<<grid, kWideWarps * 32, kSmem, stream>>>(features, kmer_ids, image, n_reads, p);
+  } else {
+    if (err == cudaSuccess) {
+      err = cudaFuncSetAttribute(read_prob_tc_kernel<Mode>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 C::kSmemBytes);
+    }
+    if (err != cudaSuccess) return err;
+    const int64_t items = (n_reads + C::kItemReads - 1) / C::kItemReads;
+    const int grid = static_cast<int>(items < sms ? items : sms);
+    read_prob_tc_kernel<Mode><<<grid, C::kThreads, C::kSmemBytes, stream>>>(features, kmer_ids, image, n_reads, p);
   }
-  if (err != cudaSuccess) return err;
-  const int64_t items = (n_reads + C::kItemReads - 1) / C::kItemReads;
-  const int grid = static_cast<int>(items < sms ? items : sms);
-  read_prob_tc_kernel<Mode><<<grid, C::kThreads, C::kSmemBytes, stream>>>(features, kmer_ids, image, n_reads, p);
   return cudaGetLastError();
 }
 
 template <int Mode>
 void config(int32_t* out) {
   using C = Cfg<Mode>;
-  out[0] = C::kThreads;
-  out[1] = C::kConsumers;
-  out[2] = C::kStages;
-  out[3] = C::kItemReads;
-  out[4] = C::kSmemBytes;
+  out[0] = C::kWide ? kWideWarps * 32 : C::kThreads;
+  out[1] = C::kWide ? 0 : C::kConsumers;
+  out[2] = C::kWide ? 0 : C::kStages;
+  out[3] = C::kWide ? 16 : C::kItemReads;
+  out[4] = C::kWide ? kWideWarps * kWideRowBytes : C::kSmemBytes;
+  out[5] = C::kWide ? 1 : 0;
 }
 
 }  // namespace
@@ -999,7 +1303,7 @@ extern "C" {
 
 // Phase A in a reduced-precision mode (1 = f32x3, 2 = bf16): per-read p on
 // `stream`.  Returns the CUDA error code of the launch (0 = success).
-int read_prob_tc_launch(const float* features, const int8_t* kmer_ids, const uint32_t* image,
+int read_prob_tc_launch(const float* features, const KmerId* kmer_ids, const uint32_t* image,
                         float* p, int64_t n_reads, int mode, void* stream_ptr) {
   if (n_reads <= 0) return static_cast<int>(cudaSuccess);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
@@ -1014,9 +1318,11 @@ int read_prob_tc_launch(const float* features, const int8_t* kmer_ids, const uin
 
 // The launch of `mode` (1 = f32x3, 2 = bf16): threads a block, consumer
 // warpgroups, ring stages, reads an item (a consumer warpgroup's 64-read
-// tiles: the tile whose ragged edge the tests and chip_smoke.py exercise),
-// dynamic shared memory bytes (fused_infer_kernel.TC_CONFIG_KEYS).  Returns
-// cudaErrorInvalidValue for another mode.
+// tiles, a warp's 16 in the wide plan: the tile whose ragged edge the tests
+// and chip_smoke.py exercise), dynamic shared memory bytes, and 1 for the
+// wide plan (fused_infer_kernel.TC_CONFIG_KEYS; the wide plan has no
+// consumer warpgroups or stages: 0).  Returns cudaErrorInvalidValue for
+// another mode.
 int read_prob_tc_config(int mode, int32_t* out) {
   if (mode == kModeF32x3) {
     config<kModeF32x3>(out);

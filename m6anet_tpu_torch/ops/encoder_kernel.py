@@ -4,8 +4,8 @@ The port of ``fused_read_probability`` in the JAX package's
 ``ops/encoder_kernel.py``: the encoder forward (k-mer embedding, concat,
 Linear n_in->H1 with eval BatchNorm folded in, ReLU, Linear H1->H2, ReLU,
 Linear H2->1, sigmoid; 15 -> 150 -> 32 in the released models, any widths
-within the kernels' envelope, ``fused_infer_kernel.kernel_limit``) for
-every read of a batch, with no site statistics.
+but those ``fused_infer_kernel.kernel_limit`` names) for every read of a
+batch, with no site statistics.
 
 The JAX package folds the embedding into per-position (66, 150) tables for
 its MXU; the port keeps one parameter layout for this function and the
@@ -33,6 +33,7 @@ from .fused_infer_kernel import (
     check_host_kmer_ids,
     check_precision,
     check_read_inputs,
+    count_wide,
     kernel_lib,
     launch_error,
     launch_read_prob_tc,
@@ -49,14 +50,15 @@ launch_count = 0
 def fused_read_probability(
     fp: FusedParamsT,
     features: torch.Tensor,  # (N, 3P) f32
-    kmer_ids: torch.Tensor,  # (N, P) int8 or int32
+    kmer_ids: torch.Tensor,  # (N, P) int8, int16 or int32
     precision: str = "f32",
     host_kmer_ids: Optional[CheckedKmerIds] = None,
 ) -> torch.Tensor:
     """Per-read probabilities p (N,) in ``precision``.  CPU tensors run the
     plain version; CUDA tensors launch phase A of the fused kernel (f32) or
-    the tensor-core kernel (f32x3, bf16).  int32 k-mer ids are checked and
-    narrowed to the int8 the kernels read.  ``host_kmer_ids``
+    the tensor-core kernel (f32x3, bf16).  Wider k-mer ids are checked and
+    narrowed to the int8 the kernels read, or int16 where an id is 128 or
+    more.  ``host_kmer_ids``
     (``checked_kmer_ids`` of the array ``kmer_ids`` was copied from)
     replaces the check on the device, and its host sync."""
     global launch_count
@@ -65,16 +67,14 @@ def fused_read_probability(
         check_host_kmer_ids(host_kmer_ids, kmer_ids, fp.widths.vocab)
     if features.device.type == "cpu":
         return fused_read_probability_plain(fp, features, kmer_ids, precision)
-    kmer_ids = check_read_inputs(
-        fp, features, kmer_ids, "fused_read_probability", host_checked=host_kmer_ids is not None
-    )
+    kmer_ids = check_read_inputs(fp, features, kmer_ids, "fused_read_probability", host_kmer_ids=host_kmer_ids)
     device = features.device
     p = torch.empty(features.shape[0], dtype=torch.float32, device=device)
     if precision != "f32":
         launch_read_prob_tc(fp, features, kmer_ids, p, precision)
         launch_count += 1
         return p
-    lib = kernel_lib(fp.widths)
+    lib = kernel_lib(fp.widths, kmer_ids.element_size())
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.read_prob_launch(
@@ -83,5 +83,6 @@ def fused_read_probability(
         )
     if err != 0:
         raise launch_error(lib, err)
+    count_wide("f32", fp.widths, kmer_ids)
     launch_count += 1
     return p

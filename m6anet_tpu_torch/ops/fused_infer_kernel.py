@@ -22,17 +22,25 @@ The site phase (phase B, ``site_reduce_kernel`` of ``csrc/fused_infer.cu``)
 runs after every phase A of the fused entry points; its launches are
 counted in ``site_reduce_launch_count``.
 
-The kernels take the production architecture at any widths within their
-envelope (``kernel_limit``): P k-mer positions (3 P signal features), an
-embedding of E dimensions over a vocabulary of V k-mers, hidden widths H1
-and H2.  The widths are compile-time constants of each kernel: a model of
-other widths than the released ones (``PRODUCTION``) builds its own
-libraries at first use, from the same sources with ``-D`` defines
-(``kernel_defines``), and packs its weights by the layouts of those
-widths (``f32_layout``, ``tc_layout``).
+The kernels take the production architecture at any widths
+(``kernel_limit`` names the one limit left, a vocabulary past the int16
+ids): P k-mer positions (3 P signal features), an embedding of E
+dimensions over a vocabulary of V k-mers, hidden widths H1 and H2.  The
+widths are compile-time constants of each kernel: a model of other widths
+than the released ones (``PRODUCTION``) builds its own libraries at first
+use, from the same sources with ``-D`` defines (``kernel_defines``), and
+packs its weights by the layouts of those widths (``f32_layout``,
+``tc_layout``).  The sources derive their plan from the widths: within
+the widths of their fast plans the kernels stage the weights in shared
+memory; past them (a thread's registers or a block's shared memory) each
+phase A takes its wide plan, whose kernel reads the weights from device
+memory (``phase_a_wide``; its launches counted in
+``wide_launch_counts``, by precision, besides the wrapper's count).
 
 The k-mer ids must lie in [0, V) (the kernels read the embedding table
-with them unchecked).  By default the wrappers check the tensor on its
+with them unchecked).  The kernels read int8 ids where every id is below
+128 (the data's 66 k-mers always are) and int16 ids otherwise, each from a
+library of its own.  By default the wrappers check the tensor on its
 device, which on the card costs one host sync a call.  Given
 ``host_kmer_ids``, the host array the tensor was copied from as
 :func:`checked_kmer_ids` returns it (checked on the host, for example on
@@ -84,15 +92,24 @@ launch_count = 0
 fused_inference_launch_count = 0
 site_reduce_launch_count = 0
 tc_launch_counts = {"f32x3": 0, "bf16": 0}
+# launches of a phase A of the wide plan (read_prob_wide_kernel in f32,
+# read_prob_tc_wide_kernel in the reduced modes), by precision, by every
+# wrapper that launches one
+wide_launch_counts = {"f32": 0, "f32x3": 0, "bf16": 0}
 
 VOCAB = 66  # the data's k-mer vocabulary (constants.KMER_TO_INT: 5-mers near a DRACH centre)
 PRECISIONS = ("f32", "f32x3", "bf16")
 # the tensor-core kernel's mode argument (kModeF32x3, kModeBf16 in the .cu)
 TC_MODES = {"f32x3": 1, "bf16": 2}
 # what read_prob_tc_config reports of the tensor-core kernel's launch
-TC_CONFIG_KEYS = ("threads", "consumer_warpgroups", "stages", "tile_reads", "dynamic_smem_bytes")
+TC_CONFIG_KEYS = ("threads", "consumer_warpgroups", "stages", "tile_reads", "dynamic_smem_bytes", "wide")
 # shared memory one block may opt into on sm_90 (bytes)
 SHARED_LIMIT_BYTES = 232448
+# the largest vocabulary of the int16 k-mer ids, and the most inputs a read
+# may have: f32's wide plan keeps a warp's (32 reads') n_in inputs in a
+# block's shared memory (kWideThreads in csrc/fused_infer.cu)
+MAX_VOCAB = 32767
+MAX_N_IN = SHARED_LIMIT_BYTES // (4 * 32)
 
 
 class Widths(NamedTuple):
@@ -168,65 +185,32 @@ def tc_layout(w: Widths) -> Dict[str, int]:
     return lay
 
 
-def _tc_smem_bound(w: Widths, mode: str) -> int:
-    """No less than the dynamic shared memory of read_prob_tc.cu's smallest
-    block in ``mode`` at ``w``, which the kernel falls back to where its
-    plan (``f32x3_plan``, ``bf16_plan``) would not fit: its ``smem_bytes``
-    at one 64-read tile an item and 2 ring stages, with f32x3's input rows
-    of its 2 consumer warpgroups counted whether or not its lanes keep
-    their inputs there.  That is the mode's range of the image, the stages
-    (an item's features and k-mer ids, each with 16 bytes before a
-    misaligned start), the rows (n_in rounded up to odd floats a read) and
-    the stages' full and empty barriers."""
-    lay = tc_layout(w)
-    words = lay["kTcOffW1H"] if mode == "f32x3" else lay["kTcWords"] - lay["kTcOffW2H"]
-    stages, reads = 2, 64
-    stage = reads * w.features * 4 + 16 + reads * w.positions + 16
-    rows = 2 * reads * (w.n_in | 1) * 4 if mode == "f32x3" else 0
-    return words * 4 + stages * stage + rows + 2 * stages * 8
-
-
-# the envelope's register limits: bf16's layer-1 accumulators (kH1Pad / 2 a
-# thread), f32x3's three layer-2 accumulators (3 kH2Pad / 2 a tile) and f32
-# phase A's inputs and accumulators of one read (n_in + H2 padded to 4)
-MAX_HIDDEN1, MAX_HIDDEN2, MAX_READ_VALUES = 256, 64, 144
-
-
 def kernel_limit(w: Widths) -> Optional[str]:
     """None when the CUDA kernels take the widths ``w``, else the limit
-    that binds, in words.  The envelope holds at least every P in 1-11, E
-    <= 4, V = 66, H1 <= 256 and H2 <= 64."""
+    that binds, in words: a vocabulary past ``MAX_VOCAB`` (the int16 ids),
+    or more than ``MAX_N_IN`` inputs a read (P (3 + E), past 1,816)."""
     if min(w) < 1:
         return "every width must be at least 1"
-    if w.vocab > 127:
-        return f"the kernels read int8 k-mer ids: a vocabulary of at most 127, not {w.vocab}"
-    if w.hidden1 > MAX_HIDDEN1:
-        return (f"registers: bf16's layer 1 holds H1 padded to 16 / 2 accumulators a thread, "
-                f"H1 <= {MAX_HIDDEN1}, not {w.hidden1}")
-    if w.hidden2 > MAX_HIDDEN2:
-        return (f"registers: f32x3's layer 2 holds three accumulators of H2 padded to 8 / 2 a thread, "
-                f"H2 <= {MAX_HIDDEN2}, not {w.hidden2}")
-    if w.n_in + _up(w.hidden2, 4) > MAX_READ_VALUES:
-        return (f"registers: f32 phase A holds a read's {w.n_in} inputs and H2 padded to 4 accumulators, "
-                f"at most {MAX_READ_VALUES} values")
-    f32_bytes = 4 * f32_layout(w)["kWeights"]
-    if f32_bytes > SHARED_LIMIT_BYTES:
-        return f"shared memory: the f32 weight image takes {f32_bytes} bytes, above {SHARED_LIMIT_BYTES}"
-    for mode in TC_MODES:
-        need = _tc_smem_bound(w, mode)
-        if need > SHARED_LIMIT_BYTES:
-            return f"shared memory: the {mode} tensor-core block takes {need} bytes, above {SHARED_LIMIT_BYTES}"
+    if w.vocab > MAX_VOCAB:
+        return f"the kernels read int16 k-mer ids: a vocabulary of at most {MAX_VOCAB}, not {w.vocab}"
+    if w.n_in > MAX_N_IN:
+        return (f"shared memory: f32 phase A holds a warp's n_in inputs in a block's, "
+                f"n_in <= {MAX_N_IN}, not {w.n_in}")
     return None
 
 
-def kernel_defines(w: Widths) -> Dict[str, int]:
-    """The ``-D`` defines that build the kernels for ``w``: none at the
-    production widths (the sources' defaults), else the widths, from which
-    the sources derive their tiling."""
-    if w == PRODUCTION:
-        return {}
-    return {"M6A_POS": w.positions, "M6A_EMB": w.emb, "M6A_VOCAB": w.vocab, "M6A_H1": w.hidden1,
-            "M6A_H2": w.hidden2}
+def kernel_defines(w: Widths, id_bytes: int = 1) -> Dict[str, int]:
+    """The ``-D`` defines that build the kernels for ``w`` and k-mer ids of
+    ``id_bytes`` bytes (1: int8, 2: int16): none at the production widths
+    and int8 ids (the sources' defaults), else the widths, from which the
+    sources derive their tiling, and the id width where it is 2."""
+    if id_bytes not in (1, 2):
+        raise ValueError(f"k-mer ids of 1 or 2 bytes, not {id_bytes}")
+    defines = {} if w == PRODUCTION else {
+        "M6A_POS": w.positions, "M6A_EMB": w.emb, "M6A_VOCAB": w.vocab, "M6A_H1": w.hidden1, "M6A_H2": w.hidden2}
+    if id_bytes == 2:
+        defines["M6A_KMER_ID_BYTES"] = 2
+    return defines
 
 
 def widths_config(w: Widths) -> dict:
@@ -405,9 +389,9 @@ def prepare_fused_params_t(model: nn.Module) -> FusedParamsT:
     """Fold eval BatchNorm into the first linear layer and lay the weights
     out for the kernels at the model's widths, on the model's device.  The
     model must have the production architecture
-    (``engine.production_architecture``); its widths may lie outside the
-    kernels' envelope (the plain versions take any), which the engine
-    checks before it launches (``kernel_limit``)."""
+    (``engine.production_architecture``); the plain versions take any
+    widths, the kernels all but those ``kernel_limit`` names, which the
+    engine checks before it launches."""
     widths, tensors = model_tensors(model)
     tc = _pack_tc(widths, **{name: t.cpu() for name, t in tensors.items()}).to(tensors["w1t"].device)
     return FusedParamsT(**tensors, packed=_pack(widths, **tensors), tc=tc, widths=widths)
@@ -565,21 +549,22 @@ SITE_REDUCE_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int64, ctypes.c_int64, 
                                                 ctypes.c_void_p]
 TC_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int64, ctypes.c_int, ctypes.c_void_p]
 _lib_lock = threading.Lock()
-# loaded libraries by (source, widths)
-_libs: Dict[Tuple[str, Widths], ctypes.CDLL] = {}
+# loaded libraries by (source, widths, bytes of a k-mer id)
+_libs: Dict[Tuple[str, Widths, int], ctypes.CDLL] = {}
 
 
-def _load(source: str, widths: Widths) -> ctypes.CDLL:
-    """The ``csrc/<source>.cu`` library for ``widths``, built if needed,
-    with its C interface declared; raises (``check_widths``) for widths
-    the kernels do not take, before the first build."""
+def _load(source: str, widths: Widths, id_bytes: int = 1) -> ctypes.CDLL:
+    """The ``csrc/<source>.cu`` library for ``widths`` and k-mer ids of
+    ``id_bytes`` bytes, built if needed, with its C interface declared;
+    raises (``check_widths``) for widths the kernels do not take, before
+    the first build."""
     with _lib_lock:
-        lib = _libs.get((source, widths))
+        lib = _libs.get((source, widths, id_bytes))
         if lib is None:
             from ._build import cuda_library
 
             check_widths(widths)
-            lib = ctypes.CDLL(cuda_library(source, kernel_defines(widths)))
+            lib = ctypes.CDLL(cuda_library(source, kernel_defines(widths, id_bytes)))
             if source == "fused_infer":
                 lib.fused_infer_launch.restype = ctypes.c_int
                 lib.fused_infer_launch.argtypes = FUSED_ARGTYPES
@@ -587,6 +572,8 @@ def _load(source: str, widths: Widths) -> ctypes.CDLL:
                 lib.read_prob_launch.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64, ctypes.c_void_p]
                 lib.read_prob_tile_reads.restype = ctypes.c_int
                 lib.read_prob_tile_reads.argtypes = []
+                lib.read_prob_wide.restype = ctypes.c_int
+                lib.read_prob_wide.argtypes = []
                 lib.site_reduce_launch.restype = ctypes.c_int
                 lib.site_reduce_launch.argtypes = SITE_REDUCE_ARGTYPES
                 lib.fused_infer_error_string.restype = ctypes.c_char_p
@@ -598,19 +585,41 @@ def _load(source: str, widths: Widths) -> ctypes.CDLL:
                 lib.read_prob_tc_config.argtypes = [ctypes.c_int, ctypes.c_void_p]
                 lib.read_prob_tc_error_string.restype = ctypes.c_char_p
                 lib.read_prob_tc_error_string.argtypes = [ctypes.c_int]
-            _libs[(source, widths)] = lib
+            _libs[(source, widths, id_bytes)] = lib
     return lib
 
 
-def kernel_lib(widths: Widths = PRODUCTION) -> ctypes.CDLL:
-    """csrc/fused_infer.cu built for ``widths``, built if needed."""
-    return _load("fused_infer", widths)
+def kernel_lib(widths: Widths = PRODUCTION, id_bytes: int = 1) -> ctypes.CDLL:
+    """csrc/fused_infer.cu built for ``widths`` and k-mer ids of
+    ``id_bytes`` bytes, built if needed."""
+    return _load("fused_infer", widths, id_bytes)
 
 
-def tc_kernel_lib(widths: Widths = PRODUCTION) -> ctypes.CDLL:
-    """The tensor-core phase A of csrc/read_prob_tc.cu for ``widths``,
-    built if needed."""
-    return _load("read_prob_tc", widths)
+def tc_kernel_lib(widths: Widths = PRODUCTION, id_bytes: int = 1) -> ctypes.CDLL:
+    """The tensor-core phase A of csrc/read_prob_tc.cu for ``widths`` and
+    k-mer ids of ``id_bytes`` bytes, built if needed."""
+    return _load("read_prob_tc", widths, id_bytes)
+
+
+def phase_a_wide(precision: str, widths: Widths = PRODUCTION, id_bytes: int = 1) -> bool:
+    """Whether phase A of ``precision`` takes its wide plan at ``widths``
+    and k-mer ids of ``id_bytes`` bytes (read_prob_wide_kernel in f32,
+    read_prob_tc_wide_kernel in f32x3 and bf16), as the source's plan
+    decides it; builds the kernel if needed."""
+    check_precision(precision)
+    if precision == "f32":
+        return bool(kernel_lib(widths, id_bytes).read_prob_wide())
+    return bool(tc_kernel_config(precision, widths, id_bytes)["wide"])
+
+
+def phase_a_kernel(precision: str, widths: Widths = PRODUCTION, id_bytes: int = 1) -> str:
+    """The name of the kernel phase A of ``precision`` launches at
+    ``widths`` and k-mer ids of ``id_bytes`` bytes (a part of its mangled
+    name, as ``_build.ptxas_usage`` takes it)."""
+    wide = phase_a_wide(precision, widths, id_bytes)
+    if precision == "f32":
+        return "read_prob_wide_kernel" if wide else "read_prob_kernelILi"
+    return f"read_prob_tc{'_wide' if wide else ''}_kernelILi{TC_MODES[precision]}E"
 
 
 def check_widths(widths: Widths) -> None:
@@ -627,18 +636,20 @@ def check_widths(widths: Widths) -> None:
 def read_tile_reads(precision: str = "f32", widths: Widths = PRODUCTION) -> int:
     """Reads phase A takes per tile (f32: threads per block x reads per
     thread; the reduced modes: the 64-read tiles of one consumer
-    warpgroup's item, which differ by mode); builds the kernel if needed."""
+    warpgroup's item, which differ by mode, or a warp's 16 in the wide
+    plan); builds the kernel if needed."""
     check_precision(precision)
     if precision == "f32":
         return int(kernel_lib(widths).read_prob_tile_reads())
     return tc_kernel_config(precision, widths)["tile_reads"]
 
 
-def tc_kernel_config(precision: str, widths: Widths = PRODUCTION) -> dict:
-    """The tensor-core kernel's launch in ``precision`` ("f32x3" or "bf16"),
-    by ``TC_CONFIG_KEYS``; builds the kernel if needed."""
+def tc_kernel_config(precision: str, widths: Widths = PRODUCTION, id_bytes: int = 1) -> dict:
+    """The tensor-core kernel's launch in ``precision`` ("f32x3" or "bf16")
+    with k-mer ids of ``id_bytes`` bytes, by ``TC_CONFIG_KEYS``; builds the
+    kernel if needed."""
     out = (ctypes.c_int32 * len(TC_CONFIG_KEYS))()
-    if tc_kernel_lib(widths).read_prob_tc_config(TC_MODES[precision], out) != 0:
+    if tc_kernel_lib(widths, id_bytes).read_prob_tc_config(TC_MODES[precision], out) != 0:
         raise RuntimeError(f"read_prob_tc has no launch for precision {precision!r}")
     return dict(zip(TC_CONFIG_KEYS, out))
 
@@ -649,7 +660,7 @@ def launch_read_prob_tc(fp: FusedParamsT, features: torch.Tensor, kmer_ids: torc
     into ``p`` on the current stream, on inputs that check_read_inputs has
     checked, and count the launch."""
     check_tensor("fp.tc", fp.tc, (torch.int32,), (tc_layout(fp.widths)["kTcWords"],), features.device)
-    lib = tc_kernel_lib(fp.widths)
+    lib = tc_kernel_lib(fp.widths, kmer_ids.element_size())
     with torch.cuda.device(features.device):
         stream = torch.cuda.current_stream(features.device).cuda_stream
         err = lib.read_prob_tc_launch(
@@ -659,6 +670,15 @@ def launch_read_prob_tc(fp: FusedParamsT, features: torch.Tensor, kmer_ids: torc
     if err != 0:
         raise RuntimeError(f"read_prob_tc kernel launch failed: {lib.read_prob_tc_error_string(err).decode()}")
     tc_launch_counts[precision] += 1
+    count_wide(precision, fp.widths, kmer_ids)
+
+
+def count_wide(precision: str, widths: Widths, kmer_ids: torch.Tensor) -> None:
+    """Count a launch of phase A of ``precision`` on ``kmer_ids`` (as the
+    kernel read them) in ``wide_launch_counts`` where it took the wide plan
+    (no read, no launch)."""
+    if kmer_ids.shape[0] > 0 and phase_a_wide(precision, widths, kmer_ids.element_size()):
+        wide_launch_counts[precision] += 1
 
 
 def ragged_tail_batches(tile: int, seed: int = 1, widths: Widths = PRODUCTION):
@@ -666,7 +686,8 @@ def ragged_tail_batches(tile: int, seed: int = 1, widths: Widths = PRODUCTION):
     ``tile`` reads raggedly: 1, 2, 3, 255, 257, tile - 1, tile + 1 and 4097
     reads.  Each is sites of 1 to 8 reads, then n // 8 padding reads and two
     padding sites, as numpy ``(features, kmer_ids, offsets, counts)`` drawn
-    from ``seed``, with the reads of ``widths``: the cases on which the
+    from ``seed``, with the reads of ``widths`` (k-mer ids over the whole
+    vocabulary: int8, or int16 past 128 k-mers): the cases on which the
     card tests and ``chip_smoke.py`` hold the kernel against its plain
     version."""
     rng = np.random.default_rng(seed)
@@ -679,7 +700,7 @@ def ragged_tail_batches(tile: int, seed: int = 1, widths: Widths = PRODUCTION):
         counts = np.array(counts + [0, 0], np.int32)
         offsets = np.where(counts > 0, np.cumsum(counts) - counts, 0).astype(np.int32)
         features = rng.normal(size=(n, widths.features)).astype(np.float32)
-        kmer_ids = rng.integers(0, widths.vocab, size=(n, widths.positions)).astype(np.int8)
+        kmer_ids = rng.integers(0, widths.vocab, size=(n, widths.positions)).astype(kmer_dtype(widths.vocab))
         batches.append((features, kmer_ids, offsets, counts))
     return batches
 
@@ -701,9 +722,16 @@ SITE_IDS_ERROR = (
 )
 
 
+def kmer_dtype(vocab: int):
+    """The numpy type of k-mer ids below ``vocab``: int8 up to 128 k-mers,
+    else int16."""
+    return np.int8 if vocab <= 128 else np.int16
+
+
 class CheckedKmerIds(NamedTuple):
-    """Host k-mer ids (N, P) int8 whose range :func:`checked_kmer_ids` has
-    checked, [0, ``vocab``): what a wrapper's ``host_kmer_ids`` takes."""
+    """Host k-mer ids (N, P), int8 or int16, whose range
+    :func:`checked_kmer_ids` has checked, [0, ``vocab``): what a wrapper's
+    ``host_kmer_ids`` takes."""
 
     ids: np.ndarray
     vocab: int = VOCAB
@@ -711,19 +739,21 @@ class CheckedKmerIds(NamedTuple):
 
 def checked_kmer_ids(kmer_ids: np.ndarray, vocab: int = VOCAB) -> CheckedKmerIds:
     """Check host k-mer ids for the range [0, vocab) on the host and
-    return them as int8, marked as checked; raise ValueError on any other
-    id.  An int8 array takes one pass as uint8, where negative ids read as
-    >= 128; wider ids are checked before they are narrowed."""
+    return them marked as checked, as int8 where every id is below 128 and
+    as int16 otherwise (the types the kernels read); raise ValueError on
+    any other id.  An int8 array takes one pass as uint8, where negative
+    ids read as >= 128; wider ids are checked before they are narrowed."""
     ids = np.asarray(kmer_ids)
     if not np.issubdtype(ids.dtype, np.integer):
         raise ValueError(f"kmer_ids must be integers, got {ids.dtype}")
     if ids.dtype == np.int8:
-        bad = ids.size > 0 and int(ids.view(np.uint8).max()) >= vocab
+        bad, top = ids.size > 0 and int(ids.view(np.uint8).max()) >= vocab, 0
     else:
-        bad = ids.size > 0 and (int(ids.min()) < 0 or int(ids.max()) >= vocab)
+        top = int(ids.max()) if ids.size else 0
+        bad = ids.size > 0 and (int(ids.min()) < 0 or top >= vocab)
     if bad:
         raise ValueError(f"kmer_ids must lie in [0, {vocab})")
-    return CheckedKmerIds(ids.astype(np.int8, copy=False), vocab)
+    return CheckedKmerIds(ids.astype(np.int8 if top < 128 else np.int16, copy=False), vocab)
 
 
 def check_host_kmer_ids(host_kmer_ids: CheckedKmerIds, kmer_ids: torch.Tensor, vocab: int = VOCAB) -> None:
@@ -741,25 +771,31 @@ def check_host_kmer_ids(host_kmer_ids: CheckedKmerIds, kmer_ids: torch.Tensor, v
 
 def _check_kmer_range(
     kmer_ids: torch.Tensor, bad_site_ids: Optional[torch.Tensor] = None, vocab: int = VOCAB
-) -> None:
+) -> bool:
     """Raise on a k-mer id outside [0, vocab) (pack_sites never makes one
     for the data's 66 k-mers) and, given ``bad_site_ids`` (a 0-d bool
     tensor), on site ids off the dense layout, on either device; on the
-    card this waits for the checks' results, in one host sync."""
-    flags = [((kmer_ids < 0) | (kmer_ids >= vocab)).any()]
+    card this waits for the checks' results, in one host sync.  Returns
+    whether an id is 128 or more (the kernels then read int16 ids).  A
+    bound past the ids' type is no test (torch compares in that type)."""
+    top = torch.iinfo(kmer_ids.dtype).max
+    bad = (kmer_ids < 0) | (kmer_ids >= vocab) if vocab <= top else kmer_ids < 0
+    wide = (kmer_ids >= 128).any() if top >= 128 else torch.zeros((), dtype=torch.bool, device=kmer_ids.device)
+    flags = [bad.any(), wide]
     if bad_site_ids is not None:
         flags.append(bad_site_ids)
-    bad_kmer, *bad_ids = torch.stack(flags).tolist()
+    bad_kmer, wide, *bad_ids = torch.stack(flags).tolist()
     if bad_kmer:
         raise ValueError(f"kmer_ids must lie in [0, {vocab})")
     if any(bad_ids):
         raise ValueError(SITE_IDS_ERROR)
+    return bool(wide)
 
 
 def fused_inference_t(
     fp: FusedParamsT,
     features: torch.Tensor,  # (N, 3P) f32
-    kmer_ids: torch.Tensor,  # (N, P) int8 or int32
+    kmer_ids: torch.Tensor,  # (N, P) int8, int16 or int32
     site_ids: Optional[torch.Tensor],  # (N,) i32, or None (derived from offsets/counts)
     offsets: torch.Tensor,  # (S,) i32 first read of each site
     counts: torch.Tensor,  # (S,) i32 reads per site, 0 = padding site
@@ -771,8 +807,9 @@ def fused_inference_t(
     """Returns (p (N,), site_p (S,), mod_ratio (S,)) for a ``pack_sites``
     batch, in ``precision``.  CPU tensors run the plain version; CUDA
     tensors launch the kernels, which read the site spans from (offsets,
-    counts) and ignore ``site_ids``.  The kernels read int8 k-mer ids:
-    int32 ids are checked and narrowed first.  ``host_kmer_ids``
+    counts) and ignore ``site_ids``.  The kernels read int8 k-mer ids, or
+    int16 where an id is 128 or more: wider ids are checked and narrowed
+    first.  ``host_kmer_ids``
     (:func:`checked_kmer_ids` of the array ``kmer_ids`` was copied from)
     replaces the check on the device, and its host sync."""
     global launch_count
@@ -785,7 +822,7 @@ def fused_inference_t(
         )
     out = _launch_fused(
         fp, features, kmer_ids, offsets, counts, threshold, n_samples, "fused_inference_t", precision,
-        host_checked=host_kmer_ids is not None,
+        host_kmer_ids=host_kmer_ids,
     )
     launch_count += 1
     return out
@@ -797,23 +834,26 @@ def check_read_inputs(
     kmer_ids: torch.Tensor,
     name: str,
     bad_site_ids: Optional[torch.Tensor] = None,
-    host_checked: bool = False,
+    host_kmer_ids: Optional[CheckedKmerIds] = None,
 ) -> torch.Tensor:
     """Check the per-read inputs of a kernel launch (and ``bad_site_ids``,
-    in the same host sync); return the k-mer ids as the int8 the kernel reads.  ``host_checked``:
-    the caller checked the ids' range on the host (``host_kmer_ids``), so
-    only their type and shape are checked here, and nothing waits for the
-    device."""
+    in the same host sync); return the k-mer ids as the kernel reads them:
+    int8, or int16 where an id is 128 or more.  Given ``host_kmer_ids``
+    the caller checked the ids' range on the host, so only their type and
+    shape are checked here, the host ids' type decides, and nothing waits
+    for the device."""
     if features.device.type != "cuda":
         raise ValueError(f"{name} runs on cpu or cuda, got {features.device}")
     w = fp.widths
     device, n = features.device, features.shape[0]
     check_tensor("features", features, (torch.float32,), (n, w.features), device)
-    check_tensor("kmer_ids", kmer_ids, (torch.int8, torch.int32), (n, w.positions), device)
+    check_tensor("kmer_ids", kmer_ids, (torch.int8, torch.int16, torch.int32), (n, w.positions), device)
     check_tensor("fp.packed", fp.packed, (torch.float32,), (f32_layout(w)["kWeights"],), device)
-    if not host_checked:
-        _check_kmer_range(kmer_ids, bad_site_ids, w.vocab)
-    return kmer_ids.to(torch.int8)
+    if host_kmer_ids is None:
+        wide = _check_kmer_range(kmer_ids, bad_site_ids, w.vocab)
+    else:
+        wide = host_kmer_ids.ids.dtype != np.int8
+    return kmer_ids.to(torch.int16 if wide else torch.int8)
 
 
 def launch_error(lib: ctypes.CDLL, err: int) -> RuntimeError:
@@ -821,7 +861,7 @@ def launch_error(lib: ctypes.CDLL, err: int) -> RuntimeError:
 
 
 def _launch_fused(fp, features, kmer_ids, offsets, counts, threshold, n_samples, name, precision,
-                  bad_site_ids=None, host_checked=False):
+                  bad_site_ids=None, host_kmer_ids=None):
     """Check the inputs and launch both phases: fused_infer.cu's in f32; in
     a reduced mode read_prob_tc.cu's phase A, then fused_infer.cu's phase
     B."""
@@ -833,9 +873,9 @@ def _launch_fused(fp, features, kmer_ids, offsets, counts, threshold, n_samples,
         check_tensor("counts", counts, (torch.int32,), (n_sites,), device)
     if n_samples < 0:
         raise ValueError(f"n_samples must be >= 0, got {n_samples}")
-    kmer_ids = check_read_inputs(fp, features, kmer_ids, name, bad_site_ids, host_checked)
+    kmer_ids = check_read_inputs(fp, features, kmer_ids, name, bad_site_ids, host_kmer_ids)
 
-    lib = kernel_lib(fp.widths)
+    lib = kernel_lib(fp.widths, kmer_ids.element_size())
     p = torch.empty(n, dtype=torch.float32, device=device)
     site_p = torch.empty(n_sites, dtype=torch.float32, device=device)
     mod_ratio = torch.empty(n_sites, dtype=torch.float32, device=device)
@@ -853,6 +893,7 @@ def _launch_fused(fp, features, kmer_ids, offsets, counts, threshold, n_samples,
         )
     if err != 0:
         raise launch_error(lib, err)
+    count_wide("f32", fp.widths, kmer_ids)
     if n_sites > 0:
         site_reduce_launch_count += 1
     return p, site_p, mod_ratio
@@ -978,7 +1019,7 @@ def fused_inference_plain(
 def fused_inference(
     fp: FusedParamsT,
     features: torch.Tensor,  # (N, 3P) f32
-    kmer_ids: torch.Tensor,  # (N, P) int8 or int32
+    kmer_ids: torch.Tensor,  # (N, P) int8, int16 or int32
     site_ids: torch.Tensor,  # (N,) i32, consecutive per pack_sites; padding == S
     counts: torch.Tensor,  # (S,) i32 reads per site, 0 = padding site
     threshold: float,

@@ -254,8 +254,9 @@ def test_backend_resolution():
         assert engine.resolve_backend(model, "auto", precision, cuda) == ("cuda_fused", precision)
     # the production architecture at other widths: the JAX package runs it
     # on its width-generic Pallas kernel, and so does the port on its
-    # kernels built for those widths; outside their envelope it raises,
-    # naming the limit and --backend torch
+    # kernels built for those widths (past their fast plans, on their wide
+    # ones); a vocabulary past the int16 k-mer ids raises, naming the limit
+    # and --backend torch
     with open(DEFAULT_MODEL_CONFIG, "rb") as f:
         config = tomllib.load(f)
     config["block"][4]["output_channel"] = config["block"][5]["input_channel"] = 16
@@ -269,10 +270,17 @@ def test_backend_resolution():
     config["block"][4]["output_channel"] = config["block"][5]["input_channel"] = 65
     wide = load_model(config)
     assert engine.production_architecture(wide)
-    assert "registers" in fused_infer_kernel.kernel_limit(fused_infer_kernel.model_widths(wide))
+    assert fused_infer_kernel.kernel_limit(fused_infer_kernel.model_widths(wide)) is None
+    for backend in ("auto", "cuda_fused"):
+        assert engine.resolve_backend(wide, backend, "auto", cuda) == ("cuda_fused", "f32x3")
+    assert engine.resolve_backend(wide, "cuda", "bf16", cuda) == ("cuda", "bf16")
+    config["block"][1]["input_channel"] = 32768
+    vast = load_model(config)
+    assert engine.production_architecture(vast)
+    assert "int16 k-mer ids" in fused_infer_kernel.kernel_limit(fused_infer_kernel.model_widths(vast))
     for backend in ("auto", "cuda_fused", "cuda"):
-        with pytest.raises(ValueError, match="hidden 150 -> 65.*registers.*--backend torch"):
-            engine.resolve_backend(wide, backend, "auto", cuda)
+        with pytest.raises(ValueError, match="hidden 150 -> 65.*int16 k-mer ids.*--backend torch"):
+            engine.resolve_backend(vast, backend, "auto", cuda)
     with pytest.raises(ValueError, match="needs device 'cuda'"):
         engine.resolve_backend(model, "cuda_fused", "auto", cpu)
     # the reduced modes need a CUDA backend, as the JAX package's need a
@@ -361,7 +369,8 @@ def test_cli_subprocess_on_cpu(port_out, tmp_path):
     assert "batches dispatched: 1" in proc.stderr
     assert ('kernel launches: {"fused_inference_t": 0, "fused_read_probability": 0, '
             '"site_probability_mc": 0, "fused_inference": 0, "site_reduce": 0, "read_prob_tc_f32x3": 0, '
-            '"read_prob_tc_bf16": 0, "site_probability_mc_long": 0}') in proc.stderr
+            '"read_prob_tc_bf16": 0, "read_prob_wide_f32": 0, "read_prob_wide_f32x3": 0, "read_prob_wide_bf16": 0, '
+            '"site_probability_mc_long": 0}') in proc.stderr
     for name in ("data.site_proba.csv", "data.indiv_proba.csv"):
         assert (out / name).read_bytes() == (port_out / name).read_bytes()
 

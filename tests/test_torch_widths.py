@@ -4,9 +4,11 @@ dimensions, hidden widths H1 and H2, as a retrained m6anet.toml or dataprep
 --n_neighbors gives them.
 
 On the CPU every wrapper runs its plain version; the JAX kernels run in
-Pallas interpret mode, as tests/test_ops.py runs them.  The eight tuples are
-``chip_smoke.py`` phase 21's, which holds the CUDA kernels against the same
-plain versions on the card.  Tolerances (PERF.md section 2, the CPU row):
+Pallas interpret mode, as tests/test_ops.py runs them.  W0-W7 are
+``chip_smoke.py`` phase 21's and W8-W12 phase 23's (past the widths of the
+kernels' fast plans: H1 = 512, H2 = 128, 121 inputs a read, a vocabulary of
+1,024 k-mers), which hold the CUDA kernels against the same plain versions
+on the card.  Tolerances (PERF.md section 2, the CPU row):
 p 1e-6 and site_p 1e-5 in every precision against ``fused_inference_t``,
 mod_ratio equal but at reads within 1e-6 of the threshold; the entry points
 of another JAX split (``fused_read_probability``, ``fused_inference``) at
@@ -46,7 +48,9 @@ from m6anet_tpu_torch.ops import _build, encoder_kernel
 from m6anet_tpu_torch.ops import fused_infer_kernel as fik
 
 WIDTHS = {"W0": (3, 2, 150, 32), "W1": (5, 2, 150, 32), "W2": (3, 3, 100, 20), "W3": (3, 4, 256, 64),
-          "W4": (11, 4, 96, 24), "W5": (1, 1, 7, 3), "W6": (11, 4, 256, 64), "W7": (1, 4, 256, 64)}
+          "W4": (11, 4, 96, 24), "W5": (1, 1, 7, 3), "W6": (11, 4, 256, 64), "W7": (1, 4, 256, 64),
+          "W8": (3, 2, 512, 32), "W9": (3, 2, 150, 128), "W10": (11, 8, 256, 64), "W11": (3, 2, 150, 32, 1024),
+          "W12": (11, 8, 512, 128, 1024)}
 PRECISIONS = ["f32", "f32x3", "bf16"]
 JAX_DTYPE = {"f32": jnp.float32, "f32x3": "f32x3", "bf16": jnp.bfloat16}
 ENTRY_ATOL = {"f32": 1e-6, "f32x3": 2e-5, "bf16": 2e-2}
@@ -80,11 +84,12 @@ def width_models():
 
 def _batch(widths, seed=5, n=384, s=40):
     """pack_sites layout at ``widths``: sites of 1 to 19 reads, padding reads
-    and padding sites."""
+    and padding sites; k-mer ids over the model's vocabulary (int16 past
+    128 k-mers)."""
     rng = np.random.default_rng(seed)
-    positions = widths[0]
-    X = rng.normal(size=(n, 3 * positions)).astype(np.float32)
-    K = rng.integers(0, 66, size=(n, positions)).astype(np.int8)
+    w = fik.Widths(*widths)
+    X = rng.normal(size=(n, w.features)).astype(np.float32)
+    K = rng.integers(0, w.vocab, size=(n, w.positions)).astype(fik.kmer_dtype(w.vocab))
     site_ids = np.full(n, s, np.int32)
     offsets = np.zeros(s, np.int32)
     counts = np.zeros(s, np.int32)
@@ -174,6 +179,69 @@ def test_entry_points_at_w3_match_their_jax_kernels(width_models, precision):
     np.testing.assert_allclose(got[1], want[1], rtol=0, atol=1e-5 + 20 * tol)
 
 
+@pytest.mark.parametrize("precision", PRECISIONS)
+def test_entry_points_at_w12_take_int32_ids_over_the_vocabulary(width_models, precision):
+    """fused_read_probability and fused_inference at W12 (11 positions,
+    E = 8, H1 = 512, H2 = 128, 1,024 k-mers) with int32 k-mer ids up to V
+    - 1 against their own JAX kernels, as at W3; and fused_inference_t's
+    plain version takes the same ids as int16, the type the kernels read
+    them in, with the same p."""
+    _, params, port = width_models["W12"]
+    w = fik.Widths(*WIDTHS["W12"])
+    X, K, site_ids, offsets, counts = _batch(WIDTHS["W12"], seed=9, n=256, s=24)
+    K = K.astype(np.int32)
+    K[0] = w.vocab - 1
+    assert K.max() == w.vocab - 1 and (K >= 128).mean() > 0.8
+    jfp = jax_prepare_fused_params(params, n_features=w.features)
+    want_p = np.asarray(jax_fused_read_probability(
+        jfp, jnp.asarray(X), jnp.asarray(K), block_reads=256, interpret=True, compute_dtype=JAX_DTYPE[precision]))
+    want = [np.asarray(v) for v in jax_fused_inference(
+        jfp, jnp.asarray(X), jnp.asarray(K), jnp.asarray(site_ids), jnp.asarray(counts), THRESHOLD,
+        block_reads=256, interpret=True, compute_dtype=JAX_DTYPE[precision])]
+    fp = encoder_kernel.prepare_fused_params(port)
+    tol = ENTRY_ATOL[precision]
+    p = encoder_kernel.fused_read_probability(fp, *_t(X, K), precision).numpy()
+    np.testing.assert_allclose(p, want_p, rtol=0, atol=tol)
+    got = [t.numpy() for t in fik.fused_inference(fp, *_t(X, K, site_ids, counts), THRESHOLD, 20, precision)]
+    np.testing.assert_array_equal(got[0], p)
+    np.testing.assert_allclose(got[0], want[0], rtol=0, atol=tol)
+    np.testing.assert_allclose(got[1], want[1], rtol=0, atol=1e-5 + 20 * tol)
+    host = fik.checked_kmer_ids(K, w.vocab)
+    assert host.ids.dtype == np.int16 and (host.ids == K).all()
+    p16, *_ = fik.fused_inference_t(fp, *_t(X, host.ids), None, *_t(offsets, counts), THRESHOLD, 20, precision,
+                                    host_kmer_ids=host)
+    np.testing.assert_array_equal(p16.numpy(), p)
+
+
+@pytest.mark.parametrize("dtype", [np.int8, np.int16, np.int32])
+def test_kmer_ids_reach_the_kernels_as_int8_or_int16(width_models, dtype):
+    """The kernels read int8 ids where every id is below 128 and int16
+    otherwise: checked_kmer_ids returns that type, and the device check
+    finds it (its ``>= vocab`` and ``>= 128`` tests hold in every id type,
+    where torch compares in the ids' own); at W11 (1,024 k-mers) the
+    dataset's int8 ids pass the check and give the int16 ids' p."""
+    _, _, port = width_models["W11"]
+    fp = fik.prepare_fused_params_t(port)
+    X, K16, _, offsets, counts = _batch(WIDTHS["W11"], seed=11)  # ids over the 1,024, int16
+    low = (K16 % 66).astype(dtype)  # the dataset's ids
+    assert fik.checked_kmer_ids(low, 1024).ids.dtype == np.int8
+    assert not fik._check_kmer_range(torch.from_numpy(low), vocab=1024)
+    if dtype != np.int8:
+        high = K16.astype(dtype)
+        assert fik.checked_kmer_ids(high, 1024).ids.dtype == np.int16
+        assert fik._check_kmer_range(torch.from_numpy(high), vocab=1024)
+    got = fik.fused_inference_t(fp, *_t(X, low), None, *_t(offsets, counts), THRESHOLD)
+    want = fik.fused_inference_t(fp, *_t(X, low.astype(np.int16)), None, *_t(offsets, counts), THRESHOLD)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    for bad, vocab in ((1024, 1024), (66, 66), (-1, 1024)):
+        if bad > np.iinfo(dtype).max:
+            continue
+        ids = low.copy()
+        ids[3, 1] = bad
+        with pytest.raises(ValueError, match=rf"kmer_ids must lie in \[0, {vocab}\)"):
+            fik._check_kmer_range(torch.from_numpy(ids), vocab=vocab)
+
+
 def _bf16_pairs(words: torch.Tensor) -> torch.Tensor:
     """The two bf16 values of each int32 word (low half first), in f32."""
     halves = torch.stack([words & 0xFFFF, (words >> 16) & 0xFFFF], dim=-1)
@@ -254,27 +322,36 @@ def test_packed_images_sit_where_the_kernels_read_them(width_models, name):
 def test_the_envelope_on_the_card():
     """resolve_backend on the card: cuda_fused for the production
     architecture at every P of SiteDataset, E <= 4 and the corners of H1
-    <= 256 and H2 <= 64; outside it, a ValueError before anything launches
-    that names the widths, the limit that binds and --backend torch."""
+    <= 256 and H2 <= 64, and past them (the widths the kernels refused
+    before their wide plans, W8-W12), in every precision on both CUDA
+    backends; a vocabulary past the int16 k-mer ids, a ValueError before
+    anything launches that names the widths, the limit and --backend
+    torch."""
     cuda = torch.device("cuda")
-    for positions, emb, (h1, h2) in itertools.product((1, 3, 5, 7, 9, 11), (1, 2, 3, 4),
-                                                      ((1, 1), (7, 3), (150, 32), (256, 64), (96, 24))):
-        model = MILModel(fik.widths_config(fik.Widths(positions, emb, h1, h2)))
+    past = [WIDTHS[name] for name in ("W8", "W9", "W10", "W11", "W12")]
+    past += [(3, 2, 257, 32), (3, 2, 150, 65), (11, 5, 256, 64), (3, 2, 150, 32, 200), (3, 2, 150, 32, 32767)]
+    within = [(positions, emb, h1, h2) for positions, emb, (h1, h2) in itertools.product(
+        (1, 3, 5, 7, 9, 11), (1, 2, 3, 4), ((1, 1), (7, 3), (150, 32), (256, 64), (96, 24)))]
+    for widths in within + past:
+        model = MILModel(fik.widths_config(fik.Widths(*widths)))
         assert fik.kernel_limit(fik.model_widths(model)) is None
         assert engine.resolve_backend(model, "auto", "auto", cuda) == ("cuda_fused", "f32x3")
         assert engine.resolve_backend(model, "cuda", "bf16", cuda) == ("cuda", "bf16")
-    for widths, limit in (((3, 2, 257, 32), "registers"), ((3, 2, 150, 65), "registers"),
-                          ((11, 5, 256, 64), "registers"), ((3, 2, 150, 32, 200), "int8 k-mer ids")):
-        model = MILModel(fik.widths_config(fik.Widths(*widths)))
-        assert engine.production_architecture(model) and limit in fik.kernel_limit(fik.model_widths(model))
-        for backend in ("auto", "cuda_fused", "cuda"):
-            with pytest.raises(ValueError, match=f"hidden {widths[2]} -> {widths[3]}.*{limit}.*--backend torch"):
-                engine.resolve_backend(model, backend, "auto", cuda)
-        assert engine.resolve_backend(model, "torch", "auto", cuda) == ("torch", "f32")
+        if widths in past:
+            for backend, precision in itertools.product(("cuda_fused", "cuda"), PRECISIONS):
+                assert engine.resolve_backend(model, backend, precision, cuda) == (backend, precision)
+    widths, limit = (3, 2, 150, 32, 32768), "int16 k-mer ids"
+    model = MILModel(fik.widths_config(fik.Widths(*widths)))
+    assert engine.production_architecture(model) and limit in fik.kernel_limit(fik.model_widths(model))
+    for backend in ("auto", "cuda_fused", "cuda"):
+        with pytest.raises(ValueError, match=f"hidden {widths[2]} -> {widths[3]}.*{limit}.*--backend torch"):
+            engine.resolve_backend(model, backend, "auto", cuda)
+    assert engine.resolve_backend(model, "torch", "auto", cuda) == ("torch", "f32")
 
 
 PLAN_KEYS = ("reads", "read_blocks", "f32x3_tiles", "f32x3_stages", "f32x3_x_shared", "f32x3_smem",
-             "bf16_consumers", "bf16_stages", "bf16_smem")
+             "bf16_consumers", "bf16_stages", "bf16_smem", "f32_wide", "f32x3_wide", "bf16_wide", "f32_wide_threads",
+             "tc_wide_warps")
 
 
 def _source_plans(widths, work):
@@ -282,25 +359,28 @@ def _source_plans(widths, work):
     at each of ``widths``, by ``PLAN_KEYS``: their constants (everything
     before the first device function) compiled for the host with g++, one
     namespace a set of widths, in one program.  A plan past the shared
-    memory of a block fails the sources' static_assert, so the build."""
+    memory of a block fails the sources' static_assert, so the build.
+    ``*_wide`` is 1 where a phase A takes its wide plan."""
     import subprocess
 
     def constants(name):
         with open(os.path.join(_build.CSRC_DIR, f"{name}.cu")) as f:
             text = f.read()
         body = text[text.index("namespace {") + len("namespace {") :]
-        return body[: re.search(r"^(__global__|__device__|// -{10})", body, re.M).start()]
+        return body[: re.search(r"^(template <.*>\n)?(__global__|__device__|// -{10})", body, re.M).start()]
 
     f32, tc = constants("fused_infer"), constants("read_prob_tc")
     parts, prints = ["#include <cstdint>\n#include <cstdio>\n"], []
     for i, w in enumerate(widths):
         defines = {"M6A_POS": w.positions, "M6A_EMB": w.emb, "M6A_VOCAB": w.vocab, "M6A_H1": w.hidden1,
-                   "M6A_H2": w.hidden2}
+                   "M6A_H2": w.hidden2, "M6A_KMER_ID_BYTES": 1 if w.vocab <= 128 else 2}
         parts += [f"#undef {k}\n#define {k} {v}\n" for k, v in defines.items()]
         parts += [f"namespace f{i} {{\n{f32}}}\nnamespace t{i} {{\n{tc}}}\n"]
         a, b = f"t{i}::Cfg<t{i}::kModeF32x3>", f"t{i}::Cfg<t{i}::kModeBf16>"
         values = [f"f{i}::kReads", f"f{i}::kReadBlocks", f"{a}::kTilesPerGroup", f"{a}::kStages",
-                  f"(int){a}::kXShared", f"{a}::kSmemBytes", f"{b}::kConsumers", f"{b}::kStages", f"{b}::kSmemBytes"]
+                  f"(int){a}::kXShared", f"{a}::kSmemBytes", f"{b}::kConsumers", f"{b}::kStages", f"{b}::kSmemBytes",
+                  f"(int)f{i}::kWide", f"(int){a}::kWide", f"(int){b}::kWide", f"f{i}::kWideThreads",
+                  f"t{i}::kWideWarps"]
         prints.append(f'  std::printf("{" ".join(["%d"] * len(values))}\\n", {", ".join(values)});')
     parts.append("int main() {\n" + "\n".join(prints) + "\n}\n")
     src, exe = os.path.join(work, "plans.cpp"), os.path.join(work, "plans")
@@ -314,29 +394,53 @@ def _source_plans(widths, work):
 def test_kernel_plan_keeps_the_sources_tuning_at_the_released_widths(tmp_path):
     """The released widths build with no defines, and the sources' plan
     there is the constants the sweeps tuned (f32x3's shared memory as
-    read_prob_tc_config reports it on the card); at the other widths of the
-    card tests the plan is the one that phase 21 ran; over the envelope's
-    corners every plan builds (its shared memory fits a block), f32 phase A
-    takes 1 read a thread past the released widths' 47 values a read, and
-    kernel_limit takes the widths."""
+    read_prob_tc_config reports it on the card); at W1-W7 the plan is the
+    one that phase 21 ran, none of them wide; W8-W12 take the wide plans
+    where they pass a fast plan's registers or shared memory (f32 past 144
+    values a read or a 227 KB image, the tensor-core modes past H1 = 256,
+    H2 = 64 or a block's shared memory), W11 the fast plans with int16 ids;
+    over the grid of P in {1, 3, 5, 11}, E in {1, 4, 8}, H1 in {1, 150,
+    256, 512}, H2 in {1, 32, 64, 128} and V in {66, 1024} every plan builds
+    (a fast plan's shared memory fits a block, a wide plan's inputs fit),
+    f32 phase A takes 1 read a thread past the released widths' 47 values
+    a read, and kernel_limit takes the widths."""
     assert fik.kernel_defines(fik.PRODUCTION) == {}
+    assert fik.kernel_defines(fik.PRODUCTION, 2) == {"M6A_KMER_ID_BYTES": 2}
     c, t = _build.cu_constants("fused_infer"), _build.cu_constants("read_prob_tc")
     released = dict(reads=c["kReadTile"], read_blocks=c["kReadMinBlocks"], f32x3_tiles=t["kF32x3Tiles"],
                     f32x3_stages=t["kF32x3Stages"], f32x3_x_shared=0, f32x3_smem=51808,
-                    bf16_consumers=t["kBf16Consumers"], bf16_stages=t["kBf16Stages"], bf16_smem=24432)
-    grid = [fik.Widths(*w) for w in itertools.product((1, 3, 11), (1, 4), (1, 150, 256), (1, 32, 64))]
+                    bf16_consumers=t["kBf16Consumers"], bf16_stages=t["kBf16Stages"], bf16_smem=24432,
+                    f32_wide=0, f32x3_wide=0, bf16_wide=0, f32_wide_threads=128, tc_wide_warps=4)
+    grid = [fik.Widths(*w) for w in itertools.product((1, 3, 5, 11), (1, 4, 8), (1, 150, 256, 512),
+                                                      (1, 32, 64, 128), (66, 1024))]
     card = [fik.Widths(*w) for w in WIDTHS.values()]
     plans = _source_plans([fik.PRODUCTION] + card + grid, str(tmp_path))
     assert plans[0] == released
+    narrow = [k for k in PLAN_KEYS if "smem" not in k and "wide" not in k]
     # (reads, blocks an SM, f32x3 tiles / stages / rows, bf16 warpgroups / stages) at W1-W7
-    assert [tuple(plan[k] for k in PLAN_KEYS if "smem" not in k) for plan in plans[2 : 1 + len(card)]] == [
+    assert [tuple(plan[k] for k in narrow) for plan in plans[2:9]] == [
         (1, 2, 2, 4, 1, 3, 3), (2, 2, 2, 4, 1, 3, 3), (1, 2, 1, 4, 0, 2, 4), (1, 1, 1, 4, 1, 3, 3),
         (2, 2, 2, 4, 0, 3, 3), (1, 1, 1, 4, 1, 2, 4), (1, 2, 1, 4, 0, 2, 4)]
+    wide_keys = ("f32_wide", "f32x3_wide", "bf16_wide")
+    assert [tuple(plan[k] for k in wide_keys) for plan in plans[1:9]] == [(0, 0, 0)] * 8
+    # (f32, f32x3, bf16) wide at W8-W12
+    assert [tuple(plan[k] for k in wide_keys) for plan in plans[9:14]] == [
+        (0, 1, 1), (0, 1, 1), (1, 1, 0), (0, 0, 0), (1, 1, 1)]
+    # W11 (W0 at 1,024 k-mers, int16 ids): W0's plan, with stages 128 bytes longer an item's tile
+    assert {k: plans[12][k] for k in narrow} == {k: plans[1][k] for k in narrow}
     for w, plan in zip(card + grid, plans[1:]):
         assert fik.kernel_limit(w) is None, w
         assert plan["reads"] == (c["kReadTile"] if w.n_in + -(-w.hidden2 // 4) * 4 <= 47 else 1), w
+        assert plan["f32_wide"] == (w.n_in + -(-w.hidden2 // 4) * 4 > 144
+                                    or 4 * fik.f32_layout(w)["kWeights"] > fik.SHARED_LIMIT_BYTES), w
+        for mode in ("f32x3", "bf16"):
+            if plan[f"{mode}_wide"]:
+                assert plan[f"{mode}_smem"] > fik.SHARED_LIMIT_BYTES or w.hidden1 > 256 or w.hidden2 > 64, w
+            else:
+                assert plan[f"{mode}_smem"] <= fik.SHARED_LIMIT_BYTES and w.hidden1 <= 256 and w.hidden2 <= 64, w
         assert plan["f32x3_stages"] % 2 == 0 and plan["bf16_stages"] % plan["bf16_consumers"] == 0
-        assert max(plan["f32x3_smem"], plan["bf16_smem"]) <= fik.SHARED_LIMIT_BYTES, w
+        assert plan["f32_wide_threads"] * w.n_in * 4 <= fik.SHARED_LIMIT_BYTES and plan["f32_wide_threads"] >= 32
+        assert plan["tc_wide_warps"] * 16 * (w.n_in | 1) * 4 <= fik.SHARED_LIMIT_BYTES
 
 
 def _write_long_runs(path, n_reads=30, n_pos=120):
