@@ -188,10 +188,12 @@ its plain PyTorch version:
                  the ragged tails of each phase A's tile and a
                  1,048,576-read batch, repeats bit-identical; both entry
                  points at W3; each tuple's phase A timed beside its f32
-                 bound; W0 bit for bit against the older sources staged
-                 under build/parent/csrc (git show of the parent commit's;
+                 bound; every tuple bit for bit against the older sources
+                 staged under build/parent/csrc (git show of the parent
+                 commit's, built in a thread beside phase 2's build;
                  skipped with a note where none are staged) at the
-                 production batch, and its phase A times beside theirs;
+                 production batch (W0 p, site_p and mod_ratio, W1-W7 p),
+                 and its phase A times beside theirs, interleaved;
                  train --model_config (W3) on tests/data, 2 epochs, then
                  inference --model_state_dict with --backend auto (must be
                  cuda_fused f32x3, each kernel once a batch) against
@@ -225,8 +227,14 @@ its plain PyTorch version:
                  small ragged batch (the dataset's int8 ids), the ragged
                  tails of each phase A's tile and a 1,048,576-read batch
                  (ids over the whole vocabulary, int16 past 128 k-mers),
-                 repeats bit-identical; each phase A timed beside its
-                 bound; both entry points at W12 with int32 ids up to
+                 repeats bit-identical; each wide phase A on batches of
+                 2 T + r reads for every r < T (T its block's tile), the
+                 same bits as the same reads' in one batch; each phase A
+                 timed beside its bound, the cuBLAS chain of the same
+                 widths (f32 with TF32 off, bf16) on inputs gathered
+                 beforehand, and the older sources' phase A (p the same
+                 bits in every precision, times interleaved, where
+                 staged); both entry points at W12 with int32 ids up to
                  V - 1; a W12 model through run_inference in each
                  precision (the wide kernels once a batch) against
                  --backend torch and its plain version; train
@@ -257,6 +265,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -2099,8 +2108,10 @@ VAST_VOCAB = (3, 2, 150, 32, 32768)  # a vocabulary past the int16 k-mer ids: re
 PAST_WIDTHS = {"W8": (3, 2, 512, 32), "W9": (3, 2, 150, 128), "W10": (11, 8, 256, 64),
                "W11": (3, 2, 150, 32, 1024), "W12": (11, 8, 512, 128, 1024)}
 # older fused_infer.cu and read_prob_tc.cu (the parent commit's, staged by
-# git show before a run) to hold W0's bits and times against, when present
+# git show before a run) to hold every width's bits and phase A times
+# against, when present; their libraries build beside the script's own
 PARENT_CSRC = os.path.join(ROOT, "build", "parent", "csrc")
+PARENT_BUILD = os.path.join(ROOT, "build", "parent", "lib")
 # phase 22: draws per iteration, and the MC method of cuda_fused against the
 # same function of the torch run's reads (PERF.md section 2)
 MC_SAMPLES = (1, 20, 32)
@@ -2189,79 +2200,196 @@ def write_long_runs(path, n_reads=30, n_pos=200):
                         f"{kmer}\t100.0\t3.0\t0.5\t{pos * 10}\t{pos * 10 + 8}\n")
 
 
-def check_parent(fp, full_batch):
-    """W0 against the older sources under PARENT_CSRC: p, site_p and
-    mod_ratio the same bits in every precision at the production batch, and
-    each phase A's device time beside the older one's, interleaved (CUDA
-    events, L2 flushed; older, this, this, older).  None when no older
-    sources are staged."""
-    import ctypes
+class ParentBuild:
+    """The older sources under PARENT_CSRC built at W0 and at every tuple
+    of WIDTHS and PAST_WIDTHS (int16 ids past 128 k-mers), all at once in a
+    thread started beside the script's own build; ``libs()`` waits for it
+    and gives {(widths name, source): CDLL} with the C interfaces declared,
+    or None when no older sources are staged."""
 
-    from m6anet_tpu_torch.ops import _build
+    def __init__(self):
+        from m6anet_tpu_torch.ops import _build
+        from m6anet_tpu_torch.ops import fused_infer_kernel as fik
+
+        sources = {name: os.path.join(PARENT_CSRC, f"{name}.cu") for name in ("fused_infer", "read_prob_tc")}
+        self.keys, self.paths, self.error, self.seconds = [], None, None, 0.0
+        if not all(os.path.exists(p) for p in sources.values()):
+            self.thread = None
+            return
+        jobs = []
+        for name, widths in {**WIDTHS, **PAST_WIDTHS}.items():
+            w = fik.Widths(*widths)
+            defines = fik.kernel_defines(w, 2 if w.vocab > 128 else 1)
+            for source, path in sources.items():
+                self.keys.append((name, source))
+                jobs.append((path, [_build.nvcc_path(), *_build.NVCC_FLAGS,
+                                    *(f"-D{k}={v}" for k, v in sorted(defines.items()))]))
+
+        def build():
+            start = time.perf_counter()
+            try:
+                self.paths = _build.build_shared_libraries(jobs, out_dir=PARENT_BUILD)
+            except Exception as exc:  # reported by libs()
+                self.error = exc
+            self.seconds = time.perf_counter() - start
+
+        self.thread = threading.Thread(target=build)
+        self.thread.start()
+
+    def libs(self):
+        import ctypes
+
+        from m6anet_tpu_torch.ops import fused_infer_kernel as fik
+
+        if self.thread is None:
+            return None
+        self.thread.join()
+        if self.error is not None:
+            fail(f"the older kernel sources under {PARENT_CSRC} did not build: {self.error}")
+        out = {}
+        for key, path in zip(self.keys, self.paths):
+            lib = out[key] = ctypes.CDLL(path)
+            if key[1] == "fused_infer":
+                lib.fused_infer_launch.argtypes = fik.FUSED_ARGTYPES
+                lib.read_prob_launch.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64, ctypes.c_void_p]
+                lib.site_reduce_launch.argtypes = fik.SITE_REDUCE_ARGTYPES
+            else:
+                lib.read_prob_tc_launch.argtypes = fik.TC_ARGTYPES
+        return out
+
+
+PARENT = None  # the ParentBuild main() starts
+
+
+def parent_libs():
+    """ParentBuild's libraries, starting the build here where main() did
+    not (a phase run alone)."""
+    global PARENT
+    if PARENT is None:
+        PARENT = ParentBuild()
+    return PARENT.libs()
+
+
+def check_parent(fp, full_batch):
+    """W0 against the older sources under PARENT_CSRC: check_parent_phase_a
+    (p the same bits, phase A times interleaved) and, through each
+    precision's whole step, site_p and mod_ratio the same bits at the
+    production batch.  None when no older sources are staged."""
     from m6anet_tpu_torch.ops import fused_infer_kernel as fik
     from m6anet_tpu_torch.scripts import _sweep
 
-    sources = [os.path.join(PARENT_CSRC, f"{name}.cu") for name in ("fused_infer", "read_prob_tc")]
-    if not all(os.path.exists(p) for p in sources):
-        log(f"[W0 parent] no older fused_infer.cu and read_prob_tc.cu under {PARENT_CSRC}: not compared")
-        return None
-    paths = _build.build_shared_libraries([(p, [_build.nvcc_path(), *_build.NVCC_FLAGS]) for p in sources],
-                                          out_dir=os.path.join(WORK_DIR, "parent_build"))
-    old, old_tc = (ctypes.CDLL(p) for p in paths)
-    old.fused_infer_launch.argtypes = fik.FUSED_ARGTYPES
-    old.read_prob_launch.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64, ctypes.c_void_p]
-    old.site_reduce_launch.argtypes = fik.SITE_REDUCE_ARGTYPES
-    old_tc.read_prob_tc_launch.argtypes = fik.TC_ARGTYPES
-    new, new_tc = fik.kernel_lib(), fik.tc_kernel_lib()
     features, kmer, offsets, counts = (torch.from_numpy(a).cuda() for a in full_batch)
+    host = fik.checked_kmer_ids(full_batch[1])
+    report = check_parent_phase_a("W0", fik.PRODUCTION, fp, features, kmer, host)
+    if report is None:
+        return None
+    libs = parent_libs()
+    old = libs[("W0", "fused_infer")]
     n, n_sites = features.shape[0], counts.shape[0]
     stream = torch.cuda.current_stream().cuda_stream
-
-    def outputs():
-        return (torch.empty(n, device="cuda"), torch.empty(n_sites, device="cuda"),
-                torch.empty(n_sites, device="cuda"))
-
-    def run_old(precision):
-        p, site_p, mr = outputs()
-        ptrs = (features.data_ptr(), kmer.data_ptr())
-        if precision == "f32":
-            err = old.fused_infer_launch(*ptrs, offsets.data_ptr(), counts.data_ptr(), fp.packed.data_ptr(),
-                                         p.data_ptr(), site_p.data_ptr(), mr.data_ptr(), n, n_sites, THRESHOLD, 20,
-                                         stream)
-        else:
-            err = old_tc.read_prob_tc_launch(*ptrs, fp.tc.data_ptr(), p.data_ptr(), n, fik.TC_MODES[precision], stream)
-            err = err or old.site_reduce_launch(p.data_ptr(), offsets.data_ptr(), counts.data_ptr(), site_p.data_ptr(),
-                                                mr.data_ptr(), n, n_sites, THRESHOLD, 20, stream)
-        if err:
-            fail(f"the older {precision} kernels did not launch: error {err}")
-        return p, site_p, mr
-
-    def phase_a(lib, precision):
-        p = torch.empty(n, device="cuda")
-        if precision == "f32":
-            return lambda: lib[0].read_prob_launch(features.data_ptr(), kmer.data_ptr(), fp.packed.data_ptr(),
-                                                   p.data_ptr(), n, stream)
-        return lambda: lib[1].read_prob_tc_launch(features.data_ptr(), kmer.data_ptr(), fp.tc.data_ptr(),
-                                                  p.data_ptr(), n, fik.TC_MODES[precision], stream)
-
-    host = fik.checked_kmer_ids(full_batch[1])
-    report = {}
-    for precision in ("f32", *MODES):
-        want = run_old(precision)
+    for precision in P_ATOL:
         got = fik.fused_inference_t(fp, features, kmer, None, offsets, counts, THRESHOLD, 20, precision,
                                     host_kmer_ids=host)
+        p, site_p, mr = got[0], torch.empty(n_sites, device="cuda"), torch.empty(n_sites, device="cuda")
+        # the older phase B on this p: phase A's bits were held above
+        if old.site_reduce_launch(p.data_ptr(), offsets.data_ptr(), counts.data_ptr(), site_p.data_ptr(),
+                                  mr.data_ptr(), n, n_sites, THRESHOLD, 20, stream):
+            fail(f"the older {precision} phase B did not launch")
         torch.cuda.synchronize()
-        same = {name: _sweep.same_bits(a, b) for name, a, b in zip(("p", "site_p", "mod_ratio"), got, want)}
-        times, clocks = _sweep.time_interleaved([phase_a((old, old_tc), precision), phase_a((new, new_tc), precision)],
-                                                reps=20)
-        old_ms, new_ms = (statistics.median(t) for t in times)
-        report[precision] = {"same_bits": same, "older_ms": old_ms, "ms": new_ms, "ratio": new_ms / old_ms,
-                             "sm_clocks": clocks}
-        log(f"[W0 parent] {precision}: the same bits as the older kernels {same}; phase A {new_ms:.4f} ms against "
-            f"the older {old_ms:.4f} ms ({new_ms / old_ms:.4f}x; SM clock {clocks})")
+        same = {"site_p": _sweep.same_bits(got[1], site_p), "mod_ratio": _sweep.same_bits(got[2], mr)}
+        report[precision]["same_bits_sites"] = same
+        log(f"[W0 parent] {precision}: site_p and mod_ratio the same bits as the older phase B's {same}")
         if not all(same.values()):
             fail(f"W0 {precision}: the kernels at the production widths do not give the older kernels' bits")
     return report
+
+
+def check_parent_phase_a(name, w, fp, features, kmer, host):
+    """Phase A of widths ``name`` (``w``) against the older sources' build
+    at the same widths, in every precision on the same reads: p the same
+    bits, and the device time of each beside the other, interleaved (CUDA
+    events, L2 flushed; older, this, this, older).  None when no older
+    sources are staged."""
+    from m6anet_tpu_torch.ops import encoder_kernel as enc
+    from m6anet_tpu_torch.ops import fused_infer_kernel as fik
+    from m6anet_tpu_torch.scripts import _sweep
+
+    libs = parent_libs()
+    if libs is None:
+        log(f"[{name} parent] no older kernel sources under {PARENT_CSRC}: not compared")
+        return None
+    old, old_tc = libs[(name, "fused_infer")], libs[(name, "read_prob_tc")]
+    n = features.shape[0]
+    stream = torch.cuda.current_stream().cuda_stream
+    report = {}
+    for precision in P_ATOL:
+        p_old = torch.empty(n, device="cuda")
+        ptrs = (features.data_ptr(), kmer.data_ptr())
+        if precision == "f32":
+            def run_old():
+                return old.read_prob_launch(*ptrs, fp.packed.data_ptr(), p_old.data_ptr(), n, stream)
+        else:
+            def run_old():
+                return old_tc.read_prob_tc_launch(*ptrs, fp.tc.data_ptr(), p_old.data_ptr(), n,
+                                                  fik.TC_MODES[precision], stream)
+        if run_old():
+            fail(f"{name}: the older {precision} phase A did not launch")
+        p_new = enc.fused_read_probability(fp, features, kmer, precision, host_kmer_ids=host)
+        torch.cuda.synchronize()
+        same = _sweep.same_bits(p_new, p_old)
+        times, clocks = _sweep.time_interleaved(
+            [run_old, lambda: enc.fused_read_probability(fp, features, kmer, precision, host_kmer_ids=host)], reps=10)
+        old_ms, new_ms = (statistics.median(t) for t in times)
+        report[precision] = {"same_bits": same, "older_ms": old_ms, "ms": new_ms, "ratio": new_ms / old_ms,
+                             "wide": fik.phase_a_wide(precision, w, kmer.element_size()), "sm_clocks": clocks}
+        log(f"[{name} parent] {precision}: p the same bits as the older kernel's: {same}; phase A {new_ms:.4f} ms "
+            f"against the older {old_ms:.4f} ms ({new_ms / old_ms:.4f}x; SM clock {clocks})")
+        if not same:
+            fail(f"{name} {precision}: phase A does not give the older kernel's bits")
+    return report
+
+
+def cublas_chain_ms(fp, features, kmer):
+    """The plain encoder as cuBLAS matmuls on inputs gathered beforehand,
+    x @ W1^T + b1 -> relu -> @ W2^T + b2 -> relu -> . w3 + b3 -> sigmoid,
+    timed in f32 (TF32 off) and in bf16 (inputs and weights cast first):
+    the library yardstick of the wide kernels (ms, CUDA events, L2
+    flushed)."""
+    x = torch.cat([features, fp.embt.t()[kmer.long()].reshape(features.shape[0], -1)], dim=1)
+    out = {}
+    for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        xx, w1, w2 = x.to(dtype), fp.w1t.to(dtype), fp.w2t.to(dtype)
+        b1, b2, w3, b3 = (t.reshape(-1).to(dtype) for t in (fp.b1t, fp.b2t, fp.w3t, fp.b3t))
+        out[name] = time_ms(lambda: torch.sigmoid(
+            torch.relu(torch.addmm(b2, torch.relu(torch.addmm(b1, xx, w1.t())), w2.t())) @ w3 + b3), reps=10)
+    return out
+
+
+def check_tail_residues(fik, enc, fp, w, precision, seed):
+    """Phase A of ``precision`` on batches of 2 T + r reads for every r in
+    [0, T) (T its block's tile: the last tile cut at every residue) against
+    the plain version on the batch of 3 T, and bit for bit against the same
+    reads' p there (a read's p does not depend on the batch).  Returns the
+    largest |p - plain|."""
+    from m6anet_tpu_torch.scripts import _sweep
+
+    tile = fik.read_tile_reads(precision, w)
+    rng = np.random.default_rng(seed)
+    n = 3 * tile
+    X = rng.standard_normal(size=(n, w.features), dtype=np.float32)
+    K = rng.integers(0, w.vocab, size=(n, w.positions)).astype(fik.kmer_dtype(w.vocab))
+    features, kmer = torch.from_numpy(X).cuda(), torch.from_numpy(K).cuda()
+    whole = enc.fused_read_probability(fp, features, kmer, precision, host_kmer_ids=fik.checked_kmer_ids(K, w.vocab))
+    err, _, ok = p_check(whole, fik.read_probability_plain(fp, features, kmer, precision), precision)
+    cut = [r for r in range(tile) if not _sweep.same_bits(
+        enc.fused_read_probability(fp, features[: 2 * tile + r], kmer[: 2 * tile + r], precision,
+                                   host_kmer_ids=fik.checked_kmer_ids(K[: 2 * tile + r], w.vocab)),
+        whole[: 2 * tile + r])]
+    log(f"[tail residues] {w} {precision}: tile {tile}, batches of {2 * tile}..{3 * tile - 1} reads; max|dp| "
+        f"{err:.3e} against plain; residues whose p differs from the whole batch's: {cut}")
+    if not ok or cut:
+        fail(f"{w} {precision}: phase A's tail residues disagree")
+    return err
 
 
 def run_trained_widths(logs, work_dir, widths):
@@ -2459,6 +2587,8 @@ def check_widths(logs, work_dir, full_batch, peak_flops):
             f"phase A at {features.shape[0]} reads {phase_a_ms} ms, f32 bound {bound_ms:.4f} ms")
         if name == "W0":
             report["W0 parent"] = check_parent(fp, full_batch)
+        else:
+            report[name]["parent"] = check_parent_phase_a(name, w, fp, features, kmer, host)
     report["W3 trained"] = run_trained_widths(logs, os.path.join(work_dir, "trained"), WIDTHS["W3"])
     report["W1 5 positions"] = run_neighbors(logs, os.path.join(work_dir, "neighbors"), WIDTHS["W1"])
     report["outside"] = check_outside_envelope(logs, os.path.join(work_dir, "outside"))
@@ -2604,10 +2734,15 @@ def check_past_envelope(logs, work_dir, full_batch, peak_flops, peak_bw):
                       for precision in P_ATOL}
         bounds = {precision: phase_a_bound_ms(w, precision, n, id_bytes, peak_flops, peak_bw) for precision in P_ATOL}
         f32_bound_ms = bounds["f32"][0]
+        for precision in P_ATOL:
+            if fik.phase_a_wide(precision, w, id_bytes):
+                errors[precision] = max(errors[precision], check_tail_residues(fik, enc, fp, w, precision, 60 + k))
         report[name] = {"widths": widths, "ptxas": ptxas, "tc_launch": configs, "max_abs_err": errors,
                         "phase_a_ms": phase_a_ms, "f32_bound_ms": f32_bound_ms,
                         "bound_ms": {p: b[0] for p, b in bounds.items()},
-                        "bound_by": {p: b[1] for p, b in bounds.items()}, "reads": n, "id_bytes": id_bytes}
+                        "bound_by": {p: b[1] for p, b in bounds.items()}, "reads": n, "id_bytes": id_bytes,
+                        "cublas_ms": cublas_chain_ms(fp, features, kmer),
+                        "parent": check_parent_phase_a(name, w, fp, features, kmer, host)}
         if name == "W12":
             ids32 = (small[0], rng.integers(0, w.vocab, size=small[1].shape).astype(np.int32), small[2], small[3])
             ids32[1][0] = w.vocab - 1
@@ -2617,7 +2752,8 @@ def check_past_envelope(logs, work_dir, full_batch, peak_flops, peak_bw):
             report[name]["plain_ms"] = {precision: time_ms(lambda: enc.fused_read_probability_plain(
                 fp, features, kmer, precision), reps=1) for precision in P_ATOL}
         log(f"[past] {name} {widths}: kernels {kernels}; ptxas {ptxas}; tensor-core launches {configs}; kernel vs "
-            f"plain {errors}; phase A at {n} reads {phase_a_ms} ms, bounds {bounds}")
+            f"plain {errors}; phase A at {n} reads {phase_a_ms} ms, bounds {bounds}; the cuBLAS chain "
+            f"{report[name]['cublas_ms']} ms")
     report["W12 engine"] = run_wide_engine(logs, os.path.join(work_dir, "w12"), PAST_WIDTHS["W12"])
     report["W9 trained"] = run_trained_widths(logs, os.path.join(work_dir, "trained"), PAST_WIDTHS["W9"])
     return report
@@ -2786,7 +2922,10 @@ def main():
     from m6anet_tpu_torch.ops import random as prng
     from m6anet_tpu_torch.ops import site_ops
 
-    # ---- 2. build: the defaults and every library phases 21 and 22 take
+    # ---- 2. build: the defaults and every library phases 21 and 22 take,
+    # and beside them the older sources phases 21 and 23 compare with
+    global PARENT
+    PARENT = ParentBuild()
     built = _build.build_cuda(names=("fused_infer", "mc", "read_prob_tc"), variants=shape_variants())
     for name in ("fused_infer", "mc", "read_prob_tc"):
         if name not in built:
@@ -3280,10 +3419,15 @@ def main():
     })
 
     # the wide plans' kernels: launches from phase 23's W12 run of each
-    # precision (f32x3 also from W9's trained model), times and plain
-    # versions at W12 (1,048,576 reads), errors over every width where the
-    # precision's phase A is wide
+    # precision (f32x3 also from W9's trained model), times, plain versions
+    # and the cuBLAS chain at W12 (1,048,576 reads), errors over every width
+    # where the precision's phase A is wide, each such width's times beside
+    # the older kernel's (where staged) and the cuBLAS chain's
     w12, w12_engine = past["W12"], past["W12 engine"]
+    library_note = {"f32": "the cuBLAS chain x @ W1^T + b1, relu, @ W2^T + b2, relu, . w3 + b3, sigmoid in f32 "
+                           "(TF32 off) on inputs gathered beforehand",
+                    "f32x3": "none: no PyTorch call computes f32x3's split products",
+                    "bf16": "the same cuBLAS chain in bf16"}
     for precision, (name, source, kernel) in {
             "f32": ("fused_inference_t[f32, wide plan]", "fused_infer.cu", "read_prob_wide_kernel"),
             "f32x3": ("fused_inference_t[f32x3, wide plan]", "read_prob_tc.cu", "read_prob_tc_wide_kernel<1>"),
@@ -3301,15 +3445,18 @@ def main():
             "plain_ms": w12["plain_ms"][precision],
             "bound_ms": w12["bound_ms"][precision],
             "bound_by": w12["bound_by"][precision],
-            "library_ms": None,
-            "library_note": "no single PyTorch call computes the encoder",
+            "library_ms": None if precision == "f32x3" else w12["cublas_ms"][precision],
+            "library_note": library_note[precision],
+            "older_ms": (w12["parent"] or {}).get(precision, {}).get("older_ms"),
             "launches_per_batch": run["launches"][f"read_prob_wide_{precision}"] / run["batches"],
             "path": f"run_inference, cuda_fused --precision {precision}, a seeded W12 model {PAST_WIDTHS['W12']} "
                     f"(phase 23); ms: phase A alone at W12, {w12['reads']} reads",
             "kernel": kernel,
             "ptxas": w12["ptxas"][precision],
             "widths": {key: {"widths": rep["widths"], "phase_a_ms": rep["phase_a_ms"][precision],
-                             "bound_ms": rep["bound_ms"][precision], "max_abs_err": rep["max_abs_err"][precision]}
+                             "bound_ms": rep["bound_ms"][precision], "max_abs_err": rep["max_abs_err"][precision],
+                             "older_ms": (rep["parent"] or {}).get(precision, {}).get("older_ms"),
+                             "library_ms": None if precision == "f32x3" else rep["cublas_ms"][precision]}
                        for key, rep in past.items()
                        if key in PAST_WIDTHS and "wide" in rep["ptxas"][precision]["kernel"]},
         })

@@ -7,10 +7,11 @@ rebuilds, and a finished build is reused by later processes.  Each compiler
 writes to a private temporary name that is renamed into place, so processes
 that build at the same time never load a half-written file.
 
-CUDA sources (``ops/csrc/*.cu``) are compiled with ``nvcc`` for ``sm_90a``
-into shared libraries with a plain C interface, loaded with ctypes; the
-compiler's register and shared-memory report (``-Xptxas -v``) is kept beside
-each library as ``<library>.log``.  A source may be built more than once
+CUDA sources (``ops/csrc/*.cu``, which may include the headers
+``ops/csrc/*.cuh``: they hash into every CUDA library's name) are compiled
+with ``nvcc`` for ``sm_90a`` into shared libraries with a plain C
+interface, loaded with ctypes; the compiler's register and shared-memory
+report (``-Xptxas -v``) is kept beside each library as ``<library>.log``.  A source may be built more than once
 with ``-D`` defines (the model's widths, the MC kernel's draws per
 iteration): each set of defines is part of the command, so it hashes into a
 library of its own, built at first use.  Without defines a source builds at
@@ -36,10 +37,11 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "m6anet_tpu_torch")
 CSRC_DIR = os.path.join(_OPS_DIR, "csrc")
 
 # no --use_fast_math: expf and the f32 division must stay IEEE-exact enough
-# for the 1e-6 per-read parity tolerance
+# for the 1e-6 per-read parity tolerance; -I csrc/ for the headers the
+# kernels share (wide_tile.cuh), also from a copy of a source elsewhere
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-I", CSRC_DIR,
 ]
 GXX_FLAGS = ["-O3", "-march=native", "-shared", "-fPIC", "-std=c++17", "-pthread"]
 
@@ -50,13 +52,18 @@ class BuildError(RuntimeError):
 
 def _target(source: str, command: Sequence[str], out_dir: str) -> str:
     with open(source, "rb") as f:
-        digest = hashlib.sha256(f.read() + "\0".join(command).encode()).hexdigest()[:16]
+        text = f.read()
+    if source.endswith(".cu"):  # and the headers a kernel may include from csrc/
+        for header in sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh"))):
+            with open(header, "rb") as f:
+                text += f.read()
+    digest = hashlib.sha256(text + "\0".join(command).encode()).hexdigest()[:16]
     stem = os.path.splitext(os.path.basename(source))[0]
     return os.path.join(out_dir, f"lib{stem}_{digest}.so")
 
 
 def build_shared_libraries(
-    jobs: Sequence[Tuple[str, Sequence[str]]], out_dir: str = BUILD_DIR
+    jobs: Sequence[Tuple[str, Sequence[str]]], out_dir: str = BUILD_DIR, failed: Optional[Dict[str, str]] = None
 ) -> List[str]:
     """Compile each ``(source, command)`` job into a shared library in
     ``out_dir``, all compilers running at once; return the library paths in
@@ -65,7 +72,9 @@ def build_shared_libraries(
     ``command`` is the compiler and its flags; the source and ``-o`` target
     are appended.  Libraries already built are reused, and jobs that give
     the same library (the same source bytes and command) share one
-    compiler."""
+    compiler.  A job that does not build raises ``BuildError``, or, given a
+    ``failed`` dict, is entered there (its library path: the compiler's
+    log) and the others are returned."""
     outs, running = [], []
     for source, command in jobs:
         out = _target(source, command, out_dir)
@@ -84,7 +93,10 @@ def build_shared_libraries(
     for proc, source, out, tmp in running:
         log, _ = proc.communicate()
         if proc.returncode != 0:
-            failures.append(f"{os.path.basename(source)}:\n{log}")
+            if failed is not None:
+                failed[out] = log
+            else:
+                failures.append(f"{os.path.basename(source)}:\n{log}")
             continue
         with open(out + ".log", "w") as f:
             f.write(log)

@@ -78,14 +78,18 @@
 //    kReadBlocks below).
 //  * The wide plan (kWide: past 144 values a read or a 227 KB image, e.g.
 //    121 inputs and H2 = 128, a 0.55 MB image) keeps each read's operation
-//    sequence, so p is the same bits, but not its registers: a thread takes
-//    one read, its n_in inputs wait in a column of shared memory, layer 2's
-//    accumulators in registers in passes of at most 128 outputs (a later
-//    pass forms h1 again), and the weights stream from device memory as
-//    warp-uniform loads that L1 and L2 serve (the image is read once a
-//    tile, far below what L2 holds).  A thread forms kWideUnits hidden
-//    units at once, so each input it loads from shared memory feeds that
-//    many FMAs: right, not fast (PERF.md section 6).
+//    sequence, so p is the same bits, but not its registers.  Its earlier
+//    design (a read a thread, weights loaded through L1 as warp-uniform
+//    float4s) issued ~0.75 memory instructions an FMA, no weight feeding
+//    more than one read from registers, and ran behind cuBLAS's matmuls of
+//    the plain version.  Now the two layers are two back-to-back products on
+//    the FP32 cores, tiled over a block (wide_tile.cuh): a block takes 128
+//    reads, stages their inputs and each step's weights (64 hidden units of
+//    W1 and W2) in shared memory once by cp.async, double-buffered, the
+//    next tile's inputs copied in under this one's last step, and each
+//    thread holds a micro-tile (8 reads x 4 units in layer 1, up to 8 reads
+//    x 8 outputs in layer 2), so a float4 from shared memory feeds 4 to 8
+//    FMAs and the FP32 pipe, not the load pipe, sets the pace.
 //  * Each read keeps the exact operation sequence of the one-read design
 //    (layer 1: W1'[k,0] * x0, then fmaf in input order, + b1', relu;
 //    layer 2: fmaf in k order; head: fmaf in j order, + b3, 1 / (1 +
@@ -225,26 +229,66 @@ constexpr int kReadBlocks = kReadValues <= kReleasedReadValues ? kReadMinBlocks
                             : kReadValues <= 2 * kReleasedReadValues ? 2 : 1;
 // Past 144 values a read (a thread's registers) or past a block's shared
 // memory for the image, phase A takes the wide plan: read_prob_wide_kernel,
-// one read a thread, its n_in inputs in shared memory (a column a thread),
-// layer 2's accumulators in passes of at most kWidePass outputs, and the
-// weights read from device memory (through L1 and L2) instead of staged.
+// a block a tile of kWideReads reads, H1 in steps of kWideChunk units whose
+// weights are staged in shared memory once for the tile, both layers as
+// register micro-tiles (wide_tile.cuh).
 constexpr int kMaxReadValues = 144;
 constexpr int kSharedLimit = 232448;  // dynamic shared memory a block may opt into on sm_90
 constexpr bool kWide = kReadValues > kMaxReadValues || kWeights * 4 > kSharedLimit;
-// Layer-2 outputs a pass holds at most, and hidden units a thread forms at
-// once: 4 where a pass holds at most 64 outputs, else 2 (4 units beside 128
-// accumulators take 254 registers and ran slower).  scripts/sweep_wide.py
-// builds copies with these lines rewritten and times each on the card
-// (PERF.md section 6).
+// The wide plan's tunings: reads a tile, hidden units a step, reads of a
+// thread's layer-1 micro-tile (4 or 8; its units follow from the threads),
+// buffers of weights in flight (2: a step's copies run under the step
+// before), layer-2 outputs a pass at most (a power of two), and inputs a
+// step where a tile's inputs do not fit the shared memory whole.
+// scripts/sweep_wide.py builds copies with these lines rewritten and times
+// each on the card; these ran fastest at (11, 8, 512, 128) (PERF.md
+// section 6).
+constexpr int kWideThreads = 256;
+constexpr int kWideReads = 128;
+constexpr int kWideChunk = 64;
+constexpr int kWideTileReads = 8;
+constexpr int kWideStages = 2;
 constexpr int kWidePassCap = 128;
-constexpr int kWidePass = kH2Pad < kWidePassCap ? kH2Pad : kWidePassCap;
-constexpr int kWideUnits = kWidePass <= 64 ? 4 : 2;
+constexpr int kWideInCap = 64;
+// layer-2 outputs a pass: H2 (to 4) up to a power of two of at least 16
+constexpr int pow2_at_least(int n, int p) { return p >= n ? p : pow2_at_least(n, 2 * p); }
+constexpr int kWidePass = pow2_at_least(kH2Pad, 16) < kWidePassCap ? pow2_at_least(kH2Pad, 16) : kWidePassCap;
 constexpr int kWidePasses = (kH2Pad + kWidePass - 1) / kWidePass;
-// threads a block of the wide plan: 128, fewer where a block's inputs
-// would pass the shared memory (ops/fused_infer_kernel.py::MAX_N_IN)
-constexpr int kWideCap = kSharedLimit / (4 * kIn) / 32 * 32;
-constexpr int kWideThreads = kWideCap < 128 ? kWideCap : 128;
-static_assert(!kWide || kWideThreads >= 32, "a warp's inputs fit a block: kernel_limit in ops/fused_infer_kernel.py");
+// layer 1's micro-tile, 4 kL1Gr reads x 4 kL1Gn units a thread of a kL1Tr x
+// kL1Tn grid; layer 2's, 4 kL2Gr reads x 4 kL2Gn outputs (8 x 8 at 128
+// outputs a pass, fewer threads than the block's below 32)
+constexpr int kL1Gr = kWideTileReads / 4;
+constexpr int kL1Gn = kWideReads * kWideChunk / kWideThreads / kWideTileReads / 4;
+constexpr int kL1Tr = kWideReads / (4 * kL1Gr);
+constexpr int kL1Tn = kWideChunk / (4 * (kL1Gn > 0 ? kL1Gn : 1));
+constexpr int kL2Gn = kWidePass >= 128 ? 2 : 1;
+constexpr int kL2Values = kWideReads * kWidePass / kWideThreads;
+constexpr int kL2Gr = kL2Values >= 32 * kL2Gn ? kL2Values / (16 * kL2Gn) : 1;
+constexpr int kL2Tr = kWideReads / (4 * kL2Gr);
+constexpr int kL2Tn = kWidePass / (4 * kL2Gn);
+static_assert(kL1Gr >= 1 && kL1Gn >= 1 && kL1Tr * kL1Tn == kWideThreads, "layer 1's micro-tiles cover a step");
+static_assert(kL2Tr * kL2Tn <= kWideThreads && kL2Tr * 4 * kL2Gr == kWideReads, "layer 2's micro-tiles cover a pass");
+// Shared memory (floats): x[input][read], the step's layer-1 rows
+// w1[column][unit] (columns: n_in weights, then the bias as column n_in),
+// W2's rows w2[unit][output], h1[unit][read] (then the head's outputs
+// [output][read]).  A tile's inputs are staged once where all fit, with
+// the next tile's k-mer ids (so its inputs are copied in under this one's
+// last step), else kWideInCap inputs a step (x in a buffer a stage, as the
+// weights).
+constexpr int kXStride = kWideReads + 4;
+constexpr int kW1sStride = kWideChunk + 4;
+constexpr int kHStride = kWideReads + 4;
+constexpr int kIdFloats = (kWideReads * kPos * kIdBytes + 15) / 16 * 4;
+constexpr int wide_floats(int cols, bool whole) {
+  return (whole ? kIn * kXStride + kIdFloats : kWideStages * cols * kXStride) + kWideStages * cols * kW1sStride +
+         kWideStages * kWideChunk * kWidePass + kWideChunk * kHStride;
+}
+constexpr bool kWideWhole = 4 * wide_floats(kIn + 1, true) <= kSharedLimit;
+constexpr int kWideCols = kWideWhole ? kIn + 1 : kWideInCap;  // layer-1 columns a step
+constexpr int kWideInSteps = (kIn + 1 + kWideCols - 1) / kWideCols;
+constexpr int kWideUnitSteps = (kH1 + kWideChunk - 1) / kWideChunk;
+constexpr int kWideSmem = 4 * wide_floats(kWideCols, kWideWhole);
+static_assert(kWideSmem <= kSharedLimit && kWideStages >= 2 && kWideChunk % 4 == 0, "a wide block fits the card");
 // Phase B's shape: kSiteThreads threads a block (its occupancy is asked of
 // the card at launch), kSiteLanes lanes a site's reads are spread over (a
 // power of two, at most 32: 32 / kSiteLanes sites a warp) and kChunkLoads
@@ -354,93 +398,202 @@ read_prob_kernel(const float* __restrict__ features,
   }
 }
 
+// ------------------------------------------------------ the wide plan
+#include "wide_tile.cuh"
+
 // Phase A of the wide plan (kWide): the function of read_prob_kernel, in
-// its operation sequence for every read, so p is the same bits.  Thread t
-// takes read base + t; its inputs wait in column t of shared memory (input
-// i at xs[i * Threads + t], no bank conflicts); layer 2's accumulators of
-// one pass of kWidePass outputs stay in registers, and a later pass forms
-// h1 again (none at H2 <= 128); the head's sum runs across the passes in
-// unit order.  The weights come from the image in device memory as
-// warp-uniform float4 loads (one transaction a warp, cached in L1 and L2).
+// its operation sequence for every read, so p is the same bits.  A block
+// takes tiles of kWideReads reads in turn.  For each pass of layer 2 (one
+// at H2 <= 128; a later pass forms h1 again), H1 runs in steps of
+// kWideChunk units (and of kWideCols layer-1 columns where a tile's inputs
+// do not fit whole).  The block's steps form one stream across its passes
+// and tiles: step g's weights (W1 rows transposed to w1[column][unit], W2
+// rows) sit in buffer g % kWideStages and are copied by cp.async while the
+// kWideStages - 1 steps before compute.  Where a tile's inputs fit whole,
+// the next tile's k-mer ids are copied in at its first step and its inputs
+// after this tile's last layer-1 read, so no step waits for a gather.
+// Layer 1 adds the step's columns into its micro-tile's chains; at a
+// chunk's last column, bias and relu go to h1[unit][read] in shared memory,
+// and layer 2 adds the chunk's units, in unit order, into the pass's
+// accumulators.  The head runs each read's outputs in order, through shared
+// memory, in thread r < kWideReads for read r: z = fmaf(w3, relu(acc +
+// b2), z).  Units past H1 have zero weights (h1 = 0 adds nothing to a sum
+// but the sign of a zero, which p cannot show); reads past n_reads are
+// computed from the last read's features and are not stored.
 template <int Threads>
-__global__ void __launch_bounds__(Threads)
+__global__ void __launch_bounds__(Threads, 1)
 read_prob_wide_kernel(const float* __restrict__ features,
                       const KmerId* __restrict__ kmer_ids,
                       const float* __restrict__ weights, int64_t n_reads,
                       float* __restrict__ p_out) {
-  extern __shared__ __align__(16) float xs[];
-  float* const x = xs + threadIdx.x;
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * Threads;
-  for (int64_t base = static_cast<int64_t>(blockIdx.x) * Threads; base < n_reads; base += stride) {
-    const int64_t want = base + threadIdx.x;
-    const int64_t r = want < n_reads ? want : n_reads - 1;  // a valid read; not stored
-    const float* f = features + r * kFeat;
-    for (int i = 0; i < kFeat; ++i) x[i * Threads] = __ldg(f + i);
-    for (int q = 0; q < kPos; ++q) {
-      const int k = static_cast<int>(kmer_ids[r * kPos + q]);
-      for (int e = 0; e < kEmb; ++e) x[(kFeat + kEmb * q + e) * Threads] = __ldg(weights + kOffEmb + kEmb * k + e);
+  static_assert(Threads == kWideThreads, "the plan's threads");
+  constexpr int kS = kWideStages;
+  constexpr int kSteps = kWideUnitSteps * kWideInSteps;  // a pass's
+  constexpr int kTileSteps = kSteps * kWidePasses;
+  constexpr bool kAhead = kWideWhole && kTileSteps >= kS;  // the next tile's inputs come in under this one
+  constexpr int kPiece = kWideChunk < kWidePass ? kWideChunk : kWidePass;  // head columns through hs at once
+  static_assert(kWidePass % kPiece == 0, "the head's pieces cover a pass");
+  extern __shared__ __align__(16) float wide_smem[];
+  float* const xs = wide_smem;
+  float* const w1s = xs + (kWideWhole ? kIn * kXStride + kIdFloats : kS * kWideCols * kXStride);
+  float* const w2s = w1s + kS * kWideCols * kW1sStride;
+  float* const hs = w2s + kS * kWideChunk * kWidePass;
+  KmerId* const ids = reinterpret_cast<KmerId*>(xs + kIn * kXStride);  // where kWideWhole
+  const int tid = threadIdx.x;
+  const wide_tile::Place<kL1Tr, kL1Tn> p1(tid);
+  const wide_tile::Place<kL2Tr, kL2Tn> p2(tid);
+  const auto w1_at = [](int u, int i) { return kOffW1B + u * kW1Stride + i; };
+  // the copies of step k of a tile's (pass k / kSteps), the block's step
+  // g: W1 columns and, where a tile's inputs come in steps, x into buffer
+  // g % kS; W2 at a unit chunk's first step into buffer (the block's unit
+  // chunk) % kS
+  const auto stage = [&](int64_t first, int k, int g) {
+    const int j0 = k / kSteps * kWidePass, s = k % kSteps, c = s / kWideInSteps, q = s % kWideInSteps;
+    const int b = g % kS;
+    wide_tile::stage_w1<kWideChunk, kWideCols, kW1sStride, Threads>(w1s + b * kWideCols * kW1sStride, weights,
+                                                                    c * kWideChunk, q * kWideCols, kH1, kIn, w1_at);
+    if constexpr (!kWideWhole) {
+      wide_tile::stage_x<kWideReads, kWideCols, kXStride, Threads, kFeat, kPos, kEmb>(
+          xs + b * kWideCols * kXStride, features, kmer_ids, weights + kOffEmb, first, n_reads, q * kWideCols);
     }
-    float z = 0.f;
+    if (q == 0) {
+      float* w2 = w2s + g / kWideInSteps % kS * kWideChunk * kWidePass;
+      for (int e = tid; e < kWideChunk * kWidePass / 4; e += Threads) {
+        const int k2 = e / (kWidePass / 4), o = 4 * (e % (kWidePass / 4));
+        const int u = c * kWideChunk + k2;
+        const bool valid = u < kH1 && j0 + o < kH2Pad;
+        wide_tile::copy16(w2 + k2 * kWidePass + o, weights + kOffW2 + (valid ? u * kH2Pad + j0 + o : 0), valid);
+      }
+    }
+  };
+  const auto stage_inputs = [&](int64_t first) {  // a whole tile's, its ids staged and visible
+    wide_tile::stage_x_ids<kWideReads, kXStride, Threads, kFeat, kPos, kEmb>(xs, features, ids, weights + kOffEmb,
+                                                                             first, n_reads);
+  };
+  const int64_t n_tiles = (n_reads + kWideReads - 1) / kWideReads;
+  int64_t tile = blockIdx.x;
+  if constexpr (kWideWhole) {
+    wide_tile::stage_ids<kWideReads, kPos, Threads>(ids, kmer_ids, tile * kWideReads, n_reads);
+    wide_tile::commit();
+    wide_tile::wait<0>();
+    __syncthreads();
+    stage_inputs(tile * kWideReads);
+  }
+  // the stream's first kS - 1 steps (those of later tiles where a tile has fewer)
+#pragma unroll
+  for (int k = 0; k < kS - 1; ++k) {
+    const int64_t at = tile + static_cast<int64_t>(k / kTileSteps) * gridDim.x;
+    if (at < n_tiles) stage(at * kWideReads, k % kTileSteps, k);
+    wide_tile::commit();
+  }
+  int g = 0;  // the block's steps so far: step g's weights sit in buffer g % kS
+  for (; tile < n_tiles; tile += gridDim.x) {
+    const int64_t first = tile * kWideReads, next = tile + gridDim.x;
+    float z = 0.f;  // thread r's read first + r
     for (int pass = 0; pass < kWidePasses; ++pass) {
-      const int j0 = pass * kWidePass;  // this pass's first output
-      float acc[kWidePass];
+      const int j0 = pass * kWidePass;
+      float t[4 * kL1Gr][4 * kL1Gn];
+      float acc[4 * kL2Gr][4 * kL2Gn];
 #pragma unroll
-      for (int i = 0; i < kWidePass; ++i) acc[i] = 0.f;
-#pragma unroll 1
-      for (int k0 = 0; k0 < kH1; k0 += kWideUnits) {
-        // layer 1 of kWideUnits units at once (each input read once from
-        // shared memory for all of them), each unit's FMA chain in input
-        // order; a unit past H1 is not computed
-        float t[kWideUnits], h[kWideUnits];
+      for (int i = 0; i < 4 * kL2Gr; ++i) {
 #pragma unroll
-        for (int q = 0; q < kW1Stride / 4; ++q) {
-          float4 v[kWideUnits];
+        for (int j = 0; j < 4 * kL2Gn; ++j) acc[i][j] = 0.f;
+      }
+      for (int s = 0; s < kSteps; ++s, ++g) {
+        const int k = pass * kSteps + s;
+        if (k == 0) {
+          wide_tile::wait<0>();  // and the tile's inputs
+        } else {
+          wide_tile::wait<kS - 2>();
+        }
+        __syncthreads();  // step g has landed; step g - 1's readers are done
+        const int kn = k + kS - 1;  // the stream's step g + kS - 1, of this tile or a later one
+        const int64_t at = tile + static_cast<int64_t>(kn / kTileSteps) * gridDim.x;
+        if (at < n_tiles) stage(at * kWideReads, kn % kTileSteps, g + kS - 1);
+        if (kAhead && k == 0 && next < n_tiles) {
+          wide_tile::stage_ids<kWideReads, kPos, Threads>(ids, kmer_ids, next * kWideReads, n_reads);
+        }
+        wide_tile::commit();
+        const int c = s / kWideInSteps, q = s % kWideInSteps, i0 = q * kWideCols, b = g % kS;
+        const float* x = kWideWhole ? xs : xs + b * kWideCols * kXStride;
+        const float* w1 = w1s + b * kWideCols * kW1sStride;
+        const int n_x = kIn - i0 < kWideCols ? kIn - i0 : kWideCols;  // the step's inputs (the bias aside)
+        if (p1.active()) {
+          wide_tile::fma_rows<kL1Gr, kL1Gn, kL1Tr, kL1Tn, kXStride, kW1sStride>(x + (kWideWhole ? i0 : 0) * kXStride,
+                                                                               w1, n_x, q == 0, p1.tr, p1.tn, t);
+        }
+        if (q == kWideInSteps - 1) {
+          // + b1' (column n_in of the step), relu, to h1[unit][read]
+          if (p1.active()) {
+            const float* bias = w1 + (kIn - i0) * kW1sStride;
 #pragma unroll
-          for (int u = 0; u < kWideUnits; ++u) {
-            v[u] = k0 + u < kH1 ? __ldg(reinterpret_cast<const float4*>(weights + kOffW1B + (k0 + u) * kW1Stride) + q)
-                                : make_float4(0.f, 0.f, 0.f, 0.f);
+            for (int h = 0; h < kL1Gn; ++h) {
+#pragma unroll
+              for (int f = 0; f < 4; ++f) {
+                const int u = 4 * (p1.tn + h * kL1Tn) + f;
+                const float b1 = bias[u];
+#pragma unroll
+                for (int gr = 0; gr < kL1Gr; ++gr) {
+                  *reinterpret_cast<float4*>(hs + u * kHStride + 4 * (p1.tr + gr * kL1Tr)) = make_float4(
+                      fmaxf(t[4 * gr][4 * h + f] + b1, 0.f), fmaxf(t[4 * gr + 1][4 * h + f] + b1, 0.f),
+                      fmaxf(t[4 * gr + 2][4 * h + f] + b1, 0.f), fmaxf(t[4 * gr + 3][4 * h + f] + b1, 0.f));
+                }
+              }
+            }
           }
+          __syncthreads();
+          if (kAhead && k == kTileSteps - 1 && next < n_tiles) {  // x is read no more: the next tile's
+            stage_inputs(next * kWideReads);
+            wide_tile::commit();
+          }
+          if (p2.active()) {
+            wide_tile::fma_rows<kL2Gr, kL2Gn, kL2Tr, kL2Tn, kHStride, kWidePass>(
+                hs, w2s + g / kWideInSteps % kS * kWideChunk * kWidePass, kWideChunk, false, p2.tr, p2.tn, acc);
+          }
+        }
+      }
+      // the head of the pass: kPiece outputs at a time through hs, each
+      // read's in output order
+      for (int p0 = 0; p0 < kWidePass; p0 += kPiece) {
+        __syncthreads();  // hs is free
+        if (p2.active()) {
 #pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int i = 4 * q + e;
-            const float xi = i < kIn ? x[i * Threads] : 0.f;
+          for (int h = 0; h < kL2Gn; ++h) {
 #pragma unroll
-            for (int u = 0; u < kWideUnits; ++u) {
-              const float c = e == 0 ? v[u].x : e == 1 ? v[u].y : e == 2 ? v[u].z : v[u].w;
-              if (i == 0) {
-                t[u] = c * xi;
-              } else if (i < kIn) {
-                t[u] = fmaf(c, xi, t[u]);
-              } else if (i == kIn) {
-                h[u] = fmaxf(t[u] + c, 0.f);  // + b1'[k], relu
+            for (int f = 0; f < 4; ++f) {
+              const int o = 4 * (p2.tn + h * kL2Tn) + f - p0;
+              if (o < 0 || o >= kPiece) continue;
+#pragma unroll
+              for (int gr = 0; gr < kL2Gr; ++gr) {
+                *reinterpret_cast<float4*>(hs + o * kHStride + 4 * (p2.tr + gr * kL2Tr)) =
+                    make_float4(acc[4 * gr][4 * h + f], acc[4 * gr + 1][4 * h + f], acc[4 * gr + 2][4 * h + f],
+                                acc[4 * gr + 3][4 * h + f]);
               }
             }
           }
         }
-        // layer 2: the units' fan-outs in unit order
-#pragma unroll
-        for (int u = 0; u < kWideUnits; ++u) {
-          if (k0 + u >= kH1) continue;
-          const float4* fan = reinterpret_cast<const float4*>(weights + kOffW2 + (k0 + u) * kH2Pad + j0);
-#pragma unroll
-          for (int q = 0; q < kWidePass / 4; ++q) {
-            if (j0 + 4 * q < kH2Pad) {  // the last pass may hold fewer
-              const float4 w2 = __ldg(fan + q);
-              acc[4 * q] = fmaf(w2.x, h[u], acc[4 * q]);
-              acc[4 * q + 1] = fmaf(w2.y, h[u], acc[4 * q + 1]);
-              acc[4 * q + 2] = fmaf(w2.z, h[u], acc[4 * q + 2]);
-              acc[4 * q + 3] = fmaf(w2.w, h[u], acc[4 * q + 3]);
-            }
+        __syncthreads();
+        if (tid < kWideReads) {
+          for (int o = 0; o < kPiece && j0 + p0 + o < kH2; ++o) {
+            const int j = j0 + p0 + o;
+            z = fmaf(__ldg(weights + kOffW3 + j), fmaxf(hs[o * kHStride + tid] + __ldg(weights + kOffB2 + j), 0.f), z);
           }
         }
       }
-#pragma unroll
-      for (int i = 0; i < kWidePass; ++i) {
-        if (j0 + i < kH2) z = fmaf(__ldg(weights + kOffW3 + j0 + i), fmaxf(acc[i] + __ldg(weights + kOffB2 + j0 + i), 0.f), z);
-      }
     }
-    z += __ldg(weights + kOffB3);
-    if (want < n_reads) p_out[want] = 1.f / (1.f + expf(-z));
+    if (tid < kWideReads) {
+      z += __ldg(weights + kOffB3);
+      if (first + tid < n_reads) p_out[first + tid] = 1.f / (1.f + expf(-z));
+    }
+    if (kWideWhole && !kAhead && next < n_tiles) {  // a tile of fewer steps than stages: its inputs now
+      __syncthreads();
+      wide_tile::stage_ids<kWideReads, kPos, Threads>(ids, kmer_ids, next * kWideReads, n_reads);
+      wide_tile::commit();
+      wide_tile::wait<0>();
+      __syncthreads();
+      stage_inputs(next * kWideReads);
+      wide_tile::commit();
+    }
   }
 }
 
@@ -576,8 +729,8 @@ cudaError_t launch_read_prob(const float* features, const KmerId* kmer_ids,
                              const float* weights, int64_t n_reads, float* p,
                              cudaStream_t stream) {
   if constexpr (Wide) {
-    return launch_phase_a(read_prob_wide_kernel<kWideThreads>, kWideThreads, kWideThreads,
-                          kWideThreads * kIn * 4, features, kmer_ids, weights, n_reads, p, stream);
+    return launch_phase_a(read_prob_wide_kernel<kWideThreads>, kWideThreads, kWideReads, kWideSmem, features,
+                          kmer_ids, weights, n_reads, p, stream);
   } else {
     return launch_phase_a(read_prob_kernel<kReads>, kReadThreads, static_cast<int64_t>(kReadThreads) * kReads,
                           kWeightsDynamic ? kWeights * 4 : 0, features, kmer_ids, weights, n_reads, p, stream);
@@ -654,7 +807,7 @@ int read_prob_launch(const float* features, const KmerId* kmer_ids,
 
 // Reads one block of phase A takes per tile (threads x reads per thread):
 // the tile whose ragged edge the tests and chip_smoke.py exercise.
-int read_prob_tile_reads(void) { return kWide ? kWideThreads : kReadThreads * kReads; }
+int read_prob_tile_reads(void) { return kWide ? kWideReads : kReadThreads * kReads; }
 
 // 1 where phase A takes the wide plan (read_prob_wide_kernel), else 0.
 int read_prob_wide(void) { return kWide ? 1 : 0; }

@@ -66,15 +66,22 @@
 //    fewer stages where the block would pass a block's shared memory.
 //  * Past H1 = 256 or H2 = 64 (a thread's accumulators) or where even the
 //    smallest block passes the shared memory, a mode takes the wide plan
-//    (wide() below): read_prob_tc_wide_kernel, a warp per 16 reads on
-//    mma.sync.m16n8k16 (whose fragments are the layouts wgmma gives each
-//    warp here, so every sum is the same chunked tensor-core sum), the
-//    weights read from the same image in device memory through L1 and L2,
-//    the inputs in shared memory.  Layer 1 runs a k16 step of H1 at a time
-//    and feeds that step of layer 2 at once (no thread holds all of H1);
-//    layer 2 runs in passes of at most 8 n8 tiles of H2 (64 outputs),
-//    forming h1 again for a later pass, and the head's per-lane sums run on
-//    across the passes in unit order, the plain version's order.
+//    (wide() below): read_prob_tc_wide_kernel on mma.sync.m16n8k16 (whose
+//    fragments are the layouts wgmma gives each warp here, so every sum is
+//    the same chunked tensor-core sum).  Its earlier design, a warp per 16
+//    reads fetching every B fragment itself from device memory for one mma
+//    and forming layer 1 again for each pass of 64 outputs, was bound by
+//    that traffic (bf16: ~384 KB of weights through L1 and L2 a 16-read
+//    tile) and by f32x3's layer-1 loads.  Now a block of 8 warps takes 128
+//    reads, a warp each m16 tile, and walks H1 in steps of 32 to 256 units
+//    (tc_chunk) whose weights it stages in shared memory once (cp.async, up
+//    to 4 steps in flight), so each fragment fetched feeds 8 tiles, and the
+//    next tile's inputs come in under this one; f32x3's layer 1 runs over the
+//    whole tile on the FP32 cores as fused_infer.cu's wide plan does
+//    (wide_tile.cuh's micro-tiles) and reaches each warp as hi / lo bf16
+//    through shared memory (ldmatrix), once per step.  A warp holds up to
+//    16 n8 tiles of H2 (128 outputs), so layer 1 is formed once where H2 <=
+//    128, and the head's per-lane sums run in the plain version's order.
 //  * The weights are staged once per block (the mode's range of the image;
 //    prepare_fused_params_t lays it out).  Each wgmma B operand (bf16(W2),
 //    W2 - bf16(W2), bf16(W1')) sits in the canonical K-major layout without
@@ -194,6 +201,8 @@ static_assert(kKSteps * 16 == kH1Pad && kTiles1 * 8 == kH1Pad && kTiles2 * 8 == 
 //        zero for k >= n_in (bf16)
 //   B1   [kH1Pad] f32: b1', zero past H1 (bf16)
 //   EMBH [V][E] f32: bf16(e), zeros to kEmbWords (bf16)
+//   W1T  [n_in + 1][kH1Pad] f32: W1F's rows input-major, the bias last
+//        (f32x3's wide plan: a step's columns are whole 16-byte runs)
 constexpr int kTcOffW1F = 0;
 constexpr int kTcOffEmbX = kTcOffW1F + kKSteps * 4 * kW1Stride * 4;  // 2560
 constexpr int kTcOffW3L = kTcOffEmbX + kEmbWords;                     // 2692
@@ -205,7 +214,8 @@ constexpr int kTcOffB3 = kTcOffW3H + kH2Pad;                          // 7908
 constexpr int kTcOffW1H = kTcOffB3 + 4;                               // 7912
 constexpr int kTcOffB1 = kTcOffW1H + kK1Steps * kTiles1 * 32 * 2;     // 9192
 constexpr int kTcOffEmbH = kTcOffB1 + kH1Pad;                         // 9352
-constexpr int kTcWords = kTcOffEmbH + kEmbWords;                      // 9484
+constexpr int kTcOffW1T = kTcOffEmbH + kEmbWords;                     // 9484
+constexpr int kTcWords = kTcOffW1T + (kIn + 1) * kH1Pad;              // 12044
 
 // The B operands' canonical K-major layout (bytes): a core matrix row of 8
 // k values, the two k halves of a k16 step, groups of 8 n, a k step of W2
@@ -220,7 +230,8 @@ static_assert(kKSteps * kW2StepBytes == kKSteps * kTiles2 * 32 * 2 * 4, "W2's si
 
 constexpr int kModeF32x3 = 1;
 constexpr int kModeBf16 = 2;
-static_assert(kTcOffW2L % 4 == 0 && kTcOffW2H % 4 == 0 && kTcOffW1H % 4 == 0 && kTcWords % 4 == 0,
+static_assert(kTcOffW2L % 4 == 0 && kTcOffW2H % 4 == 0 && kTcOffW1H % 4 == 0 && kTcOffW1T % 4 == 0 &&
+                  kTcWords % 4 == 0,
               "16-byte aligned ranges");
 
 // The block of each mode: consumer warpgroups and one producer warpgroup,
@@ -252,7 +263,7 @@ struct Plan {
 };
 
 // Dynamic shared memory of a block of `plan`: the mode's contiguous range
-// of the image (f32x3 everything before W1H, bf16 everything from W2H on),
+// of the image (f32x3 everything before W1H, bf16 W2H up to W1T),
 // the ring's stages (an item's features and k-mer ids, each with the up to
 // 15 bytes before a misaligned start), f32x3's input rows (kIn | 1 floats a
 // read, odd so the 8 rows a warp reads at once sit in 8 banks), the ring's
@@ -261,7 +272,7 @@ struct Plan {
 constexpr int stage_bytes(int tiles) {
   return kTileReads * tiles * kFeat * 4 + 16 + kTileReads * tiles * kPos * kIdBytes + 16;
 }
-constexpr int image_bytes(bool f32x3) { return (f32x3 ? kTcOffW1H - kTcOffW1F : kTcWords - kTcOffW2H) * 4; }
+constexpr int image_bytes(bool f32x3) { return (f32x3 ? kTcOffW1H - kTcOffW1F : kTcOffW1T - kTcOffW2H) * 4; }
 constexpr int rows_bytes(const Plan& plan) {
   return plan.x_shared ? plan.consumers * kTileReads * plan.tiles * (kIn | 1) * 4 : 0;
 }
@@ -296,24 +307,134 @@ constexpr Plan bf16_plan() {
 
 // The warpgroup kernel above takes H1 <= 256 and H2 <= 64 (a thread's
 // accumulators) where its smallest block fits the shared memory.  Past
-// that a mode takes the wide plan: read_prob_tc_wide_kernel, a warp per 16
-// reads on mma.sync.m16n8k16, the weights read from device memory (through
-// L1 and L2), layer 1 in k16 steps of H1 that feed layer 2 at once, and
-// layer 2 in passes of at most kWidePassTiles n8 tiles of H2.
+// that a mode takes the wide plan: read_prob_tc_wide_kernel, a warp per
+// 16-read m16 tile of a block's kTcWideWarps, on mma.sync.m16n8k16; H1 in
+// steps of tc_chunk() units whose weights the block stages in shared
+// memory once for all its tiles; layer 2 in passes of at most
+// kWidePassTiles n8 tiles of H2 (one at H2 <= 128).
 constexpr bool wide(bool f32x3) {
   return kH1Pad > 256 || kH2Pad > 64 || smem_bytes(f32x3, f32x3 ? f32x3_plan() : bf16_plan()) > kSharedLimit;
 }
-// layer-2 n8 tiles a pass holds at most: 8 (64 outputs) ran fastest of 4,
-// 8 and 16 at (11, 8, 512, 128), where 16 spills (scripts/sweep_wide.py
-// rewrites this line and times each build on the card; PERF.md section 6)
-constexpr int kWidePassCap = 8;
+// The wide plan's tunings: layer-2 n8 tiles a pass at most, warps a block
+// (a 16-read tile each), hidden units a step (a multiple of 32: f32x3's
+// layer-1 micro-tiles of 4 reads x 4 units cover it; twice the chunk where
+// a pass's accumulators leave a thread the registers, at most 8 n8 tiles
+// in f32x3, 4 in bf16, and four times in bf16 where layer 1 also takes at
+// most 2 k16 steps, its accumulators then consumed as they are formed:
+// fewer steps, fewer barriers), weight buffers in flight at most (a step's
+// copies run under the steps before; fewer where the block would pass the
+// shared memory), and inputs a step where a tile's inputs do not fit whole
+// (f32x3: columns; bf16: this over 16 k16 steps of them).  Where a pass
+// holds at most 4 n8 tiles, two blocks share an SM where they fit
+// (wide_plan).  scripts/sweep_wide.py builds copies with these lines
+// rewritten and times each on the card; these ran fastest at (11, 8, 512,
+// 128) and (3, 2, 512, 32) (PERF.md section 6).
+constexpr int kWidePassCap = 16;
+constexpr int kTcWideWarps = 8;
+constexpr int kF32x3WideChunk = 32;
+constexpr int kBf16WideChunk = 64;
+constexpr int kTcWideStages = 4;
+constexpr int kTcWideInCap = 64;
 constexpr int kWidePassTiles = kTiles2 < kWidePassCap ? kTiles2 : kWidePassCap;
 constexpr int kWidePasses = (kTiles2 + kWidePassTiles - 1) / kWidePassTiles;
-constexpr int kWideRowBytes = 16 * (kIn | 1) * 4;  // a warp's 16 reads' inputs (an odd stride)
-// warps a block of the wide plan: 4, fewer where their inputs would pass
-// the shared memory
-constexpr int kWideWarps = 4 * kWideRowBytes <= kSharedLimit ? 4 : 2 * kWideRowBytes <= kSharedLimit ? 2 : 1;
-static_assert(kWideRowBytes <= kSharedLimit, "a warp's inputs fit a block: kernel_limit in ops/fused_infer_kernel.py");
+constexpr int kTcWideReads = 16 * kTcWideWarps;
+constexpr int kTcWideThreads = 32 * kTcWideWarps;
+// hidden units a step
+constexpr int tc_chunk(bool f32x3) {
+  return f32x3 ? (kWidePassTiles <= 8 ? 2 : 1) * kF32x3WideChunk
+               : (kWidePassTiles > 4 ? 1 : kK1Steps <= 2 ? 4 : 2) * kBf16WideChunk;
+}
+// f32x3's layer-1 micro-tile: 4 reads x 4 (chunk / 32) units a thread, a
+// kX3Tr x 8 grid of threads (wide_tile.cuh), as fused_infer.cu's
+constexpr int kX3Tr = kTcWideReads / 4;
+constexpr int kX3Tn = 8;
+static_assert(tc_chunk(true) % 32 == 0 && tc_chunk(false) % 16 == 0 && kX3Tr * kX3Tn == kTcWideThreads,
+              "f32x3's micro-tiles cover a step, bf16's k16 steps");
+// Shared memory.  x as f32 [input][read] (f32x3's layer-1 operand; bf16
+// rounds it into bf16 [read][column] at a tile's first step) and the next
+// tile's k-mer ids, where a tile's inputs fit whole; else x in steps (f32x3
+// f32, bf16 bf16), a buffer a stage.  A step's layer-1 weights (f32x3 W1T's
+// columns as w1[column][unit]; bf16 W1H's fragments as the image holds
+// them, [k16 step][n8 tile][256 B]) and, at a unit chunk's first step, its
+// W2 fragments (hi, and f32x3's lo) and bf16's b1'.  f32x3's h1 as hi and
+// lo bf16 [read][unit] (a 16-byte row offset a row, so ldmatrix's 8 rows
+// sit in 8 bank groups).
+constexpr int kTcXStride = kTcWideReads + 4;
+constexpr int up16(int n) { return (n + 15) / 16 * 16; }
+struct WideLayout {
+  int x, ids, xb, w1, b1, w2h, w2l, a, end;  // byte offsets in a block's dynamic shared memory
+};
+constexpr WideLayout tc_wide_layout(bool f32x3, bool whole, int cols, int stages) {
+  const int chunk = tc_chunk(f32x3);
+  const int w2_words = chunk / 16 * kWidePassTiles * 64;  // a step's W2 fragments, each of hi and lo
+  WideLayout l{};
+  int at = 0;
+  l.x = at;
+  at += 4 * (whole ? kIn : f32x3 ? stages * cols : 0) * kTcXStride;
+  l.ids = at;
+  at += whole ? up16(kTcWideReads * kPos * kIdBytes) : 0;
+  l.xb = at;
+  at += f32x3 ? 0 : 2 * (whole ? 1 : stages) * kTcWideReads * (16 * cols + 8);
+  l.w1 = at;
+  at += 4 * stages * cols * (f32x3 ? chunk + 4 : chunk / 8 * 64);
+  l.b1 = at;
+  at += f32x3 ? 0 : 4 * stages * chunk;
+  l.w2h = at;
+  at += 4 * stages * w2_words;
+  l.w2l = at;
+  at += f32x3 ? 4 * stages * w2_words : 0;
+  l.a = at;
+  at += f32x3 ? 2 * 2 * kTcWideReads * (chunk + 8) : 0;
+  l.end = at;
+  return l;
+}
+struct WidePlan {
+  int blocks;    // blocks an SM (two at 128 registers a thread where a pass holds at most 4 n8 tiles)
+  bool whole;    // a tile's inputs staged once (else in steps, a buffer a stage)
+  int cols;      // a step's inputs: f32x3 layer-1 columns (the bias is column n_in), bf16 k16 steps
+  int in_steps;  // steps a unit chunk takes over its inputs
+  int stages;    // weight buffers
+  int smem;      // dynamic shared memory bytes
+};
+// two blocks an SM where a pass holds at most 4 n8 tiles and they fit, the
+// inputs whole where they fit, and the most stages that fit
+constexpr WidePlan wide_plan(bool f32x3) {
+  const int all = f32x3 ? kIn + 1 : kK1Steps;
+  const int cap = f32x3 ? kTcWideInCap : kTcWideInCap / 16;
+  for (int blocks = kWidePassTiles <= 4 ? 2 : 1; blocks >= 1; --blocks) {
+    const int limit = blocks == 1 ? kSharedLimit : kSharedLimit / blocks - 1024;  // 1 KB an SM keeps a block
+    for (int whole = 1; whole >= 0; --whole) {
+      const int cols = whole ? all : cap;
+      for (int stages = kTcWideStages; stages >= 2; --stages) {
+        const int smem = tc_wide_layout(f32x3, whole == 1, cols, stages).end;
+        if (smem <= limit) return WidePlan{blocks, whole == 1, cols, (all + cols - 1) / cols, stages, smem};
+      }
+    }
+  }
+  return WidePlan{1, false, cap, (all + cap - 1) / cap, 2, tc_wide_layout(f32x3, false, cap, 2).end};
+}
+static_assert(wide_plan(true).smem <= kSharedLimit && wide_plan(false).smem <= kSharedLimit && kTcWideStages >= 2,
+              "a wide block fits the card");
+template <int Mode>
+struct WideCfg {
+  static constexpr WidePlan kPlan = wide_plan(Mode == kModeF32x3);
+  static constexpr int kBlocks = kPlan.blocks;
+  static constexpr bool kWhole = kPlan.whole;
+  static constexpr int kCols = kPlan.cols;
+  static constexpr int kInSteps = kPlan.in_steps;
+  static constexpr int kStages = kPlan.stages;
+  static constexpr int kSmem = kPlan.smem;
+  static constexpr WideLayout kAt = tc_wide_layout(Mode == kModeF32x3, kWhole, kCols, kStages);
+  // the layout's offsets as scalars (what device code reads)
+  static constexpr int kAtX = kAt.x, kAtIds = kAt.ids, kAtXb = kAt.xb, kAtW1 = kAt.w1, kAtB1 = kAt.b1;
+  static constexpr int kAtW2h = kAt.w2h, kAtW2l = kAt.w2l, kAtA = kAt.a;
+  // a step's hidden units, layer 2's k16 steps and bf16 layer 1's n8
+  // tiles in them, f32x3's units a thread of its micro-tile holds / 4, the
+  // rows of its w1 and h1 halves, and the words of a step's W2 fragments
+  static constexpr int kChunk = tc_chunk(Mode == kModeF32x3);
+  static constexpr int kKSteps = kChunk / 16, kGroups = kChunk / 8, kX3Gn = kChunk / 32;
+  static constexpr int kW1Stride = kChunk + 4, kAStride = kChunk + 8, kW2Words = kKSteps * kWidePassTiles * 64;
+};
 
 template <int Mode>
 struct Cfg {
@@ -1024,229 +1145,378 @@ read_prob_tc_kernel(const float* __restrict__ features, const KmerId* __restrict
 }
 
 // ------------------------------------------------------ the wide plan
-// Layer 1 of f32x3 for k step j of the wide plan: h1 of this lane's 4 units
-// (slot c: unit 16j + 2t + (c & 1) + 8 (c >> 1)) for rows g (x0) and g + 8
-// (x1), in fused_infer.cu's FMA order, split and packed as the A fragments
-// (hi, lo): layer1_f32x3's arithmetic, the W1F rows read from device memory.
-__device__ __forceinline__ void wide_layer1_f32x3(const float4* w1, int j, int t, const float* x0, const float* x1,
-                                                  uint32_t (&ahi)[4], uint32_t (&alo)[4]) {
-  // the inputs run outermost, so that each is read from shared memory once
-  // for the lane's 4 units; each unit's chain stays in input order
-  float u[4][2], h[4][2];
-  const float4* row = w1 + j * 4 * 4 * kW1Quads + t;  // [j][c][q][t]: slot c at row + 4 c kW1Quads
-#pragma unroll
-  for (int q = 0; q < kW1Quads; ++q) {
-    float4 v[4];
-#pragma unroll
-    for (int c = 0; c < 4; ++c) v[c] = __ldg(row + 4 * (c * kW1Quads + q));
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int k = 4 * q + e;
-      const float a0 = k < kIn ? x0[k] : 0.f, a1 = k < kIn ? x1[k] : 0.f;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const float w = e == 0 ? v[c].x : e == 1 ? v[c].y : e == 2 ? v[c].z : v[c].w;
-        if (k == 0) {
-          u[c][0] = w * a0;  // fused_infer.cu's order
-          u[c][1] = w * a1;
-        } else if (k < kIn) {
-          u[c][0] = fmaf(w, a0, u[c][0]);
-          u[c][1] = fmaf(w, a1, u[c][1]);
-        } else if (k == kIn) {
-          h[c][0] = fmaxf(u[c][0] + w, 0.f);  // + b1', relu
-          h[c][1] = fmaxf(u[c][1] + w, 0.f);
-        }
-      }
-    }
-  }
-#pragma unroll
-  for (int c = 0; c < 4; ++c) {
-    if (16 * j + 8 * (c >> 1) >= kH1) h[c][0] = h[c][1] = 0.f;  // 8 units past H1: zero weights and bias
-  }
-  split_pack(h[0][0], h[1][0], ahi[0], alo[0]);
-  split_pack(h[0][1], h[1][1], ahi[1], alo[1]);
-  split_pack(h[2][0], h[3][0], ahi[2], alo[2]);
-  split_pack(h[2][1], h[3][1], ahi[3], alo[3]);
+#include "wide_tile.cuh"
+
+// Four 8x8 bf16 matrices from shared memory: lane l gives the address of row
+// l % 8 of matrix l / 8, and register i gets this lane's pair of matrix i.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&a)[4], const void* row) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+               : "r"(smem_addr(row))
+               : "memory");
 }
 
-// B fragment (b0, b1) of n8 group `group` of k step `step` of a K-major
-// operand at word `base` of the image: lane (g, t) holds k = 2t, 2t + 1 of
-// column g (half 0) and k = 2t + 8, 2t + 9 (half 1), kBLbo bytes on
-__device__ __forceinline__ void b_frag(const uint32_t* image, int base, int groups, int step, int group, int g,
-                                       int t, uint32_t& b0, uint32_t& b1) {
-  const uint32_t* at = image + base + (step * groups + group) * (kBSbo / 4) + g * (kBRowBytes / 4) + t;
-  b0 = __ldg(at);
-  b1 = __ldg(at + kBLbo / 4);
+// The A fragment of rows [16 m, 16 m + 16) and columns [c0, c0 + 16) of a
+// bf16 [row][column] matrix in shared memory (rows `stride` apart): its
+// quarters rows 0-7 | 8-15 then columns 0-7 | 8-15 are a0..a3.
+__device__ __forceinline__ void load_a(uint32_t (&a)[4], const uint16_t* base, int stride, int m, int c0,
+                                       int lane) {
+  ldmatrix_x4(a, base + (16 * m + (lane & 7) + 8 * ((lane >> 3) & 1)) * stride + c0 + 8 * (lane >> 4));
 }
 
-// z of rows g (z[0]) and g + 8 (z[1]) of a warp's 16 reads, f32x3, from
-// their inputs (rows x0, x1): for each pass over H2, every k step's layer 1
-// then its three products on each n8 tile of the pass (W2lo.h1hi and
-// W2hi.h1lo into one accumulator, W2hi.h1hi alone, f32-added), as
-// f32x3_reads takes them; the head's sums run on across the passes in
-// unit order (the plain version's _lane_dot).
-__device__ __forceinline__ void wide_f32x3(const uint32_t* image, int g, int t, const float* x0, const float* x1,
-                                           float (&z)[2]) {
-  const float* imf = reinterpret_cast<const float*>(image);
-  const float4* w1 = reinterpret_cast<const float4*>(imf + kTcOffW1F);
-  float zx[2][2] = {}, zh[2] = {};  // w3lo.h2hi, w3hi.h2lo; w3hi.h2hi
-  for (int pass = 0; pass < kWidePasses; ++pass) {
-    const int nt0 = pass * kWidePassTiles;
-    float cross[kWidePassTiles][4], high[kWidePassTiles][4];
-#pragma unroll
-    for (int i = 0; i < kWidePassTiles; ++i) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) cross[i][e] = high[i][e] = 0.f;
-    }
-#pragma unroll 1
-    for (int j = 0; j < kKSteps; ++j) {
-      uint32_t ahi[4], alo[4];
-      wide_layer1_f32x3(w1, j, t, x0, x1, ahi, alo);
-#pragma unroll
-      for (int i = 0; i < kWidePassTiles; ++i) {
-        if (nt0 + i >= kTiles2) continue;  // the last pass may hold fewer
-        uint32_t l0, l1, h0, h1;
-        b_frag(image, kTcOffW2L, kTiles2, j, nt0 + i, g, t, l0, l1);
-        b_frag(image, kTcOffW2H, kTiles2, j, nt0 + i, g, t, h0, h1);
-        mma_bf16(cross[i], ahi, l0, l1);  // W2lo.h1hi
-        mma_bf16(cross[i], alo, h0, h1);  // + W2hi.h1lo
-        float part[4] = {0.f, 0.f, 0.f, 0.f};
-        mma_bf16(part, ahi, h0, h1);  // W2hi.h1hi alone
-#pragma unroll
-        for (int e = 0; e < 4; ++e) high[i][e] += part[e];
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < kWidePassTiles; ++i) {
-      if (nt0 + i >= kTiles2) continue;
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int n = 8 * (nt0 + i) + 2 * t + e;
-        const float b2 = __ldg(imf + kTcOffB2 + n), w3h = __ldg(imf + kTcOffW3H + n), w3l = __ldg(imf + kTcOffW3L + n);
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          const float v = fmaxf(cross[i][2 * r + e] + high[i][2 * r + e] + b2, 0.f);
-          const float vh = bf16_round(v), vl = bf16_round(v - vh);
-          zx[r][0] = fmaf(w3l, vh, zx[r][0]);
-          zx[r][1] = fmaf(w3h, vl, zx[r][1]);
-          zh[r] = fmaf(w3h, vh, zh[r]);
-        }
-      }
-    }
-  }
-  const float b3 = __ldg(imf + kTcOffB3);
-#pragma unroll
-  for (int r = 0; r < 2; ++r) z[r] = ((quad_sum(zx[r][0]) + quad_sum(zx[r][1])) + quad_sum(zh[r])) + b3;
+// B fragment (b0, b1) of lane (g, t) from a staged 256-byte n8 x k16 group
+// in the image's core-matrix layout (k = 2t.. of column g, then 2t + 8..)
+__device__ __forceinline__ void b_shared(const uint32_t* group, int g, int t, uint32_t& b0, uint32_t& b1) {
+  b0 = group[g * (kBRowBytes / 4) + t];
+  b1 = group[kBLbo / 4 + g * (kBRowBytes / 4) + t];
 }
 
-// z of rows g and g + 8 of a warp's 16 reads, bf16: for each pass over H2,
-// layer 1 a k16 step of H1 at a time (its two n8 tiles over every k16 step
-// of n_in, one accumulator each), bias, relu and the bf16 pack in
-// registers, then that step of layer 2 on each n8 tile of the pass (a zero
-// accumulator, f32-added in step order), as bf16_tile takes them.
-__device__ __forceinline__ void wide_bf16(const uint32_t* image, int g, int t, const float* x0, const float* x1,
-                                          float (&z)[2]) {
-  const float* imf = reinterpret_cast<const float*>(image);
-  uint32_t a1[kK1Steps][4];  // layer 1's A fragments: columns 16s + 2t.., + 8.. of rows g, g + 8
-#pragma unroll
-  for (int s = 0; s < kK1Steps; ++s) {
-    const int c = 16 * s + 2 * t;
-    const auto col = [](const float* x, int k) { return k < kIn ? x[k] : 0.f; };
-    a1[s][0] = pack_bf16x2(col(x0, c), col(x0, c + 1));
-    a1[s][1] = pack_bf16x2(col(x1, c), col(x1, c + 1));
-    a1[s][2] = pack_bf16x2(col(x0, c + 8), col(x0, c + 9));
-    a1[s][3] = pack_bf16x2(col(x1, c + 8), col(x1, c + 9));
+// Rows [row0, row0 + Rows) x n8 groups [group0, group0 + Groups) of an
+// image operand laid out [row][row_groups groups][256 B] from word `base`
+// (W2's rows are k16 steps of H1, W1H's k16 steps of n_in) into
+// dst[row][group][64 words] by 16-byte copies; zeros past `rows` or `groups`.
+template <int Rows, int Groups, int Threads>
+__device__ __forceinline__ void stage_groups(uint32_t* dst, const uint32_t* image, int base, int row_groups, int row0,
+                                             int rows, int group0, int groups) {
+  for (int e = threadIdx.x; e < Rows * Groups * 16; e += Threads) {
+    const int row = e / (Groups * 16), group = e / 16 % Groups, chunk = e % 16;
+    const bool valid = row0 + row < rows && group0 + group < groups;
+    wide_tile::copy16(dst + (row * Groups + group) * 64 + 4 * chunk,
+                 image + (valid ? base + ((row0 + row) * row_groups + group0 + group) * 64 + 4 * chunk : 0), valid);
   }
-  float zz[2] = {0.f, 0.f};
-  for (int pass = 0; pass < kWidePasses; ++pass) {
-    const int nt0 = pass * kWidePassTiles;
-    float acc[kWidePassTiles][4];
-#pragma unroll
-    for (int i = 0; i < kWidePassTiles; ++i) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
-    }
-#pragma unroll 1
-    for (int j = 0; j < kKSteps; ++j) {
-      float h[2][4] = {};  // layer 1's n8 tiles 2j, 2j + 1
-#pragma unroll
-      for (int s = 0; s < kK1Steps; ++s) {
-#pragma unroll
-        for (int tile = 0; tile < 2; ++tile) {
-          uint32_t b0, b1;
-          b_frag(image, kTcOffW1H, kTiles1, s, 2 * j + tile, g, t, b0, b1);
-          mma_bf16(h[tile], a1[s], b0, b1);
-        }
-      }
-      const float2 bl = __ldg(reinterpret_cast<const float2*>(imf + kTcOffB1) + 8 * j + t);
-      const float2 bh = __ldg(reinterpret_cast<const float2*>(imf + kTcOffB1) + 8 * j + 4 + t);
-      const uint32_t a2[4] = {pack_bf16x2(fmaxf(h[0][0] + bl.x, 0.f), fmaxf(h[0][1] + bl.y, 0.f)),
-                              pack_bf16x2(fmaxf(h[0][2] + bl.x, 0.f), fmaxf(h[0][3] + bl.y, 0.f)),
-                              pack_bf16x2(fmaxf(h[1][0] + bh.x, 0.f), fmaxf(h[1][1] + bh.y, 0.f)),
-                              pack_bf16x2(fmaxf(h[1][2] + bh.x, 0.f), fmaxf(h[1][3] + bh.y, 0.f))};
-#pragma unroll
-      for (int i = 0; i < kWidePassTiles; ++i) {
-        if (nt0 + i >= kTiles2) continue;
-        uint32_t b0, b1;
-        b_frag(image, kTcOffW2H, kTiles2, j, nt0 + i, g, t, b0, b1);
-        float part[4] = {0.f, 0.f, 0.f, 0.f};
-        mma_bf16(part, a2, b0, b1);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[i][e] += part[e];
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < kWidePassTiles; ++i) {
-      if (nt0 + i >= kTiles2) continue;
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int n = 8 * (nt0 + i) + 2 * t + e;
-        const float b2 = __ldg(imf + kTcOffB2 + n), w3 = __ldg(imf + kTcOffW3H + n);
-#pragma unroll
-        for (int r = 0; r < 2; ++r) zz[r] = fmaf(w3, bf16_round(fmaxf(acc[i][2 * r + e] + b2, 0.f)), zz[r]);
-      }
-    }
-  }
-  const float b3 = __ldg(imf + kTcOffB3);
-  z[0] = quad_sum(zz[0]) + b3;
-  z[1] = quad_sum(zz[1]) + b3;
 }
 
-// Phase A of the wide plan: each warp takes 16-read tiles in turn (a
-// grid-stride loop), copies their n_in inputs into its rows of shared
-// memory (lanes over the columns; past n_reads the last read again, not
-// stored), and computes the tile's p.  Repeats are bit-identical, and a
-// read's p does not depend on its place in the batch.
+// bf16's inputs: columns [16 k0, 16 (k0 + K)) of the tile's reads from
+// `first` (a read past n_reads stands in as the last read), rounded to bf16
+// as pairs into dst[read][stride]; zeros past n_in.
+template <int K, int Threads>
+__device__ __forceinline__ void stage_x_bf16(uint16_t* dst, int stride, const float* features,
+                                             const KmerId* kmer_ids, const float* emb, int64_t first,
+                                             int64_t n_reads, int k0) {
+  constexpr int kPairs = kTcWideReads * 8 * K;
+  for (int e0 = threadIdx.x; e0 < kPairs; e0 += wide_tile::kGatherBatch * Threads) {
+    float v[wide_tile::kGatherBatch][2];  // every load of the batch in flight at once
+#pragma unroll
+    for (int j = 0; j < wide_tile::kGatherBatch; ++j) {
+      const int e = e0 + j * Threads, r = e / (8 * K), c = 16 * k0 + 2 * (e % (8 * K));
+      const int64_t want = first + r, read = want < n_reads ? want : n_reads - 1;
+      const float* f = features + read * kFeat;
+      const KmerId* k = kmer_ids + read * kPos;
+      v[j][0] = e < kPairs ? input_col(f, k, emb, c) : 0.f;
+      v[j][1] = e < kPairs ? input_col(f, k, emb, c + 1) : 0.f;
+    }
+#pragma unroll
+    for (int j = 0; j < wide_tile::kGatherBatch; ++j) {
+      const int e = e0 + j * Threads, r = e / (8 * K), c = 2 * (e % (8 * K));
+      if (e < kPairs) *reinterpret_cast<uint32_t*>(dst + r * stride + c) = pack_bf16x2(v[j][0], v[j][1]);
+    }
+  }
+}
+
+// Phase A of the wide plan: a block takes tiles of kTcWideReads reads in
+// turn, warp w the tile's reads [16 w, 16 w + 16).  For each pass of layer
+// 2 (one at H2 <= 128; a later pass forms h1 again), H1 runs in steps of
+// WideCfg::kChunk units (and of a plan's inputs where a tile's do not fit
+// whole).  The block's steps form one stream across its passes and tiles:
+// step g's weights sit in buffer g % kStages and are copied by cp.async
+// while the steps before compute, once for all the block's warps, each
+// fragment then feeding every m16 tile.  Where a tile's inputs fit whole,
+// the next tile's k-mer ids are copied in at its first step and its inputs
+// once this tile's are read no more, so no step waits for a gather.
+// f32x3: layer 1 on the FP32 cores, all threads over the tile
+// (wide_tile.cuh, fused_infer.cu's order), then + b1', relu and the hi /
+// lo split into bf16 [read][unit] in shared memory; each warp takes its A
+// fragments there by ldmatrix, and runs the three products on every n8 tile
+// of the pass (W2lo.h1hi and W2hi.h1lo into one accumulator, W2hi.h1hi
+// alone, f32-added).  bf16: each warp forms its tile's layer 1 on the
+// tensor cores (every k16 step of n_in into one accumulator a unit group),
+// bias, relu and the pack in registers, then layer 2 (a zero accumulator a
+// k16 step, f32-added in step order).  A warp holds all the pass's n8
+// tiles, so the head's per-lane sums run in the earlier kernel's order and
+// across the passes in unit order: every read's p is the same bits as
+// before.  Repeats are bit-identical, and a read's p does not depend on its
+// place in the batch (a read past n_reads, not stored, takes the last
+// read's features).
 template <int Mode>
-__global__ void __launch_bounds__(kWideWarps * 32)
+__global__ void __launch_bounds__(kTcWideThreads, WideCfg<Mode>::kBlocks)
 read_prob_tc_wide_kernel(const float* __restrict__ features, const KmerId* __restrict__ kmer_ids,
                          const uint32_t* __restrict__ image, int64_t n_reads, float* __restrict__ p_out) {
   static_assert(Cfg<Mode>::kWide, "the warpgroup plan runs read_prob_tc_kernel");
-  constexpr int kStride = kIn | 1;
-  extern __shared__ __align__(16) float wide_rows[];
+  constexpr bool kX3 = Mode == kModeF32x3;
+  using P = WideCfg<Mode>;
+  constexpr int kS = P::kStages;
+  constexpr int kSteps = (kH1 + P::kChunk - 1) / P::kChunk * P::kInSteps;  // a pass's
+  constexpr int kTileSteps = kSteps * kWidePasses;
+  constexpr bool kAhead = P::kWhole && kTileSteps >= kS;  // the next tile's inputs come in under this one
+  constexpr int kXbStride = 16 * P::kCols + 8;              // bf16's x row (whole: every k16 step)
+  constexpr int kW1Words = kX3 ? P::kCols * P::kW1Stride : P::kCols * P::kGroups * 64;  // a buffer's
+  extern __shared__ __align__(16) uint8_t wide_smem[];
+  float* const xs = reinterpret_cast<float*>(wide_smem + P::kAtX);  // f32 x[input][read]
+  KmerId* const ids = reinterpret_cast<KmerId*>(wide_smem + P::kAtIds);
+  uint16_t* const xb = reinterpret_cast<uint16_t*>(wide_smem + P::kAtXb);  // bf16 x[read][column]
+  float* const w1s = reinterpret_cast<float*>(wide_smem + P::kAtW1);
+  float* const b1s = reinterpret_cast<float*>(wide_smem + P::kAtB1);
+  uint32_t* const w2h = reinterpret_cast<uint32_t*>(wide_smem + P::kAtW2h);
+  uint32_t* const w2l = reinterpret_cast<uint32_t*>(wide_smem + P::kAtW2l);
+  uint16_t* const ahi = reinterpret_cast<uint16_t*>(wide_smem + P::kAtA);
+  uint16_t* const alo = ahi + kTcWideReads * P::kAStride;
   const int warp = threadIdx.x / 32, lane = threadIdx.x & 31, g = lane / 4, t = lane & 3;
-  float* rows = wide_rows + warp * 16 * kStride;
-  const float* emb = reinterpret_cast<const float*>(image) + (Mode == kModeF32x3 ? kTcOffEmbX : kTcOffEmbH);
-  const int64_t n_tiles = (n_reads + 15) / 16;
-  for (int64_t tile = static_cast<int64_t>(blockIdx.x) * kWideWarps + warp; tile < n_tiles;
-       tile += static_cast<int64_t>(gridDim.x) * kWideWarps) {
-    const int64_t first = tile * 16;
-    __syncwarp();  // the warp is done with the last tile's rows
-    for (int r = 0; r < 16; ++r) {
-      const int64_t l = first + r < n_reads ? first + r : n_reads - 1;
-      for (int c = lane; c < kIn; c += 32) rows[r * kStride + c] = input_col(features + l * kFeat, kmer_ids + l * kPos, emb, c);
-    }
-    __syncwarp();
-    float z[2];
-    if constexpr (Mode == kModeF32x3) {
-      wide_f32x3(image, g, t, rows + g * kStride, rows + (g + 8) * kStride, z);
+  const float* imf = reinterpret_cast<const float*>(image);
+  const float* emb = imf + (kX3 ? kTcOffEmbX : kTcOffEmbH);
+  const wide_tile::Place<kX3Tr, kX3Tn> p1(threadIdx.x);
+  // the copies of step k of a tile's (pass k / kSteps, its n8 tiles from
+  // nt0), the block's step gs: layer-1 weights and, where a tile's inputs
+  // come in steps, x into buffer gs % kS; W2 (and bf16's b1') at a unit
+  // chunk's first step into buffer (the block's unit chunk) % kS
+  const auto stage = [&](int64_t first, int k, int gs) {
+    const int nt0 = k / kSteps * kWidePassTiles, s = k % kSteps, c = s / P::kInSteps, q = s % P::kInSteps;
+    const int b = gs % kS, bc = gs / P::kInSteps % kS;
+    if constexpr (kX3) {
+      // W1T's rows [q cols, ...) x units [c P::kChunk, ...): whole 16-byte runs
+      float* w1 = w1s + b * kW1Words;
+      for (int e = threadIdx.x; e < P::kCols * P::kChunk / 4; e += kTcWideThreads) {
+        const int i = q * P::kCols + e / (P::kChunk / 4), u = c * P::kChunk + 4 * (e % (P::kChunk / 4));
+        const bool valid = i <= kIn && u < kH1Pad;
+        wide_tile::copy16(w1 + (i - q * P::kCols) * P::kW1Stride + (u - c * P::kChunk),
+                          image + (valid ? kTcOffW1T + i * kH1Pad + u : 0), valid);
+      }
+      if constexpr (!P::kWhole) {
+        wide_tile::stage_x<kTcWideReads, P::kCols, kTcXStride, kTcWideThreads, kFeat, kPos, kEmb>(
+            xs + b * P::kCols * kTcXStride, features, kmer_ids, emb, first, n_reads, q * P::kCols);
+      }
     } else {
-      wide_bf16(image, g, t, rows + g * kStride, rows + (g + 8) * kStride, z);
+      stage_groups<P::kCols, P::kGroups, kTcWideThreads>(reinterpret_cast<uint32_t*>(w1s) + b * kW1Words, image,
+                                                            kTcOffW1H, kTiles1, q * P::kCols, kK1Steps,
+                                                            c * P::kGroups, kTiles1);
+      if constexpr (!P::kWhole) {
+        stage_x_bf16<P::kCols, kTcWideThreads>(xb + b * kTcWideReads * kXbStride, kXbStride, features, kmer_ids,
+                                               emb, first, n_reads, q * P::kCols);
+      }
     }
+    if (q == 0) {
+      stage_groups<P::kKSteps, kWidePassTiles, kTcWideThreads>(
+          w2h + bc * P::kW2Words, image, kTcOffW2H, kTiles2, c * P::kKSteps, kKSteps, nt0, kTiles2);
+      if constexpr (kX3) {
+        stage_groups<P::kKSteps, kWidePassTiles, kTcWideThreads>(
+            w2l + bc * P::kW2Words, image, kTcOffW2L, kTiles2, c * P::kKSteps, kKSteps, nt0, kTiles2);
+      } else {
+        for (int e = threadIdx.x; e < P::kChunk / 4; e += kTcWideThreads) {
+          const int u = c * P::kChunk + 4 * e;
+          wide_tile::copy16(b1s + bc * P::kChunk + 4 * e, image + kTcOffB1 + (u < kH1Pad ? u : 0), u < kH1Pad);
+        }
+      }
+    }
+  };
+  const auto stage_inputs = [&](int64_t first) {  // a whole tile's as f32, its ids staged and visible
+    wide_tile::stage_x_ids<kTcWideReads, kTcXStride, kTcWideThreads, kFeat, kPos, kEmb>(xs, features, ids, emb,
+                                                                                         first, n_reads);
+  };
+  const int64_t n_tiles = (n_reads + kTcWideReads - 1) / kTcWideReads;
+  int64_t tile = blockIdx.x;
+  if constexpr (P::kWhole) {
+    wide_tile::stage_ids<kTcWideReads, kPos, kTcWideThreads>(ids, kmer_ids, tile * kTcWideReads, n_reads);
+    wide_tile::commit();
+    wide_tile::wait<0>();
+    __syncthreads();
+    stage_inputs(tile * kTcWideReads);
+  }
+  // the stream's first kS - 1 steps (those of later tiles where a tile has fewer)
+#pragma unroll
+  for (int k = 0; k < kS - 1; ++k) {
+    const int64_t at = tile + static_cast<int64_t>(k / kTileSteps) * gridDim.x;
+    if (at < n_tiles) stage(at * kTcWideReads, k % kTileSteps, k);
+    wide_tile::commit();
+  }
+  int gs = 0;  // the block's steps so far
+  for (; tile < n_tiles; tile += gridDim.x) {
+    const int64_t first = tile * kTcWideReads, next = tile + gridDim.x;
+    float zx[2][2] = {}, zh[2] = {}, zz[2] = {};  // f32x3: w3lo.h2hi, w3hi.h2lo; w3hi.h2hi; bf16: w3.h2
+    for (int pass = 0; pass < kWidePasses; ++pass) {
+      const int nt0 = pass * kWidePassTiles;
+      float cross[kWidePassTiles][4], high[kWidePassTiles][4];  // f32x3; bf16 sums in high
+      float t1[4][4 * P::kX3Gn];                                     // f32x3 layer 1's micro-tile
+      float h1[P::kGroups][4];                                 // bf16 layer 1 of a unit chunk
+#pragma unroll
+      for (int i = 0; i < kWidePassTiles; ++i) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) cross[i][e] = high[i][e] = 0.f;
+      }
+      for (int s = 0; s < kSteps; ++s, ++gs) {
+        const int k = pass * kSteps + s;
+        if (k == 0) {
+          wide_tile::wait<0>();  // and the tile's inputs
+        } else {
+          wide_tile::wait<kS - 2>();
+        }
+        __syncthreads();  // step gs has landed; step gs - 1's readers are done
+        if (!kX3 && P::kWhole && k == 0) {
+          // bf16: the tile's inputs rounded into [read][column], zeros past n_in
+          for (int e = threadIdx.x; e < kTcWideReads * kXbStride / 2; e += kTcWideThreads) {
+            const int r = e / (kXbStride / 2), c = 2 * (e % (kXbStride / 2));
+            const float v0 = c < kIn ? xs[c * kTcXStride + r] : 0.f;
+            const float v1 = c + 1 < kIn ? xs[(c + 1) * kTcXStride + r] : 0.f;
+            *reinterpret_cast<uint32_t*>(xb + r * kXbStride + c) = pack_bf16x2(v0, v1);
+          }
+          __syncthreads();
+        }
+        const int kn = k + kS - 1;  // the stream's step gs + kS - 1, of this tile or a later one
+        const int64_t at = tile + static_cast<int64_t>(kn / kTileSteps) * gridDim.x;
+        if (at < n_tiles) stage(at * kTcWideReads, kn % kTileSteps, gs + kS - 1);
+        if (kAhead && k == 0 && next < n_tiles) {
+          wide_tile::stage_ids<kTcWideReads, kPos, kTcWideThreads>(ids, kmer_ids, next * kTcWideReads, n_reads);
+        }
+        if (!kX3 && kAhead && k == kS - 1 && next < n_tiles) stage_inputs(next * kTcWideReads);  // xs is free
+        wide_tile::commit();
+        const int c = s / P::kInSteps, q = s % P::kInSteps, b = gs % kS, bc = gs / P::kInSteps % kS;
+        const uint32_t* l2h = w2h + bc * P::kW2Words;
+        if constexpr (kX3) {
+          const int i0 = q * P::kCols;
+          const float* x = P::kWhole ? xs : xs + b * P::kCols * kTcXStride;
+          const float* w1 = w1s + b * kW1Words;
+          const int n_x = kIn - i0 < P::kCols ? kIn - i0 : P::kCols;  // the step's inputs (the bias aside)
+          wide_tile::fma_rows<1, P::kX3Gn, kX3Tr, kX3Tn, kTcXStride, P::kW1Stride>(x, w1, n_x, q == 0, p1.tr, p1.tn,
+                                                                                    t1);
+          if (q == P::kInSteps - 1) {
+            // + b1' (column n_in of the step), relu, hi / lo to [read][unit]
+            const float* bias = w1 + (kIn - i0) * P::kW1Stride;
+#pragma unroll
+            for (int h = 0; h < P::kX3Gn; ++h) {
+              const int u = 4 * (p1.tn + h * kX3Tn);
+              const float b0 = bias[u], b1 = bias[u + 1], b2 = bias[u + 2], b3 = bias[u + 3];
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                const int r = 4 * p1.tr + e;
+                uint32_t hi01, lo01, hi23, lo23;
+                split_pack(fmaxf(t1[e][4 * h] + b0, 0.f), fmaxf(t1[e][4 * h + 1] + b1, 0.f), hi01, lo01);
+                split_pack(fmaxf(t1[e][4 * h + 2] + b2, 0.f), fmaxf(t1[e][4 * h + 3] + b3, 0.f), hi23, lo23);
+                *reinterpret_cast<uint2*>(ahi + r * P::kAStride + u) = make_uint2(hi01, hi23);
+                *reinterpret_cast<uint2*>(alo + r * P::kAStride + u) = make_uint2(lo01, lo23);
+              }
+            }
+            __syncthreads();
+            if (kAhead && k == kTileSteps - 1 && next < n_tiles) {  // x is read no more: the next tile's
+              stage_inputs(next * kTcWideReads);
+              wide_tile::commit();
+            }
+            const uint32_t* l2l = w2l + bc * P::kW2Words;
+#pragma unroll
+            for (int jj = 0; jj < P::kKSteps; ++jj) {
+              if (c * P::kKSteps + jj < kKSteps) {
+                uint32_t ah[4], al[4];
+                load_a(ah, ahi, P::kAStride, warp, 16 * jj, lane);
+                load_a(al, alo, P::kAStride, warp, 16 * jj, lane);
+#pragma unroll
+                for (int i = 0; i < kWidePassTiles; ++i) {
+                  if (nt0 + i < kTiles2) {  // the last pass may hold fewer
+                    uint32_t l0, l1, h0, h1;
+                    b_shared(l2l + (jj * kWidePassTiles + i) * 64, g, t, l0, l1);
+                    b_shared(l2h + (jj * kWidePassTiles + i) * 64, g, t, h0, h1);
+                    mma_bf16(cross[i], ah, l0, l1);  // W2lo.h1hi
+                    mma_bf16(cross[i], al, h0, h1);  // + W2hi.h1lo
+                    float part[4] = {0.f, 0.f, 0.f, 0.f};
+                    mma_bf16(part, ah, h0, h1);  // W2hi.h1hi alone
+#pragma unroll
+                    for (int e = 0; e < 4; ++e) high[i][e] += part[e];
+                  }
+                }
+              }
+            }
+          }
+        } else {
+          if (q == 0) {
+#pragma unroll
+            for (int nn = 0; nn < P::kGroups; ++nn) {
+#pragma unroll
+              for (int e = 0; e < 4; ++e) h1[nn][e] = 0.f;
+            }
+          }
+          const uint16_t* x = P::kWhole ? xb : xb + b * kTcWideReads * kXbStride;
+          const uint32_t* w1 = reinterpret_cast<const uint32_t*>(w1s) + b * kW1Words;
+#pragma unroll 4
+          for (int s1 = 0; s1 < P::kCols; ++s1) {
+            if (q * P::kCols + s1 < kK1Steps) {
+              uint32_t a[4];
+              load_a(a, x, kXbStride, warp, 16 * (P::kWhole ? q * P::kCols + s1 : s1), lane);
+#pragma unroll
+              for (int nn = 0; nn < P::kGroups; ++nn) {
+                if (c * P::kGroups + nn < kTiles1) {
+                  uint32_t b0, b1;
+                  b_shared(w1 + (s1 * P::kGroups + nn) * 64, g, t, b0, b1);
+                  mma_bf16(h1[nn], a, b0, b1);
+                }
+              }
+            }
+          }
+          if (q == P::kInSteps - 1) {
+            const float* bias = b1s + bc * P::kChunk;
+#pragma unroll
+            for (int jj = 0; jj < P::kKSteps; ++jj) {
+              if (c * P::kKSteps + jj < kKSteps) {
+                const float2 bl = *reinterpret_cast<const float2*>(bias + 16 * jj + 2 * t);
+                const float2 bh = *reinterpret_cast<const float2*>(bias + 16 * jj + 8 + 2 * t);
+                const uint32_t a2[4] = {
+                    pack_bf16x2(fmaxf(h1[2 * jj][0] + bl.x, 0.f), fmaxf(h1[2 * jj][1] + bl.y, 0.f)),
+                    pack_bf16x2(fmaxf(h1[2 * jj][2] + bl.x, 0.f), fmaxf(h1[2 * jj][3] + bl.y, 0.f)),
+                    pack_bf16x2(fmaxf(h1[2 * jj + 1][0] + bh.x, 0.f), fmaxf(h1[2 * jj + 1][1] + bh.y, 0.f)),
+                    pack_bf16x2(fmaxf(h1[2 * jj + 1][2] + bh.x, 0.f), fmaxf(h1[2 * jj + 1][3] + bh.y, 0.f))};
+#pragma unroll
+                for (int i = 0; i < kWidePassTiles; ++i) {
+                  if (nt0 + i < kTiles2) {
+                    uint32_t w0, w1r;
+                    b_shared(l2h + (jj * kWidePassTiles + i) * 64, g, t, w0, w1r);
+                    float part[4] = {0.f, 0.f, 0.f, 0.f};
+                    mma_bf16(part, a2, w0, w1r);
+#pragma unroll
+                    for (int e = 0; e < 4; ++e) high[i][e] += part[e];
+                  }
+                }
+              }
+            }
+          }
+        }
+      }
+      // the head of the pass: this lane's outputs n = 8 nt + 2t + e of rows
+      // g (r = 0) and g + 8, nt in order
+#pragma unroll
+      for (int i = 0; i < kWidePassTiles; ++i) {
+        if (nt0 + i < kTiles2) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int n = 8 * (nt0 + i) + 2 * t + e;
+            const float b2 = __ldg(imf + kTcOffB2 + n), w3h = __ldg(imf + kTcOffW3H + n);
+            if constexpr (kX3) {
+              const float w3l = __ldg(imf + kTcOffW3L + n);
+#pragma unroll
+              for (int r = 0; r < 2; ++r) {
+                const float v = fmaxf(cross[i][2 * r + e] + high[i][2 * r + e] + b2, 0.f);
+                const float vh = bf16_round(v), vl = bf16_round(v - vh);
+                zx[r][0] = fmaf(w3l, vh, zx[r][0]);
+                zx[r][1] = fmaf(w3h, vl, zx[r][1]);
+                zh[r] = fmaf(w3h, vh, zh[r]);
+              }
+            } else {
+#pragma unroll
+              for (int r = 0; r < 2; ++r) zz[r] = fmaf(w3h, bf16_round(fmaxf(high[i][2 * r + e] + b2, 0.f)), zz[r]);
+            }
+          }
+        }
+      }
+    }
+    const float b3 = __ldg(imf + kTcOffB3);
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      const int64_t read = first + g + 8 * r;
-      if (t == r && read < n_reads) p_out[read] = 1.f / (1.f + expf(-z[r]));
+      const float z = kX3 ? ((quad_sum(zx[r][0]) + quad_sum(zx[r][1])) + quad_sum(zh[r])) + b3 : quad_sum(zz[r]) + b3;
+      const int64_t read = first + 16 * warp + g + 8 * r;
+      if (t == r && read < n_reads) p_out[read] = 1.f / (1.f + expf(-z));
+    }
+    if (P::kWhole && !kAhead && next < n_tiles) {  // a tile of fewer steps than stages: its inputs now
+      __syncthreads();
+      wide_tile::stage_ids<kTcWideReads, kPos, kTcWideThreads>(ids, kmer_ids, next * kTcWideReads, n_reads);
+      wide_tile::commit();
+      wide_tile::wait<0>();
+      __syncthreads();
+      stage_inputs(next * kTcWideReads);
+      wide_tile::commit();
     }
   }
 }
@@ -1259,20 +1529,20 @@ cudaError_t launch(const float* features, const KmerId* kmer_ids, const uint32_t
   cudaError_t err = cudaGetDevice(&device);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if constexpr (C::kWide) {
-    constexpr int kSmem = kWideWarps * kWideRowBytes;
+    constexpr int kSmem = WideCfg<Mode>::kSmem;
     int per_sm = 0;
     if (err == cudaSuccess) {
       err = cudaFuncSetAttribute(read_prob_tc_wide_kernel<Mode>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
     }
     if (err == cudaSuccess) {
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, read_prob_tc_wide_kernel<Mode>, kWideWarps * 32,
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, read_prob_tc_wide_kernel<Mode>, kTcWideThreads,
                                                           kSmem);
     }
     if (err != cudaSuccess) return err;
-    const int64_t needed = ((n_reads + 15) / 16 + kWideWarps - 1) / kWideWarps;
+    const int64_t needed = (n_reads + kTcWideReads - 1) / kTcWideReads;
     const int64_t resident = static_cast<int64_t>(sms) * (per_sm > 0 ? per_sm : 1);
     const int grid = static_cast<int>(needed < resident ? needed : resident);
-    read_prob_tc_wide_kernel<Mode><<<grid, kWideWarps * 32, kSmem, stream>>>(features, kmer_ids, image, n_reads, p);
+    read_prob_tc_wide_kernel<Mode><<<grid, kTcWideThreads, kSmem, stream>>>(features, kmer_ids, image, n_reads, p);
   } else {
     if (err == cudaSuccess) {
       err = cudaFuncSetAttribute(read_prob_tc_kernel<Mode>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -1289,11 +1559,11 @@ cudaError_t launch(const float* features, const KmerId* kmer_ids, const uint32_t
 template <int Mode>
 void config(int32_t* out) {
   using C = Cfg<Mode>;
-  out[0] = C::kWide ? kWideWarps * 32 : C::kThreads;
+  out[0] = C::kWide ? kTcWideThreads : C::kThreads;
   out[1] = C::kWide ? 0 : C::kConsumers;
-  out[2] = C::kWide ? 0 : C::kStages;
-  out[3] = C::kWide ? 16 : C::kItemReads;
-  out[4] = C::kWide ? kWideWarps * kWideRowBytes : C::kSmemBytes;
+  out[2] = C::kWide ? WideCfg<Mode>::kStages : C::kStages;
+  out[3] = C::kWide ? kTcWideReads : C::kItemReads;
+  out[4] = C::kWide ? WideCfg<Mode>::kSmem : C::kSmemBytes;
   out[5] = C::kWide ? 1 : 0;
 }
 
@@ -1318,11 +1588,11 @@ int read_prob_tc_launch(const float* features, const KmerId* kmer_ids, const uin
 
 // The launch of `mode` (1 = f32x3, 2 = bf16): threads a block, consumer
 // warpgroups, ring stages, reads an item (a consumer warpgroup's 64-read
-// tiles, a warp's 16 in the wide plan: the tile whose ragged edge the tests
-// and chip_smoke.py exercise), dynamic shared memory bytes, and 1 for the
-// wide plan (fused_infer_kernel.TC_CONFIG_KEYS; the wide plan has no
-// consumer warpgroups or stages: 0).  Returns cudaErrorInvalidValue for
-// another mode.
+// tiles, a block's tile in the wide plan: the tile whose ragged edge the
+// tests and chip_smoke.py exercise), dynamic shared memory bytes, and 1 for
+// the wide plan (fused_infer_kernel.TC_CONFIG_KEYS; the wide plan has no
+// consumer warpgroups, 0, and its stages are its weight buffers).  Returns
+// cudaErrorInvalidValue for another mode.
 int read_prob_tc_config(int mode, int32_t* out) {
   if (mode == kModeF32x3) {
     config<kModeF32x3>(out);

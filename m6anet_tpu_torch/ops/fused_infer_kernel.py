@@ -33,9 +33,10 @@ packs its weights by the layouts of those widths (``f32_layout``,
 ``tc_layout``).  The sources derive their plan from the widths: within
 the widths of their fast plans the kernels stage the weights in shared
 memory; past them (a thread's registers or a block's shared memory) each
-phase A takes its wide plan, whose kernel reads the weights from device
-memory (``phase_a_wide``; its launches counted in
-``wide_launch_counts``, by precision, besides the wrapper's count).
+phase A takes its wide plan, whose kernel stages the weights a step of
+hidden units at a time for a block's tile of reads (``phase_a_wide``; its
+launches counted in ``wide_launch_counts``, by precision, besides the
+wrapper's count).
 
 The k-mer ids must lie in [0, V) (the kernels read the embedding table
 with them unchecked).  The kernels read int8 ids where every id is below
@@ -106,8 +107,10 @@ TC_CONFIG_KEYS = ("threads", "consumer_warpgroups", "stages", "tile_reads", "dyn
 # shared memory one block may opt into on sm_90 (bytes)
 SHARED_LIMIT_BYTES = 232448
 # the largest vocabulary of the int16 k-mer ids, and the most inputs a read
-# may have: f32's wide plan keeps a warp's (32 reads') n_in inputs in a
-# block's shared memory (kWideThreads in csrc/fused_infer.cu)
+# may have: the widest read the kernels' plans are held to (the wide plans
+# take a read's inputs in steps, tests/test_torch_widths.py checks their
+# plans up to this edge; it was a warp's inputs in a block's shared memory
+# when the wide plans first ran)
 MAX_VOCAB = 32767
 MAX_N_IN = SHARED_LIMIT_BYTES // (4 * 32)
 
@@ -163,7 +166,8 @@ def tc_layout(w: Widths) -> Dict[str, int]:
     .cu's constant names.  Hidden units are padded with zero weights and
     zero bias, H1 to a multiple of 16 (kH1Pad: layer 2's kKSteps k16 steps,
     layer 1's kTiles1 n8 tiles) and H2 to a multiple of 8 (kH2Pad, kTiles2);
-    bf16's layer 1 takes kK1Steps k16 steps over the n_in inputs."""
+    bf16's layer 1 takes kK1Steps k16 steps over the n_in inputs; W1T,
+    f32x3's layer 1 input-major for the wide plan, closes the image."""
     h1_pad, h2_pad = _up(w.hidden1, 16), _up(w.hidden2, 8)
     stride, emb_words = _up(w.n_in + 1, 4), _up(w.vocab * w.emb, 4)
     lay = {
@@ -181,7 +185,8 @@ def tc_layout(w: Widths) -> Dict[str, int]:
     lay["kTcOffW1H"] = lay["kTcOffB3"] + 4
     lay["kTcOffB1"] = lay["kTcOffW1H"] + lay["kK1Steps"] * lay["kTiles1"] * 64
     lay["kTcOffEmbH"] = lay["kTcOffB1"] + h1_pad
-    lay["kTcWords"] = lay["kTcOffEmbH"] + emb_words
+    lay["kTcOffW1T"] = lay["kTcOffEmbH"] + emb_words
+    lay["kTcWords"] = lay["kTcOffW1T"] + (w.n_in + 1) * h1_pad
     return lay
 
 
@@ -194,8 +199,7 @@ def kernel_limit(w: Widths) -> Optional[str]:
     if w.vocab > MAX_VOCAB:
         return f"the kernels read int16 k-mer ids: a vocabulary of at most {MAX_VOCAB}, not {w.vocab}"
     if w.n_in > MAX_N_IN:
-        return (f"shared memory: f32 phase A holds a warp's n_in inputs in a block's, "
-                f"n_in <= {MAX_N_IN}, not {w.n_in}")
+        return f"the kernels' plans are held to n_in <= {MAX_N_IN} inputs a read, not {w.n_in}"
     return None
 
 
@@ -332,6 +336,7 @@ def _pack_tc(w: Widths, w1t, embt, b1t, w2t, b2t, w3t, b3t) -> torch.Tensor:
         _bf16x2_words(w1h.reshape(-1, 2)),  # W1H
         words(b1t, h1_pad),  # B1
         words(bf16_round(emb), lay["kEmbWords"]),  # EMBH
+        words(w1b[:, : w.n_in + 1].t()),  # W1T [input, then the bias][unit]
     ]
     image = torch.cat(parts).contiguous()
     assert image.numel() == lay["kTcWords"]

@@ -25,6 +25,7 @@ from m6anet_tpu_torch.constants import (
 from m6anet_tpu_torch.data.dataset import build_dataset
 from m6anet_tpu_torch.inference.engine import run_inference
 from m6anet_tpu_torch.models import load_model
+from m6anet_tpu_torch.models.mil import MILModel
 from m6anet_tpu_torch.ops import encoder_kernel, mc_kernel, random, site_ops
 from m6anet_tpu_torch.ops import fused_infer_kernel as fik
 from m6anet_tpu_torch.scripts._sweep import same_bits
@@ -915,3 +916,36 @@ def test_the_ports_dataprep_then_inference_on_the_card_matches_the_goldens(cuda_
     np.testing.assert_allclose(got_s.probability_modified, want_s.probability_modified, rtol=0, atol=1e-2)
     gaps = compare_runs(str(tmp_path / "columnar"), str(tmp_path / "json"), DEFAULT_READ_THRESHOLD, 5e-5, None)
     assert gaps["ok"], gaps
+
+
+@pytest.mark.parametrize("widths", [(11, 8, 512, 128, 1024), (11, 8, 256, 64), (3, 2, 150, 128), (227, 5, 1, 1),
+                                    (11, 8, 64, 128)])
+def test_wide_plans_at_every_tail_residue(cuda_device, widths):
+    """Each phase A that takes its wide plan at ``widths`` (W12, W10, W9,
+    the edge of kernel_limit: 1,816 inputs, H1 = H2 = 1, and a tile of
+    fewer steps than the weight buffers in flight) against its
+    plain version on 3 T seeded reads, T its block's tile (f32 1e-6, the
+    reduced modes as _assert_mode_close holds them), and on every batch of
+    the first 2 T + r of them, r in [0, T), the same bits as there: the
+    last tile cut at every residue."""
+    w = fik.Widths(*widths)
+    model = MILModel(fik.widths_config(w)).init(torch.Generator().manual_seed(3)).eval()
+    fp = fik.prepare_fused_params_t(model.to(cuda_device))
+    rng = np.random.default_rng(11)
+    for precision in ("f32", "f32x3", "bf16"):
+        if not fik.phase_a_wide(precision, w, 2 if w.vocab > 128 else 1):
+            continue
+        tile = fik.read_tile_reads(precision, w)
+        X = rng.standard_normal(size=(3 * tile, w.features), dtype=np.float32)
+        K = rng.integers(0, w.vocab, size=(3 * tile, w.positions)).astype(fik.kmer_dtype(w.vocab))
+        Xd, Kd = torch.from_numpy(X).to(cuda_device), torch.from_numpy(K).to(cuda_device)
+        whole = encoder_kernel.fused_read_probability(fp, Xd, Kd, precision)
+        want = fik.read_probability_plain(fp, Xd, Kd, precision)
+        if precision == "f32":
+            torch.testing.assert_close(whole, want, rtol=0, atol=1e-6)
+        else:
+            _assert_mode_close(whole, want, precision, [0, 0])
+        for r in range(tile):
+            n = 2 * tile + r
+            assert same_bits(encoder_kernel.fused_read_probability(fp, Xd[:n], Kd[:n], precision), whole[:n]), (
+                precision, n)

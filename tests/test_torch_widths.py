@@ -288,6 +288,8 @@ def test_packed_images_sit_where_the_kernels_read_them(width_models, name):
     for j, slot, lane in itertools.product(range(steps), range(4), range(4)):
         u = 16 * j + 2 * lane + (slot & 1) + 8 * (slot >> 1)
         assert torch.equal(w1f[j, slot, :, lane].reshape(-1), rows[u]), (j, slot, lane)
+    # the same rows input-major (f32x3's wide plan), the bias the last row
+    assert torch.equal(f32[t["kTcOffW1T"] : t["kTcWords"]].reshape(w.n_in + 1, h1p), rows[:, : w.n_in + 1].t())
 
     def padded(off, n, want):
         part = f32[t[off] : t[off] + n]
@@ -315,7 +317,7 @@ def test_packed_images_sit_where_the_kernels_read_them(width_models, name):
     w2_hi, w2_lo = fik.bf16_split(w2k.reshape(h2p, steps, 16).permute(1, 0, 2))
     assert torch.equal(operand("kTcOffW2H", steps, h2p, t["kW2StepBytes"]), w2_hi)
     assert torch.equal(operand("kTcOffW2L", steps, h2p, t["kW2StepBytes"]), w2_lo)
-    for off in ("kTcOffW2L", "kTcOffW2H", "kTcOffW1H", "kTcWords"):
+    for off in ("kTcOffW2L", "kTcOffW2H", "kTcOffW1H", "kTcOffW1T", "kTcWords"):
         assert t[off] % 4 == 0, off  # 16-byte aligned: a descriptor's address is in 16-byte units
 
 
@@ -350,8 +352,11 @@ def test_the_envelope_on_the_card():
 
 
 PLAN_KEYS = ("reads", "read_blocks", "f32x3_tiles", "f32x3_stages", "f32x3_x_shared", "f32x3_smem",
-             "bf16_consumers", "bf16_stages", "bf16_smem", "f32_wide", "f32x3_wide", "bf16_wide", "f32_wide_threads",
-             "tc_wide_warps")
+             "bf16_consumers", "bf16_stages", "bf16_smem", "f32_wide", "f32x3_wide", "bf16_wide",
+             "f32_wide_reads", "f32_wide_threads", "f32_wide_smem", "f32_wide_unit_steps", "f32_wide_cols",
+             "f32_wide_in_steps", "f32_wide_pass", "f32_wide_passes", "f32_wide_l1_threads", "f32_wide_l2_threads",
+             "tc_wide_reads", "tc_wide_pass_tiles", "tc_wide_passes", "f32x3_wide_smem", "f32x3_wide_cols",
+             "f32x3_wide_in_steps", "bf16_wide_smem", "bf16_wide_cols", "bf16_wide_in_steps")
 
 
 def _source_plans(widths, work):
@@ -377,10 +382,15 @@ def _source_plans(widths, work):
         parts += [f"#undef {k}\n#define {k} {v}\n" for k, v in defines.items()]
         parts += [f"namespace f{i} {{\n{f32}}}\nnamespace t{i} {{\n{tc}}}\n"]
         a, b = f"t{i}::Cfg<t{i}::kModeF32x3>", f"t{i}::Cfg<t{i}::kModeBf16>"
+        x3, bf = f"t{i}::wide_plan(true)", f"t{i}::wide_plan(false)"
         values = [f"f{i}::kReads", f"f{i}::kReadBlocks", f"{a}::kTilesPerGroup", f"{a}::kStages",
                   f"(int){a}::kXShared", f"{a}::kSmemBytes", f"{b}::kConsumers", f"{b}::kStages", f"{b}::kSmemBytes",
-                  f"(int)f{i}::kWide", f"(int){a}::kWide", f"(int){b}::kWide", f"f{i}::kWideThreads",
-                  f"t{i}::kWideWarps"]
+                  f"(int)f{i}::kWide", f"(int){a}::kWide", f"(int){b}::kWide",
+                  f"f{i}::kWideReads", f"f{i}::kWideThreads", f"f{i}::kWideSmem", f"f{i}::kWideUnitSteps",
+                  f"f{i}::kWideCols", f"f{i}::kWideInSteps", f"f{i}::kWidePass", f"f{i}::kWidePasses",
+                  f"f{i}::kL1Tr * f{i}::kL1Tn", f"f{i}::kL2Tr * f{i}::kL2Tn",
+                  f"t{i}::kTcWideReads", f"t{i}::kWidePassTiles", f"t{i}::kWidePasses", f"{x3}.smem", f"{x3}.cols",
+                  f"{x3}.in_steps", f"{bf}.smem", f"{bf}.cols", f"{bf}.in_steps"]
         prints.append(f'  std::printf("{" ".join(["%d"] * len(values))}\\n", {", ".join(values)});')
     parts.append("int main() {\n" + "\n".join(prints) + "\n}\n")
     src, exe = os.path.join(work, "plans.cpp"), os.path.join(work, "plans")
@@ -403,19 +413,31 @@ def test_kernel_plan_keeps_the_sources_tuning_at_the_released_widths(tmp_path):
     256, 512}, H2 in {1, 32, 64, 128} and V in {66, 1024} every plan builds
     (a fast plan's shared memory fits a block, a wide plan's inputs fit),
     f32 phase A takes 1 read a thread past the released widths' 47 values
-    a read, and kernel_limit takes the widths."""
+    a read, and kernel_limit takes the widths.  Over the grid and at the
+    edges of kernel_limit (1,816 inputs a read; H1 = 1, H2 = 1; 32,767
+    k-mers) every wide plan fits a block's shared memory and its steps
+    cover the widths as the wide kernels assume: H1 in unit chunks, n_in
+    and the bias in layer-1 columns (f32, f32x3) or n_in in k16 steps
+    (bf16), H2 (to 4) in passes of a power of two of outputs at least 16
+    (f32) or of n8 tiles (f32x3, bf16), each with no step past the last
+    one needed; f32's layer-1 micro-tiles cover the block's threads, its
+    layer-2 micro-tiles fit them."""
     assert fik.kernel_defines(fik.PRODUCTION) == {}
     assert fik.kernel_defines(fik.PRODUCTION, 2) == {"M6A_KMER_ID_BYTES": 2}
     c, t = _build.cu_constants("fused_infer"), _build.cu_constants("read_prob_tc")
     released = dict(reads=c["kReadTile"], read_blocks=c["kReadMinBlocks"], f32x3_tiles=t["kF32x3Tiles"],
                     f32x3_stages=t["kF32x3Stages"], f32x3_x_shared=0, f32x3_smem=51808,
                     bf16_consumers=t["kBf16Consumers"], bf16_stages=t["kBf16Stages"], bf16_smem=24432,
-                    f32_wide=0, f32x3_wide=0, bf16_wide=0, f32_wide_threads=128, tc_wide_warps=4)
+                    f32_wide=0, f32x3_wide=0, bf16_wide=0, f32_wide_reads=c["kWideReads"],
+                    f32_wide_threads=c["kWideThreads"], tc_wide_reads=16 * t["kTcWideWarps"])
     grid = [fik.Widths(*w) for w in itertools.product((1, 3, 5, 11), (1, 4, 8), (1, 150, 256, 512),
                                                       (1, 32, 64, 128), (66, 1024))]
+    edges = [fik.Widths(*w) for w in itertools.product((227,), (5,), (1, 512), (1, 128, 129), (66, 32767))]
+    edges += [fik.Widths(1, 1, 1, 1, 1), fik.Widths(3, 2, 4096, 1000), fik.Widths(3, 2, 150, 65)]
+    assert max(w.n_in for w in edges) == fik.MAX_N_IN
     card = [fik.Widths(*w) for w in WIDTHS.values()]
-    plans = _source_plans([fik.PRODUCTION] + card + grid, str(tmp_path))
-    assert plans[0] == released
+    plans = _source_plans([fik.PRODUCTION] + card + grid + edges, str(tmp_path))
+    assert {k: plans[0][k] for k in released} == released
     narrow = [k for k in PLAN_KEYS if "smem" not in k and "wide" not in k]
     # (reads, blocks an SM, f32x3 tiles / stages / rows, bf16 warpgroups / stages) at W1-W7
     assert [tuple(plan[k] for k in narrow) for plan in plans[2:9]] == [
@@ -428,7 +450,7 @@ def test_kernel_plan_keeps_the_sources_tuning_at_the_released_widths(tmp_path):
         (0, 1, 1), (0, 1, 1), (1, 1, 0), (0, 0, 0), (1, 1, 1)]
     # W11 (W0 at 1,024 k-mers, int16 ids): W0's plan, with stages 128 bytes longer an item's tile
     assert {k: plans[12][k] for k in narrow} == {k: plans[1][k] for k in narrow}
-    for w, plan in zip(card + grid, plans[1:]):
+    for w, plan in zip(card + grid + edges, plans[1:]):
         assert fik.kernel_limit(w) is None, w
         assert plan["reads"] == (c["kReadTile"] if w.n_in + -(-w.hidden2 // 4) * 4 <= 47 else 1), w
         assert plan["f32_wide"] == (w.n_in + -(-w.hidden2 // 4) * 4 > 144
@@ -439,8 +461,42 @@ def test_kernel_plan_keeps_the_sources_tuning_at_the_released_widths(tmp_path):
             else:
                 assert plan[f"{mode}_smem"] <= fik.SHARED_LIMIT_BYTES and w.hidden1 <= 256 and w.hidden2 <= 64, w
         assert plan["f32x3_stages"] % 2 == 0 and plan["bf16_stages"] % plan["bf16_consumers"] == 0
-        assert plan["f32_wide_threads"] * w.n_in * 4 <= fik.SHARED_LIMIT_BYTES and plan["f32_wide_threads"] >= 32
-        assert plan["tc_wide_warps"] * 16 * (w.n_in | 1) * 4 <= fik.SHARED_LIMIT_BYTES
+        for mode in ("f32", "f32x3", "bf16"):
+            assert plan[f"{mode}_wide_smem"] <= fik.SHARED_LIMIT_BYTES, (w, mode)
+        _covers(plan["f32_wide_unit_steps"], c["kWideChunk"], w.hidden1)
+        h2_pad, tiles2 = -(-w.hidden2 // 4) * 4, -(-w.hidden2 // 8)
+        pass_ = plan["f32_wide_pass"]
+        assert pass_ == min(c["kWidePassCap"], max(16, 1 << (h2_pad - 1).bit_length())), w
+        _covers(plan["f32_wide_passes"], pass_, h2_pad)
+        _covers(plan["tc_wide_passes"], plan["tc_wide_pass_tiles"], tiles2)
+        assert plan["tc_wide_pass_tiles"] == min(tiles2, t["kWidePassCap"]), w
+        for mode, columns in (("f32", w.n_in + 1), ("f32x3", w.n_in + 1), ("bf16", -(-w.n_in // 16))):
+            _covers(plan[f"{mode}_wide_in_steps"], plan[f"{mode}_wide_cols"], columns)
+        assert plan["f32_wide_l1_threads"] == plan["f32_wide_threads"] >= plan["f32_wide_l2_threads"] >= 32, w
+        assert plan["f32_wide_reads"] == c["kWideReads"] and plan["tc_wide_reads"] == 16 * t["kTcWideWarps"]
+
+
+def _covers(steps, size, total):
+    """``steps`` steps of ``size`` cover ``total`` with none past the last
+    one needed."""
+    assert steps * size >= total and (steps - 1) * size < total, (steps, size, total)
+
+
+def test_kernel_limit_takes_what_it_took_before_the_wide_redesign():
+    """kernel_limit passes exactly the widths it passed when the wide plans
+    first ran (every width at least 1, at most 32,767 k-mers: the int16
+    ids, at most 1,816 inputs a read) over a grid that crosses each edge,
+    and refuses the rest naming the limit."""
+    for widths in itertools.product((0, 1, 3, 11, 227, 229), (0, 1, 5, 8), (0, 1, 512, 4096), (0, 1, 128, 1000),
+                                    (0, 1, 66, 32767, 32768)):
+        w = fik.Widths(*widths)
+        took = min(widths) >= 1 and w.vocab <= 32767 and w.n_in <= 1816
+        limit = fik.kernel_limit(w)
+        assert (limit is None) == took, (widths, limit)
+        if min(widths) >= 1 and w.vocab > 32767:
+            assert "int16 k-mer ids" in limit
+        elif min(widths) >= 1 and w.n_in > 1816:
+            assert "1816" in limit
 
 
 def _write_long_runs(path, n_reads=30, n_pos=120):
