@@ -208,14 +208,21 @@ its plain PyTorch version:
                  batch) against torch, and one of 32,768 k-mers (past the
                  int16 ids) refused before any launch
  22. MC shapes   mc_kernel.ragged_mc_batch with sites of 57,345, 100,000
-                 and 1,000,000 reads against the plain version (1e-6), the
-                 shorter sites the same bits as without the long ones, and
-                 through the long-site kernel (launched from count 0);
-                 n_samples 1,
-                 20, 32 against the plain version; MC through the engine
+                 and 1,000,000 reads at T = 1, 257, 1000, 1500 and 4097
+                 against the plain version (1e-6), the shorter sites the
+                 same bits as without the long ones, and through the
+                 long-site kernel (launched from count 0); n_samples 1,
+                 20, 32, 128 against the plain version (and the long
+                 kernel's ptxas registers and spills at each); MC through the engine
                  over a columnar store holding a 100,000-read site,
-                 cuda_fused against --backend torch (site 1e-5); the
-                 long-site path timed at a 1,000,000-read site
+                 cuda_fused against --backend torch (site 1e-5); at T =
+                 1000 one 1,000,000-read site, the three long sites alone
+                 and after the production batch's 16,384 sites, 18 sites
+                 of 57,345 reads and one of 2^23 - 1 against the plain
+                 version, each but the last timed (mc_long_site_kernel
+                 alone, bound, latency floor); every site_p of all of
+                 these the older mc.cu's bits and both MC kernels timed
+                 beside it, where build/parent/csrc/mc.cu is staged
  23. past        the production architecture past the widths of the
                  kernels' fast plans: W8 (3, 2, 512, 32), W9 (3, 2, 150,
                  128), W10 (11, 8, 256, 64), W11 (3, 2, 150, 32) over 1,024
@@ -2114,9 +2121,12 @@ PARENT_CSRC = os.path.join(ROOT, "build", "parent", "csrc")
 PARENT_BUILD = os.path.join(ROOT, "build", "parent", "lib")
 # phase 22: draws per iteration, and the MC method of cuda_fused against the
 # same function of the torch run's reads (PERF.md section 2)
-MC_SAMPLES = (1, 20, 32)
+MC_SAMPLES = (1, 20, 32, 128)
 MC_TORCH_SITE_ATOL = 1e-5
 LONG_SITE = 100_000  # the long site of phase 22's columnar store
+# iterations of phase 22's ragged batch with long sites: one; one past the
+# 256 f64 chains; the published 1,000; 1,500; one past 16 rows of chains
+MC_LONG_ITERS = (1, 257, 1000, 1500, 4097)
 
 
 def shape_variants():
@@ -2135,16 +2145,17 @@ def shape_variants():
 def mc_through_long_kernel(mck, p, offsets, counts, u, n_iters):
     """site_p with every site of 1 read or more through mc_long_site_kernel:
     mc.cu's staged launch sized for count 0 (NaN at those sites), then its
-    long-site launch from count 0.  Counts no launch."""
+    long-site launch from count 0 over every such site.  Counts no launch."""
     lib = mck._kernel_lib()
     n_sites = counts.shape[0]
     site_p = torch.empty(n_sites, dtype=torch.float32, device=p.device)
     stream = torch.cuda.current_stream(p.device).cuda_stream
-    args = (p.data_ptr(), offsets.data_ptr(), counts.data_ptr(), u.data_ptr(), site_p.data_ptr(), n_sites,
-            p.shape[0], n_iters, mck.SAMPLES)
-    for err in (lib.mc_site_launch(*args, 0, stream), lib.mc_long_site_launch(*args, 0, mck.LONG_GRID, stream)):
-        if err != 0:
-            fail(f"MC: a launch from count 0 failed: {lib.mc_error_string(err).decode()}")
+    err = lib.mc_site_launch(p.data_ptr(), offsets.data_ptr(), counts.data_ptr(), u.data_ptr(), site_p.data_ptr(),
+                             n_sites, p.shape[0], n_iters, mck.SAMPLES, 0, stream)
+    err = err or mck.launch_long_sites(lib, p, offsets, counts, u, site_p, mck.long_sites(counts, 0), n_iters,
+                                       mck.SAMPLES, 0)
+    if err != 0:
+        fail(f"MC: a launch from count 0 failed: {lib.mc_error_string(err).decode()}")
     return site_p
 
 
@@ -2201,29 +2212,40 @@ def write_long_runs(path, n_reads=30, n_pos=200):
 
 
 class ParentBuild:
-    """The older sources under PARENT_CSRC built at W0 and at every tuple
-    of WIDTHS and PAST_WIDTHS (int16 ids past 128 k-mers), all at once in a
-    thread started beside the script's own build; ``libs()`` waits for it
-    and gives {(widths name, source): CDLL} with the C interfaces declared,
-    or None when no older sources are staged."""
+    """The older sources under PARENT_CSRC built, all at once in a thread
+    started beside the script's own build: fused_infer.cu and
+    read_prob_tc.cu (where both are staged) at W0 and at every tuple of
+    WIDTHS and PAST_WIDTHS (int16 ids past 128 k-mers), keyed (widths name,
+    source); mc.cu (where staged) at each of MC_SAMPLES, keyed (n_samples,
+    "mc").  ``libs()`` waits for it and gives {key: CDLL} with the C
+    interfaces declared, or None when no older sources are staged."""
 
     def __init__(self):
         from m6anet_tpu_torch.ops import _build
         from m6anet_tpu_torch.ops import fused_infer_kernel as fik
+        from m6anet_tpu_torch.ops import mc_kernel as mck
 
         sources = {name: os.path.join(PARENT_CSRC, f"{name}.cu") for name in ("fused_infer", "read_prob_tc")}
         self.keys, self.paths, self.error, self.seconds = [], None, None, 0.0
-        if not all(os.path.exists(p) for p in sources.values()):
+        jobs = []
+
+        def job(path, defines):
+            return path, [_build.nvcc_path(), *_build.NVCC_FLAGS, *(f"-D{k}={v}" for k, v in sorted(defines.items()))]
+
+        if all(os.path.exists(p) for p in sources.values()):
+            for name, widths in {**WIDTHS, **PAST_WIDTHS}.items():
+                w = fik.Widths(*widths)
+                for source, path in sources.items():
+                    self.keys.append((name, source))
+                    jobs.append(job(path, fik.kernel_defines(w, 2 if w.vocab > 128 else 1)))
+        mc_source = os.path.join(PARENT_CSRC, "mc.cu")
+        if os.path.exists(mc_source):
+            for n_samples in MC_SAMPLES:
+                self.keys.append((n_samples, "mc"))
+                jobs.append(job(mc_source, mck.kernel_defines(n_samples)))
+        if not jobs:
             self.thread = None
             return
-        jobs = []
-        for name, widths in {**WIDTHS, **PAST_WIDTHS}.items():
-            w = fik.Widths(*widths)
-            defines = fik.kernel_defines(w, 2 if w.vocab > 128 else 1)
-            for source, path in sources.items():
-                self.keys.append((name, source))
-                jobs.append((path, [_build.nvcc_path(), *_build.NVCC_FLAGS,
-                                    *(f"-D{k}={v}" for k, v in sorted(defines.items()))]))
 
         def build():
             start = time.perf_counter()
@@ -2240,6 +2262,7 @@ class ParentBuild:
         import ctypes
 
         from m6anet_tpu_torch.ops import fused_infer_kernel as fik
+        from m6anet_tpu_torch.scripts import _sweep
 
         if self.thread is None:
             return None
@@ -2249,7 +2272,9 @@ class ParentBuild:
         out = {}
         for key, path in zip(self.keys, self.paths):
             lib = out[key] = ctypes.CDLL(path)
-            if key[1] == "fused_infer":
+            if key[1] == "mc":
+                _sweep.bind_mc(lib, _sweep.mc_lists_sites(os.path.join(PARENT_CSRC, "mc.cu")))
+            elif key[1] == "fused_infer":
                 lib.fused_infer_launch.argtypes = fik.FUSED_ARGTYPES
                 lib.read_prob_launch.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64, ctypes.c_void_p]
                 lib.site_reduce_launch.argtypes = fik.SITE_REDUCE_ARGTYPES
@@ -2315,8 +2340,8 @@ def check_parent_phase_a(name, w, fp, features, kmer, host):
     from m6anet_tpu_torch.scripts import _sweep
 
     libs = parent_libs()
-    if libs is None:
-        log(f"[{name} parent] no older kernel sources under {PARENT_CSRC}: not compared")
+    if libs is None or (name, "fused_infer") not in libs:
+        log(f"[{name} parent] no older phase A sources under {PARENT_CSRC}: not compared")
         return None
     old, old_tc = libs[(name, "fused_infer")], libs[(name, "read_prob_tc")]
     n = features.shape[0]
@@ -2761,17 +2786,19 @@ def check_past_envelope(logs, work_dir, full_batch, peak_flops, peak_bw):
 
 def check_mc_shapes(logs, work_dir, peak_flops, peak_bw):
     """Phase 22: the MC kernels on sites above the staged cap and at other
-    draws per iteration, against the plain version; the short sites' bits
-    with and without long ones beside them, and through the long-site
-    kernel; run_inference of a columnar store holding a 100,000-read site
-    against --backend torch; the long-site path timed at a 1,000,000-read
-    site."""
+    draws per iteration, against the plain version and, where staged, the
+    older mc.cu (every site_p the same bits); the short sites' bits with
+    and without long ones beside them, and through the long-site kernel;
+    run_inference of a columnar store holding a 100,000-read site against
+    --backend torch; check_long_sites' shapes, bits and times."""
     from m6anet_tpu_torch.constants import DEFAULT_NORM_PATH, PRETRAINED_CONFIGS
     from m6anet_tpu_torch.data.columnar import ColumnarSiteDataset, ColumnarWriter
     from m6anet_tpu_torch.data.norm import load_norm_factors, site_norm_vectors
     from m6anet_tpu_torch.models import load_model
+    from m6anet_tpu_torch.ops import _build
     from m6anet_tpu_torch.ops import mc_kernel as mck
     from m6anet_tpu_torch.ops import random as prng
+    from m6anet_tpu_torch.scripts import _sweep
     from m6anet_tpu_torch.scripts._sweep import same_bits
 
     report = {}
@@ -2779,8 +2806,26 @@ def check_mc_shapes(logs, work_dir, peak_flops, peak_bw):
     p0, off0, cnt0 = (torch.from_numpy(a).cuda() for a in mck.ragged_mc_batch())
     short = torch.cat([torch.arange(len(cnt0) - 16), torch.arange(len(counts) - 16, len(counts))]).cuda()
     host = (offsets.cpu().numpy(), counts.cpu().numpy())
+    libs = parent_libs()
+    older = {n: libs.get((n, "mc")) for n in MC_SAMPLES} if libs else {}
+    if not any(older.values()):
+        log(f"[MC parent] no older mc.cu under {PARENT_CSRC}: long sites not compared with it")
+    older_lists = any(older.values()) and _sweep.mc_lists_sites(os.path.join(PARENT_CSRC, "mc.cu"))
+    report["parent_same_bits"] = {}
+
+    def same_as_parent(label, got, p, offsets, counts, u, n_iters):
+        """got against the older mc.cu's site_p on the same inputs, where staged."""
+        plib = older.get(u.shape[0])
+        if plib is None:
+            return
+        same = same_bits(got, _sweep.mc_site_p(plib, older_lists, p, offsets, counts, u, n_iters))
+        report["parent_same_bits"][label] = same
+        log(f"[MC parent] {label}: every site_p the older mc.cu's bits: {same}")
+        if not same:
+            fail(f"MC {label}: the long-site kernel does not give the older kernel's bits")
+
     errs = []
-    for n_iters in (1500, 257):
+    for n_iters in MC_LONG_ITERS:
         u = torch.from_numpy(prng.shared_draws(0, n_iters)).cuda()
         errs.append(compare_mc(mck, p, offsets, counts, host, u, n_iters, f"MC long sites T={n_iters}"))
         alone = mck.site_probability_mc_cuda(p0, off0, cnt0, u, n_iters)
@@ -2793,6 +2838,7 @@ def check_mc_shapes(logs, work_dir, peak_flops, peak_bw):
             f"long sites as without them: {kept}; every site through the long-site kernel the same bits: {same_path}")
         if not (kept and same_path):
             fail("MC: a site's value depends on the long sites beside it, or on the kernel that takes it")
+        same_as_parent(f"ragged T={n_iters}", with_long, p, offsets, counts, u, n_iters)
     for n_samples in MC_SAMPLES:
         u = torch.from_numpy(prng.shared_draws(0, 1000, n_samples)).cuda()
         got = mck.site_probability_mc_cuda(p, offsets, counts, u, 1000, n_samples, host_sites=host)
@@ -2801,9 +2847,14 @@ def check_mc_shapes(logs, work_dir, peak_flops, peak_bw):
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
         errs.append(err)
-        log(f"[MC n_samples] {n_samples}: max|dsite_p| {err:.3e} repeat_identical {torch.equal(got, again)}")
+        long_ptxas = _build.ptxas_usage(_build.cuda_library("mc", mck.kernel_defines(n_samples)),
+                                        "mc_long_site_kernel")
+        report.setdefault("long_kernel_ptxas", {})[n_samples] = long_ptxas
+        log(f"[MC n_samples] {n_samples}: max|dsite_p| {err:.3e} repeat_identical {torch.equal(got, again)}; "
+            f"mc_long_site_kernel ptxas {long_ptxas}")
         if err > MC_ATOL or not torch.equal(got, again) or not bool(torch.isfinite(got).all()):
             fail(f"MC at n_samples={n_samples}: the kernel disagrees with its plain version")
+        same_as_parent(f"ragged n_samples={n_samples}", got, p, offsets, counts, u, 1000)
     report["max_abs_err"] = max(errs)
 
     # a columnar store of the demo's sites and one of LONG_SITE reads
@@ -2862,39 +2913,131 @@ def check_mc_shapes(logs, work_dir, peak_flops, peak_bw):
     report["e2e"] = {"launches": launches, "batches": runs["cuda_fused"]["batches"], "site_vs_torch_reads": site_gap,
                      "reads_vs_torch": gaps}
 
-    # the long-site path at a 1,000,000-read site, T = 1000
-    n_long = mck.LONG_SITE_COUNTS[-1]
-    p1 = torch.rand(n_long, generator=torch.Generator().manual_seed(23)).mul_(0.3).cuda()
-    off1, cnt1 = (torch.tensor([x], dtype=torch.int32, device="cuda") for x in (0, n_long))
-    host1 = (off1.cpu().numpy(), cnt1.cpu().numpy())
-    u = torch.from_numpy(prng.shared_draws(0, MC_ITERS)).cuda()
-    ms = time_ms(lambda: mck.site_probability_mc_cuda(p1, off1, cnt1, u, MC_ITERS, host_sites=host1))
-    plain_ms = time_ms(lambda: mck.site_probability_mc_plain(p1, off1, cnt1, u, MC_ITERS), reps=5)
-    split = device_split_ms(lambda: mck.site_probability_mc_cuda(p1, off1, cnt1, u, MC_ITERS, host_sites=host1))
-    # mc_long_site_kernel alone (launched from count 0 over the site), by
-    # CUDA events: its device time, whether or not the profiler records it
+    report["long_site"] = check_long_sites(older.get(mck.SAMPLES), older_lists, same_as_parent, peak_flops, peak_bw)
+    report["max_abs_err"] = max(report["max_abs_err"], report["long_site"]["max_abs_err"])
+    return report
+
+
+def check_long_sites(older, older_lists, same_as_parent, peak_flops, peak_bw):
+    """Phase 22's long-site shapes (_sweep.long_site_shapes) at T = 1000: the
+    wrapper against the plain version, repeats (host and device lists)
+    bit-identical, the older mc.cu's bits where staged; then, but at the
+    2^23 - 1 site, mc_long_site_kernel alone beside the older one's
+    (interleaved, CUDA events with the L2 flushed; torch.profiler device
+    time), its bound (U once, each 32-byte sector of p the draws touch
+    once: _sweep.long_site_sectors) and its latency floor: the same launch
+    over the same list with long_from above every count, whose blocks read
+    their list entry and then the count, two dependent loads from device
+    memory, and stop.  mc_site_kernel at the
+    production batch beside the older one's too."""
+    from m6anet_tpu_torch.ops import mc_kernel as mck
+    from m6anet_tpu_torch.ops import random as prng
+    from m6anet_tpu_torch.scripts import _sweep
+
+    u_host = prng.shared_draws(0, MC_ITERS)
+    u = torch.from_numpy(u_host).cuda()
     lib, stream = mck._kernel_lib(), torch.cuda.current_stream().cuda_stream
-    long_out = torch.empty(1, dtype=torch.float32, device="cuda")
-    long_args = (p1.data_ptr(), off1.data_ptr(), cnt1.data_ptr(), u.data_ptr(), long_out.data_ptr(), 1, n_long,
-                 MC_ITERS, mck.SAMPLES, 0, mck.LONG_GRID, stream)
-    if lib.mc_long_site_launch(*long_args) != 0:
-        fail("MC: mc_long_site_kernel did not launch alone")
-    long_kernel_ms = time_ms(lambda: lib.mc_long_site_launch(*long_args))
-    got = mck.site_probability_mc_cuda(p1, off1, cnt1, u, MC_ITERS, host_sites=host1)
-    err = float((got - mck.site_probability_mc_plain(p1, off1, cnt1, u, MC_ITERS)).abs().max())
-    ops = MC_ITERS * (2 * mck.SAMPLES + 1)  # the draws' adds and log1p, each iteration's exp
-    bytes_moved = 4 * mck.SAMPLES * MC_ITERS + 4 * mck.SAMPLES * MC_ITERS + 8 + 4  # the draws' p and U, the site
-    op_ms, byte_ms = ops / peak_flops * 1e3, bytes_moved / peak_bw * 1e3
-    report["long_site"] = {"reads": n_long, "n_iters": MC_ITERS, "ms": ms, "plain_ms": plain_ms, "device_ms": split,
-                           "long_kernel_ms": long_kernel_ms,
-                           "max_abs_err": err, "bound_ms": max(op_ms, byte_ms),
-                           "bound_by": "operations" if op_ms >= byte_ms else "bytes"}
-    log(f"[MC long site timing] {n_long} reads, T={MC_ITERS}: wrapper {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"device time per launch (torch.profiler, ms) {split or 'not measured'}, mc_long_site_kernel alone "
-        f"{long_kernel_ms:.4f} ms (CUDA events), |dsite_p| {err:.3e}")
-    if err > MC_ATOL:
-        fail("MC: the long-site kernel disagrees with its plain version at the 1,000,000-read site")
-    report["max_abs_err"] = max(report["max_abs_err"], err)
+    report, errs = {"n_iters": MC_ITERS, "shapes": {}}, []
+    shapes = _sweep.long_site_shapes()
+    # the wrapper at the 1,000,000-read site, as the engine calls it, and
+    # its plain version; a 4 GB flush, whose ~1.2 ms outlasts the call's
+    # host work (~0.1 ms, and more after a profiler session), so that the
+    # events time the card
+    p1, off1, cnt1 = (torch.from_numpy(a).cuda() for a in shapes["1M site"])
+    host1 = shapes["1M site"][1:]
+    report["ms"] = time_ms(lambda: mck.site_probability_mc_cuda(p1, off1, cnt1, u, MC_ITERS, host_sites=host1),
+                           flush_bytes=4 << 30)
+    report["plain_ms"] = time_ms(lambda: mck.site_probability_mc_plain(p1, off1, cnt1, u, MC_ITERS), reps=5)
+    for name, arrays in shapes.items():
+        p, offsets, counts = (torch.from_numpy(a).cuda() for a in arrays)
+        host = arrays[1:]
+        got = mck.site_probability_mc_cuda(p, offsets, counts, u, MC_ITERS, host_sites=host)
+        again = mck.site_probability_mc_cuda(p, offsets, counts, u, MC_ITERS)
+        want = mck.site_probability_mc_plain(p, offsets, counts, u, MC_ITERS)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        errs.append(err)
+        n_long = int((arrays[2] > mck.MAX_STAGED_READS).sum())
+        log(f"[MC long shape] {name}: {len(arrays[2])} sites, {n_long} long, {len(arrays[0])} reads; "
+            f"max|dsite_p| {err:.3e}; repeat identical {torch.equal(got, again)}")
+        if err > MC_ATOL or not torch.equal(got, again) or not bool(torch.isfinite(got).all()):
+            fail(f"MC {name}: the long-site kernel disagrees with its plain version, or with itself")
+        same_as_parent(name, got, p, offsets, counts, u, MC_ITERS)
+        if name == "2^23 - 1 site":
+            continue
+        # the long kernel alone, into a buffer of its own, with one scratch
+        # for every launch (the kernel leaves its tickets zero: checked
+        # after the timings), so that no fill is timed with it
+        out = torch.zeros_like(got)
+        listed = mck.long_sites(counts)
+        scratch = mck.long_scratch(n_long, MC_ITERS, p.device)
+        launches = {"new": lambda: mck.launch_long_sites(lib, p, offsets, counts, u, out, listed, MC_ITERS,
+                                                         mck.SAMPLES, mck.MAX_STAGED_READS, scratch),
+                    "floor": lambda: mck.launch_long_sites(lib, p, offsets, counts, u, out, listed, MC_ITERS,
+                                                           mck.SAMPLES, 2**31 - 1, scratch)}
+        if older is not None:
+            launches["older"] = _sweep.long_site_launcher(older, older_lists, p, offsets, counts, u, out, MC_ITERS,
+                                                          mck.MAX_STAGED_READS)
+        for label, launch in launches.items():
+            if launch() != 0:
+                fail(f"MC {name}: the {label} long-site launch failed")
+        order = list(launches)
+        times, clocks = _sweep.time_interleaved([launches[k] for k in order], reps=30)
+        ms = dict(zip(order, (statistics.median(t) for t in times)))
+        device = {}
+        for label in ("new", "older"):
+            # up to three profiler sessions: one may record none of the
+            # kernel's launches (it did in a whole run of this script)
+            for _ in range(3 if label in launches else 0):
+                split = device_split_ms(launches[label])
+                device[label] = next((v for k, v in split.items() if "mc_long_site_kernel" in k), None)
+                if device[label] is not None:
+                    break
+        if int(torch.count_nonzero(scratch[1])):
+            fail(f"MC {name}: mc_long_site_kernel left a ticket other than zero")
+        # U once, each sector of p the draws touch once, and per long site
+        # its list entry, offset, count and site_p
+        sectors = _sweep.long_site_sectors(arrays[1], arrays[2], u_host)
+        op_ms = n_long * MC_ITERS * (2 * mck.SAMPLES + 1) / peak_flops * 1e3
+        byte_ms = (4 * mck.SAMPLES * MC_ITERS + 32 * sectors + 16 * n_long) / peak_bw * 1e3
+        report["shapes"][name] = {
+            "sites": len(arrays[2]), "long_sites": n_long, "reads": len(arrays[0]), "max_abs_err": err,
+            "draws": n_long * MC_ITERS * mck.SAMPLES, "sectors": sectors,
+            "ms": ms["new"], "older_ms": ms.get("older"), "device_ms": device.get("new"),
+            "older_device_ms": device.get("older"), "latency_floor_ms": ms["floor"],
+            "bound_ms": max(op_ms, byte_ms), "bound_by": "operations" if op_ms >= byte_ms else "bytes",
+            "sm_clocks": clocks}
+        log(f"[MC long timing] {name}: mc_long_site_kernel {ms['new']:.4f} ms (device {device.get('new')}), the "
+            f"older {ms.get('older')} ms (device {device.get('older')}); latency floor {ms['floor']:.4f} ms, bound "
+            f"{max(op_ms, byte_ms):.6f} ms ({sectors} sectors of p); SM clock {clocks}")
+    timed = report["shapes"]
+    report["max_abs_err"] = max(errs)
+    report["wrapper_device_ms"] = device_split_ms(
+        lambda: mck.site_probability_mc_cuda(p1, off1, cnt1, u, MC_ITERS, host_sites=host1))
+    report["bound_ms"], report["bound_by"] = timed["1M site"]["bound_ms"], timed["1M site"]["bound_by"]
+    growth = timed["production + long sites"]["ms"] - timed["long sites alone"]["ms"]
+    log(f"[MC long timing] wrapper at the 1M site {report['ms']:.4f} ms (device {report['wrapper_device_ms']}), "
+        f"plain {report['plain_ms']:.4f} ms; the production batch's 16,384 sites add {growth:.4f} ms to the long "
+        f"sites alone")
+    if older is not None:
+        # mc_site_kernel's code is the older one's: its time at the
+        # production batch beside the older build's, interleaved
+        p, offsets, counts = (torch.from_numpy(a).cuda() for a in shapes["production + long sites"])
+        keep = counts.shape[0] - len(mck.LONG_SITE_COUNTS)
+        offsets, counts = offsets[:keep], counts[:keep]
+        out = torch.empty(keep, dtype=torch.float32, device="cuda")
+        max_count = int(counts.max())
+
+        def staged(which):
+            return lambda: which.mc_site_launch(p.data_ptr(), offsets.data_ptr(), counts.data_ptr(), u.data_ptr(),
+                                                out.data_ptr(), keep, p.shape[0], MC_ITERS, mck.SAMPLES, max_count,
+                                                stream)
+
+        times, clocks = _sweep.time_interleaved([staged(older), staged(lib)], reps=30)
+        old_ms, new_ms = (statistics.median(t) for t in times)
+        report["mc_site_kernel"] = {"ms": new_ms, "older_ms": old_ms, "ratio": new_ms / old_ms, "sm_clocks": clocks}
+        log(f"[MC parent] mc_site_kernel at the production batch {new_ms:.4f} ms against the older build's "
+            f"{old_ms:.4f} ms ({new_ms / old_ms:.4f}x)")
     return report
 
 
@@ -3411,11 +3554,16 @@ def main():
         "library_ms": None,
         "library_note": "no single PyTorch call computes the sampled noisy-OR",
         "launches_per_batch": mc_shapes["e2e"]["launches"]["site_probability_mc_long"] / mc_shapes["e2e"]["batches"],
-        "path": f"run_inference, MC, over a columnar store with a {LONG_SITE}-read site (phase 22); ms: "
-                "mc_site_kernel and mc_long_site_kernel at one 1,000,000-read site, T = 1000",
+        "path": f"run_inference, MC, over a columnar store with a {LONG_SITE}-read site (phase 22); ms: the "
+                "wrapper (mc_site_kernel and mc_long_site_kernel) at one 1,000,000-read site, T = 1000",
         "kernels": "mc_site_kernel (the short sites) + mc_long_site_kernel",
-        "device_ms": long_site["device_ms"],
-        "long_kernel_ms": long_site["long_kernel_ms"],
+        "device_ms": long_site["wrapper_device_ms"],
+        "shapes": long_site["shapes"],
+        "shapes_note": "mc_long_site_kernel alone at T = 1000 (ms: CUDA events, L2 flushed; device_ms: "
+                       "torch.profiler), beside the older mc.cu's where staged; bound: U once and each 32-byte "
+                       "sector of p the draws touch (sectors); latency_floor_ms: the same launch stopping after "
+                       "each block's list entry and count",
+        "mc_site_kernel_vs_older": long_site.get("mc_site_kernel"),
     })
 
     # the wide plans' kernels: launches from phase 23's W12 run of each

@@ -32,7 +32,11 @@
 //               site_p (4 S): ~4.3 MB, ~1.3 us at 3.35 TB/s;
 // so the bound is the operations', ~5 us.  A site past the staged cap
 // (mc_long_site_kernel, below) needs only its draws: T (2 n + 1)
-// operations and 8 n T bytes of p and U.  The bound counts no gathers and
+// operations, and U once (4 n T bytes) with each 32-byte sector of p that
+// its draws touch, since they land at random in p (at most one a draw and
+// one per 8 reads: 18,495 sectors, 0.59 MB, ~0.2 us at 3.35 TB/s for a
+// 1,000,000-read site at T = 1000; scripts/_sweep.py::long_site_sectors
+// counts them).  The bound counts no gathers and
 // no index arithmetic; every one of the S' * T * 20 = 3.3e8 draws needs
 // both, which gives this design two floors of its own at the production
 // batch (132 SMs at 1.98 GHz):
@@ -84,15 +88,15 @@
 //    57,344 fits (57,345 floats, 224 KB).  Every branch on a count is
 //    uniform across the block.
 //  * Sites longer than that (up to 2^23 - 1 reads) take mc_long_site_kernel
-//    in a second launch: a block a site, which computes each draw's l from
-//    p in device memory (n_samples log1p an iteration, not one a read: 2e4
-//    at 1,000 iterations against 1e6 for a 1,000,000-read site) and takes
-//    the index with the same __fadd_rz and the clamp to c - 1 as an integer
-//    min.  The same staged values, index, sum order over j, f64 sum order
-//    over t and reduction: the same site_p bits as this kernel would give
-//    (scripts and chip_smoke.py send short sites there to show it).
-//    mc_site_kernel marks such a site NaN, and the long kernel, after it on
-//    the stream, writes its value.
+//    in a second launch, which reads each draw's p from device memory (a
+//    log1p a draw, not one a read: 2e4 at 1,000 iterations against 1e6 for
+//    a 1,000,000-read site) and takes the index with the same __fadd_rz
+//    and the clamp to c - 1 as an integer min.  The same values, index,
+//    sum order over j, f64 sum order over t and reduction: the same site_p
+//    bits as this kernel would give (scripts and chip_smoke.py send short
+//    sites there to show it).  mc_site_kernel marks such a site NaN, and
+//    the long kernel, after it on the stream, writes its value.  Its design
+//    is in the note above it.
 //  * Each thread runs kTogether sites side by side over the same draws, for
 //    more independent sums (in the sweep at the production batch: 1 site at
 //    a time 0.1265 ms, 2 sites 0.1244 ms, 4 sites 0.1218 ms; a site past the
@@ -153,6 +157,32 @@ constexpr int kStagingBytes = 72 * 1024;   // a launch's staged l, unless one si
 constexpr int kDefaultSharedBytes = 48 * 1024;
 constexpr unsigned kMagicBits = 0x4B000000u;  // the bits of 2^23
 constexpr int32_t kBadSite = INT32_MIN;       // the count of a site the launch cannot take
+// mc_long_site_kernel's shape (scripts/sweep_mc.py rewrites the three
+// tunings): a block of kLongThreads threads takes a slice of kLongSlice
+// iterations of one site; in a site's last block a thread sums
+// kLongChains of the kThreads f64 chains, loading kLongLoads of each
+// chain's values at a time.  The sweep's fastest set at T = 1000 on all
+// three of its shapes (H100 80GB HBM3, 700 W; PERF.md): 32 to 256
+// threads up to 19% slower, 2 or 4 iterations a thread 1.2-1.5x, 4
+// loads (T = 1000 is 4 rows of kThreads) ahead of 8 and 16 by 5-14%
+constexpr int kLongThreads = 64;
+constexpr int kLongIters = 1;
+constexpr int kLongLoads = 4;
+constexpr int kLongSlice = kLongThreads * kLongIters;
+constexpr int kLongChains = kThreads / kLongThreads;
+static_assert(kThreads % kLongThreads == 0 && kLongThreads % 32 == 0,
+              "a whole number of chains a thread, whole warps a block");
+static_assert(kLongIters >= 1 && kLongLoads >= 1, "at least one iteration and one load");
+// An iteration's draws go out in kLongRounds rounds of kLongDraws loads of
+// U and then kLongDraws gathers: one round up to kLongRound draws (every
+// n_samples the sweep times), so the draws held in registers do not grow
+// with n_samples past it
+constexpr int kLongRound = 32;
+constexpr int kLongRounds = (kSamples + kLongRound - 1) / kLongRound;
+constexpr int kLongDraws = (kSamples + kLongRounds - 1) / kLongRounds;
+
+// Blocks of mc_long_site_kernel a site: its n_iters iterations in slices.
+constexpr int64_t long_blocks_per_site(int64_t n_iters) { return (n_iters + kLongSlice - 1) / kLongSlice; }
 
 __device__ __forceinline__ float clamped_log1m(float p) {
   const float v = log1pf(-p);
@@ -403,65 +433,161 @@ mc_site_kernel(const float* __restrict__ p, const int32_t* __restrict__ offsets,
   if (k > 0) finish(k - 1);
 }
 
-// Sites with count > long_from, which mc_site_kernel's launch does not
-// stage: a block a site, the blockIdx.x-th of them in site order and every
-// gridDim.x-th after it.  Each thread takes iterations t = threadIdx.x +
-// kThreads i in order, as mc_site_kernel's threads do, and its draws' l
-// from p in device memory.  A count of 2^23 or more, or a span outside p,
-// gives NaN.
-__global__ void __launch_bounds__(kThreads)
+// The listed sites (long_sites[slot], slot < n_long) whose count is above
+// long_from: mc_site_kernel's launch stages none of them, and gives those
+// above its slot NaN; this kernel writes their value, after it on the
+// stream.  A listed site of count <= long_from keeps mc_site_kernel's
+// value; a count of 2^23 or more, or a span outside p, gives NaN.
+//
+// What limited the kernel this replaces (a block a site, each thread
+// iterations t = tid, tid + 256, ... in turn; on an NVIDIA H100 80GB HBM3
+// at 700 W 0.0227 ms of device time for a 1,000,000-read site at T = 1000,
+// against ~0.0002 ms of bytes; PERF.md): each draw was a load of U, then a
+// gather of p, the draw loop unrolled 4, so ~40 dependent round trips a
+// thread on one SM while the others idled; and each block scanned every
+// count of the batch for the long sites.  This design:
+//  * Spreads a site over blocks.  The grid is n_long x long_blocks_per_site
+//    blocks; block b of a site takes iterations [b kLongSlice, (b + 1)
+//    kLongSlice), thread tid of it t = b kLongSlice + tid + kLongThreads q,
+//    q < kLongIters.  At T = 1000 a site's 20,000 gathers go out from 16
+//    blocks of 64 threads on 16 SMs at once.
+//  * One round trip a thread for its draws: kSamples is a compile-time
+//    constant, so the draws of its iterations unroll whole: every U load
+//    goes out (before the site's count, which U does not depend on), then
+//    every gather, then the f32 sums in the order j = 0..kSamples-1.  Past
+//    kLongRound draws an iteration they go out in rounds (a round trip
+//    each), the sums carried across them in the same order.
+//  * Keeps the order of the sums across blocks: each iteration's e[t] =
+//    expf(S_t) is an f32 value, written to e_all (n_iters floats a listed
+//    site).  The site's last block to finish (its thread 0 takes a ticket,
+//    atomicInc wrapping at blocks_per_site - 1, so the tickets are 0 again
+//    after every launch; __threadfence before the ticket and after it, and
+//    e read through L2) sums chain k < kThreads, e[k], e[k + kThreads],
+//    ... in f64 in that order (thread tid the chains tid + kLongThreads a),
+//    then threads_total's tree as mc_site_kernel does.  Which block
+//    computes an e[t], or comes last, changes no bit: repeats are
+//    bit-identical, and a site's value is the staged kernel's.
+//  * No scan of the counts: the wrapper lists the long sites (from the
+//    host arrays, or on the card), so no block's work grows with n_sites.
+__global__ void __launch_bounds__(kLongThreads)
 mc_long_site_kernel(const float* __restrict__ p, const int32_t* __restrict__ offsets,
                     const int32_t* __restrict__ counts, const float* __restrict__ u,
-                    int64_t n_sites, int64_t n_reads, int n_iters, int long_from,
-                    float* __restrict__ site_p) {
+                    const int32_t* __restrict__ long_sites, int64_t n_sites, int64_t n_reads, int n_iters,
+                    int blocks_per_site, int long_from, float* __restrict__ e_all,
+                    unsigned* __restrict__ tickets, float* __restrict__ site_p) {
   __shared__ double sums[kThreads];
-  __shared__ int found[kThreads];       // a chunk's long sites, by position in the chunk
-  __shared__ int warp_found[kWarps];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  int64_t seen = 0;  // long sites before this chunk of sites
-  for (int64_t base = 0; base < n_sites; base += kThreads) {
-    const bool is_long = base + tid < n_sites && counts[base + tid] > long_from;
-    const unsigned ballot = __ballot_sync(0xffffffffu, is_long);
-    if (lane == 0) warp_found[warp] = __popc(ballot);
-    __syncthreads();
-    int before = 0, in_chunk = 0;
-    for (int w = 0; w < kWarps; ++w) {
-      before += w < warp ? warp_found[w] : 0;
-      in_chunk += warp_found[w];
+  __shared__ int last_block;
+  const int tid = threadIdx.x;
+  const int64_t slot = blockIdx.x / blocks_per_site;
+  const int slice = static_cast<int>(blockIdx.x - slot * blocks_per_site);
+  const int t0 = slice * kLongSlice + tid;  // this thread's first iteration
+  // the draws j = j0 + d, d < kLongDraws, of this thread's iterations;
+  // one past n_iters or n_samples is 0 (it reads nothing and is not added)
+  float draws[kLongIters][kLongDraws];
+  const auto load_draws = [&](int j0) {
+#pragma unroll
+    for (int q = 0; q < kLongIters; ++q) {
+      const int t = t0 + q * kLongThreads;
+#pragma unroll
+      for (int d = 0; d < kLongDraws; ++d) {
+        const int j = j0 + d;
+        const bool drawn_j = kLongRounds * kLongDraws == kSamples || j < kSamples;
+        draws[q][d] = t < n_iters && drawn_j ? __ldg(u + static_cast<int64_t>(j) * n_iters + t) : 0.f;
+      }
     }
-    if (is_long) found[before + __popc(ballot & ((1u << lane) - 1u))] = tid;
-    __syncthreads();
-    for (int m = 0; m < in_chunk; ++m) {
-      if ((seen + m) % gridDim.x != blockIdx.x) continue;  // uniform across the block
-      const int64_t site = base + found[m];
-      const int c = counts[site], offset = offsets[site];
-      if (c >= (1 << 23) || offset < 0 || static_cast<int64_t>(offset) + c > n_reads) {
-        if (tid == 0) site_p[site] = __int_as_float(0x7fc00000);  // NaN
-        continue;
+  };
+  load_draws(0);
+  // the site after the first round's U loads are out, and no branch before
+  // the gathers (so that no load waits behind it); each flag is uniform
+  // across the site's blocks
+  const int32_t site = __ldg(long_sites + slot);
+  const bool listed = site >= 0 && site < n_sites;
+  const int c = listed ? __ldg(counts + site) : 0, offset = listed ? __ldg(offsets + site) : 0;
+  const bool taken = c > long_from;
+  const bool bad = taken && (c >= (1 << 23) || offset < 0 || static_cast<int64_t>(offset) + c > n_reads);
+  const bool ok = taken && !bad;
+  const float cf = static_cast<float>(c);
+  const unsigned last = static_cast<unsigned>(c - 1);
+  const float* __restrict__ reads = p + (ok ? offset : 0);
+  // each iteration's f32 sum in the order j = 0..kSamples-1, across rounds;
+  // a round's sums after a branch on ok, past its gathers
+  float sum[kLongIters];
+#pragma unroll
+  for (int q = 0; q < kLongIters; ++q) sum[q] = 0.f;
+  const auto draw_round = [&](int j0) {
+    float drawn[kLongIters][kLongDraws];
+#pragma unroll
+    for (int q = 0; q < kLongIters; ++q) {
+      const bool live = ok && t0 + q * kLongThreads < n_iters;
+#pragma unroll
+      for (int d = 0; d < kLongDraws; ++d) {
+        const float x = __fmul_rn(draws[q][d], cf);
+        const unsigned r = __float_as_uint(__fadd_rz(x, 8388608.f)) - kMagicBits;  // trunc(x)
+        drawn[q][d] = live ? __ldg(reads + (r < last ? r : last)) : 0.f;
       }
-      const float cf = static_cast<float>(c);
-      const unsigned last = static_cast<unsigned>(c - 1);
-      double acc = 0.0;
-      for (int t = tid; t < n_iters; t += kThreads) {
-        float sum = 0.f;
-#pragma unroll 4
-        for (int d = 0; d < kSamples; ++d) {
-          const float x = __fmul_rn(__ldg(u + static_cast<int64_t>(d) * n_iters + t), cf);
-          const unsigned r = __float_as_uint(__fadd_rz(x, 8388608.f)) - kMagicBits;  // trunc(x)
-          sum += clamped_log1m(__ldg(p + offset + (r < last ? r : last)));
-        }
-        acc += static_cast<double>(expf(sum));
-      }
-      sums[tid] = acc;
-      __syncthreads();
-      if (warp == 0) {
-        const double total = threads_total(sums, lane);
-        if (lane == 0) site_p[site] = static_cast<float>(1.0 - total / n_iters);
-      }
-      __syncthreads();
     }
-    seen += in_chunk;
-    __syncthreads();  // found and warp_found are written again
+    if (!ok) return;
+#pragma unroll
+    for (int q = 0; q < kLongIters; ++q)
+#pragma unroll
+      for (int d = 0; d < kLongDraws; ++d)
+        if (kLongRounds * kLongDraws == kSamples || j0 + d < kSamples) sum[q] += clamped_log1m(drawn[q][d]);
+  };
+  draw_round(0);
+  // past kLongRound draws an iteration, the other rounds (no loop at all
+  // up to it)
+#pragma unroll 1
+  for (int j0 = kLongDraws; ok && j0 < kSamples; j0 += kLongDraws) {
+    load_draws(j0);
+    draw_round(j0);
+  }
+  if (!ok) {  // mc_site_kernel's value stands, or NaN
+    if (bad && slice == 0 && tid == 0) site_p[site] = __int_as_float(0x7fc00000);
+    return;
+  }
+  float* __restrict__ e = e_all + slot * n_iters;
+#pragma unroll
+  for (int q = 0; q < kLongIters; ++q) {
+    const int t = t0 + q * kLongThreads;
+    if (t < n_iters) e[t] = expf(sum[q]);
+  }
+
+  __threadfence();  // this thread's e[t], seen device-wide before the ticket
+  __syncthreads();
+  if (tid == 0) {
+    last_block = atomicInc(tickets + slot, static_cast<unsigned>(blocks_per_site - 1)) ==
+                 static_cast<unsigned>(blocks_per_site - 1);
+    __threadfence();
+  }
+  __syncthreads();
+  if (!last_block) return;
+
+  // chain k = tid + kLongThreads a: e[k + kThreads m], m = 0, 1, ... in order
+  const int rows = (n_iters + kThreads - 1) / kThreads;
+  double acc[kLongChains];
+#pragma unroll
+  for (int a = 0; a < kLongChains; ++a) acc[a] = 0.0;
+  for (int m0 = 0; m0 < rows; m0 += kLongLoads) {
+    float v[kLongLoads][kLongChains];
+#pragma unroll
+    for (int m = 0; m < kLongLoads; ++m)
+#pragma unroll
+      for (int a = 0; a < kLongChains; ++a) {
+        const int t = (m0 + m) * kThreads + a * kLongThreads + tid;
+        v[m][a] = t < n_iters ? __ldcg(e + t) : 0.f;
+      }
+#pragma unroll
+    for (int m = 0; m < kLongLoads; ++m)
+#pragma unroll
+      for (int a = 0; a < kLongChains; ++a)
+        if ((m0 + m) * kThreads + a * kLongThreads + tid < n_iters) acc[a] += static_cast<double>(v[m][a]);
+  }
+#pragma unroll
+  for (int a = 0; a < kLongChains; ++a) sums[a * kLongThreads + tid] = acc[a];
+  __syncthreads();
+  if (tid < 32) {
+    const double total = threads_total(sums, tid);
+    if (tid == 0) site_p[site] = static_cast<float>(1.0 - total / n_iters);
   }
 }
 
@@ -519,19 +645,26 @@ int mc_site_launch(const float* p, const int32_t* offsets, const int32_t* counts
   return static_cast<int>(cudaGetLastError());
 }
 
-// The sites with count > long_from, after mc_site_launch on the same
-// `stream` (which gives them NaN): `grid` blocks, at most one a site.  The
-// caller checks every count below 2^23 and every span inside p; a site
-// that breaks either gives NaN.  n_samples must be kSamples.  Returns the
-// CUDA error code of the launch (0 = success); cudaErrorInvalidValue for
+// The n_long sites of long_sites (site indices, in any order, none twice)
+// whose count is above long_from, after mc_site_launch on the same `stream`
+// (which gives those above its slot NaN).  e_all holds n_long x n_iters
+// floats, tickets n_long zeros (the kernel leaves them 0).  The caller
+// checks every count below 2^23 and every span inside p; a site that
+// breaks either gives NaN.  n_samples must be kSamples.  Returns the CUDA
+// error code of the launch (0 = success); cudaErrorInvalidValue for
 // arguments the kernel does not take.
-int mc_long_site_launch(const float* p, const int32_t* offsets, const int32_t* counts,
-                        const float* u, float* site_p, int64_t n_sites, int64_t n_reads,
-                        int n_iters, int n_samples, int long_from, int grid, void* stream_ptr) {
-  if (n_sites <= 0 || grid <= 0) return static_cast<int>(cudaSuccess);
+int mc_long_site_launch(const float* p, const int32_t* offsets, const int32_t* counts, const float* u,
+                        const int32_t* long_sites, float* e_all, unsigned* tickets, float* site_p,
+                        int64_t n_sites, int64_t n_reads, int n_iters, int n_samples, int n_long, int long_from,
+                        void* stream_ptr) {
+  if (n_sites <= 0 || n_long <= 0) return static_cast<int>(cudaSuccess);
   if (n_samples != kSamples || n_iters < 1 || long_from < 0) return static_cast<int>(cudaErrorInvalidValue);
-  mc_long_site_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream_ptr)>>>(
-      p, offsets, counts, u, n_sites, n_reads, n_iters, long_from, site_p);
+  const int64_t blocks_per_site = long_blocks_per_site(n_iters);
+  const int64_t grid = blocks_per_site * n_long;
+  if (grid > INT32_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  mc_long_site_kernel<<<static_cast<unsigned>(grid), kLongThreads, 0, static_cast<cudaStream_t>(stream_ptr)>>>(
+      p, offsets, counts, u, long_sites, n_sites, n_reads, n_iters, static_cast<int>(blocks_per_site), long_from,
+      e_all, tickets, site_p);
   return static_cast<int>(cudaGetLastError());
 }
 

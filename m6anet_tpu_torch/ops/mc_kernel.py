@@ -14,10 +14,13 @@ reads on either device, the range of the kernel's draw index.  The kernel
 stages a site of up to ``MAX_STAGED_READS`` reads in shared memory, sized at
 each launch to the batch's largest such count; a longer site takes a second
 kernel of ``csrc/mc.cu``, ``mc_long_site_kernel``, which reads its values
-from device memory and gives the same site_p bits as the staged kernel
-would.  ``n_samples`` may be any count from 1: the kernel holds the draws of
-an iteration in registers, so each count builds its own library at first
-use (``SAMPLES`` = 20, the reference's, is the sources' default).
+from device memory, spreads each such site's iterations over many blocks
+and gives the same site_p bits as the staged kernel would.  It takes the
+list of those sites (:func:`long_sites`), so its work does not grow with
+the batch's other sites.  ``n_samples`` may be any count from 1: the
+kernels hold the draws of an iteration in registers, so each count builds
+its own library at first use (``SAMPLES`` = 20, the reference's, is the
+sources' default).
 
 On a CUDA tensor :func:`site_probability_mc_cuda` launches the hand-written
 Hopper kernel in ``csrc/mc.cu`` and counts the launch in ``launch_count``
@@ -28,11 +31,11 @@ file's header states its bound on the card and its design.
 
 The wrapper checks the sites before it launches (a count above
 ``MAX_SITE_READS``, a span outside ``p``) and needs the largest staged
-count and the number of longer sites.  From
-the device tensors that costs a host sync; a caller that holds the same
-offsets and counts as numpy arrays (the engine does) passes them as
-``host_sites``, and the check runs on the host without touching the device.
-Those arrays must be the exact source of the device tensors.  If they are
+count and the number of longer sites.  From the device tensors that costs
+a host sync; a caller that holds the same offsets and counts as numpy
+arrays (the engine does) passes them as ``host_sites``: the check and the
+list run on the host, and the list reaches the card through pinned
+memory, with no host sync.  Those arrays must be the exact source of the device tensors.  If they are
 not, the kernel still loads and stores nothing outside ``p`` and its staging:
 a site whose count exceeds what the launch was sized for, or whose span
 leaves ``p``, gives NaN.
@@ -170,15 +173,14 @@ def ragged_mc_batch(seed: int = 5, long_sites: bool = False):
 
 # mc_site_launch(p, offsets, counts, u, site_p, n_sites, n_reads, n_iters,
 # n_samples, max_count, stream); mc_long_site_launch(p, offsets, counts, u,
-# site_p, n_sites, n_reads, n_iters, n_samples, long_from, grid, stream)
+# long_sites, e_all, tickets, site_p, n_sites, n_reads, n_iters, n_samples,
+# n_long, long_from, stream)
 LAUNCH_ARGTYPES = [ctypes.c_void_p] * 5 + [
     ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
 ]
-LONG_LAUNCH_ARGTYPES = [ctypes.c_void_p] * 5 + [
+LONG_LAUNCH_ARGTYPES = [ctypes.c_void_p] * 8 + [
     ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
 ]
-# the long-site kernel's blocks, at most (one a site below it)
-LONG_GRID = 1024
 _lib_lock = threading.Lock()
 _libs: Dict[int, ctypes.CDLL] = {}
 
@@ -204,6 +206,45 @@ def _kernel_lib(n_samples: int = SAMPLES) -> ctypes.CDLL:
             lib.mc_error_string.argtypes = [ctypes.c_int]
             _libs[n_samples] = lib
     return lib
+
+
+def long_sites(counts, long_from: int = MAX_STAGED_READS, n_long: Optional[int] = None):
+    """The sites of more than ``long_from`` reads, in site order, as int32:
+    the list ``mc_long_site_kernel`` takes.  ``counts`` is a numpy array
+    (a numpy list, no device access) or a tensor (a tensor on its device).
+    For a tensor, ``n_long`` is the number of such sites where the caller
+    knows it (then no host sync; on the card one without it)."""
+    if not isinstance(counts, torch.Tensor):
+        return np.flatnonzero(np.asarray(counts) > long_from).astype(np.int32)
+    if n_long is None:
+        n_long = int((counts > long_from).sum())
+    # a stable sort of the flags puts the listed sites first, in site order
+    return torch.argsort((counts <= long_from).to(torch.int8), stable=True)[:n_long].to(torch.int32)
+
+
+def long_scratch(n_long: int, n_iters: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``mc_long_site_launch``'s scratch for ``n_long`` listed sites: e
+    (``n_iters`` floats a site) and a ticket a site, zero.  The kernel
+    leaves the tickets zero, so a caller that launches in turn on one
+    stream may pass the same scratch again."""
+    return (torch.empty(n_long * n_iters, dtype=torch.float32, device=device),
+            torch.zeros(n_long, dtype=torch.int32, device=device))
+
+
+def launch_long_sites(lib, p, offsets, counts, u, site_p, sites, n_iters, n_samples, long_from,
+                      scratch: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> int:
+    """``lib``'s ``mc_long_site_launch`` over the int32 site list ``sites``
+    (on the card), on the current stream, with ``scratch`` (from
+    :func:`long_scratch`; a new one by default): returns the CUDA error
+    code.  Counts no launch."""
+    n_long = sites.shape[0]
+    device = p.device
+    stream = torch.cuda.current_stream(device).cuda_stream
+    e_all, tickets = long_scratch(n_long, n_iters, device) if scratch is None else scratch
+    return lib.mc_long_site_launch(
+        p.data_ptr(), offsets.data_ptr(), counts.data_ptr(), u.data_ptr(), sites.data_ptr(), e_all.data_ptr(),
+        tickets.data_ptr(), site_p.data_ptr(), counts.shape[0], p.shape[0], int(n_iters), int(n_samples), n_long,
+        long_from, stream)
 
 
 def site_probability_mc_cuda(
@@ -259,7 +300,12 @@ def site_probability_mc_cuda(
         _raise_on(lib, lib.mc_site_launch(*args, max_count, stream))
         launch_count += 1
         if n_long:
-            _raise_on(lib, lib.mc_long_site_launch(*args, MAX_STAGED_READS, min(n_long, LONG_GRID), stream))
+            if host_sites is None:
+                listed = long_sites(counts, n_long=n_long)
+            else:  # pinned, so the copy makes the host wait for nothing
+                listed = torch.from_numpy(long_sites(host_sites[1])).pin_memory().to(device, non_blocking=True)
+            _raise_on(lib, launch_long_sites(lib, p, offsets, counts, u, site_p, listed, n_iters, n_samples,
+                                             MAX_STAGED_READS))
             long_launch_count += 1
     return site_p
 

@@ -1,7 +1,9 @@
 """What the on-card sweeps of the kernel sources share.
 
 * :func:`production_batch` makes the production batch every sweep and
-  ``chip_smoke.py`` time on;
+  ``chip_smoke.py`` time on, :func:`long_site_shapes` the batches of MC
+  sites past the staged cap that ``sweep_mc.py`` and ``chip_smoke.py``
+  time the long-site kernel on;
 * :func:`variant_source` rewrites ``constexpr int`` constants of a source;
 * :func:`same_bits` compares two kernels' outputs bit for bit;
 * :func:`sass_instructions` and :func:`sass_counts` read a kernel's static
@@ -13,11 +15,17 @@
 * :func:`gather_passes`, :func:`draw_window` and :func:`issue_floor_ms`
   give the floors of ``mc.cu``'s design that ``sweep_mc.py`` and
   ``chip_smoke.py`` print beside its times.  They are models of the
-  kernel, counted from the batch and the SASS, not measurements.
+  kernel, counted from the batch and the SASS, not measurements;
+  :func:`long_site_sectors` counts the bytes of p the long-site kernel's
+  bound takes;
+* :func:`bind_mc`, :func:`long_site_launcher` and :func:`mc_site_p` call
+  a library built from either version of ``mc.cu``: this one, or an older
+  one whose long-site launch scans the counts for the long sites.
 """
 from __future__ import annotations
 
 import collections
+import ctypes
 import os
 import re
 import subprocess
@@ -27,10 +35,12 @@ import numpy as np
 import torch
 
 from ..ops import _build
+from ..ops import mc_kernel
 
 FLUSH_BYTES = 1 << 30  # zeroed before each timed launch: well past the 50 MB L2
 BANKS = 32  # shared-memory banks of an SM
 READS, SITES = 1 << 20, 16384  # the production batch: the JAX engine's accelerator capacities
+LONG_STRETCH = 18  # sites of MAX_STAGED_READS + 1 reads: the most a batch of READS holds
 
 
 def production_batch(seed: int = 0):
@@ -49,6 +59,31 @@ def production_batch(seed: int = 0):
         raise ValueError("the production batch's read counts overflow its reads")
     offsets = (np.cumsum(counts) - counts).astype(np.int32)
     return features, kmer_ids, offsets, counts
+
+
+def long_site_shapes(seed: int = 23) -> Dict[str, Tuple[np.ndarray, np.ndarray, np.ndarray]]:
+    """MC batches with sites past ``mc_kernel.MAX_STAGED_READS``, as numpy
+    ``(p, offsets, counts)`` packed from read 0, p uniform in [0, 0.3)
+    from ``seed``: one site of 1,000,000 reads; ``LONG_SITE_COUNTS``' three
+    sites alone, and after the production batch's 16,384 sites (so that a
+    kernel whose work grows with the batch's sites shows it);
+    ``LONG_STRETCH`` sites of ``MAX_STAGED_READS + 1`` reads (1,032,210
+    reads); one site of ``MAX_SITE_READS`` (2^23 - 1) reads."""
+    rng = np.random.default_rng(seed)
+
+    def packed(counts):
+        counts = np.asarray(counts, np.int32)
+        offsets = (np.cumsum(counts) - counts).astype(np.int32)
+        return rng.uniform(0.0, 0.3, size=int(counts.sum())).astype(np.float32), offsets, counts
+
+    long_counts = list(mc_kernel.LONG_SITE_COUNTS)
+    return {
+        "1M site": packed([long_counts[-1]]),
+        "long sites alone": packed(long_counts),
+        "production + long sites": packed(np.concatenate([production_batch()[3], long_counts])),
+        f"{LONG_STRETCH} x {mc_kernel.MAX_STAGED_READS + 1}": packed([mc_kernel.MAX_STAGED_READS + 1] * LONG_STRETCH),
+        "2^23 - 1 site": packed([mc_kernel.MAX_SITE_READS]),
+    }
 
 
 def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
@@ -137,6 +172,24 @@ def time_interleaved(launches: Sequence[Callable[[], None]], reps: int) -> Tuple
     return times, clocks
 
 
+def long_site_sectors(offsets: np.ndarray, counts: np.ndarray, u: np.ndarray,
+                      long_from: int = mc_kernel.MAX_STAGED_READS) -> int:
+    """The 32-byte sectors of p that the draws of the sites past
+    ``long_from`` reads touch: each such site's distinct ``(offset + min(
+    trunc(U * c), c - 1)) // 8`` over every draw of ``u`` (n_samples,
+    n_iters), the f32 product truncated as the kernel takes it, p's first
+    value at a sector's start (a CUDA allocation is).  The least that
+    ``mc_long_site_kernel`` must read of p: draws that share a sector need
+    it once."""
+    u = np.asarray(u, np.float32).ravel()
+    total = 0
+    for offset, c in zip(np.asarray(offsets, np.int64), np.asarray(counts, np.int64)):
+        if c > long_from:
+            index = np.minimum((u * np.float32(c)).astype(np.int64), c - 1)
+            total += len(np.unique((offset + index) // 8))
+    return total
+
+
 def gather_passes(counts: np.ndarray, u: np.ndarray) -> Tuple[int, int]:
     """(passes, warp-wide gathers) of mc.cu's shared-memory loads over all
     real sites: lanes hold 32 consecutive iterations, a lane reads address
@@ -183,3 +236,61 @@ def issue_floor_ms(draws: int, window: Optional[Dict[str, float]], sms: int, hz:
     if window is None:
         return None
     return draws * window["instructions_per_draw"] / (128 * sms * hz) * 1e3
+
+
+# mc_long_site_launch of the older mc.cu, before it took a list of the long
+# sites: (p, offsets, counts, u, site_p, n_sites, n_reads, n_iters,
+# n_samples, long_from, grid, stream), a block a site, at most `grid`
+SCAN_LONG_LAUNCH_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int64] * 2 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+
+
+def mc_lists_sites(source: str) -> bool:
+    """Whether the mc.cu at ``source`` takes a list of the long sites
+    (this version) rather than scanning the counts (the older one)."""
+    with open(source) as f:
+        return "const int32_t* long_sites" in f.read()
+
+
+def bind_mc(lib: ctypes.CDLL, lists_sites: bool) -> ctypes.CDLL:
+    """Declare the two launches of a library built from an mc.cu (whose
+    long-site launch takes a list where ``lists_sites``)."""
+    lib.mc_site_launch.restype = lib.mc_long_site_launch.restype = ctypes.c_int
+    lib.mc_site_launch.argtypes = mc_kernel.LAUNCH_ARGTYPES
+    lib.mc_long_site_launch.argtypes = mc_kernel.LONG_LAUNCH_ARGTYPES if lists_sites else SCAN_LONG_LAUNCH_ARGTYPES
+    return lib
+
+
+def long_site_launcher(lib, lists_sites, p, offsets, counts, u, site_p, n_iters, long_from) -> Callable[[], int]:
+    """A call of ``lib``'s long-site launch over the sites above
+    ``long_from`` (``u``'s rows the draws an iteration), into ``site_p`` on
+    the current stream; it returns the CUDA error code.  Its calls share
+    one scratch (the kernel leaves its tickets zero), so that a timed call
+    fills none."""
+    n_samples = u.shape[0]
+    if lists_sites:
+        listed = mc_kernel.long_sites(counts, long_from)
+        scratch = mc_kernel.long_scratch(listed.shape[0], n_iters, p.device)
+        return lambda: mc_kernel.launch_long_sites(lib, p, offsets, counts, u, site_p, listed, n_iters, n_samples,
+                                                   long_from, scratch)
+    grid = min(max(int((counts > long_from).sum()), 1), 1024)
+    stream = torch.cuda.current_stream().cuda_stream
+    # the tensors themselves, not their addresses, in the closure: they
+    # live as long as the call does
+    return lambda: lib.mc_long_site_launch(p.data_ptr(), offsets.data_ptr(), counts.data_ptr(), u.data_ptr(),
+                                           site_p.data_ptr(), counts.shape[0], p.shape[0], n_iters, n_samples,
+                                           long_from, grid, stream)
+
+
+def mc_site_p(lib, lists_sites, p, offsets, counts, u, n_iters) -> torch.Tensor:
+    """site_p from ``lib``: its staged launch, sized for the batch's
+    largest staged count, then its long-site launch after it."""
+    site_p = torch.empty(counts.shape[0], dtype=torch.float32, device=p.device)
+    staged = torch.where(counts <= mc_kernel.MAX_STAGED_READS, counts, torch.zeros_like(counts))
+    err = lib.mc_site_launch(p.data_ptr(), offsets.data_ptr(), counts.data_ptr(), u.data_ptr(), site_p.data_ptr(),
+                             counts.shape[0], p.shape[0], n_iters, u.shape[0], int(staged.max()),
+                             torch.cuda.current_stream().cuda_stream)
+    err = err or long_site_launcher(lib, lists_sites, p, offsets, counts, u, site_p, n_iters,
+                                    mc_kernel.MAX_STAGED_READS)()
+    if err:
+        raise RuntimeError(f"an mc.cu launch failed with CUDA error {err}")
+    return site_p

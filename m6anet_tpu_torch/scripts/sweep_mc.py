@@ -33,6 +33,18 @@ Beside them it times the ``ABLATIONS``: the source as checked in with one
 part left out (the shared-memory loads, the FMUL, expf, half the draws),
 which tells what each part costs; their site_p is not checked.
 
+The long-site kernel's shape is three more constants: its threads a block
+(``kLongThreads``), the iterations a thread takes (``kLongIters``) and the
+values a thread of a site's last block loads at once for each of its f64
+chains (``kLongLoads``).  For each set in ``LONG_VARIANTS`` (and
+``--reference``, whose long-site launch may scan the counts, as the older
+version's did) it reports ``mc_long_site_kernel``'s registers and spills, site_p (both
+kernels) against the checked-in source's bits and the plain version on
+``_sweep.long_site_shapes``' three timed batches (one 1,000,000-read site,
+the production batch with three long sites after it, 18 sites of 57,345
+reads; T = 1000), and the long kernel's time alone on each, interleaved
+with the L2 flushed.  Every variant must give the checked-in bits.
+
 Everything is built in a temporary directory that is removed at the end.
 Prints one JSON line per build, the card's ``nvidia-smi`` name and power
 limit, and the SM clock read after each round; ``--out`` also writes them to
@@ -59,8 +71,9 @@ from ..ops import fused_infer_kernel as fik
 from ..ops import mc_kernel
 from ..ops import random as prng
 from ._sweep import (
-    SITES, draw_window, gather_passes, issue_floor_ms, max_sm_hz, production_batch, sass_counts,
-    sass_instructions, smi, time_interleaved, variant_source,
+    SITES, bind_mc, draw_window, gather_passes, issue_floor_ms, long_site_launcher, long_site_shapes,
+    max_sm_hz, mc_lists_sites, mc_site_p, production_batch, same_bits, sass_counts, sass_instructions, smi,
+    time_interleaved, variant_source,
 )
 
 # (threads, iterations held, blocks per SM asked, sites staged together,
@@ -79,6 +92,13 @@ ABLATIONS = [
     ("without expf", "e[i] = expf(s[q][i]);", "e[i] = s[q][i];"),
     ("half the draws", "for (int j = 0; j < kSamples; ++j) {", "for (int j = 0; j < kSamples / 2; ++j) {"),
 ]
+# mc_long_site_kernel's (threads a block, iterations a thread, loads a chain
+# at once in a site's last block); the first is the checked-in set
+LONG_VARIANTS = [
+    (64, 1, 4), (32, 1, 4), (128, 1, 4), (256, 1, 4), (32, 2, 4), (64, 2, 4), (64, 4, 4), (64, 1, 8), (64, 1, 16),
+]
+LONG_CONSTANTS = ("kLongThreads", "kLongIters", "kLongLoads")
+LONG_SHAPES = ("1M site", "production + long sites", "18 x 57345")
 OPCODES = ("LDS", "LDG", "STS", "F2I", "FADD", "FMUL", "IMAD", "IMNMX", "BAR", "SHFL", "MUFU")
 ITERS, RAGGED_ITERS = 1000, 1500
 REPS = 30  # timed launches per build and round
@@ -92,6 +112,47 @@ def production_batch_p(fp):
     threshold = PRETRAINED_CONFIGS["HCT116_RNA002"][1]
     p = fik.fused_inference_t(fp, features, kmer, None, offsets, counts, threshold)[0]
     return p, offsets, counts, batch[3]
+
+
+def sweep_long(long_builds, long_libs, card):
+    """The long-site variants (``long_builds``: (label, source) with the
+    checked-in source first; ``long_libs`` their libraries) on
+    ``LONG_SHAPES`` at ``ITERS``: one JSON line each."""
+    u = torch.from_numpy(prng.shared_draws(0, ITERS)).cuda()
+    shapes = {name: tuple(torch.from_numpy(a).cuda() for a in arrays)
+              for name, arrays in long_site_shapes().items() if name in LONG_SHAPES}
+    plain = {name: mc_kernel.site_probability_mc_plain(p, o, c, u, ITERS) for name, (p, o, c) in shapes.items()}
+    rows, launches = [], {name: [] for name in shapes}
+    for (label, source), lib_path in zip(long_builds, long_libs):
+        lists = mc_lists_sites(source)
+        lib = bind_mc(ctypes.CDLL(lib_path), lists)
+        row = {"build": label, "ptxas": _build.ptxas_usage(lib_path, "mc_long_site_kernel"), "site_p": {},
+               "repeat_identical": True}
+        for name, (p, o, c) in shapes.items():
+            first = mc_site_p(lib, lists, p, o, c, u, ITERS)
+            again = mc_site_p(lib, lists, p, o, c, u, ITERS)
+            torch.cuda.synchronize()
+            row["site_p"][name] = first
+            row["repeat_identical"] = row["repeat_identical"] and torch.equal(first, again)
+            out = torch.zeros_like(first)
+            launches[name].append(long_site_launcher(lib, lists, p, o, c, u, out, ITERS, mc_kernel.MAX_STAGED_READS))
+        rows.append(row)
+    checked_in = rows[0]["site_p"]
+    results = []
+    times = {name: time_interleaved(fns, REPS) for name, fns in launches.items()}
+    for k, row in enumerate(rows):
+        result = {
+            "build": row["build"], "ptxas": row["ptxas"],
+            "ms": {name: statistics.median(times[name][0][k]) for name in shapes},
+            "sm_clocks": {name: times[name][1] for name in shapes},
+            "max_abs_err_vs_plain": {name: float((v - plain[name]).abs().max()) for name, v in row["site_p"].items()},
+            "repeat_identical": row["repeat_identical"],
+            "bit_identical_to_checked_in": {name: same_bits(v, checked_in[name]) for name, v in row["site_p"].items()},
+            "card": card,
+        }
+        results.append(result)
+        print(json.dumps(result), flush=True)
+    return results
 
 
 def main(argv=None) -> int:
@@ -143,8 +204,18 @@ def main(argv=None) -> int:
             with open(path, "w") as f:
                 f.write(text.replace(old, new))
             builds.append((f"ablation: {label}", path))
+        long_builds = [("as checked in", source)] + ([("reference", builds[0][1])] if args.reference else [])
+        for values in LONG_VARIANTS[1:]:
+            path = os.path.join(tmp, "mc_long_t{}_i{}_l{}.cu".format(*values))
+            with open(path, "w") as f:
+                f.write(variant_source(text, LONG_CONSTANTS, values, "mc.cu"))
+            long_builds.append((dict(zip(LONG_CONSTANTS, values)), path))
         command = [_build.nvcc_path(), *_build.NVCC_FLAGS]
-        libs = _build.build_shared_libraries([(path, command) for _, path in builds], out_dir=tmp)
+        sources = [path for _, path in builds]
+        sources += [path for _, path in long_builds if path not in sources]
+        library = dict(zip(sources, _build.build_shared_libraries([(path, command) for path in sources], out_dir=tmp)))
+        libs = [library[path] for _, path in builds]
+        long_results = sweep_long(long_builds, [library[path] for _, path in long_builds], card)
 
         rows = []
         for (label, source_path), lib_path in zip(builds, libs):
@@ -230,12 +301,15 @@ def main(argv=None) -> int:
         if args.out:
             os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
             with open(args.out, "w") as f:
-                json.dump({"summary": summary, "builds": results}, f, indent=1)
+                json.dump({"summary": summary, "builds": results, "long_builds": long_results}, f, indent=1)
         bad = [r["build"] for r in results if not str(r["build"]).startswith("ablation") and (
             not r["finite"] or not r["repeat_identical"] or max(r["max_abs_err_vs_plain"].values()) > 1e-6)]
+        bad += [r["build"] for r in long_results if r["build"] != "reference" and (
+            not r["repeat_identical"] or not all(r["bit_identical_to_checked_in"].values())
+            or max(r["max_abs_err_vs_plain"].values()) > 1e-6)]
         if bad:
-            print(f"FAILED: builds off their plain version by more than 1e-6, or not repeatable: {bad}",
-                  file=sys.stderr)
+            print(f"FAILED: builds off their plain version by more than 1e-6, not repeatable, or (long-site "
+                  f"variants) off the checked-in bits: {bad}", file=sys.stderr)
             return 1
         return 0
     finally:

@@ -262,38 +262,69 @@ def test_mc_kernel_matches_plain_and_repeats(cuda_device):
 def _mc_through_long_kernel(p, offsets, counts, u, n_iters):
     """site_p with every site of 1 read or more through mc_long_site_kernel:
     mc.cu's staged launch sized for count 0 (NaN at those sites), then its
-    long-site launch from count 0.  No launch is counted."""
+    long-site launch from count 0 over every such site.  No launch is
+    counted."""
     lib = mc_kernel._kernel_lib()
     n_sites = counts.shape[0]
     site_p = torch.empty(n_sites, dtype=torch.float32, device=p.device)
     stream = torch.cuda.current_stream(p.device).cuda_stream
-    args = (p.data_ptr(), offsets.data_ptr(), counts.data_ptr(), u.data_ptr(), site_p.data_ptr(), n_sites,
-            p.shape[0], n_iters, mc_kernel.SAMPLES)
-    assert lib.mc_site_launch(*args, 0, stream) == 0
-    assert lib.mc_long_site_launch(*args, 0, mc_kernel.LONG_GRID, stream) == 0
+    assert lib.mc_site_launch(p.data_ptr(), offsets.data_ptr(), counts.data_ptr(), u.data_ptr(), site_p.data_ptr(),
+                              n_sites, p.shape[0], n_iters, mc_kernel.SAMPLES, 0, stream) == 0
+    assert mc_kernel.launch_long_sites(lib, p, offsets, counts, u, site_p, mc_kernel.long_sites(counts, 0), n_iters,
+                                       mc_kernel.SAMPLES, 0) == 0
     return site_p
 
 
 def test_mc_long_sites_on_the_card(cuda_device):
     """Sites of 57,345, 100,000 and 1,000,000 reads beside the ragged
-    batch's (mc_kernel.ragged_mc_batch(long_sites=True)): within 1e-6 of the
-    plain version; every other site the same bits as without them; every
-    site sent through the long-site kernel the same bits as the staged
-    kernel gives; one launch of each kernel a call."""
+    batch's (mc_kernel.ragged_mc_batch(long_sites=True)) at T = 1000 and
+    4097 (past 16 blocks of 256 iterations): within 1e-6 of the plain
+    version; every other site the same bits as without them; every site
+    sent through the long-site kernel the same bits as the staged kernel
+    gives; one launch of each kernel a call.  18 sites of 57,345 reads
+    (all long): within 1e-6 of the plain version, the device list's and
+    the host list's bits the same, repeats bit-identical, one scratch
+    for two launches (its tickets left zero) and 128 draws an iteration
+    within 1e-6 of the plain version."""
     p, offsets, counts = (torch.from_numpy(a).to(cuda_device) for a in mc_kernel.ragged_mc_batch(long_sites=True))
     p0, off0, cnt0 = (torch.from_numpy(a).to(cuda_device) for a in mc_kernel.ragged_mc_batch())
     keep = torch.cat([torch.arange(len(cnt0) - 16), torch.arange(len(counts) - 16, len(counts))]).to(cuda_device)
+    for n_iters in (1000, 4097):
+        u = torch.from_numpy(random.shared_draws(5, n_iters)).to(cuda_device)
+        before = mc_kernel.launch_count, mc_kernel.long_launch_count
+        got = mc_kernel.site_probability_mc_cuda(p, offsets, counts, u, n_iters)
+        assert (mc_kernel.launch_count, mc_kernel.long_launch_count) == (before[0] + 1, before[1] + 1)
+        alone = mc_kernel.site_probability_mc_cuda(p0, off0, cnt0, u, n_iters)
+        through_long = _mc_through_long_kernel(p, offsets, counts, u, n_iters)
+        want = mc_kernel.site_probability_mc_plain(p, offsets, counts, u, n_iters)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
+        assert same_bits(got[keep], alone) and same_bits(through_long, got), n_iters
+        assert bool(torch.isfinite(got).all()) and bool((got[counts > mc_kernel.MAX_STAGED_READS] > 0).all())
+    rng = np.random.default_rng(8)
+    counts = np.full(18, mc_kernel.MAX_STAGED_READS + 1, np.int32)
+    offsets = (np.cumsum(counts) - counts).astype(np.int32)
+    p = rng.uniform(0.0, 0.3, size=int(counts.sum())).astype(np.float32)
+    t = [torch.from_numpy(a).to(cuda_device) for a in (p, offsets, counts)]
     u = torch.from_numpy(random.shared_draws(5, 1000)).to(cuda_device)
-    before = mc_kernel.launch_count, mc_kernel.long_launch_count
-    got = mc_kernel.site_probability_mc_cuda(p, offsets, counts, u, 1000)
-    assert (mc_kernel.launch_count, mc_kernel.long_launch_count) == (before[0] + 1, before[1] + 1)
-    alone = mc_kernel.site_probability_mc_cuda(p0, off0, cnt0, u, 1000)
-    through_long = _mc_through_long_kernel(p, offsets, counts, u, 1000)
-    want = mc_kernel.site_probability_mc_plain(p, offsets, counts, u, 1000)
+    got = mc_kernel.site_probability_mc_cuda(*t, u, 1000, host_sites=(offsets, counts))
+    again = mc_kernel.site_probability_mc_cuda(*t, u, 1000)
+    want = mc_kernel.site_probability_mc_plain(*t, u, 1000)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
-    assert same_bits(got[keep], alone) and same_bits(through_long, got)
-    assert bool(torch.isfinite(got).all()) and bool((got[counts > mc_kernel.MAX_STAGED_READS] > 0).all())
+    assert torch.equal(got, again) and bool(torch.isfinite(got).all())
+    # one scratch for two launches: the kernel leaves its tickets zero
+    lib, listed = mc_kernel._kernel_lib(), mc_kernel.long_sites(t[2])
+    scratch = mc_kernel.long_scratch(len(counts), 1000, cuda_device)
+    for _ in range(2):
+        out = torch.full_like(got, float("nan"))
+        assert mc_kernel.launch_long_sites(lib, *t, u, out, listed, 1000, mc_kernel.SAMPLES,
+                                           mc_kernel.MAX_STAGED_READS, scratch) == 0
+        assert same_bits(out, got) and int(torch.count_nonzero(scratch[1])) == 0
+    # 128 draws an iteration, which the long kernel issues in rounds
+    u128 = torch.from_numpy(random.shared_draws(5, 300, 128)).to(cuda_device)
+    got = mc_kernel.site_probability_mc_cuda(*t, u128, 300, 128, host_sites=(offsets, counts))
+    torch.testing.assert_close(got, mc_kernel.site_probability_mc_plain(*t, u128, 300, 128), rtol=0, atol=1e-6)
 
 
 @pytest.mark.parametrize("precision", ["f32", "f32x3", "bf16"])
@@ -526,6 +557,46 @@ def test_engine_mc_step_makes_no_host_sync(cuda_device, monkeypatch):
         want = step(*args)[1]
     assert seen == [True, False] and mc_kernel.launch_count == before + 2
     assert torch.equal(got, want)
+
+
+def test_engine_mc_step_with_a_long_site_makes_no_host_sync(cuda_device, monkeypatch):
+    """A batch whose site of MAX_STAGED_READS + 1 reads takes the
+    long-site kernel: with the batch's host offsets and counts the MC
+    wrapper lists that site on the host and copies the list through pinned
+    memory, so under set_sync_debug_mode("error") it makes no host sync;
+    one launch of each MC kernel, and the same site_p as the wrapper
+    checking the tensors on the card."""
+    from m6anet_tpu_torch.inference import engine
+
+    real = mc_kernel.site_probability_mc_cuda
+
+    def no_sync(*args, **kwargs):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return real(*args, **kwargs)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    model = _model().to(cuda_device).eval()
+    rng = np.random.default_rng(4)
+    counts = np.array([30, mc_kernel.MAX_STAGED_READS + 1, 7, 0], np.int32)
+    offsets = np.array([0, 30, 30 + counts[1], 0], np.int32)
+    n = int(counts.sum()) + 64
+    X = rng.normal(size=(n, 9)).astype(np.float32)
+    K = rng.integers(0, 66, size=(n, 3)).astype(np.int8)
+    step = engine.make_infer_step(model, len(counts), DEFAULT_READ_THRESHOLD, 20, "mc", "cuda_fused",
+                                  n_iterations=1000, seed=2)
+    args = [torch.from_numpy(a).to(cuda_device) for a in (X, K, offsets, counts)]
+    before = mc_kernel.launch_count, mc_kernel.long_launch_count
+    with torch.no_grad():
+        monkeypatch.setattr(mc_kernel, "site_probability_mc_cuda", no_sync)
+        got = step(*args, host_sites=(offsets, counts))[1]
+        monkeypatch.undo()
+        want = step(*args)[1]
+    torch.cuda.synchronize()
+    assert (mc_kernel.launch_count, mc_kernel.long_launch_count) == (before[0] + 2, before[1] + 2)
+    assert torch.equal(got, want) and bool(torch.isfinite(got).all()) and float(got[3]) == 0.0
 
 
 def test_engine_mc_and_encoder_backend_on_the_card(cuda_device, tmp_path):

@@ -296,9 +296,10 @@ def test_ragged_mc_batch_covers_the_kernels_cases():
 
 def test_sweep_mc_rewrites_the_kernel_source():
     """scripts/sweep_mc.py's builds apply to mc.cu as it stands: each
-    constant of a variant and each part an ablation leaves out occurs once;
-    its bank-pass count gives one pass to sites whose values sit in distinct
-    banks, and more to longer ones."""
+    constant of a variant (the long-site kernel's too, whose first variant
+    is the checked-in set) and each part an ablation leaves out occurs
+    once; its bank-pass count gives one pass to sites whose values sit in
+    distinct banks, and more to longer ones."""
     from m6anet_tpu_torch.scripts import sweep_mc
     from m6anet_tpu_torch.scripts._sweep import gather_passes, variant_source
 
@@ -308,6 +309,13 @@ def test_sweep_mc_rewrites_the_kernel_source():
         rewritten = variant_source(text, sweep_mc.CONSTANTS, values, "mc.cu")
         for name, value in zip(sweep_mc.CONSTANTS, values):
             assert f"constexpr int {name} = {value};" in rewritten
+    # the long-site kernel's variants, the first of them the checked-in set
+    for values in sweep_mc.LONG_VARIANTS:
+        rewritten = variant_source(text, sweep_mc.LONG_CONSTANTS, values, "mc.cu")
+        for name, value in zip(sweep_mc.LONG_CONSTANTS, values):
+            assert f"constexpr int {name} = {value};" in rewritten
+    constants = _build.cu_constants("mc")
+    assert tuple(constants[name] for name in sweep_mc.LONG_CONSTANTS) == sweep_mc.LONG_VARIANTS[0]
     assert all(text.count(old) == 1 for _, old, _ in sweep_mc.ABLATIONS)
     u = random.shared_draws(0, 100)
     passes, gathers = gather_passes(np.array([20, 31, 0]), u)

@@ -105,10 +105,103 @@ def test_each_draw_count_builds_its_own_kernel():
 
 def test_mc_long_launch_argtypes_match_the_kernel_source():
     """mc_kernel.LONG_LAUNCH_ARGTYPES against mc_long_site_launch's
-    parameters in mc.cu."""
+    parameters in mc.cu: the list of long sites, the scratch and the
+    tickets after the inputs, the list's length and long_from last."""
     with open(os.path.join(os.path.dirname(mc_kernel.__file__), "csrc", "mc.cu")) as f:
         params = re.search(r"int mc_long_site_launch\(([^)]*)\)", f.read()).group(1).split(",")
     scalars = {"int64_t": ctypes.c_int64, "int": ctypes.c_int}
     want = [ctypes.c_void_p if "*" in param else scalars[param.split()[0]] for param in params]
     assert mc_kernel.LONG_LAUNCH_ARGTYPES == want
-    assert [param.split()[-1] for param in params][-3:] == ["long_from", "grid", "stream_ptr"]
+    names = [param.split()[-1].lstrip("*") for param in params]
+    assert names[4:8] == ["long_sites", "e_all", "tickets", "site_p"]
+    assert names[-3:] == ["n_long", "long_from", "stream_ptr"]
+
+
+def test_long_site_lists_from_the_host_and_the_tensors_agree():
+    """long_sites from host_sites' numpy counts and from the tensors: the
+    sites above MAX_STAGED_READS in site order as int32, none for a batch
+    without them, and every site of a read or more for long_from 0 (the
+    list that sends every site through the long-site kernel); from the
+    tensors with the count known as without it."""
+    _, _, counts = mc_kernel.ragged_mc_batch(long_sites=True)
+    _, _, short = mc_kernel.ragged_mc_batch()
+    n = len(short) - 16
+    cases = [(counts, mc_kernel.MAX_STAGED_READS, np.arange(n, n + 3)),
+             (short, mc_kernel.MAX_STAGED_READS, np.arange(0)),
+             (counts, 0, np.flatnonzero(counts >= 1)),
+             (np.zeros(0, np.int32), 0, np.arange(0))]
+    for c, long_from, want in cases:
+        host = mc_kernel.long_sites(c, long_from)
+        device = mc_kernel.long_sites(torch.from_numpy(c), long_from)
+        known = mc_kernel.long_sites(torch.from_numpy(c), long_from, n_long=len(want))  # the wrapper's: no sync
+        assert host.dtype == np.int32 and device.dtype == known.dtype == torch.int32
+        assert host.tolist() == device.tolist() == known.tolist() == want.tolist()
+    assert (counts[mc_kernel.long_sites(counts)] > mc_kernel.MAX_STAGED_READS).all()
+    assert mc_kernel.long_sites(counts).tolist() == mc_kernel.long_sites(counts, mc_kernel.MAX_STAGED_READS).tolist()
+
+
+def test_long_kernel_constants_and_blocks_cover_the_iterations(tmp_path):
+    """mc.cu's long-kernel tunings parse through _build.cu_constants, at
+    every draw count: a block is whole warps, each of the kThreads f64
+    chains belongs to one thread of a site's last block, and a block takes
+    kLongSlice iterations.  long_blocks_per_site, compiled for the host
+    with g++ from the source's constants, gives each site the fewest
+    blocks whose slices cover T at T = 1, 256, 257, 1000 and 4097."""
+    import subprocess
+
+    for defines in ({}, mc_kernel.kernel_defines(1), mc_kernel.kernel_defines(32)):
+        c = _build.cu_constants("mc", defines)
+        assert c["kLongThreads"] % 32 == 0 and c["kThreads"] % c["kLongThreads"] == 0
+        assert c["kLongChains"] * c["kLongThreads"] == c["kThreads"] == 256
+        assert c["kLongSlice"] == c["kLongThreads"] * c["kLongIters"] and c["kLongLoads"] >= 1
+    with open(os.path.join(_build.CSRC_DIR, "mc.cu")) as f:
+        text = f.read()
+    body = text[text.index("namespace {") + len("namespace {") :]
+    body = body[: re.search(r"^(__global__|__device__)", body, re.M).start()]
+    iters = (1, 256, 257, 1000, 4097)
+    src, exe = tmp_path / "blocks.cpp", tmp_path / "blocks"
+    src.write_text("#include <cstdint>\n#include <cstdio>\nnamespace mc {\n" + body + "}\nint main() {\n"
+                   + "".join(f'  std::printf("%lld\\n", (long long)mc::long_blocks_per_site({t}));\n' for t in iters)
+                   + '  std::printf("%d\\n", mc::kLongSlice);\n}\n')
+    subprocess.run(["g++", "-std=c++17", "-O0", "-o", str(exe), str(src)], check=True, capture_output=True)
+    *blocks, slice_ = map(int, subprocess.run([str(exe)], check=True, capture_output=True, text=True).stdout.split())
+    assert slice_ == _build.cu_constants("mc")["kLongSlice"]
+    for n_iters, n in zip(iters, blocks):
+        assert n * slice_ >= n_iters > (n - 1) * slice_, (n_iters, n, slice_)
+
+
+@pytest.mark.parametrize("n_samples", [1, 20, 32, 33, 128])
+def test_long_kernel_draw_rounds_cover_n_samples(n_samples):
+    """mc.cu's long kernel issues an iteration's draws in kLongRounds rounds
+    of kLongDraws: one round up to kLongRound (32) draws, so the builds the
+    sweep times keep their code; past it the fewest rounds of at most
+    kLongRound that cover n_samples, the last one short by less than a
+    round."""
+    c = _build.cu_constants("mc", mc_kernel.kernel_defines(n_samples))
+    rounds, draws = c["kLongRounds"], c["kLongDraws"]
+    assert c["kSamples"] == n_samples and draws <= c["kLongRound"] == 32
+    assert rounds == -(-n_samples // 32) and rounds * draws >= n_samples > (rounds - 1) * draws
+    assert (rounds == 1) == (n_samples <= 32)
+
+
+def test_long_site_sectors_count_each_touched_sector_once():
+    """_sweep.long_site_sectors, the bytes of p in the long kernel's bound:
+    for the sites past long_from alone, the distinct 32-byte sectors that
+    offset + min(trunc(U * c), c - 1) touches, against a set built draw by
+    draw, fewer than a sector a draw."""
+    from m6anet_tpu_torch.scripts import _sweep
+
+    rng = np.random.default_rng(4)
+    counts = np.array([3, 70, 0, 1000, 9, 50], np.int32)
+    offsets = (np.cumsum(counts) - counts + 5).astype(np.int32)
+    u = rng.uniform(size=(4, 37)).astype(np.float32)
+    u[0, 0] = np.float32(1.0) - np.float32(2.0**-24)  # rounds up to c at some counts: clamped to c - 1
+    want = 0
+    for o, c in zip(offsets, counts):
+        if c > 8:
+            want += len({(int(o) + min(int(np.float32(x) * np.float32(c)), int(c) - 1)) // 8 for x in u.ravel()})
+    got = _sweep.long_site_sectors(offsets, counts, u, long_from=8)
+    # four sites past 8 reads: at most a sector a draw, and at the site of
+    # 9 reads (two or three sectors) fewer
+    assert got == want and 0 < got < 4 * u.size
+    assert _sweep.long_site_sectors(offsets, counts, u) == 0  # none past MAX_STAGED_READS
