@@ -55,7 +55,7 @@ from ..ops import encoder_kernel, fused_infer_kernel, mc_kernel, random, site_op
 from ..ops.site_ops import derive_site_ids  # noqa: F401  (part of this module's API)
 from ..parallel.mesh import host_shard_bounds
 from ..utils.logging import get_logger
-from ..utils.profiling import StageTimer
+from ..utils.profiling import StageTimer, device_trace, span
 
 SITE_HEADER = "transcript_id,transcript_position,n_reads,probability_modified,kmer,mod_ratio\n"
 INDIV_HEADER = "transcript_id,transcript_position,read_index,probability_modified\n"
@@ -186,19 +186,26 @@ def make_infer_step(
     fused_infer_kernel.check_precision(precision)
     if backend == "torch" and precision != "f32":
         raise ValueError(f"precision {precision!r} runs on the CUDA backends; backend 'torch' computes in f32")
+    calls = itertools.count()  # the id of each call's engine.step span
     if backend == "torch":
         model.per_read_filter()  # the JAX package's error, before any batch
         key = random.key_from_seed(seed)
 
         def step(features, kmer_ids, offsets, counts, host_sites=None, host_kmer_ids=None):
-            site_ids = site_ops.derive_site_ids(offsets, counts, features.shape[0], site_capacity)
-            p = model.per_read_probability({"X": features, "kmer": kmer_ids})
-            if method == "mc":
-                site_p = site_ops.site_probability_mc(p, offsets, counts, key, n_iterations, n_samples)
-            else:
-                site_p = site_ops.site_probability_exact(p, site_ids, counts, site_capacity, n_samples)
-            mod_ratio = site_ops.mod_ratio_exact(p, site_ids, counts, site_capacity, threshold)
-            return p, site_p, mod_ratio
+            with span("engine.step", next(calls)):
+                with span("site_ops.derive_site_ids"):
+                    site_ids = site_ops.derive_site_ids(offsets, counts, features.shape[0], site_capacity)
+                with span("model.per_read_probability"):
+                    p = model.per_read_probability({"X": features, "kmer": kmer_ids})
+                if method == "mc":
+                    with span("site_ops.site_probability_mc"):
+                        site_p = site_ops.site_probability_mc(p, offsets, counts, key, n_iterations, n_samples)
+                else:
+                    with span("site_ops.site_probability_exact"):
+                        site_p = site_ops.site_probability_exact(p, site_ids, counts, site_capacity, n_samples)
+                with span("site_ops.mod_ratio_exact"):
+                    mod_ratio = site_ops.mod_ratio_exact(p, site_ids, counts, site_capacity, threshold)
+                return p, site_p, mod_ratio
 
         return step
 
@@ -214,27 +221,29 @@ def make_infer_step(
     if backend == "cuda_fused":
 
         def fused_step(features, kmer_ids, offsets, counts, host_sites=None, host_kmer_ids=None):
-            p, site_p, mod_ratio = fused_infer_kernel.fused_inference_t(
-                fp, features, kmer_ids, None, offsets, counts, threshold, n_samples, precision,
-                host_kmer_ids=host_kmer_ids,
-            )
-            if method == "mc":
-                site_p = mc_site_p(p, offsets, counts, host_sites)
-            return p, site_p, mod_ratio
+            with span("engine.step", next(calls)):
+                p, site_p, mod_ratio = fused_infer_kernel.fused_inference_t(
+                    fp, features, kmer_ids, None, offsets, counts, threshold, n_samples, precision,
+                    host_kmer_ids=host_kmer_ids,
+                )
+                if method == "mc":
+                    site_p = mc_site_p(p, offsets, counts, host_sites)
+                return p, site_p, mod_ratio
 
         return fused_step
 
     def encoder_step(features, kmer_ids, offsets, counts, host_sites=None, host_kmer_ids=None):
-        p = encoder_kernel.fused_read_probability(
-            fp, features, kmer_ids, precision, host_kmer_ids=host_kmer_ids
-        )
-        site_ids = site_ops.derive_site_ids(offsets, counts, features.shape[0], site_capacity)
-        if method == "mc":
-            site_p = mc_site_p(p, offsets, counts, host_sites)
-        else:
-            site_p = site_ops.site_probability_exact(p, site_ids, counts, site_capacity, n_samples)
-        mod_ratio = site_ops.mod_ratio_exact(p, site_ids, counts, site_capacity, threshold)
-        return p, site_p, mod_ratio
+        with span("engine.step", next(calls)):
+            p = encoder_kernel.fused_read_probability(
+                fp, features, kmer_ids, precision, host_kmer_ids=host_kmer_ids
+            )
+            site_ids = site_ops.derive_site_ids(offsets, counts, features.shape[0], site_capacity)
+            if method == "mc":
+                site_p = mc_site_p(p, offsets, counts, host_sites)
+            else:
+                site_p = site_ops.site_probability_exact(p, site_ids, counts, site_capacity, n_samples)
+            mod_ratio = site_ops.mod_ratio_exact(p, site_ids, counts, site_capacity, threshold)
+            return p, site_p, mod_ratio
 
     return encoder_step
 
@@ -364,6 +373,7 @@ def run_inference(
     device = resolve_device(device)
     os.makedirs(out_dir, exist_ok=True)
     timer = StageTimer()
+    pack_timer = StageTimer(span_prefix="data.")  # the pack thread's own
     log = get_logger("m6anet_tpu_torch.inference")
     model.to(device).eval()
     backend, precision = resolve_backend(model, backend, precision, device, log=log)
@@ -448,8 +458,9 @@ def run_inference(
     def to_device(a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(device)
 
-    # indiv file is binary: its rows are rendered natively as bytes
-    with open(site_path, file_mode, encoding="utf-8") as f_site, (
+    # indiv file is binary: its rows are rendered natively as bytes;
+    # M6ANET_TPU_TRACE_DIR traces the batch loop (utils/profiling.py)
+    with device_trace(), open(site_path, file_mode, encoding="utf-8") as f_site, (
         open(indiv_path, file_mode + "b")
         if write_indiv
         else contextlib.nullcontext(None)
@@ -464,8 +475,8 @@ def run_inference(
         n_batches = 0
 
         def drain():
-            pending = inflight.popleft()
-            with timer.stage("write"):
+            number, pending = inflight.popleft()
+            with timer.stage("write", number):
                 views = pending.fetch()
                 if not write_indiv:
                     views = [None] + views
@@ -490,7 +501,8 @@ def run_inference(
             packed = pack_sites(
                 sites_to_score(), read_capacity=read_capacity, site_capacity=site_capacity
             )
-        batches = threaded_iter(checked(packed), depth=pipeline_depth + 1)
+        # the pack thread's busy time: making each batch, span data.pack
+        batches = threaded_iter(_timed_iter(pack_timer, "pack", checked(packed)), depth=pipeline_depth + 1)
         for batch, host_kmer in _timed_iter(timer, "featurize+pack", batches):
             # derive_site_ids treats count 0 as padding: a real site with no
             # reads would shift the ids of every site after it
@@ -498,7 +510,7 @@ def run_inference(
                 raise ValueError("a packed batch holds a site with no reads")
             while len(inflight) >= max_inflight:
                 drain()
-            with timer.stage("dispatch"):
+            with timer.stage("dispatch", n_batches):
                 p, site_p, mod_ratio = step(
                     to_device(batch.features), to_device(host_kmer.ids),
                     to_device(batch.offsets), to_device(batch.counts),
@@ -508,21 +520,23 @@ def run_inference(
                 # CSV rendering needs only sites/offsets/counts: drop the
                 # host-side packed feed arrays now
                 batch.features = batch.kmer_ids = batch.site_ids = None
-                inflight.append(_PendingBatch(batch, outputs, device))
+                inflight.append((n_batches, _PendingBatch(batch, outputs, device)))
                 n_batches += 1
         while inflight:
             drain()
     launches = {name: count() - launches_before[name] for name, count in kernels.items()}
     log.info("inference stages: %s", timer.summary())
+    log.info("pack thread: %s", pack_timer.summary())
     log.info("batches dispatched: %d", n_batches)
     log.info("kernel launches: %s", json.dumps(launches))
 
 
 def _timed_iter(timer: "StageTimer", name: str, it):
-    """Attribute generator-side (host featurization) time to a stage."""
+    """Attribute generator-side (host featurization) time to a stage, each
+    item's span with the item's number."""
     it = iter(it)
-    while True:
-        with timer.stage(name):
+    for number in itertools.count():
+        with timer.stage(name, number):
             try:
                 item = next(it)
             except StopIteration:

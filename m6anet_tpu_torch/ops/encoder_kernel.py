@@ -27,6 +27,7 @@ from typing import Optional
 
 import torch
 
+from ..utils.profiling import span
 from .fused_infer_kernel import (
     CheckedKmerIds,
     FusedParamsT,
@@ -62,27 +63,32 @@ def fused_read_probability(
     (``checked_kmer_ids`` of the array ``kmer_ids`` was copied from)
     replaces the check on the device, and its host sync."""
     global launch_count
-    check_precision(precision)
-    if host_kmer_ids is not None:
-        check_host_kmer_ids(host_kmer_ids, kmer_ids, fp.widths.vocab)
-    if features.device.type == "cpu":
-        return fused_read_probability_plain(fp, features, kmer_ids, precision)
-    kmer_ids = check_read_inputs(fp, features, kmer_ids, "fused_read_probability", host_kmer_ids=host_kmer_ids)
-    device = features.device
-    p = torch.empty(features.shape[0], dtype=torch.float32, device=device)
-    if precision != "f32":
-        launch_read_prob_tc(fp, features, kmer_ids, p, precision)
+    with span("ops.fused_read_probability"):
+        check_precision(precision)
+        if features.device.type == "cpu":
+            if host_kmer_ids is not None:
+                with span("ops.check"):
+                    check_host_kmer_ids(host_kmer_ids, kmer_ids, fp.widths.vocab)
+            return fused_read_probability_plain(fp, features, kmer_ids, precision)
+        with span("ops.check"):
+            kmer_ids = check_read_inputs(fp, features, kmer_ids, "fused_read_probability",
+                                         host_kmer_ids=host_kmer_ids, precision=precision)
+        device = features.device
+        p = torch.empty(features.shape[0], dtype=torch.float32, device=device)
+        if precision != "f32":
+            launch_read_prob_tc(fp, features, kmer_ids, p, precision)
+            launch_count += 1
+            return p
+        lib = kernel_lib(fp.widths, kmer_ids.element_size())
+        with torch.cuda.device(device):
+            stream = torch.cuda.current_stream(device).cuda_stream
+            with span("ops.launch.read_prob"):
+                err = lib.read_prob_launch(
+                    features.data_ptr(), kmer_ids.data_ptr(), fp.packed.data_ptr(), p.data_ptr(),
+                    features.shape[0], stream,
+                )
+        if err != 0:
+            raise launch_error(lib, err)
+        count_wide("f32", fp.widths, kmer_ids)
         launch_count += 1
         return p
-    lib = kernel_lib(fp.widths, kmer_ids.element_size())
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.read_prob_launch(
-            features.data_ptr(), kmer_ids.data_ptr(), fp.packed.data_ptr(), p.data_ptr(),
-            features.shape[0], stream,
-        )
-    if err != 0:
-        raise launch_error(lib, err)
-    count_wide("f32", fp.widths, kmer_ids)
-    launch_count += 1
-    return p

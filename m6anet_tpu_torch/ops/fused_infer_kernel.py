@@ -83,6 +83,7 @@ import torch
 from torch import nn
 
 from ..models.blocks import BN_EPS, KmerMultipleEmbedding, Linear
+from ..utils.profiling import span
 from . import site_ops
 
 # launches of the CUDA kernels in this process, by wrapper: one per
@@ -663,15 +664,15 @@ def launch_read_prob_tc(fp: FusedParamsT, features: torch.Tensor, kmer_ids: torc
                         p: torch.Tensor, precision: str) -> None:
     """Launch the tensor-core phase A of ``precision`` ("f32x3" or "bf16")
     into ``p`` on the current stream, on inputs that check_read_inputs has
-    checked, and count the launch."""
-    check_tensor("fp.tc", fp.tc, (torch.int32,), (tc_layout(fp.widths)["kTcWords"],), features.device)
+    checked for ``precision``, and count the launch."""
     lib = tc_kernel_lib(fp.widths, kmer_ids.element_size())
     with torch.cuda.device(features.device):
         stream = torch.cuda.current_stream(features.device).cuda_stream
-        err = lib.read_prob_tc_launch(
-            features.data_ptr(), kmer_ids.data_ptr(), fp.tc.data_ptr(), p.data_ptr(),
-            features.shape[0], TC_MODES[precision], stream,
-        )
+        with span("ops.launch.read_prob_tc"):
+            err = lib.read_prob_tc_launch(
+                features.data_ptr(), kmer_ids.data_ptr(), fp.tc.data_ptr(), p.data_ptr(),
+                features.shape[0], TC_MODES[precision], stream,
+            )
     if err != 0:
         raise RuntimeError(f"read_prob_tc kernel launch failed: {lib.read_prob_tc_error_string(err).decode()}")
     tc_launch_counts[precision] += 1
@@ -818,19 +819,21 @@ def fused_inference_t(
     (:func:`checked_kmer_ids` of the array ``kmer_ids`` was copied from)
     replaces the check on the device, and its host sync."""
     global launch_count
-    check_precision(precision)
-    if host_kmer_ids is not None:
-        check_host_kmer_ids(host_kmer_ids, kmer_ids, fp.widths.vocab)
-    if features.device.type == "cpu":
-        return fused_inference_t_plain(
-            fp, features, kmer_ids, site_ids, offsets, counts, threshold, n_samples, precision
+    with span("ops.fused_inference_t"):
+        check_precision(precision)
+        if features.device.type == "cpu":
+            if host_kmer_ids is not None:
+                with span("ops.check"):
+                    check_host_kmer_ids(host_kmer_ids, kmer_ids, fp.widths.vocab)
+            return fused_inference_t_plain(
+                fp, features, kmer_ids, site_ids, offsets, counts, threshold, n_samples, precision
+            )
+        out = _launch_fused(
+            fp, features, kmer_ids, offsets, counts, threshold, n_samples, "fused_inference_t", precision,
+            host_kmer_ids=host_kmer_ids,
         )
-    out = _launch_fused(
-        fp, features, kmer_ids, offsets, counts, threshold, n_samples, "fused_inference_t", precision,
-        host_kmer_ids=host_kmer_ids,
-    )
-    launch_count += 1
-    return out
+        launch_count += 1
+        return out
 
 
 def check_read_inputs(
@@ -840,13 +843,17 @@ def check_read_inputs(
     name: str,
     bad_site_ids: Optional[torch.Tensor] = None,
     host_kmer_ids: Optional[CheckedKmerIds] = None,
+    precision: str = "f32",
 ) -> torch.Tensor:
-    """Check the per-read inputs of a kernel launch (and ``bad_site_ids``,
-    in the same host sync); return the k-mer ids as the kernel reads them:
+    """Check the per-read inputs of a kernel launch in ``precision``, the
+    weight image it reads among them (and ``bad_site_ids``, in the same
+    host sync); return the k-mer ids as the kernel reads them:
     int8, or int16 where an id is 128 or more.  Given ``host_kmer_ids``
     the caller checked the ids' range on the host, so only their type and
-    shape are checked here, the host ids' type decides, and nothing waits
-    for the device."""
+    shape are checked here (``check_host_kmer_ids``), the host ids' type
+    decides, and nothing waits for the device."""
+    if host_kmer_ids is not None:
+        check_host_kmer_ids(host_kmer_ids, kmer_ids, fp.widths.vocab)
     if features.device.type != "cuda":
         raise ValueError(f"{name} runs on cpu or cuda, got {features.device}")
     w = fp.widths
@@ -854,6 +861,8 @@ def check_read_inputs(
     check_tensor("features", features, (torch.float32,), (n, w.features), device)
     check_tensor("kmer_ids", kmer_ids, (torch.int8, torch.int16, torch.int32), (n, w.positions), device)
     check_tensor("fp.packed", fp.packed, (torch.float32,), (f32_layout(w)["kWeights"],), device)
+    if precision != "f32":
+        check_tensor("fp.tc", fp.tc, (torch.int32,), (tc_layout(w)["kTcWords"],), device)
     if host_kmer_ids is None:
         wide = _check_kmer_range(kmer_ids, bad_site_ids, w.vocab)
     else:
@@ -873,12 +882,13 @@ def _launch_fused(fp, features, kmer_ids, offsets, counts, threshold, n_samples,
     global site_reduce_launch_count
     device = features.device
     n, n_sites = features.shape[0], counts.shape[0]
-    if device.type == "cuda":
-        check_tensor("offsets", offsets, (torch.int32,), (n_sites,), device)
-        check_tensor("counts", counts, (torch.int32,), (n_sites,), device)
-    if n_samples < 0:
-        raise ValueError(f"n_samples must be >= 0, got {n_samples}")
-    kmer_ids = check_read_inputs(fp, features, kmer_ids, name, bad_site_ids, host_kmer_ids)
+    with span("ops.check"):
+        if device.type == "cuda":
+            check_tensor("offsets", offsets, (torch.int32,), (n_sites,), device)
+            check_tensor("counts", counts, (torch.int32,), (n_sites,), device)
+        if n_samples < 0:
+            raise ValueError(f"n_samples must be >= 0, got {n_samples}")
+        kmer_ids = check_read_inputs(fp, features, kmer_ids, name, bad_site_ids, host_kmer_ids, precision)
 
     lib = kernel_lib(fp.widths, kmer_ids.element_size())
     p = torch.empty(n, dtype=torch.float32, device=device)
@@ -890,12 +900,13 @@ def _launch_fused(fp, features, kmer_ids, offsets, counts, threshold, n_samples,
         return p, site_p, mod_ratio
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.fused_infer_launch(
-            features.data_ptr(), kmer_ids.data_ptr(),
-            offsets.data_ptr(), counts.data_ptr(), fp.packed.data_ptr(),
-            p.data_ptr(), site_p.data_ptr(), mod_ratio.data_ptr(),
-            n, n_sites, float(threshold), int(n_samples), stream,
-        )
+        with span("ops.launch.fused_infer"):
+            err = lib.fused_infer_launch(
+                features.data_ptr(), kmer_ids.data_ptr(),
+                offsets.data_ptr(), counts.data_ptr(), fp.packed.data_ptr(),
+                p.data_ptr(), site_p.data_ptr(), mod_ratio.data_ptr(),
+                n, n_sites, float(threshold), int(n_samples), stream,
+            )
     if err != 0:
         raise launch_error(lib, err)
     count_wide("f32", fp.widths, kmer_ids)
@@ -935,20 +946,22 @@ def site_reduce(
     tensors run :func:`site_reduce_plain`; CUDA tensors launch
     ``site_reduce_kernel``, which gives the same bits for p in [0, 1] or
     NaN and NaN site_p at a site holding a read outside [0, 1]."""
-    if p.device.type == "cpu":
-        return site_reduce_plain(p, offsets, counts, threshold, n_samples)
-    if p.device.type != "cuda":
-        raise ValueError(f"site_reduce runs on cpu or cuda, got {p.device}")
-    n_sites = counts.shape[0]
-    check_tensor("p", p, (torch.float32,), (p.shape[0],), p.device)
-    check_tensor("offsets", offsets, (torch.int32,), (n_sites,), p.device)
-    check_tensor("counts", counts, (torch.int32,), (n_sites,), p.device)
-    if n_samples < 0:
-        raise ValueError(f"n_samples must be >= 0, got {n_samples}")
-    site_p = torch.empty(n_sites, dtype=torch.float32, device=p.device)
-    mod_ratio = torch.empty(n_sites, dtype=torch.float32, device=p.device)
-    launch_site_reduce(p, offsets, counts, threshold, n_samples, site_p, mod_ratio)
-    return site_p, mod_ratio
+    with span("ops.site_reduce"):
+        if p.device.type == "cpu":
+            return site_reduce_plain(p, offsets, counts, threshold, n_samples)
+        if p.device.type != "cuda":
+            raise ValueError(f"site_reduce runs on cpu or cuda, got {p.device}")
+        n_sites = counts.shape[0]
+        with span("ops.check"):
+            check_tensor("p", p, (torch.float32,), (p.shape[0],), p.device)
+            check_tensor("offsets", offsets, (torch.int32,), (n_sites,), p.device)
+            check_tensor("counts", counts, (torch.int32,), (n_sites,), p.device)
+            if n_samples < 0:
+                raise ValueError(f"n_samples must be >= 0, got {n_samples}")
+        site_p = torch.empty(n_sites, dtype=torch.float32, device=p.device)
+        mod_ratio = torch.empty(n_sites, dtype=torch.float32, device=p.device)
+        launch_site_reduce(p, offsets, counts, threshold, n_samples, site_p, mod_ratio)
+        return site_p, mod_ratio
 
 
 def launch_site_reduce(p, offsets, counts, threshold, n_samples, site_p, mod_ratio) -> None:
@@ -961,10 +974,11 @@ def launch_site_reduce(p, offsets, counts, threshold, n_samples, site_p, mod_rat
     lib = kernel_lib()
     with torch.cuda.device(p.device):
         stream = torch.cuda.current_stream(p.device).cuda_stream
-        err = lib.site_reduce_launch(
-            p.data_ptr(), offsets.data_ptr(), counts.data_ptr(), site_p.data_ptr(), mod_ratio.data_ptr(),
-            p.shape[0], n_sites, float(threshold), int(n_samples), stream,
-        )
+        with span("ops.launch.site_reduce"):
+            err = lib.site_reduce_launch(
+                p.data_ptr(), offsets.data_ptr(), counts.data_ptr(), site_p.data_ptr(), mod_ratio.data_ptr(),
+                p.shape[0], n_sites, float(threshold), int(n_samples), stream,
+            )
     if err != 0:
         raise launch_error(lib, err)
     site_reduce_launch_count += 1

@@ -49,6 +49,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from ..utils.profiling import span
 from .fused_infer_kernel import check_tensor
 
 # launches of the CUDA kernels in this process: mc_site_kernel, and
@@ -241,10 +242,11 @@ def launch_long_sites(lib, p, offsets, counts, u, site_p, sites, n_iters, n_samp
     device = p.device
     stream = torch.cuda.current_stream(device).cuda_stream
     e_all, tickets = long_scratch(n_long, n_iters, device) if scratch is None else scratch
-    return lib.mc_long_site_launch(
-        p.data_ptr(), offsets.data_ptr(), counts.data_ptr(), u.data_ptr(), sites.data_ptr(), e_all.data_ptr(),
-        tickets.data_ptr(), site_p.data_ptr(), counts.shape[0], p.shape[0], int(n_iters), int(n_samples), n_long,
-        long_from, stream)
+    with span("ops.launch.mc_long_site"):
+        return lib.mc_long_site_launch(
+            p.data_ptr(), offsets.data_ptr(), counts.data_ptr(), u.data_ptr(), sites.data_ptr(), e_all.data_ptr(),
+            tickets.data_ptr(), site_p.data_ptr(), counts.shape[0], p.shape[0], int(n_iters), int(n_samples),
+            n_long, long_from, stream)
 
 
 def site_probability_mc_cuda(
@@ -266,48 +268,54 @@ def site_probability_mc_cuda(
     that differs from them so that the launch cannot take it gives NaN (see
     the module docstring)."""
     global launch_count, long_launch_count
-    n_sites = counts.shape[0]
-    sites = None
-    if host_sites is not None:
-        host_offsets, host_counts = host_sites
-        if np.shape(host_offsets) != (n_sites,) or np.shape(host_counts) != (n_sites,):
-            raise ValueError(
-                f"host_sites have shapes {np.shape(host_offsets)} and {np.shape(host_counts)}, "
-                f"expected ({n_sites},) like counts"
-            )
-        sites = _check_sites(host_offsets, host_counts, p.shape[0])
-    if p.device.type == "cpu":
-        return site_probability_mc_plain(p, offsets, counts, u, n_iters, n_samples)
-    if p.device.type != "cuda":
-        raise ValueError(f"site_probability_mc_cuda runs on cpu or cuda, got {p.device}")
-    device = p.device
-    check_tensor("p", p, (torch.float32,), (p.shape[0],), device)
-    check_tensor("offsets", offsets, (torch.int32,), (n_sites,), device)
-    check_tensor("counts", counts, (torch.int32,), (n_sites,), device)
-    check_tensor("u", u, (torch.float32,), (n_samples, n_iters), device)
-    if n_iters < 1 or n_samples < 1:
-        raise ValueError(f"the MC kernel takes n_iters >= 1 and n_samples >= 1, got {n_iters}, {n_samples}")
-    if sites is None:
-        sites = _check_sites(offsets, counts, p.shape[0])
-    max_count, n_long = sites
+    with span("ops.site_probability_mc"):
+        n_sites = counts.shape[0]
+        device = p.device
+        sites = None
+        with span("ops.check"):
+            if host_sites is not None:
+                host_offsets, host_counts = host_sites
+                if np.shape(host_offsets) != (n_sites,) or np.shape(host_counts) != (n_sites,):
+                    raise ValueError(
+                        f"host_sites have shapes {np.shape(host_offsets)} and {np.shape(host_counts)}, "
+                        f"expected ({n_sites},) like counts"
+                    )
+                sites = _check_sites(host_offsets, host_counts, p.shape[0])
+            if device.type == "cuda":
+                check_tensor("p", p, (torch.float32,), (p.shape[0],), device)
+                check_tensor("offsets", offsets, (torch.int32,), (n_sites,), device)
+                check_tensor("counts", counts, (torch.int32,), (n_sites,), device)
+                check_tensor("u", u, (torch.float32,), (n_samples, n_iters), device)
+                if n_iters < 1 or n_samples < 1:
+                    raise ValueError(
+                        f"the MC kernel takes n_iters >= 1 and n_samples >= 1, got {n_iters}, {n_samples}")
+                if sites is None:
+                    sites = _check_sites(offsets, counts, p.shape[0])
+        if device.type == "cpu":
+            return site_probability_mc_plain(p, offsets, counts, u, n_iters, n_samples)
+        if device.type != "cuda":
+            raise ValueError(f"site_probability_mc_cuda runs on cpu or cuda, got {device}")
+        max_count, n_long = sites
 
-    lib = _kernel_lib(n_samples)
-    site_p = torch.empty(n_sites, dtype=torch.float32, device=device)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        args = (p.data_ptr(), offsets.data_ptr(), counts.data_ptr(), u.data_ptr(), site_p.data_ptr(),
-                n_sites, p.shape[0], int(n_iters), int(n_samples))
-        _raise_on(lib, lib.mc_site_launch(*args, max_count, stream))
-        launch_count += 1
-        if n_long:
-            if host_sites is None:
-                listed = long_sites(counts, n_long=n_long)
-            else:  # pinned, so the copy makes the host wait for nothing
-                listed = torch.from_numpy(long_sites(host_sites[1])).pin_memory().to(device, non_blocking=True)
-            _raise_on(lib, launch_long_sites(lib, p, offsets, counts, u, site_p, listed, n_iters, n_samples,
-                                             MAX_STAGED_READS))
-            long_launch_count += 1
-    return site_p
+        lib = _kernel_lib(n_samples)
+        site_p = torch.empty(n_sites, dtype=torch.float32, device=device)
+        with torch.cuda.device(device):
+            stream = torch.cuda.current_stream(device).cuda_stream
+            args = (p.data_ptr(), offsets.data_ptr(), counts.data_ptr(), u.data_ptr(), site_p.data_ptr(),
+                    n_sites, p.shape[0], int(n_iters), int(n_samples))
+            with span("ops.launch.mc_site"):
+                err = lib.mc_site_launch(*args, max_count, stream)
+            _raise_on(lib, err)
+            launch_count += 1
+            if n_long:
+                if host_sites is None:
+                    listed = long_sites(counts, n_long=n_long)
+                else:  # pinned, so the copy makes the host wait for nothing
+                    listed = torch.from_numpy(long_sites(host_sites[1])).pin_memory().to(device, non_blocking=True)
+                _raise_on(lib, launch_long_sites(lib, p, offsets, counts, u, site_p, listed, n_iters, n_samples,
+                                                 MAX_STAGED_READS))
+                long_launch_count += 1
+        return site_p
 
 
 def _raise_on(lib: ctypes.CDLL, err: int) -> None:
