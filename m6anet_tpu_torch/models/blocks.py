@@ -9,8 +9,10 @@ Every block's ``forward`` takes ``train`` and ``generator`` as the JAX
 blocks' ``apply`` takes ``train`` and ``rng``; only ``Linear`` uses them.
 
 Numerics: f32 throughout, with the JAX block's formulas (blocks.py:197-220
-there).  BatchNorm in eval mode is ``(y - mean) * rsqrt(var + 1e-5) * scale +
-bias`` over the running statistics; in train mode it normalises by the batch
+there).  BatchNorm in eval mode is the affine map ``(y - mean) * rsqrt(var +
+1e-5) * scale + bias`` over the running statistics, which ``Linear`` folds
+into the linear layer's weight and bias before its one GEMM (the same
+function, rounded in another order); in train mode it normalises by the batch
 mean and the biased batch variance and folds the batch mean and the
 *unbiased* variance into the running statistics with momentum 0.1
 (torch.nn.BatchNorm1d semantics), in place, outside autograd.
@@ -166,27 +168,32 @@ class Linear(nn.Module):
                 self.bn.num_batches_tracked.zero_()
 
     def forward(self, x: torch.Tensor, train: bool = False, generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        y = self.linear(x)
-        if self.bn is not None:
-            bn = self.bn
+        bn = self.bn
+        if bn is not None and not train:
+            # eval BatchNorm is an affine map per unit: folded into the GEMM's
+            # weight and bias (as fused_infer_kernel.model_tensors folds it),
+            # afresh each call, since training moves the running statistics
+            scale = bn.weight / torch.sqrt(bn.running_var + BN_EPS)
+            bias = (self.linear.bias - bn.running_mean) * scale + bn.bias
+            y = nn.functional.linear(x, self.linear.weight * scale[:, None], bias)
+        else:
+            y = self.linear(x)
+        if bn is not None and train:
             dp = self.data_parallel
-            if train and dp is not None and dp.world_size > 1:
+            if dp is not None and dp.world_size > 1:
                 # the global batch's statistics: sums over every rank's rows
                 # (one rank holds the whole batch, and takes the branch below)
                 n = y.shape[0] * dp.world_size
                 mean = dp.all_reduce_sum(y.sum(dim=0)) / n
                 var = dp.all_reduce_sum((y - mean).square().sum(dim=0)) / n
-            elif train:
+            else:
                 mean = y.mean(dim=0)
                 var = (y - mean).square().mean(dim=0)
                 n = y.shape[0]
-            if train:
-                with torch.no_grad():
-                    unbiased = var * (n / max(n - 1, 1))
-                    bn.running_mean.copy_((1 - BN_MOMENTUM) * bn.running_mean + BN_MOMENTUM * mean)
-                    bn.running_var.copy_((1 - BN_MOMENTUM) * bn.running_var + BN_MOMENTUM * unbiased)
-            else:
-                mean, var = bn.running_mean, bn.running_var
+            with torch.no_grad():
+                unbiased = var * (n / max(n - 1, 1))
+                bn.running_mean.copy_((1 - BN_MOMENTUM) * bn.running_mean + BN_MOMENTUM * mean)
+                bn.running_var.copy_((1 - BN_MOMENTUM) * bn.running_var + BN_MOMENTUM * unbiased)
             y = (y - mean) * torch.rsqrt(var + BN_EPS) * bn.weight + bn.bias
         y = self.activation(y)
         if train and self.dropout > 0.0:

@@ -871,6 +871,32 @@ def test_released_models_match_the_torch_backend_on_the_card(cuda_device, tmp_pa
         _assert_runs_close(tmp_path / precision, tmp_path / "torch", threshold, max(tol, 2 * own_error))
 
 
+def test_torch_backend_matches_the_f32_kernel_at_the_production_batch(cuda_device):
+    """The torch backend's step (the model's blocks, the first block's eval
+    BatchNorm folded into its GEMM) against cuda_fused at f32 (the kernels'
+    own fold) on the released HCT116_RNA002 model at the production batch
+    (1,048,576 reads, 16,384 sites), at the kernel-vs-plain tolerances:
+    p 1e-6, site_p 1e-5, mod_ratio equal at every site with no read within
+    1e-6 of the threshold."""
+    from m6anet_tpu_torch.inference import engine
+    from m6anet_tpu_torch.scripts._sweep import production_batch
+
+    model = _model().to(cuda_device).eval()
+    X, K, offsets, counts = (torch.from_numpy(a).to(cuda_device) for a in production_batch())
+    n_sites = counts.shape[0]
+    with torch.no_grad():
+        got, want = (engine.make_infer_step(model, n_sites, DEFAULT_READ_THRESHOLD, backend=backend,
+                                            precision="f32")(X, K, offsets, counts)
+                     for backend in ("torch", "cuda_fused"))
+    torch.testing.assert_close(got[0], want[0], rtol=0, atol=1e-6)
+    torch.testing.assert_close(got[1], want[1], rtol=0, atol=1e-5)
+    site_ids = site_ops.derive_site_ids(offsets, counts, X.shape[0], n_sites).long()
+    near = ((want[0] - DEFAULT_READ_THRESHOLD).abs() < 1e-6).int()
+    held = torch.zeros(n_sites + 1, dtype=torch.int32, device=cuda_device).index_add_(0, site_ids, near)[:n_sites] == 0
+    assert int(held.sum()) > n_sites // 2
+    assert torch.equal(got[2][held], want[2][held])
+
+
 def test_signal_config_under_auto_on_the_card_matches_cpu(cuda_device, tmp_path):
     """prod_pooling_signal.toml (seeded weights): auto on the card takes the
     torch modules, launches no kernel, and matches the CPU's run (per read

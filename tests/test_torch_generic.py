@@ -15,6 +15,8 @@ inference per read 1e-6, per site 1e-5, mod_ratio equal; a train step as
 tests/test_torch_train.py holds the production model's (PERF.md,
 "Training").
 """
+import copy
+import json
 import os
 import tomllib
 
@@ -30,6 +32,7 @@ from m6anet_tpu.constants import DEFAULT_READ_THRESHOLD
 from m6anet_tpu.constants import asset_path as jax_asset_path
 from m6anet_tpu.data.dataset import build_dataset as jax_build_dataset
 from m6anet_tpu.inference.engine import run_inference as jax_run_inference
+from m6anet_tpu.models.blocks import Linear as JaxLinear
 from m6anet_tpu.models.mil import BLOCK_REGISTRY as JAX_REGISTRY
 from m6anet_tpu.models.mil import MILModel as JaxMILModel
 from m6anet_tpu.train import checkpoint as jax_checkpoint
@@ -37,10 +40,18 @@ from m6anet_tpu.train import loop as jax_loop
 from m6anet_tpu.train import losses as jax_losses
 from m6anet_tpu.utils.treeio import save_tree as jax_save_tree
 from m6anet_tpu_torch.cli import main as port_main
-from m6anet_tpu_torch.constants import DEFAULT_MIN_READS, DEFAULT_NORM_PATH, SIGNAL_MODEL_CONFIG, TRAIN_CONFIG_TEMPLATE
+from m6anet_tpu_torch.constants import (
+    DEFAULT_MIN_READS,
+    DEFAULT_MODEL_CONFIG,
+    DEFAULT_NORM_PATH,
+    PRETRAINED_CONFIGS,
+    SIGNAL_MODEL_CONFIG,
+    TRAIN_CONFIG_TEMPLATE,
+)
 from m6anet_tpu_torch.data.dataset import build_dataset
 from m6anet_tpu_torch.inference import engine
 from m6anet_tpu_torch.models import load_model
+from m6anet_tpu_torch.models.blocks import BN_EPS, BN_MOMENTUM, Linear
 from m6anet_tpu_torch.models.convert import (
     adam_state_from_jax,
     adam_state_to_jax,
@@ -55,6 +66,10 @@ from m6anet_tpu_torch.utils.config import dump_toml, load_toml
 from m6anet_tpu_torch.utils.treeio import flatten_tree, load_tree
 
 DATA_DIR = os.path.join(os.path.dirname(__file__), "data")
+# the signal-only benchmark configuration, whose seeded laws give its
+# BatchNorm statistics far from the identity
+SIGNAL_BENCH_CONFIG = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "portbench",
+                                   "configs", "m6anet_signal.json")
 KEYS_I = ["transcript_id", "transcript_position", "read_index"]
 KEYS_S = ["transcript_id", "transcript_position"]
 LR, WD, CLIP = 4e-3, 1e-5, 5.0
@@ -229,6 +244,161 @@ def test_params_round_trip_is_the_identity(case):
     assert jax.tree_util.tree_structure(back) == jax.tree_util.tree_structure(tree)
     for (path, a), b in zip(jax.tree_util.tree_flatten_with_path(tree)[0], jax.tree_util.tree_leaves(back)):
         assert a.dtype == b.dtype and np.array_equal(a, b), jax.tree_util.keystr(path)
+
+
+# ------------------------------------------ the Linear block's eval BatchNorm
+def _bn_linear_params(case, rng):
+    """The JAX parameters of a BatchNorm Linear block: drawn from the laws of
+    the signal-only benchmark config's first block, the released
+    HCT116_RNA002 model's block, or a running variance near 0 under a large
+    BatchNorm scale."""
+    if case == "signal_laws":
+        with open(SIGNAL_BENCH_CONFIG) as f:
+            laws = [w for w in json.load(f)["weights"]["seeded"] if w["leaf"].startswith("block2/")]
+        return {w["leaf"].split("/")[1]: rng.uniform(w["low"], w["high"], size=w["shape"]).astype(np.float32)
+                for w in laws}
+    if case == "HCT116_RNA002":
+        model = load_model(load_toml(DEFAULT_MODEL_CONFIG), PRETRAINED_CONFIGS[case][0])
+        index = next(i for i, b in enumerate(model.blocks) if getattr(b, "bn", None) is not None)
+        return params_to_jax(model.state_dict())[f"block{index}"]
+    n_in, h1 = 9, 150
+    bound = 1.0 / np.sqrt(n_in)
+    draw = {"w": ((n_in, h1), -bound, bound), "b": ((h1,), -bound, bound), "bn_scale": ((h1,), 5.0, 10.0),
+            "bn_bias": ((h1,), -1.0, 1.0), "bn_mean": ((h1,), -0.5, 0.5), "bn_var": ((h1,), 0.0, 1e-6)}
+    return {k: rng.uniform(lo, hi, size=shape).astype(np.float32) for k, (shape, lo, hi) in draw.items()}
+
+
+def _bn_linear(params):
+    n_in, h1 = params["w"].shape
+    spec = {"input_channel": n_in, "output_channel": h1, "activation": "relu", "batch_norm": True}
+    model = MILModel({"block": [{"block_type": "Linear", **spec}]})
+    model.load_state_dict(params_from_jax({"block0": params}))
+    return JaxLinear(**spec), model.blocks[0]
+
+
+@pytest.mark.parametrize("case", ["signal_laws", "HCT116_RNA002", "near_zero_variance"])
+def test_eval_batch_norm_fold_matches_jax(case):
+    """The eval forward of a BatchNorm Linear block (one GEMM on the weight
+    and bias with the running statistics folded in) against the JAX block's
+    formula, which normalises after its GEMM, at 1e-6.  With a running
+    variance near 0 a unit's gain |scale| / sqrt(var + eps) reaches ~3,000,
+    and both sides' f32 rounding of x w + b grows with it (~1e-3 against an
+    f64 copy, on each side): there the outputs are compared in the units of
+    x w + b, each unit's divided by its gain.  In every case the fold lies
+    no further from the f64 copy than twice the JAX block does."""
+    rng = np.random.default_rng(11)
+    params = _bn_linear_params(case, rng)
+    jax_block, block = _bn_linear(params)
+    x = rng.normal(size=(1031, params["w"].shape[0])).astype(np.float32)
+    want = np.asarray(jax_block.apply(jax.tree.map(jnp.asarray, params), jnp.asarray(x))[0])
+    with torch.no_grad():
+        got = block(torch.from_numpy(x)).numpy()
+        exact = copy.deepcopy(block).double()(torch.from_numpy(x).double()).numpy()
+    assert np.abs(got - exact).max() <= 2 * np.abs(want - exact).max(), case
+    gain = np.abs(params["bn_scale"].astype(np.float64)) / np.sqrt(params["bn_var"].astype(np.float64) + BN_EPS)
+    if case == "near_zero_variance":
+        assert gain.max() > 1e3
+        got, want = got / gain, want / gain
+    _close(got, want, msg=case)
+
+
+def test_eval_forward_reads_the_activations_once():
+    """Under torch.profiler on the CPU, the only top-level op of a BatchNorm
+    Linear block's eval forward that reads an (N, H1) tensor is the relu:
+    the BatchNorm is in the GEMM's weight and bias.  In train mode its
+    passes over the GEMM's output are still there."""
+    block = Linear(9, 150)
+    block.init(torch.Generator().manual_seed(0))
+    x = torch.randn(257, 9, generator=torch.Generator().manual_seed(1))
+
+    def top_level_ops(train):
+        with torch.no_grad(), torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU],
+                                                     record_shapes=True) as prof:
+            block(x, train=train)
+        top = [e for e in prof.events() if e.cpu_parent is None]
+        return [e.name for e in top], [e.name for e in top if [257, 150] in e.input_shapes]
+
+    ops, reads = top_level_ops(train=False)
+    assert reads == ["aten::relu"] and ops.count("aten::linear") == 1, ops
+    _, train_reads = top_level_ops(train=True)
+    assert {"aten::sub", "aten::mul", "aten::add", "aten::relu"} <= set(train_reads), train_reads
+
+
+class _TwoSameRanks:
+    """A data-parallel group of two ranks that hold the same rows."""
+
+    world_size = 2
+
+    def all_reduce_sum(self, t):
+        return t * 2
+
+    def draw_rows(self, shape, generator, device):
+        return torch.rand(shape, generator=generator, device=device)
+
+
+def _unfolded_train_forward(block, x, generator):
+    """The Linear block's train-mode forward as it was written before the
+    eval fold: BatchNorm by the batch's statistics, the running statistics'
+    update, relu, dropout."""
+    y = block.linear(x)
+    bn, dp = block.bn, block.data_parallel
+    if dp is not None and dp.world_size > 1:
+        n = y.shape[0] * dp.world_size
+        mean = dp.all_reduce_sum(y.sum(dim=0)) / n
+        var = dp.all_reduce_sum((y - mean).square().sum(dim=0)) / n
+    else:
+        mean = y.mean(dim=0)
+        var = (y - mean).square().mean(dim=0)
+        n = y.shape[0]
+    with torch.no_grad():
+        unbiased = var * (n / max(n - 1, 1))
+        bn.running_mean.copy_((1 - BN_MOMENTUM) * bn.running_mean + BN_MOMENTUM * mean)
+        bn.running_var.copy_((1 - BN_MOMENTUM) * bn.running_var + BN_MOMENTUM * unbiased)
+    y = torch.relu((y - mean) * torch.rsqrt(var + BN_EPS) * bn.weight + bn.bias)
+    keep = 1.0 - block.dropout
+    draw = dp.draw_rows(y.shape, generator, y.device) if dp is not None else torch.rand(y.shape, generator=generator)
+    return torch.where(draw < keep, y / keep, 0.0)
+
+
+@pytest.mark.parametrize("ranks", [1, 2])
+def test_train_forward_is_the_unfolded_formula_bit_for_bit(ranks):
+    """Train mode keeps its formula: over three steps the output, the running
+    statistics and the gradients by the input and every parameter are the
+    unfolded formula's bits, on one rank and on two ranks' global batch
+    (dropout 0.25 throughout).  An eval forward after them folds the moved
+    statistics (no cache of an earlier fold) and matches the formula on
+    them at 1e-6."""
+    rng = np.random.default_rng(12)
+    params = _bn_linear_params("signal_laws", rng)
+    _, block = _bn_linear(params)
+    block.dropout = 0.25
+    block.data_parallel = _TwoSameRanks() if ranks > 1 else None
+    reference = copy.deepcopy(block)
+    x_eval = torch.from_numpy(rng.normal(size=(8, 9)).astype(np.float32))
+    with torch.no_grad():
+        eval_before = block(x_eval)
+    for step in range(3):
+        x = torch.from_numpy(rng.normal(size=(513, 9)).astype(np.float32))
+        outs, grads = [], []
+        for b, forward in ((block, lambda xt, g: block(xt, train=True, generator=g)),
+                           (reference, lambda xt, g: _unfolded_train_forward(reference, xt, g))):
+            xt = x.clone().requires_grad_()
+            out = forward(xt, torch.Generator().manual_seed(step))
+            (out * torch.linspace(-1, 1, out.shape[1])).sum().backward()
+            outs.append(out.detach())
+            grads.append([xt.grad] + [p.grad for p in b.parameters()])
+            b.zero_grad(set_to_none=True)
+        assert torch.equal(outs[0], outs[1]), step
+        assert all(torch.equal(a, b) for a, b in zip(*grads)), step
+        for name in ("running_mean", "running_var"):
+            assert torch.equal(getattr(block.bn, name), getattr(reference.bn, name)), (step, name)
+    with torch.no_grad():
+        got = block(x_eval)
+        bn = block.bn
+        want = torch.relu((block.linear(x_eval) - bn.running_mean) * torch.rsqrt(bn.running_var + BN_EPS) * bn.weight
+                          + bn.bias)
+    assert not torch.equal(got, eval_before)
+    _close(got, want.numpy())
 
 
 # ------------------------------------------------------------ whole models
