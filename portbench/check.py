@@ -89,5 +89,5 @@ def judge(config_name: str, weights, batches: Sequence, slots: Sequence, thresho
     return numbers
 
 
-def worst(numbers: List[Dict[str, float]]) -> Dict[str, float]:
-    return {name: max(n[name] for n in numbers) for name in NAMES}
+def worst(numbers: List[Dict[str, float]], names=NAMES) -> Dict[str, float]:
+    return {name: max(n[name] for n in numbers) for name in names}

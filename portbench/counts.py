@@ -7,6 +7,12 @@ reads a batch carries are work the function does not ask for.
 * Model operations per read: ``2 (n_in H1 + H1 H2 + H2)``, the three
   matrix products' multiply-adds (the embedding is a lookup, BatchNorm
   folds into the first layer, the activations are not counted).
+* A train step's operations per read: three times that, the forward's
+  products and the backward's two a layer (the gradient of the layer's
+  input and of its weights; the first layer's input gradient reaches only
+  the embedding, and is counted all the same, as a step needs it whenever
+  the embedding trains).  BatchNorm, the loss and Adam are elementwise and
+  not counted.
 * Phase A (the per-read model) reads each read's inputs once (its float32
   features, its int8 k-mer ids) and writes its float32 p once.
 * Phase B (exact site statistics) reads each real read's p, each site's
@@ -48,6 +54,10 @@ def model_widths(model_config: Dict) -> Widths:
 
 def model_flops_per_read(w: Widths) -> int:
     return 2 * (w.n_in * w.h1 + w.h1 * w.h2 + w.h2)
+
+
+def train_flops_per_read(w: Widths) -> int:
+    return 3 * model_flops_per_read(w)
 
 
 def peak(kind: str, what: str) -> Optional[float]:

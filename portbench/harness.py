@@ -18,8 +18,10 @@ shape they share.  The timed window then calls the step on the staged
 batches in turn, round and round, with no host sync, until ``--seconds``
 have passed, and closes with ``torch.cuda.synchronize()``; each batch's
 outputs from its last call stay in its slot, and ``check.py`` judges those
-slots once the window has closed.  ``--trace 1`` adds, after the window, a
-burst of step calls timed one by one and two profiled sub-windows, for the
+slots once the window has closed.  A train mix (``"kind": "train"``) sets
+up a train cell instead (``train_cell.py``: the train step, judged by
+``check_train.py``).  ``--trace 1`` adds, after the window, a burst of
+step calls timed one by one and two profiled sub-windows, for the
 per-layer readers.
 """
 from __future__ import annotations
@@ -56,6 +58,10 @@ def set_cache_dirs() -> None:
 def load_json(*parts: str) -> Dict:
     with open(os.path.join(*parts)) as f:
         return json.load(f)
+
+
+def load_spec() -> Dict:
+    return load_json(ROOT, "BENCHMARK.json")
 
 
 def find(entries: List[Dict], name: str, what: str) -> Dict:
@@ -127,37 +133,18 @@ class Cell:
 
     def __init__(self, workload: str, seed: int, device_name: str = "cuda", mix_override: Optional[Dict] = None,
                  resolved: Optional[Tuple[str, str]] = None, wrap_step: Optional[Callable] = None, log=None):
-        self.log = log or (lambda msg: print(msg, file=sys.stderr, flush=True))
-        self.spec = load_json(ROOT, "BENCHMARK.json")
-        self.workload, self.seed = workload, seed
-        self.cell = find(self.spec["workloads"], workload, "workload")
-        self.config = load_json(HERE, "configs", self.cell["config"] + ".json")
-        self.mix = dict(load_json(HERE, "traffic", self.cell["traffic"] + ".json"), **(mix_override or {}))
-        self.limits = load_json(HERE, "limits", workload + ".json")
-        self.stages: Dict[str, float] = {}
-        mark = time.perf_counter()
-
+        mark = self._open(workload, seed, device_name, mix_override, log)
         import torch
 
         from . import traffic
-
-        if ROOT not in sys.path:
-            sys.path.insert(0, ROOT)
-        import m6anet_tpu_torch
         from m6anet_tpu_torch.inference import engine
         from m6anet_tpu_torch.models.convert import params_from_jax
         from m6anet_tpu_torch.models.mil import MILModel
         from m6anet_tpu_torch.ops import encoder_kernel, fused_infer_kernel, mc_kernel
         from m6anet_tpu_torch.utils.treeio import unflatten_tree
 
-        if os.path.dirname(os.path.dirname(os.path.abspath(m6anet_tpu_torch.__file__))) != ROOT:
-            raise SystemExit(f"{PROGRAM} was imported from {m6anet_tpu_torch.__file__}, not from this checkout")
         self.program = SimpleNamespace(engine=engine, encoder_kernel=encoder_kernel,
                                        fused_infer_kernel=fused_infer_kernel, mc_kernel=mc_kernel)
-        self.torch = torch
-        self.device = engine.resolve_device(device_name)
-        self.on_card = self.device.type == "cuda"
-        self.kind = torch.cuda.get_device_name(self.device) if self.on_card else "cpu"
         mark = self._stage("import", mark)
 
         # the program: the model from the configuration's weights, as the CLI loads one
@@ -195,6 +182,36 @@ class Cell:
                 self.call(b)
         self.sync()
         self._stage("warm-up", mark)
+
+    def _open(self, workload: str, seed: int, device_name: str, mix_override: Optional[Dict], log) -> float:
+        """What every kind of cell does before it sets up its program: read
+        the cell's entries and files, import torch and the port from this
+        checkout, and resolve the device.  Returns the clock's mark at its
+        start, which the "import" stage counts from."""
+        self.log = log or (lambda msg: print(msg, file=sys.stderr, flush=True))
+        self.spec = load_spec()
+        self.workload, self.seed = workload, seed
+        self.cell = find(self.spec["workloads"], workload, "workload")
+        self.config = load_json(HERE, "configs", self.cell["config"] + ".json")
+        self.mix = dict(load_json(HERE, "traffic", self.cell["traffic"] + ".json"), **(mix_override or {}))
+        self.limits = load_json(HERE, "limits", workload + ".json")
+        self.stages: Dict[str, float] = {}
+        mark = time.perf_counter()
+
+        import torch
+
+        if ROOT not in sys.path:
+            sys.path.insert(0, ROOT)
+        import m6anet_tpu_torch
+        from m6anet_tpu_torch.inference.engine import resolve_device
+
+        if os.path.dirname(os.path.dirname(os.path.abspath(m6anet_tpu_torch.__file__))) != ROOT:
+            raise SystemExit(f"{PROGRAM} was imported from {m6anet_tpu_torch.__file__}, not from this checkout")
+        self.torch = torch
+        self.device = resolve_device(device_name)
+        self.on_card = self.device.type == "cuda"
+        self.kind = torch.cuda.get_device_name(self.device) if self.on_card else "cpu"
+        return mark
 
     def _stage(self, name: str, mark: float) -> float:
         now = time.perf_counter()
@@ -248,6 +265,7 @@ class Cell:
         from .trace import reduce
 
         passes = max(1, math.ceil(seconds * steps_per_s / len(self.calls)))
+        self.profiled_steps = passes * len(self.calls)
         activities = ([ProfilerActivity.CUDA] if self.on_card else []) + ([ProfilerActivity.CPU] if host_ops else [])
         self.sync()
         with profile(activities=activities or [ProfilerActivity.CPU]) as prof:
@@ -258,6 +276,22 @@ class Cell:
             self.sync()
             window_s = time.perf_counter() - start
         return reduce(prof.events(), window_s)
+
+    @property
+    def names(self):
+        from .check import NAMES
+
+        return NAMES
+
+    def reader_context(self, counts) -> SimpleNamespace:
+        """What the per-layer readers read of the cell; ``run`` adds the
+        window's and the trace's readings."""
+        return SimpleNamespace(
+            program=self.program, counts=counts, kind=self.kind, backend=self.backend, precision=self.precision,
+            method=self.method, n_samples=self.n_samples, n_iters=self.n_iters, mix=self.mix, state={},
+            widths=counts.model_widths(self.config["model"]),
+            real_reads=statistics.fmean(c[3] for c in self.calls),
+            real_sites=statistics.fmean(c[2] for c in self.calls))
 
     def judge(self, control: bool = False) -> List[Dict[str, float]]:
         """Each batch's numbers (``check.py``), once the program's own state
@@ -274,25 +308,32 @@ class Cell:
                            self.method, self.n_samples, u_host, self.device, control)
 
 
+def make_cell(workload: str, seed: int, device_name: str = "cuda", **cell_options):
+    """The cell ``workload`` set up for ``seed``: a :class:`Cell`, or a
+    ``train_cell.TrainCell`` where its mix is a train mix."""
+    traffic_name = find(load_spec()["workloads"], workload, "workload")["traffic"]
+    if load_json(HERE, "traffic", traffic_name + ".json").get("kind") == "train":
+        from .train_cell import TrainCell
+
+        return TrainCell(workload, seed, device_name, **cell_options)
+    return Cell(workload, seed, device_name, **cell_options)
+
+
 def run(workload: str, seed: int, seconds: float, trace: bool, device_name: str = "cuda",
         t0: Optional[float] = None, **cell_options) -> Dict:
     """One run of the cell ``workload``: the result's dict (``cell_options``:
-    the tests' keywords of :class:`Cell`)."""
+    the tests' keywords of :class:`Cell` or ``TrainCell``)."""
     from . import check, counts
 
     t0 = time.perf_counter() if t0 is None else t0
-    cell = Cell(workload, seed, device_name, **cell_options)
+    cell = make_cell(workload, seed, device_name, **cell_options)
     setup_s = time.perf_counter() - t0
     cell.log("set-up: " + ", ".join(f"{k} {v:.3f} s" for k, v in cell.stages.items()) + f"; total {setup_s:.3f} s")
     torch, spec = cell.torch, cell.spec
 
     metrics_spec = cell_metrics(spec, "per_layer" if trace else "end_to_end", workload)
     readers = {m["name"]: load_reader(m["name"]) for m in metrics_spec} if trace else {}
-    ctx = SimpleNamespace(
-        program=cell.program, counts=counts, kind=cell.kind, backend=cell.backend, precision=cell.precision,
-        method=cell.method, n_samples=cell.n_samples, n_iters=cell.n_iters, mix=cell.mix, state={},
-        widths=counts.model_widths(cell.config["model"]),
-        real_reads=statistics.fmean(c[3] for c in cell.calls), real_sites=statistics.fmean(c[2] for c in cell.calls))
+    ctx = cell.reader_context(counts)
     for reader in readers.values():
         if hasattr(reader, "start"):
             reader.start(ctx)
@@ -306,6 +347,7 @@ def run(workload: str, seed: int, seconds: float, trace: bool, device_name: str 
     if trace:
         ctx.step_host_s = cell.burst()
         ctx.trace = cell.profile(PROFILE_S, done["steps"] / done["seconds"], host_ops=False)
+        ctx.trace_steps = cell.profiled_steps
         labelled = cell.profile(LABEL_S, done["steps"] / done["seconds"], host_ops=True)
         metrics = {}
         for m in metrics_spec:
@@ -319,12 +361,13 @@ def run(workload: str, seed: int, seconds: float, trace: bool, device_name: str 
     start = time.perf_counter()
     per_batch = cell.judge()
     cell.log(f"comparison with the reference: {time.perf_counter() - start:.3f} s")
-    worst = check.worst(per_batch)
+    names = cell.names
+    worst = check.worst(per_batch, names)
     limits = cell.limits
     result = {
-        "correct": all(worst[name] <= limits[name] for name in check.NAMES),
+        "correct": all(worst[name] <= limits[name] for name in names),
         "attempted": done["steps"],
-        "failed": sum(any(n[name] > limits[name] for name in check.NAMES) for n in per_batch),
+        "failed": sum(any(n[name] > limits[name] for name in names) for n in per_batch),
         "metrics": metrics,
         "device": {"platform": "gpu" if cell.on_card else "cpu", "kind": cell.kind, "count": cell.cell["chips"],
                    "memory_peak_bytes": memory_peak},
@@ -333,11 +376,11 @@ def run(workload: str, seed: int, seconds: float, trace: bool, device_name: str 
         result["device"].update(busy_s=ctx.trace.busy_s, window_s=ctx.trace.window_s)
         result["breakdown"] = {"device_ops": ctx.trace.breakdown()["device_ops"],
                                "idle_gaps": labelled.breakdown()["idle_gaps"]}
-    result["checks"] = {name: {"value": worst[name], "limit": limits[name]} for name in check.NAMES}
+    result["checks"] = {name: {"value": worst[name], "limit": limits[name]} for name in names}
     leaked = forbidden_modules()
     if leaked:
         raise SystemExit(f"the run loaded {', '.join(leaked)}: nothing it runs may import JAX or the JAX package")
-    for name in check.NAMES:
+    for name in names:
         cell.log(f"check {name}: {worst[name]!r} (limit {limits[name]!r})")
     return result
 
@@ -356,7 +399,7 @@ def main(argv=None, t0: Optional[float] = None) -> int:
     import torch
 
     print(f"torch imported {time.perf_counter() - t0:.3f} s after start", file=sys.stderr, flush=True)
-    chips = find(load_json(ROOT, "BENCHMARK.json")["workloads"], args.workload, "workload")["chips"]
+    chips = find(load_spec()["workloads"], args.workload, "workload")["chips"]
     if not torch.cuda.is_available() or torch.cuda.device_count() < chips:
         print(f"portbench: the cell needs {chips} CUDA card(s); torch sees "
               f"{torch.cuda.device_count() if torch.cuda.is_available() else 0}", file=sys.stderr)

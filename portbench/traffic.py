@@ -11,6 +11,10 @@ after the last site.  Batch ``b`` of seed ``s`` is drawn from
 ``m6anet_tpu_torch/scripts/_sweep.py::production_batch`` (the HEK293T-shaped
 law of the JAX package's ``bench.py``): at the production sizes, batch
 ``b`` of seed ``s`` is ``production_batch([s, b])``.
+
+A train mix (``"kind": "train"``) stages batches in the training loader's
+layout instead (:func:`make_train_batch`): ``sites`` sites of
+``reads_per_site`` reads each.
 """
 from __future__ import annotations
 
@@ -53,6 +57,35 @@ def make_batch(mix: Dict, seed: int, index: int) -> Batch:
         raise ValueError(f"batch {index} of seed {seed}: its read counts overflow its {reads} reads")
     offsets = (np.cumsum(counts) - counts).astype(np.int32)
     return Batch(features, kmer_ids, offsets, counts)
+
+
+class TrainBatch(NamedTuple):
+    """One training batch, as the train CLI's loader and loop hand it to
+    the step."""
+
+    X: np.ndarray  # (sites, reads_per_site, features_per_read) float32
+    kmer: np.ndarray  # (sites, reads_per_site, kmer_positions) int32
+    y: np.ndarray  # (sites,) float32 labels
+    mask: np.ndarray  # (sites,) float32, 1 for every real site (a full batch)
+
+
+def make_train_batch(mix: Dict, seed: int, index: int) -> TrainBatch:
+    """Batch ``index`` of a train mix under ``seed``, drawn from
+    ``numpy.random.default_rng([seed, index])`` in this order: features
+    N(0, 1), k-mer ids uniform over ``kmer_vocab``, labels Bernoulli(``p``)."""
+    sites, reads = mix["sites"], mix["reads_per_site"]
+    labels = mix["labels"]
+    if labels["law"] != "bernoulli":
+        raise ValueError(f"unknown label law {labels['law']!r}")
+    rng = np.random.default_rng([int(seed), int(index)])
+    X = rng.normal(size=(sites, reads, mix["features_per_read"])).astype(np.float32)
+    kmer = rng.integers(0, mix["kmer_vocab"], size=(sites, reads, mix["kmer_positions"])).astype(np.int32)
+    y = (rng.random(sites) < labels["p"]).astype(np.float32)
+    return TrainBatch(X, kmer, y, np.ones(sites, np.float32))
+
+
+def make_train_batches(mix: Dict, seed: int) -> List[TrainBatch]:
+    return [make_train_batch(mix, seed, b) for b in range(mix["batches"])]
 
 
 def make_batches(mix: Dict, seed: int, threads: int = 8) -> List[Batch]:
