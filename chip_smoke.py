@@ -82,7 +82,12 @@ its plain PyTorch version:
                  only the sums); site_reduce_kernel's registers and spills.
                  A wrapper call with host arrays times the pair (phase A
                  then phase B): the flush before it keeps the card busy
-                 while the host launches
+                 while the host launches; the torch backend's per-read
+                 tail (encoder_kernel.read_prob_tail) at the production
+                 batch through the signal-only model (9 -> 150 -> 32):
+                 against the tail's modules (per read 1e-6), kernel,
+                 modules, cuBLAS with the weights folded once, bound,
+                 ptxas, and the torch step's launches a batch
  14. T1 train    the production model's train step (train/loop.py: the
                  train-mode forward, BCE, backward, optax's global-norm
                  clip, torch.optim.Adam) on the card against the CPU, from
@@ -107,13 +112,15 @@ its plain PyTorch version:
                  threshold and norm factors) through run_inference in this
                  process on tests/data, every launch count set to 0 just
                  before each run and read just after: --backend torch on
-                 the card (the plain version), cuda_fused at f32, f32x3 and
-                 bf16, --backend cuda at f32 and the MC method; f32 and
-                 the cuda backend against the torch run (per read 1e-6,
+                 the CPU (the plain version), --backend torch on the card
+                 (the per-read tail's kernel and phase B once a batch),
+                 cuda_fused at f32, f32x3 and bf16, --backend cuda at f32
+                 and the MC method; the card's torch run, f32 and
+                 the cuda backend against the CPU's torch run (per read 1e-6,
                  or twice the f32 plain version's error against an f64
                  copy of the model where larger; per site 1e-5 + 20 max|dp|
                  over the site's reads; mod_ratio equal but near the
-                 threshold); f32x3 and bf16 per read against the torch run
+                 threshold); f32x3 and bf16 per read against that run
                  at the mode's accuracy (2e-5, 2e-2, or twice the mode's
                  error against f64 where larger), and every output against
                  the mode's plain version on the demo's batch written as
@@ -122,10 +129,14 @@ its plain PyTorch version:
                  plain version on the demo's packed batch, and bf16 at the
                  production batch, at the tolerances of phases 3-12, each
                  check's real reads meeting CLOSE_SHARE on their own
- 17. generic     prod_pooling_signal.toml and a ProbabilityAttention config
-                 (seeded weights) through run_inference on the card with
-                 --backend auto, which must resolve to torch and launch no
-                 kernel, against the same run on the CPU (per read 1e-6,
+ 17. generic     prod_pooling_signal.toml, a ProbabilityAttention config
+                 and the signal-only blocks with a tanh last block (seeded
+                 weights) through run_inference on the card with
+                 --backend auto, which must resolve to torch and launch
+                 phase B once a batch, and the per-read tail's kernel once
+                 a batch but in the tanh config (which runs its blocks as
+                 modules), and no other, against the same run on the CPU
+                 (per read 1e-6,
                  per site 1e-5, mod_ratio equal); the signal-only config
                  once more through the CLI (--model_config,
                  --model_state_dict); 20 train steps of the attention-plus-
@@ -1123,6 +1134,7 @@ def reset_launch_counts():
     for precision in fused_infer_kernel.wide_launch_counts:
         fused_infer_kernel.wide_launch_counts[precision] = 0
     encoder_kernel.launch_count = 0
+    encoder_kernel.tail_launch_count = 0
     mc_kernel.launch_count = 0
     mc_kernel.long_launch_count = 0
 
@@ -1135,6 +1147,7 @@ def read_launch_counts():
     return {
         "fused_inference_t": fused_infer_kernel.launch_count,
         "fused_read_probability": encoder_kernel.launch_count,
+        "read_prob_tail": encoder_kernel.tail_launch_count,
         "site_probability_mc": mc_kernel.launch_count,
         "fused_inference": fused_infer_kernel.fused_inference_launch_count,
         "site_reduce": fused_infer_kernel.site_reduce_launch_count,
@@ -1225,11 +1238,12 @@ def write_plain_outputs(fp, batch, site_batch, precision, threshold, out_dir):
 
 def check_models(logs, work_dir, full_batch):
     """Phase 16: each released model through the engine on the card, in
-    every mode of cuda_fused, through --backend cuda and the MC method,
-    against the torch modules on the card (and HCT116 against the golden
-    CSVs); each mode's kernel against its plain version on the demo's batch
-    and, in bf16, on the production batch, with the model's own weights and
-    threshold.  Returns each run's report by model."""
+    every mode of cuda_fused, through --backend cuda and --backend torch
+    (whose step runs the per-read tail's kernel and phase B on the card) and
+    the MC method, against the torch modules on the CPU (and HCT116 against
+    the golden CSVs); each mode's kernel against its plain version on the
+    demo's batch and, in bf16, on the production batch, with the model's
+    own weights and threshold.  Returns each run's report by model."""
     import tomllib
 
     from m6anet_tpu_torch.constants import DEFAULT_MODEL_CONFIG, PRETRAINED_CONFIGS
@@ -1240,6 +1254,7 @@ def check_models(logs, work_dir, full_batch):
     with open(DEFAULT_MODEL_CONFIG, "rb") as f:
         config = tomllib.load(f)
     runs = {
+        "torch cpu": dict(backend="torch", device="cpu"),
         "torch": dict(backend="torch"),
         "f32": dict(backend="cuda_fused", precision="f32"),
         "f32x3": dict(backend="cuda_fused", precision="f32x3"),
@@ -1248,7 +1263,10 @@ def check_models(logs, work_dir, full_batch):
         "mc": dict(method="mc", num_iterations=MC_E2E_ITERS),
     }
     want = {  # the kernels each run must launch, and those it must not
-        "torch": ((), ("fused_inference_t", "fused_read_probability", "site_probability_mc", "site_reduce")),
+        "torch cpu": ((), ("fused_inference_t", "fused_read_probability", "read_prob_tail", "site_probability_mc",
+                           "site_reduce")),
+        "torch": (("read_prob_tail", "site_reduce"), ("fused_inference_t", "fused_read_probability",
+                                                      "site_probability_mc")),
         "f32": (("fused_inference_t", "site_reduce"), ("read_prob_tc_f32x3", "read_prob_tc_bf16")),
         "f32x3": (("fused_inference_t", "read_prob_tc_f32x3", "site_reduce"), ("read_prob_tc_bf16",)),
         "bf16": (("fused_inference_t", "read_prob_tc_bf16", "site_reduce"), ("read_prob_tc_f32x3",)),
@@ -1266,7 +1284,8 @@ def check_models(logs, work_dir, full_batch):
             entry["runs"][run] = rep = engine_run(logs, model, dataset, out[run], threshold, **kw)
             backend = kw.get("backend", "cuda_fused")
             precision = kw.get("precision", "f32" if backend == "torch" else "f32x3")
-            if f"backend={backend} precision={precision}" not in rep["path"] or "device=cuda" not in rep["path"]:
+            device = kw.get("device", "cuda")
+            if f"backend={backend} precision={precision}" not in rep["path"] or f"device={device}" not in rep["path"]:
                 fail(f"[{name} {run}] ran as {rep['path']!r}")
             launched, idle = want[run]
             if any(rep["launches"][k] < rep["batches"] for k in launched) or any(rep["launches"][k] for k in idle):
@@ -1282,15 +1301,16 @@ def check_models(logs, work_dir, full_batch):
         entry["mode_error_vs_f64"] = errors
         log(f"[models] {name}: each mode's plain version against f64 on the demo's reads {errors}; per-read "
             f"tolerances against the torch run {read_atol}")
-        for run in ("f32", "cuda f32"):
-            entry["errors"][run] = hold_outputs(out[run], out["torch"], threshold, read_atol["f32"], SITE_ATOL,
-                                                f"models {name} {run} vs torch")
+        for run in ("torch", "f32", "cuda f32"):
+            entry["errors"][run] = hold_outputs(out[run], out["torch cpu"], threshold, read_atol["f32"], SITE_ATOL,
+                                                f"models {name} {run} vs torch on the CPU")
         # the reduced modes: per read against the torch run at the mode's
         # accuracy, and every output against the mode's own plain version
         # at the kernel's tolerance (per site SITE_ATOL + 20 max|dp|)
         for mode in MODES:
             entry["errors"][f"{mode} vs torch"] = hold_outputs(
-                out[mode], out["torch"], threshold, read_atol[mode], None, f"models {name} {mode} vs torch")
+                out[mode], out["torch cpu"], threshold, read_atol[mode], None,
+                f"models {name} {mode} vs torch on the CPU")
             plain_dir = write_plain_outputs(fp, batch, site_batch, mode, threshold, out[mode] + "_plain")
             entry["errors"][f"{mode} vs plain"] = hold_outputs(
                 out[mode], plain_dir, threshold, P_ATOL[mode], SITE_ATOL, f"models {name} {mode} vs plain {mode}")
@@ -1310,14 +1330,128 @@ def check_models(logs, work_dir, full_batch):
     return report
 
 
+def torch_launches(launches, batches, tail):
+    """Whether a torch-backend run on the card launched phase B
+    (``site_reduce``, its exact site method) once a batch, the per-read
+    tail's kernel (``read_prob_tail``) once a batch where ``tail`` and never
+    where not, and nothing else."""
+    want = {"site_reduce": batches, "read_prob_tail": batches if tail else 0}
+    return batches > 0 and all(n == want.get(name, 0) for name, n in launches.items())
+
+
+def time_read_prob_tail(full_batch, peak_flops, peak_bw):
+    """Phase 13's entry for the torch backend's per-read tail
+    (``encoder_kernel.read_prob_tail``) at the production batch, through the
+    signal-only model (9 -> 150 -> 32 -> 1, seeded weights, its BatchNorm's
+    running statistics moved off their init): the kernel against the tail's
+    modules as the torch step ran them before (the plain version: cuBLAS,
+    TF32 off, the eval BatchNorm folded each call), every read within
+    P_ATOL["f32"]; the library yardstick, the same three products through
+    cuBLAS with the weights folded once; the bound of 2 (9·150 + 150·32 +
+    32) FLOP and 40 bytes a real read; ptxas usage; the step's launches of
+    the tail and of phase B a batch."""
+    import torch.nn.functional as F
+
+    from m6anet_tpu_torch.constants import DEFAULT_READ_THRESHOLD, SIGNAL_MODEL_CONFIG
+    from m6anet_tpu_torch.inference import engine
+    from m6anet_tpu_torch.models.mil import MILModel
+    from m6anet_tpu_torch.ops import _build
+    from m6anet_tpu_torch.ops import encoder_kernel as enc
+    from m6anet_tpu_torch.ops import fused_infer_kernel as fik
+    from m6anet_tpu_torch.utils.config import load_toml
+
+    model = MILModel(load_toml(SIGNAL_MODEL_CONFIG)).init(torch.Generator().manual_seed(0)).eval()
+    g = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        bn = model.encoder[-2].bn
+        bn.running_mean.copy_(torch.rand(bn.running_mean.shape, generator=g) - 0.5)
+        bn.running_var.copy_(torch.rand(bn.running_var.shape, generator=g) + 0.2)
+    model = model.cuda()
+    tp = enc.tail_params(model)
+    if tp is None:
+        fail("[tail] the signal-only model's tail was not taken by the kernel")
+    features, kmer, offsets, counts = (torch.from_numpy(a).cuda() for a in full_batch)
+    n_real = int(counts.sum())
+    l1, l2 = model.encoder[-2:]
+    pool = model.per_read_filter()
+    with torch.no_grad():
+        x = {"X": features, "kmer": kmer}
+        for blk in tp.head:  # the blocks before the tail, as the step runs them
+            x = blk(x)
+        x = x.reshape(-1, tp.widths.n_in).contiguous()
+        (w1, b1), (w2, b2) = l1.folded(), l2.folded()
+        w3, b3 = pool.linear.weight, pool.linear.bias
+
+        def kernel():
+            return enc.read_prob_tail(tp, x)
+
+        def plain():
+            return pool.per_read_prob(l2(l1(x)))
+
+        def library():
+            return torch.sigmoid(F.linear(F.relu(F.linear(F.relu(F.linear(x, w1, b1)), w2, b2)), w3, b3)).flatten()
+
+        p, want = kernel(), plain()
+        exact = copy.deepcopy(model).double().per_read_probability({"X": features[:n_real].double(),
+                                                                      "kmer": kmer[:n_real].long()})
+        max_err = float((p - want).abs().max())
+        err_f64 = float((p[:n_real].double() - exact).abs().max())
+        plain_err_f64 = float((want[:n_real].double() - exact).abs().max())
+        if not max_err <= P_ATOL["f32"] or not torch.equal(p, kernel()):
+            fail(f"[tail] read_prob_tail against the modules: max |dp| {max_err:.3e} (tolerance {P_ATOL['f32']}), "
+                 f"or two launches differ")
+        ms, plain_ms, library_ms = time_ms(kernel), time_ms(plain), time_ms(library)
+        split = device_split_ms(kernel)
+        before = enc.tail_launch_count, fik.site_reduce_launch_count
+        step = engine.make_infer_step(model, counts.shape[0], DEFAULT_READ_THRESHOLD, backend="torch")
+        step(features, kmer, offsets, counts)
+        torch.cuda.synchronize()
+        step_launches = {"read_prob_tail": enc.tail_launch_count - before[0],
+                         "site_reduce": fik.site_reduce_launch_count - before[1]}
+    if step_launches != {"read_prob_tail": 1, "site_reduce": 1}:
+        fail(f"[tail] the torch step on the card launched {step_launches} a batch")
+    flop_ms = n_real * 2 * (9 * 150 + 150 * 32 + 32) / peak_flops * 1e3
+    byte_ms = n_real * (4 * 9 + 4) / peak_bw * 1e3
+    ptxas = _build.ptxas_usage(_build.cuda_library("fused_infer", enc.tail_defines(tp.widths)), "read_prob_kernel")
+    log(f"[timing tail] read_prob_tail at {x.shape[0]} reads: {ms:.4f} ms, modules {plain_ms:.4f} ms, cuBLAS "
+        f"with the weights folded once {library_ms:.4f} ms, bound {max(flop_ms, byte_ms):.4f} ms; max |dp| "
+        f"{max_err:.3e} against the modules, {err_f64:.3e} against float64 (the modules' {plain_err_f64:.3e}); "
+        f"device time per launch (torch.profiler, ms): {split or 'not measured'}; ptxas {ptxas}")
+    return {
+        "name": "read_prob_tail",
+        "route": "cuda",
+        "source": "m6anet_tpu_torch/ops/csrc/fused_infer.cu",
+        "replaces": None,
+        "replaces_note": "no TPU kernel: the JAX package's xla backend runs these modules",
+        "launches": step_launches["read_prob_tail"],
+        "max_abs_err": max_err,
+        "max_abs_err_vs_f64": err_f64,
+        "plain_max_abs_err_vs_f64": plain_err_f64,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": max(flop_ms, byte_ms),
+        "bound_by": "operations" if flop_ms >= byte_ms else "bytes",
+        "library_ms": library_ms,
+        "library_note": "the tail's three products through cuBLAS (TF32 off), relu and sigmoid, the weights "
+                        "folded once",
+        "launches_per_batch": step_launches["read_prob_tail"],
+        "path": "the torch backend's step on the card: inference --backend auto on the signal-only config "
+                "(phase 17), the m6anet_signal.step.exact cell",
+        "device_ms": split,
+        "read_prob_kernel_ptxas": ptxas,
+    }
+
+
 def check_generic(logs, work_dir):
-    """Phase 17: the signal-only config and a ProbabilityAttention config
-    (seeded weights) through inference on the card with backend and
-    precision auto, which must take the torch modules and launch no
-    kernel, against the same run on the CPU; the signal-only config once
-    more through the CLI (--model_config, --model_state_dict); then 20
-    train steps of the attention-plus-decoder architecture, card against
-    CPU."""
+    """Phase 17: the signal-only config, a ProbabilityAttention config and
+    the signal-only blocks with a tanh last block (seeded weights) through
+    inference on the card with backend and precision auto, which must take
+    the torch backend and launch phase B once a batch and the per-read
+    tail's kernel once a batch (``read_prob_tail``), the tanh config none
+    (its blocks run as modules), against the same run on the CPU; the
+    signal-only config once more through the CLI (--model_config,
+    --model_state_dict); then 20 train steps of the attention-plus-decoder
+    architecture, card against CPU."""
     from m6anet_tpu_torch.constants import DEFAULT_NORM_PATH, DEFAULT_READ_THRESHOLD, SIGNAL_MODEL_CONFIG
     from m6anet_tpu_torch.data.dataset import build_dataset
     from m6anet_tpu_torch.models.convert import params_to_jax
@@ -1328,15 +1462,21 @@ def check_generic(logs, work_dir):
     report = {}
     data = os.path.join(ROOT, "tests", "data")
     dataset = build_dataset(data, min_reads=20, norm_path=DEFAULT_NORM_PATH, mode="Inference")
-    configs = {"prod_pooling_signal.toml": load_toml(SIGNAL_MODEL_CONFIG), "ProbabilityAttention": PROBABILITY_ATTENTION}
-    for name, config in configs.items():
+    signal = load_toml(SIGNAL_MODEL_CONFIG)
+    tanh = copy.deepcopy(signal)
+    tanh["block"][-2]["activation"] = "tanh"
+    # name -> (config, whether the tail's kernel takes it)
+    configs = {"prod_pooling_signal.toml": (signal, True), "ProbabilityAttention": (PROBABILITY_ATTENTION, True),
+               "signal, tanh last block": (tanh, False)}
+    for name, (config, tail) in configs.items():
         model = MILModel(config).init(torch.Generator().manual_seed(0)).eval()
         out = {device: os.path.join(work_dir, name, device) for device in ("cuda", "cpu")}
         card = engine_run(logs, model, dataset, out["cuda"], DEFAULT_READ_THRESHOLD)  # backend, precision auto
         cpu = engine_run(logs, model, dataset, out["cpu"], DEFAULT_READ_THRESHOLD, device="cpu")
         log(f"[generic] {name}: card {card['wall_s']:.3f} s ({card['path']}; stages {card['stages']}; "
             f"launches {card['launches']}), CPU {cpu['wall_s']:.3f} s ({cpu['path']})")
-        if "device=cuda backend=torch precision=f32" not in card["path"] or any(card["launches"].values()):
+        if "device=cuda backend=torch precision=f32" not in card["path"] or not torch_launches(
+                card["launches"], card["batches"], tail):
             fail(f"[generic] {name} under auto ran as {card['path']!r} with launches {card['launches']}")
         errs = hold_outputs(out["cuda"], out["cpu"], DEFAULT_READ_THRESHOLD, GENERIC_READ_ATOL, GENERIC_SITE_ATOL,
                             f"generic {name} card vs CPU")
@@ -1350,7 +1490,7 @@ def check_generic(logs, work_dir):
             wall, path, batches, launches = run_cli("HCT116_RNA002", cli_out, [
                 "--model_config", cfg_path, "--model_state_dict", weights, "--norm_path", DEFAULT_NORM_PATH,
                 "--read_proba_threshold", str(DEFAULT_READ_THRESHOLD)])
-            if "device=cuda backend=torch precision=f32" not in path or any(launches.values()):
+            if "device=cuda backend=torch precision=f32" not in path or not torch_launches(launches, batches, True):
                 fail(f"[generic] the CLI ran the signal-only config as {path!r} with launches {launches}")
             report[name]["cli"] = {"wall_s": wall, "path": path, "launches": launches,
                                    "vs_cpu": hold_outputs(cli_out, out["cpu"], DEFAULT_READ_THRESHOLD,
@@ -3443,6 +3583,7 @@ def main():
         "device_ms": phase_b_split,
         "site_reduce_kernel_ptxas": phase_b_ptxas,
     })
+    kernels.append(time_read_prob_tail(full_batch, peak_flops, peak_bw))
 
     # ---- 14. T1: the train step on the card against the CPU
     from m6anet_tpu_torch.models.convert import params_from_jax
@@ -3504,6 +3645,7 @@ def main():
         "fused_inference": ("f32x3", "fused_inference"),
         "fused_inference_t[f32x3]": ("f32x3", "read_prob_tc_f32x3"),
         "fused_inference_t[bf16]": ("bf16", "read_prob_tc_bf16"), "site_reduce_kernel": ("f32x3", "site_reduce"),
+        "read_prob_tail": ("torch", "read_prob_tail"),
     }
     for entry in kernels:
         run, counter = by_kernel[entry["name"]]

@@ -18,7 +18,11 @@ Backends (the JAX package's ``pallas_fused``, ``pallas`` and ``xla``):
 ``ops/fused_infer_kernel.py``; ``cuda`` runs only the per-read encoder as a
 kernel (``ops/encoder_kernel.py``) and the plain site ops;
 ``torch`` runs the model's modules and the plain site ops, for any model
-config whose pooling filter has a per-read probability layer.  The CUDA
+config whose pooling filter has a per-read probability layer; on a card
+its step computes a model's last two relu ``Linear`` blocks and that layer
+in one kernel where the kernel takes them
+(``encoder_kernel.tail_read_probability``), and the exact site method in
+phase B's kernel (``fused_infer_kernel.site_reduce``).  The CUDA
 kernels cover the production architecture at any widths (but a vocabulary
 past 32,767 k-mers or a read of more than 1,816 inputs:
 ``fused_infer_kernel.kernel_limit``), each set of widths built at first
@@ -38,6 +42,7 @@ on the CUDA backends and ``f32`` on ``torch``.
 from __future__ import annotations
 
 import contextlib
+import functools
 import itertools
 import json
 import os
@@ -176,7 +181,11 @@ def make_infer_step(
     ``precision`` is the CUDA backends' (``f32``, ``f32x3`` or ``bf16``);
     the torch backend takes only ``f32``, and a model whose pooling filter
     has a per-read probability layer (it raises the JAX package's error
-    for any other)."""
+    for any other).  On a card the torch step folds and packs the model's
+    per-read tail here, once (``encoder_kernel.tail_params``), so it holds
+    the model's weights as they are when the step is built, as the CUDA
+    backends' steps do; there its exact site method is phase B's kernel,
+    the site ops' bits."""
     if method not in METHODS:
         raise ValueError(f"site_proba method must be one of {METHODS}, got {method!r}")
     if backend not in ("torch",) + CUDA_BACKENDS:
@@ -190,13 +199,22 @@ def make_infer_step(
     if backend == "torch":
         model.per_read_filter()  # the JAX package's error, before any batch
         key = random.key_from_seed(seed)
+        tail = encoder_kernel.tail_params(model)
+        if tail is None:
+            per_read_probability = model.per_read_probability
+        else:  # on the card: the blocks before the tail as modules, the tail in one kernel
+            per_read_probability = functools.partial(encoder_kernel.tail_read_probability, tail)
 
         def step(features, kmer_ids, offsets, counts, host_sites=None, host_kmer_ids=None):
             with span("engine.step", next(calls)):
+                with span("model.per_read_probability"):
+                    p = per_read_probability({"X": features, "kmer": kmer_ids})
+                if method == "exact" and p.is_cuda:
+                    # phase B of the CUDA backends: the site ops' bits for p in [0, 1] or NaN
+                    site_p, mod_ratio = fused_infer_kernel.site_reduce(p, offsets, counts, threshold, n_samples)
+                    return p, site_p, mod_ratio
                 with span("site_ops.derive_site_ids"):
                     site_ids = site_ops.derive_site_ids(offsets, counts, features.shape[0], site_capacity)
-                with span("model.per_read_probability"):
-                    p = model.per_read_probability({"X": features, "kmer": kmer_ids})
                 if method == "mc":
                     with span("site_ops.site_probability_mc"):
                         site_p = site_ops.site_probability_mc(p, offsets, counts, key, n_iterations, n_samples)
@@ -383,6 +401,7 @@ def run_inference(
     kernels = {
         "fused_inference_t": lambda: fused_infer_kernel.launch_count,
         "fused_read_probability": lambda: encoder_kernel.launch_count,
+        "read_prob_tail": lambda: encoder_kernel.tail_launch_count,
         "site_probability_mc": lambda: mc_kernel.launch_count,
         "fused_inference": lambda: fused_infer_kernel.fused_inference_launch_count,
         "site_reduce": lambda: fused_infer_kernel.site_reduce_launch_count,

@@ -20,7 +20,7 @@ mean and the biased batch variance and folds the batch mean and the
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -167,15 +167,23 @@ class Linear(nn.Module):
                 self.bn.running_var.fill_(1.0)
                 self.bn.num_batches_tracked.zero_()
 
+    def folded(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The eval-mode linear map's (weight, bias): the linear layer's,
+        with eval BatchNorm, an affine map per unit, folded in (as
+        fused_infer_kernel.model_tensors folds it)."""
+        bn = self.bn
+        if bn is None:
+            return self.linear.weight, self.linear.bias
+        scale = bn.weight / torch.sqrt(bn.running_var + BN_EPS)
+        bias = (self.linear.bias - bn.running_mean) * scale + bn.bias
+        return self.linear.weight * scale[:, None], bias
+
     def forward(self, x: torch.Tensor, train: bool = False, generator: Optional[torch.Generator] = None) -> torch.Tensor:
         bn = self.bn
         if bn is not None and not train:
-            # eval BatchNorm is an affine map per unit: folded into the GEMM's
-            # weight and bias (as fused_infer_kernel.model_tensors folds it),
-            # afresh each call, since training moves the running statistics
-            scale = bn.weight / torch.sqrt(bn.running_var + BN_EPS)
-            bias = (self.linear.bias - bn.running_mean) * scale + bn.bias
-            y = nn.functional.linear(x, self.linear.weight * scale[:, None], bias)
+            # eval BatchNorm folded into the GEMM's weight and bias afresh each
+            # call, since training moves the running statistics
+            y = nn.functional.linear(x, *self.folded())
         else:
             y = self.linear(x)
         if bn is not None and train:

@@ -33,6 +33,12 @@
 // (one library each, built at first use) and by default the released
 // models'.
 //
+// Built with no k-mer input (M6A_POS 0 and M6A_TAIL_IN = n_in, set by
+// ops/encoder_kernel.py::tail_defines), phase A is the per-read tail of a
+// model whose blocks before its last two Linear run as PyTorch modules on
+// the torch backend: x = features[r, 0:n_in] (those blocks' output), then
+// h1, h2 and p as above, with no id read and no embedding in the image.
+//
 // Padding sites give site_p = 1 and mod_ratio = 0, as the TPU kernel does.
 // A site whose span leaves [0, n_reads) (a negative offset or count, or
 // offset + count > n_reads; pack_sites never makes one) gives NaN for both,
@@ -164,6 +170,11 @@ namespace {
 #ifndef M6A_H2
 #define M6A_H2 32
 #endif
+// the inputs a read gives layer 1 straight from its features with no k-mer
+// input (M6A_POS 0): 0 where the read has k-mer positions
+#ifndef M6A_TAIL_IN
+#define M6A_TAIL_IN 0
+#endif
 // bytes of a k-mer id the kernels read: 1 (int8) by default, 2 (int16) for
 // ids of a vocabulary past 127 (ops/fused_infer_kernel.py::kernel_defines)
 #ifndef M6A_KMER_ID_BYTES
@@ -177,7 +188,8 @@ using KmerId = int8_t;
 constexpr int kIdBytes = M6A_KMER_ID_BYTES;
 static_assert(kIdBytes == sizeof(KmerId), "k-mer ids of 1 or 2 bytes");
 constexpr int kPos = M6A_POS;                 // k-mer positions per read
-constexpr int kFeat = 3 * kPos;               // signal features per read
+constexpr int kFeat = 3 * kPos + M6A_TAIL_IN;  // features per read
+static_assert(kPos == 0 || M6A_TAIL_IN == 0, "k-mer positions or a tail's inputs, not both");
 constexpr int kVocab = M6A_VOCAB;             // k-mer vocabulary
 constexpr int kEmb = M6A_EMB;                 // embedding width
 constexpr int kIn = kFeat + kPos * kEmb;      // n_in, 15 at the released widths
@@ -723,12 +735,16 @@ cudaError_t launch_phase_a(Kernel kernel, int threads, int64_t tile, int smem, c
   return cudaGetLastError();
 }
 
-// (a template, so that only the kernel of the widths' plan is built)
+// (a template, so that only the kernel of the widths' plan is built; a
+// tail, M6A_TAIL_IN, takes the fast plan alone: where its widths take the
+// wide one, read_prob_wide() says so and no kernel is built or launched)
 template <bool Wide = kWide>
 cudaError_t launch_read_prob(const float* features, const KmerId* kmer_ids,
                              const float* weights, int64_t n_reads, float* p,
                              cudaStream_t stream) {
-  if constexpr (Wide) {
+  if constexpr (Wide && M6A_TAIL_IN > 0) {
+    return cudaErrorNotSupported;
+  } else if constexpr (Wide) {
     return launch_phase_a(read_prob_wide_kernel<kWideThreads>, kWideThreads, kWideReads, kWideSmem, features,
                           kmer_ids, weights, n_reads, p, stream);
   } else {

@@ -572,18 +572,7 @@ def _load(source: str, widths: Widths, id_bytes: int = 1) -> ctypes.CDLL:
             check_widths(widths)
             lib = ctypes.CDLL(cuda_library(source, kernel_defines(widths, id_bytes)))
             if source == "fused_infer":
-                lib.fused_infer_launch.restype = ctypes.c_int
-                lib.fused_infer_launch.argtypes = FUSED_ARGTYPES
-                lib.read_prob_launch.restype = ctypes.c_int
-                lib.read_prob_launch.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64, ctypes.c_void_p]
-                lib.read_prob_tile_reads.restype = ctypes.c_int
-                lib.read_prob_tile_reads.argtypes = []
-                lib.read_prob_wide.restype = ctypes.c_int
-                lib.read_prob_wide.argtypes = []
-                lib.site_reduce_launch.restype = ctypes.c_int
-                lib.site_reduce_launch.argtypes = SITE_REDUCE_ARGTYPES
-                lib.fused_infer_error_string.restype = ctypes.c_char_p
-                lib.fused_infer_error_string.argtypes = [ctypes.c_int]
+                declare_fused_infer(lib)
             else:
                 lib.read_prob_tc_launch.restype = ctypes.c_int
                 lib.read_prob_tc_launch.argtypes = TC_ARGTYPES
@@ -592,6 +581,23 @@ def _load(source: str, widths: Widths, id_bytes: int = 1) -> ctypes.CDLL:
                 lib.read_prob_tc_error_string.restype = ctypes.c_char_p
                 lib.read_prob_tc_error_string.argtypes = [ctypes.c_int]
             _libs[(source, widths, id_bytes)] = lib
+    return lib
+
+
+def declare_fused_infer(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C interface of a csrc/fused_infer.cu library."""
+    lib.fused_infer_launch.restype = ctypes.c_int
+    lib.fused_infer_launch.argtypes = FUSED_ARGTYPES
+    lib.read_prob_launch.restype = ctypes.c_int
+    lib.read_prob_launch.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64, ctypes.c_void_p]
+    lib.read_prob_tile_reads.restype = ctypes.c_int
+    lib.read_prob_tile_reads.argtypes = []
+    lib.read_prob_wide.restype = ctypes.c_int
+    lib.read_prob_wide.argtypes = []
+    lib.site_reduce_launch.restype = ctypes.c_int
+    lib.site_reduce_launch.argtypes = SITE_REDUCE_ARGTYPES
+    lib.fused_infer_error_string.restype = ctypes.c_char_p
+    lib.fused_infer_error_string.argtypes = [ctypes.c_int]
     return lib
 
 

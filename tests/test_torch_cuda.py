@@ -8,6 +8,7 @@ conftest, from the root of the checkout:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
+import copy
 import json
 import os
 import tomllib
@@ -899,8 +900,9 @@ def test_torch_backend_matches_the_f32_kernel_at_the_production_batch(cuda_devic
 
 def test_signal_config_under_auto_on_the_card_matches_cpu(cuda_device, tmp_path):
     """prod_pooling_signal.toml (seeded weights): auto on the card takes the
-    torch modules, launches no kernel, and matches the CPU's run (per read
-    1e-6, per site 1e-5, mod_ratio equal)."""
+    torch backend, whose step launches the per-read tail's kernel and phase
+    B once a batch and no other kernel of the port, and matches the CPU's
+    run (per read 1e-6, per site 1e-5, mod_ratio equal)."""
     from m6anet_tpu_torch.constants import SIGNAL_MODEL_CONFIG
     from m6anet_tpu_torch.inference import engine
     from m6anet_tpu_torch.models.mil import MILModel
@@ -910,11 +912,133 @@ def test_signal_config_under_auto_on_the_card_matches_cpu(cuda_device, tmp_path)
     assert engine.resolve_backend(model, "auto", "auto", cuda_device) == ("torch", "f32")
     run_inference(model, _dataset(), str(tmp_path / "cpu"), DEFAULT_READ_THRESHOLD, device="cpu")
     before = (fik.launch_count, fik.site_reduce_launch_count, encoder_kernel.launch_count, mc_kernel.launch_count,
-              dict(fik.tc_launch_counts))
+              dict(fik.tc_launch_counts), encoder_kernel.tail_launch_count)
     run_inference(model, _dataset(), str(tmp_path / "card"), DEFAULT_READ_THRESHOLD)
-    assert (fik.launch_count, fik.site_reduce_launch_count, encoder_kernel.launch_count, mc_kernel.launch_count,
-            dict(fik.tc_launch_counts)) == before
+    batches = encoder_kernel.tail_launch_count - before[5]
+    assert batches >= 1
+    assert (fik.launch_count, fik.site_reduce_launch_count - batches, encoder_kernel.launch_count,
+            mc_kernel.launch_count, dict(fik.tc_launch_counts)) == before[:5]
     _assert_runs_close(tmp_path / "card", tmp_path / "cpu", DEFAULT_READ_THRESHOLD, 1e-6)
+
+
+def _tail_model(name, device):
+    """The signal-only config (seeded weights, its BatchNorm's running
+    statistics moved off their init) or the released HCT116_RNA002 model,
+    on ``device``."""
+    from m6anet_tpu_torch.constants import SIGNAL_MODEL_CONFIG
+
+    if name == "production":
+        return _model().to(device).eval()
+    with open(SIGNAL_MODEL_CONFIG, "rb") as f:
+        model = MILModel(tomllib.load(f)).init(torch.Generator().manual_seed(0)).eval()
+    g = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        bn = model.blocks[2].bn
+        bn.running_mean.copy_(torch.rand(bn.running_mean.shape, generator=g) - 0.5)
+        bn.running_var.copy_(torch.rand(bn.running_var.shape, generator=g) + 0.2)
+    return model.to(device)
+
+
+@pytest.mark.parametrize("method", ["exact", "mc"])
+@pytest.mark.parametrize("name", ["signal", "production"])
+def test_fused_tail_matches_the_modules_on_the_card(cuda_device, monkeypatch, name, method):
+    """The torch step on the card, whose per-read tail is one launch of the
+    tail's kernel, against the same step on the plain modules (cuBLAS,
+    TF32 off), over the production batch and the batches that end the
+    kernel's 512-read tile raggedly; the signal-only config and the
+    production blocks under --backend torch.  Tolerances: p 1e-6, the
+    kernel-vs-plain bound of every f32 kernel here (both sum the same f32
+    products in another order); site_p 1e-5 (a site's 1 - mean(1 - p) ** 20
+    moves by at most 20 times its reads' mean |dp|, far less in practice:
+    the bound the other f32 step tests hold); mod_ratio equal at every site
+    with no read within 1e-6 of the threshold.  Against a float64 copy of
+    the model the tail is off by no more than twice the modules' own f32
+    error, or 1e-6.  One launch a step, and the same bits when repeated;
+    with the exact method the site outputs are the plain site ops' bits on
+    the step's own p (phase B's kernel computes them)."""
+    from m6anet_tpu_torch.inference import engine
+    from m6anet_tpu_torch.scripts._sweep import production_batch
+
+    model = _tail_model(name, cuda_device)
+    batches = [production_batch(5)] + fik.ragged_tail_batches(512, seed=2)
+    for batch in batches:
+        X, K, offsets, counts = (torch.from_numpy(a).to(cuda_device) for a in batch)
+        n_sites, n = counts.shape[0], int(counts.sum())
+        with torch.no_grad():
+            before = encoder_kernel.tail_launch_count
+            step = engine.make_infer_step(model, n_sites, DEFAULT_READ_THRESHOLD, method=method, backend="torch")
+            got, again = step(X, K, offsets, counts), step(X, K, offsets, counts)
+            torch.cuda.synchronize()
+            assert encoder_kernel.tail_launch_count == before + 2
+            with monkeypatch.context() as m:
+                m.setattr(encoder_kernel, "tail_params", lambda model: None)
+                want = engine.make_infer_step(model, n_sites, DEFAULT_READ_THRESHOLD, method=method,
+                                              backend="torch")(X, K, offsets, counts)
+            assert encoder_kernel.tail_launch_count == before + 2
+            exact = copy.deepcopy(model).double().per_read_probability({"X": X[:n].double(), "kmer": K[:n].long()})
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+        torch.testing.assert_close(got[0], want[0], rtol=0, atol=1e-6)
+        torch.testing.assert_close(got[1], want[1], rtol=0, atol=1e-5)
+        own_error = float((want[0][:n].double() - exact).abs().max())
+        assert float((got[0][:n].double() - exact).abs().max()) <= max(1e-6, 2 * own_error)
+        site_ids = site_ops.derive_site_ids(offsets, counts, X.shape[0], n_sites).long()
+        near = ((want[0] - DEFAULT_READ_THRESHOLD).abs() < 1e-6).int()
+        held = torch.zeros(n_sites + 1, dtype=torch.int32, device=cuda_device).index_add_(0, site_ids, near)
+        held = held[:n_sites] == 0
+        assert torch.equal(got[2][held], want[2][held])
+        if method == "exact":
+            _assert_site_ops_bits(got, offsets, counts, X.shape[0])
+
+
+def _assert_site_ops_bits(out, offsets, counts, n_reads):
+    """site_p and mod_ratio of a torch step on the card: the plain site
+    ops' bits on the step's own p."""
+    p, site_p, mod_ratio = out
+    n_sites = counts.shape[0]
+    site_ids = site_ops.derive_site_ids(offsets, counts, n_reads, n_sites)
+    assert torch.equal(site_p, site_ops.site_probability_exact(p, site_ids, counts, n_sites))
+    assert torch.equal(mod_ratio, site_ops.mod_ratio_exact(p, site_ids, counts, n_sites, DEFAULT_READ_THRESHOLD))
+
+
+@pytest.mark.parametrize("name", ["tanh", "past_the_fast_plan"])
+def test_a_model_outside_the_tail_runs_the_modules_on_the_card(cuda_device, name):
+    """A config whose last Linear block is tanh, and one whose tail
+    (15 -> 150 -> 132) the kernel file plans wide: the torch step on the
+    card launches no tail and gives the modules' per-read probability bit
+    for bit; its exact site outputs are phase B's, one launch, the plain
+    site ops' bits."""
+    from m6anet_tpu_torch.inference import engine
+
+    signal_head = [{"block_type": "DeaggregateNanopolish", "num_neighboring_features": 1},
+                   {"block_type": "ExtractSignal"}]
+    production_head = [
+        {"block_type": "DeaggregateNanopolish", "num_neighboring_features": 1},
+        {"block_type": "KmerMultipleEmbedding", "input_channel": 66, "output_channel": 2,
+         "num_neighboring_features": 1},
+        {"block_type": "ConcatenateFeatures"}]
+    head, n_in, h2, activation = {"tanh": (signal_head, 9, 32, "tanh"),
+                                  "past_the_fast_plan": (production_head, 15, 132, "relu")}[name]
+    config = {"block": head + [
+        {"block_type": "Linear", "input_channel": n_in, "output_channel": 150, "activation": "relu",
+         "batch_norm": True},
+        {"block_type": "Linear", "input_channel": 150, "output_channel": h2, "activation": activation,
+         "batch_norm": False},
+        {"block_type": "SigmoidProdPooling", "input_channel": h2, "n_reads_per_site": 20},
+    ]}
+    model = MILModel(config).init(torch.Generator().manual_seed(0)).eval().to(cuda_device)
+    assert encoder_kernel.tail_params(model) is None
+    if name == "past_the_fast_plan":  # split and packed, but the kernel file plans these widths wide
+        tp = encoder_kernel.prepare_tail_params(model)
+        assert tp is not None and encoder_kernel.tail_lib(tp.widths).read_prob_wide() == 1
+    X, K, offsets, counts = (torch.from_numpy(a).to(cuda_device) for a in _ragged_batch())
+    before = encoder_kernel.tail_launch_count, fik.site_reduce_launch_count
+    with torch.no_grad():
+        out = engine.make_infer_step(model, counts.shape[0], DEFAULT_READ_THRESHOLD, backend="torch")(
+            X, K, offsets, counts)
+        want = model.per_read_probability({"X": X, "kmer": K})
+    assert torch.equal(out[0], want)
+    assert (encoder_kernel.tail_launch_count, fik.site_reduce_launch_count) == (before[0], before[1] + 1)
+    _assert_site_ops_bits(out, offsets, counts, X.shape[0])
 
 
 def _demo_store(root):
