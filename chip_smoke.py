@@ -87,7 +87,11 @@ its plain PyTorch version:
                  batch through the signal-only model (9 -> 150 -> 32):
                  against the tail's modules (per read 1e-6), kernel,
                  modules, cuBLAS with the weights folded once, bound,
-                 ptxas, and the torch step's launches a batch
+                 ptxas, its lane groups (read_prob_lane_group), the torch
+                 step's launches a batch (read_prob_grouped among them),
+                 and p the same bits as the older fused_infer.cu under
+                 build/parent/csrc built as the same tail, the two timed
+                 in turns
  14. T1 train    the production model's train step (train/loop.py: the
                  train-mode forward, BCE, backward, optax's global-norm
                  clip, torch.optim.Adam) on the card against the CPU, from
@@ -1133,6 +1137,7 @@ def reset_launch_counts():
         fused_infer_kernel.tc_launch_counts[mode] = 0
     for precision in fused_infer_kernel.wide_launch_counts:
         fused_infer_kernel.wide_launch_counts[precision] = 0
+    fused_infer_kernel.grouped_launch_count = 0
     encoder_kernel.launch_count = 0
     encoder_kernel.tail_launch_count = 0
     mc_kernel.launch_count = 0
@@ -1153,6 +1158,7 @@ def read_launch_counts():
         "site_reduce": fused_infer_kernel.site_reduce_launch_count,
         **{f"read_prob_tc_{mode}": n for mode, n in fused_infer_kernel.tc_launch_counts.items()},
         **{f"read_prob_wide_{precision}": n for precision, n in fused_infer_kernel.wide_launch_counts.items()},
+        "read_prob_grouped": fused_infer_kernel.grouped_launch_count,
         "site_probability_mc_long": mc_kernel.long_launch_count,
     }
 
@@ -1262,15 +1268,17 @@ def check_models(logs, work_dir, full_batch):
         "cuda f32": dict(backend="cuda", precision="f32"),
         "mc": dict(method="mc", num_iterations=MC_E2E_ITERS),
     }
+    # (no f32 phase A at the released widths, nor their tail, shares h1
+    # across lane groups: read_prob_grouped stays 0)
     want = {  # the kernels each run must launch, and those it must not
         "torch cpu": ((), ("fused_inference_t", "fused_read_probability", "read_prob_tail", "site_probability_mc",
-                           "site_reduce")),
+                           "site_reduce", "read_prob_grouped")),
         "torch": (("read_prob_tail", "site_reduce"), ("fused_inference_t", "fused_read_probability",
-                                                      "site_probability_mc")),
-        "f32": (("fused_inference_t", "site_reduce"), ("read_prob_tc_f32x3", "read_prob_tc_bf16")),
-        "f32x3": (("fused_inference_t", "read_prob_tc_f32x3", "site_reduce"), ("read_prob_tc_bf16",)),
-        "bf16": (("fused_inference_t", "read_prob_tc_bf16", "site_reduce"), ("read_prob_tc_f32x3",)),
-        "cuda f32": (("fused_read_probability",), ("fused_inference_t", "read_prob_tc_f32x3")),
+                                                      "site_probability_mc", "read_prob_grouped")),
+        "f32": (("fused_inference_t", "site_reduce"), ("read_prob_tc_f32x3", "read_prob_tc_bf16", "read_prob_grouped")),
+        "f32x3": (("fused_inference_t", "read_prob_tc_f32x3", "site_reduce"), ("read_prob_tc_bf16", "read_prob_grouped")),
+        "bf16": (("fused_inference_t", "read_prob_tc_bf16", "site_reduce"), ("read_prob_tc_f32x3", "read_prob_grouped")),
+        "cuda f32": (("fused_read_probability",), ("fused_inference_t", "read_prob_tc_f32x3", "read_prob_grouped")),
         "mc": (("fused_inference_t", "read_prob_tc_f32x3", "site_reduce", "site_probability_mc"), ()),
     }
     report = {}
@@ -1330,12 +1338,14 @@ def check_models(logs, work_dir, full_batch):
     return report
 
 
-def torch_launches(launches, batches, tail):
+def torch_launches(launches, batches, tail, grouped):
     """Whether a torch-backend run on the card launched phase B
     (``site_reduce``, its exact site method) once a batch, the per-read
     tail's kernel (``read_prob_tail``) once a batch where ``tail`` and never
-    where not, and nothing else."""
-    want = {"site_reduce": batches, "read_prob_tail": batches if tail else 0}
+    where not, counted as a plan of lane groups (``read_prob_grouped``)
+    where ``grouped``, and nothing else."""
+    want = {"site_reduce": batches, "read_prob_tail": batches if tail else 0,
+            "read_prob_grouped": batches if grouped else 0}
     return batches > 0 and all(n == want.get(name, 0) for name, n in launches.items())
 
 
@@ -1402,21 +1412,26 @@ def time_read_prob_tail(full_batch, peak_flops, peak_bw):
                  f"or two launches differ")
         ms, plain_ms, library_ms = time_ms(kernel), time_ms(plain), time_ms(library)
         split = device_split_ms(kernel)
-        before = enc.tail_launch_count, fik.site_reduce_launch_count
+        parent = check_parent_tail(tp, x)
+        before = enc.tail_launch_count, fik.site_reduce_launch_count, fik.grouped_launch_count
         step = engine.make_infer_step(model, counts.shape[0], DEFAULT_READ_THRESHOLD, backend="torch")
         step(features, kmer, offsets, counts)
         torch.cuda.synchronize()
         step_launches = {"read_prob_tail": enc.tail_launch_count - before[0],
-                         "site_reduce": fik.site_reduce_launch_count - before[1]}
-    if step_launches != {"read_prob_tail": 1, "site_reduce": 1}:
-        fail(f"[tail] the torch step on the card launched {step_launches} a batch")
+                         "site_reduce": fik.site_reduce_launch_count - before[1],
+                         "read_prob_grouped": fik.grouped_launch_count - before[2]}
+    lane_group = enc.tail_lib(tp.widths).read_prob_lane_group()
+    if step_launches != {"read_prob_tail": 1, "site_reduce": 1, "read_prob_grouped": 1} or lane_group < 2:
+        fail(f"[tail] the torch step on the card launched {step_launches} a batch, the tail's lane groups "
+             f"{lane_group} lanes")
     flop_ms = n_real * 2 * (9 * 150 + 150 * 32 + 32) / peak_flops * 1e3
     byte_ms = n_real * (4 * 9 + 4) / peak_bw * 1e3
     ptxas = _build.ptxas_usage(_build.cuda_library("fused_infer", enc.tail_defines(tp.widths)), "read_prob_kernel")
     log(f"[timing tail] read_prob_tail at {x.shape[0]} reads: {ms:.4f} ms, modules {plain_ms:.4f} ms, cuBLAS "
         f"with the weights folded once {library_ms:.4f} ms, bound {max(flop_ms, byte_ms):.4f} ms; max |dp| "
         f"{max_err:.3e} against the modules, {err_f64:.3e} against float64 (the modules' {plain_err_f64:.3e}); "
-        f"device time per launch (torch.profiler, ms): {split or 'not measured'}; ptxas {ptxas}")
+        f"device time per launch (torch.profiler, ms): {split or 'not measured'}; ptxas {ptxas}; lane groups of "
+        f"{lane_group}")
     return {
         "name": "read_prob_tail",
         "route": "cuda",
@@ -1439,6 +1454,9 @@ def time_read_prob_tail(full_batch, peak_flops, peak_bw):
                 "(phase 17), the m6anet_signal.step.exact cell",
         "device_ms": split,
         "read_prob_kernel_ptxas": ptxas,
+        "lane_group": lane_group,
+        "grouped_launches_per_batch": step_launches["read_prob_grouped"],
+        "parent": parent,
     }
 
 
@@ -1465,10 +1483,13 @@ def check_generic(logs, work_dir):
     signal = load_toml(SIGNAL_MODEL_CONFIG)
     tanh = copy.deepcopy(signal)
     tanh["block"][-2]["activation"] = "tanh"
-    # name -> (config, whether the tail's kernel takes it)
-    configs = {"prod_pooling_signal.toml": (signal, True), "ProbabilityAttention": (PROBABILITY_ATTENTION, True),
-               "signal, tanh last block": (tanh, False)}
-    for name, (config, tail) in configs.items():
+    # name -> (config, whether the tail's kernel takes it, whether its plan
+    # shares h1 across lane groups: the signal-only tail's 9 inputs, not the
+    # production encoder's 15)
+    configs = {"prod_pooling_signal.toml": (signal, True, True),
+               "ProbabilityAttention": (PROBABILITY_ATTENTION, True, False),
+               "signal, tanh last block": (tanh, False, False)}
+    for name, (config, tail, grouped) in configs.items():
         model = MILModel(config).init(torch.Generator().manual_seed(0)).eval()
         out = {device: os.path.join(work_dir, name, device) for device in ("cuda", "cpu")}
         card = engine_run(logs, model, dataset, out["cuda"], DEFAULT_READ_THRESHOLD)  # backend, precision auto
@@ -1476,7 +1497,7 @@ def check_generic(logs, work_dir):
         log(f"[generic] {name}: card {card['wall_s']:.3f} s ({card['path']}; stages {card['stages']}; "
             f"launches {card['launches']}), CPU {cpu['wall_s']:.3f} s ({cpu['path']})")
         if "device=cuda backend=torch precision=f32" not in card["path"] or not torch_launches(
-                card["launches"], card["batches"], tail):
+                card["launches"], card["batches"], tail, grouped):
             fail(f"[generic] {name} under auto ran as {card['path']!r} with launches {card['launches']}")
         errs = hold_outputs(out["cuda"], out["cpu"], DEFAULT_READ_THRESHOLD, GENERIC_READ_ATOL, GENERIC_SITE_ATOL,
                             f"generic {name} card vs CPU")
@@ -1490,7 +1511,8 @@ def check_generic(logs, work_dir):
             wall, path, batches, launches = run_cli("HCT116_RNA002", cli_out, [
                 "--model_config", cfg_path, "--model_state_dict", weights, "--norm_path", DEFAULT_NORM_PATH,
                 "--read_proba_threshold", str(DEFAULT_READ_THRESHOLD)])
-            if "device=cuda backend=torch precision=f32" not in path or not torch_launches(launches, batches, True):
+            if "device=cuda backend=torch precision=f32" not in path or not torch_launches(launches, batches, True,
+                                                                                              True):
                 fail(f"[generic] the CLI ran the signal-only config as {path!r} with launches {launches}")
             report[name]["cli"] = {"wall_s": wall, "path": path, "launches": launches,
                                    "vs_cpu": hold_outputs(cli_out, out["cpu"], DEFAULT_READ_THRESHOLD,
@@ -2258,6 +2280,9 @@ PAST_WIDTHS = {"W8": (3, 2, 512, 32), "W9": (3, 2, 150, 128), "W10": (11, 8, 256
 # git show before a run) to hold every width's bits and phase A times
 # against, when present; their libraries build beside the script's own
 PARENT_CSRC = os.path.join(ROOT, "build", "parent", "csrc")
+# the torch backend's per-read tail of the signal-only model (n_in, H1, H2),
+# held to the older fused_infer.cu built as the same tail (phase 13)
+TAIL_WIDTHS = (9, 150, 32)
 PARENT_BUILD = os.path.join(ROOT, "build", "parent", "lib")
 # phase 22: draws per iteration, and the MC method of cuda_fused against the
 # same function of the torch run's reads (PERF.md section 2)
@@ -2362,6 +2387,7 @@ class ParentBuild:
 
     def __init__(self):
         from m6anet_tpu_torch.ops import _build
+        from m6anet_tpu_torch.ops import encoder_kernel as enc
         from m6anet_tpu_torch.ops import fused_infer_kernel as fik
         from m6anet_tpu_torch.ops import mc_kernel as mck
 
@@ -2378,6 +2404,8 @@ class ParentBuild:
                 for source, path in sources.items():
                     self.keys.append((name, source))
                     jobs.append(job(path, fik.kernel_defines(w, 2 if w.vocab > 128 else 1)))
+            self.keys.append(("tail", "fused_infer"))
+            jobs.append(job(sources["fused_infer"], enc.tail_defines(enc.TailWidths(*TAIL_WIDTHS))))
         mc_source = os.path.join(PARENT_CSRC, "mc.cu")
         if os.path.exists(mc_source):
             for n_samples in MC_SAMPLES:
@@ -2514,6 +2542,43 @@ def check_parent_phase_a(name, w, fp, features, kmer, host):
     return report
 
 
+def check_parent_tail(tp, x):
+    """The torch backend's per-read tail of TAIL_WIDTHS (``tp``, on the
+    inputs ``x`` its head blocks give) against the older fused_infer.cu
+    built as the same tail: p the same bits, and the device time of each
+    beside the other, interleaved (CUDA events, L2 flushed; older, this,
+    this, older).  None when no older sources are staged."""
+    from m6anet_tpu_torch.ops import encoder_kernel as enc
+    from m6anet_tpu_torch.scripts import _sweep
+
+    libs = parent_libs()
+    if libs is None or ("tail", "fused_infer") not in libs:
+        log(f"[tail parent] no older phase A sources under {PARENT_CSRC}: not compared")
+        return None
+    if tuple(tp.widths[:3]) != TAIL_WIDTHS:
+        fail(f"the tail's widths {tp.widths} are not TAIL_WIDTHS {TAIL_WIDTHS}")
+    old = libs[("tail", "fused_infer")]
+    n = x.shape[0]
+    p_old = torch.empty(n, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def run_old():
+        return old.read_prob_launch(x.data_ptr(), None, tp.packed.data_ptr(), p_old.data_ptr(), n, stream)
+
+    if run_old():
+        fail("the older tail did not launch")
+    p_new = enc.read_prob_tail(tp, x)
+    torch.cuda.synchronize()
+    same = _sweep.same_bits(p_new, p_old)
+    times, clocks = _sweep.time_interleaved([run_old, lambda: enc.read_prob_tail(tp, x)], reps=10)
+    old_ms, new_ms = (statistics.median(t) for t in times)
+    log(f"[tail parent] {TAIL_WIDTHS}: p the same bits as the older kernel's: {same}; the tail {new_ms:.4f} ms "
+        f"against the older {old_ms:.4f} ms ({new_ms / old_ms:.4f}x; SM clock {clocks})")
+    if not same:
+        fail("the tail's phase A does not give the older kernel's bits")
+    return {"same_bits": same, "older_ms": old_ms, "ms": new_ms, "ratio": new_ms / old_ms, "sm_clocks": clocks}
+
+
 def cublas_chain_ms(fp, features, kmer):
     """The plain encoder as cuBLAS matmuls on inputs gathered beforehand,
     x @ W1^T + b1 -> relu -> @ W2^T + b2 -> relu -> . w3 + b3 -> sigmoid,
@@ -2567,6 +2632,7 @@ def run_trained_widths(logs, work_dir, widths):
     from m6anet_tpu_torch.constants import DEFAULT_NORM_PATH, TRAIN_CONFIG_TEMPLATE
     from m6anet_tpu_torch.data.dataset import build_dataset
     from m6anet_tpu_torch.models import load_model
+    from m6anet_tpu_torch.ops import encoder_kernel as enc
     from m6anet_tpu_torch.ops import fused_infer_kernel as fik
     from m6anet_tpu_torch.utils.config import dump_toml, load_toml
 
@@ -2601,9 +2667,13 @@ def run_trained_widths(logs, work_dir, widths):
     if (any(launches[k] != batches for k in ("fused_inference_t", "read_prob_tc_f32x3", "site_reduce"))
             or launches["read_prob_wide_f32x3"] != wide):
         fail(f"--backend auto at widths {widths}: launches {launches} in {batches} batches")
-    torch_wall, torch_path, _, torch_launches = run_cli("HCT116_RNA002", out_torch, [*flags, "--backend", "torch"])
-    if "backend=torch" not in torch_path or any(torch_launches.values()):
-        fail(f"--backend torch at widths {widths} ran as {torch_path!r} with launches {torch_launches}")
+    torch_wall, torch_path, torch_batches, launches_torch = run_cli("HCT116_RNA002", out_torch,
+                                                                   [*flags, "--backend", "torch"])
+    # the torch step on the card runs the model's tail in the kernel where its plan is fast
+    tail_lib = enc.tail_lib(enc.TailWidths(fik.Widths(*widths).n_in, widths[2], widths[3]))
+    if "backend=torch" not in torch_path or not torch_launches(
+            launches_torch, torch_batches, not tail_lib.read_prob_wide(), tail_lib.read_prob_lane_group() > 1):
+        fail(f"--backend torch at widths {widths} ran as {torch_path!r} with launches {launches_torch}")
     model = load_model(fik.widths_config(fik.Widths(*widths)), state)
     dataset = build_dataset(os.path.join(ROOT, "tests", "data"), min_reads=20, norm_path=DEFAULT_NORM_PATH,
                             mode="Inference")
@@ -3321,6 +3391,8 @@ def main():
         "device_ms": split,
         "phase_a_ptxas": phase_a,
         "sm_clock_after_timing": sm_clock,
+        "lane_group": fik.kernel_lib().read_prob_lane_group(),
+        "grouped_launches_per_batch": f32_launches["read_prob_grouped"] / f32_batches,
     }]
 
     # ---- 7. the entry points of fused_infer.cu for TPU kernels #3 and #4

@@ -397,7 +397,8 @@ def run_inference(
     backend, precision = resolve_backend(model, backend, precision, device, log=log)
     # every kernel wrapper's launch count, by the TPU kernel it ports, the
     # tensor-core phase A's, by precision, those of a phase A of the wide
-    # plan, by precision, and the MC long-site kernel's
+    # plan, by precision, those of an f32 phase A that shares h1 across lane
+    # groups, and the MC long-site kernel's
     kernels = {
         "fused_inference_t": lambda: fused_infer_kernel.launch_count,
         "fused_read_probability": lambda: encoder_kernel.launch_count,
@@ -413,6 +414,7 @@ def run_inference(
             f"read_prob_wide_{precision}": (lambda precision=precision: fused_infer_kernel.wide_launch_counts[precision])
             for precision in fused_infer_kernel.wide_launch_counts
         },
+        "read_prob_grouped": lambda: fused_infer_kernel.grouped_launch_count,
         "site_probability_mc_long": lambda: mc_kernel.long_launch_count,
     }
     launches_before = {name: count() for name, count in kernels.items()}

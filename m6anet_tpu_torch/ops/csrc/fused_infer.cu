@@ -82,6 +82,24 @@
 //    accumulators) registers: 94 at the released widths.  Wider models
 //    take R = 1, and past 94 values one block an SM's registers (kReads,
 //    kReadBlocks below).
+//  * Lane groups (G = kLaneGroup).  With R reads a thread, each float4 of
+//    W2 a thread loaded still fed only its own R reads: at 9 inputs and H2
+//    = 32 a hidden unit took 11 LDS.128 a thread (3 of W1'/b1', 8 of W2)
+//    for 86 FP32 instructions, and the loads held the kernel at ~50% of
+//    its bound: built with no W2 loads it ran 30% faster, with no shared
+//    loads at all in half the time (ablations, PERF.md section 6).
+//    So G neighbouring lanes of a warp share their reads: each forms h1_k
+//    of its own R reads as before, the group swaps those by
+//    __shfl_xor_sync (R (G - 1) shuffles a unit), and each lane
+//    accumulates its own H2 / G outputs of layer 2 for the group's G R
+//    reads, so a float4 of W2 feeds 4 G R FMAs, not 4 R: at G = 2, 3 + 4
+//    LDS.128 and 2 shuffles a unit.  A thread keeps R x H2 accumulators,
+//    as before.  After the last unit the group swaps the accumulators back
+//    ((G - 1) R H2 / G shuffles a tile), so each lane runs the head of its
+//    own reads.  A float4 of W2 is read at G addresses a warp (a lane's
+//    slice of the row), in distinct banks.  Where it fits (kLaneGroup
+//    below) this takes the tail's 9 -> 150 -> 32 from 0.384 to 0.332 ms at
+//    1,048,576 reads.
 //  * The wide plan (kWide: past 144 values a read or a 227 KB image, e.g.
 //    121 inputs and H2 = 128, a 0.55 MB image) keeps each read's operation
 //    sequence, so p is the same bits, but not its registers.  Its earlier
@@ -99,7 +117,8 @@
 //  * Each read keeps the exact operation sequence of the one-read design
 //    (layer 1: W1'[k,0] * x0, then fmaf in input order, + b1', relu;
 //    layer 2: fmaf in k order; head: fmaf in j order, + b3, 1 / (1 +
-//    expf(-z))), so p is bit-identical to it and deterministic.  Threads
+//    expf(-z))), whichever lane of its group adds an output's terms, so p
+//    is bit-identical to it and deterministic.  Threads
 //    take reads base + t + j * kReadThreads, so each of a warp's loads
 //    covers 32 neighbouring reads; past the end of the batch a thread
 //    computes the last read again and does not store it.
@@ -219,26 +238,44 @@ constexpr bool kWeightsDynamic = kWeights * 4 > 48 * 1024;
 
 // Phase A's tiling: kReadTile reads per thread (R), kReadThreads threads per
 // block, kReadMinBlocks blocks per SM asked of __launch_bounds__ (which caps
-// a thread's registers at 65536 / (threads * blocks)), and the unrolling of
-// the hidden-unit loop.  scripts/sweep_read_tile.py re-derives them: it
-// builds copies of this file with these four lines rewritten and times each
-// on the card.  Measured for R = 1 to 4 on an H100 SXM: R = 2 at 256 threads
-// takes 126 registers with no spills and keeps 16 warps on an SM, and ran
-// fastest; R = 3 and 4 (168 to 241 registers) fit only 8 to 10 warps on an
-// SM and lost more to the latency of the shared loads than they saved in
-// issue.  They hold wherever a read keeps no more values in registers than
-// at the released widths (kReadValues: its n_in inputs and H2 padded to 4
-// accumulators, 47 there).  A wider read takes R = 1, two blocks an SM up
-// to twice those values and one block (255 registers a thread) past them.
+// a thread's registers at 65536 / (threads * blocks)), the unrolling of
+// the hidden-unit loop, and the lane groups' three (G, below).
+// scripts/sweep_read_tile.py re-derives them: it builds copies of this file
+// with these seven lines rewritten and times each on the card.  Measured
+// for R = 1 to 4 on an H100 SXM: R = 2 at 256 threads takes 126 registers
+// with no spills and keeps 16 warps on an SM, and ran fastest; R = 3 and 4
+// (168 to 241 registers) fit only 8 to 10 warps on an SM and lost more to
+// the latency of the shared loads than they saved in issue.  They hold
+// wherever a read keeps no more values in registers than at the released
+// widths (kReadValues: its n_in inputs and H2 padded to 4 accumulators, 47
+// there).  A wider read takes R = 1, two blocks an SM up to twice those
+// values and one block (255 registers a thread) past them.
+// The lane groups (kLaneGroupTile lanes, G) keep a thread's R reads'
+// inputs and G R reads' H2 / G accumulators, as many as G = 1 keeps, but
+// each unit's shuffle puts its latency between layers 1 and 2, so their
+// unit loop is unrolled by kLaneGroupUnroll: one unit's layer 2 issues
+// under the next one's layer 1 and exchange.  That loop holds two units'
+// temporaries, so groups are taken where a read keeps at most
+// kLaneGroupValues values (and H2, to 4, splits into G lanes' float4s):
+// at 41 (9 inputs, the signal-only tail) it took 124 registers and ran
+// 13.5% faster than R = 2 alone; at the released widths' 47 it spilled and
+// ran 13% slower, and unrolled by 1 8% slower (PERF.md section 6).
 constexpr int kReadTile = 2;
 constexpr int kReadThreads = 256;
 constexpr int kReadMinBlocks = 2;
 constexpr int kReadUnroll = 1;
+constexpr int kLaneGroupTile = 2;
+constexpr int kLaneGroupUnroll = 2;
+constexpr int kLaneGroupValues = 41;
 constexpr int kReadValues = kIn + kH2Pad;
 constexpr int kReleasedReadValues = 47;
 constexpr int kReads = kReadValues <= kReleasedReadValues ? kReadTile : 1;
 constexpr int kReadBlocks = kReadValues <= kReleasedReadValues ? kReadMinBlocks
                             : kReadValues <= 2 * kReleasedReadValues ? 2 : 1;
+constexpr int kLaneGroup =
+    kReadValues <= kLaneGroupValues && kH2Pad % (4 * kLaneGroupTile) == 0 ? kLaneGroupTile : 1;
+constexpr int kUnitUnroll = kLaneGroup > 1 ? kLaneGroupUnroll : kReadUnroll;
+static_assert(kLaneGroup >= 1 && 32 % kLaneGroup == 0, "a warp holds whole lane groups");
 // Past 144 values a read (a thread's registers) or past a block's shared
 // memory for the image, phase A takes the wide plan: read_prob_wide_kernel,
 // a block a tile of kWideReads reads, H1 in steps of kWideChunk units whose
@@ -315,14 +352,19 @@ static_assert(kSiteLanes >= 1 && kSiteLanes <= 32 && (kSiteLanes & (kSiteLanes -
 static_assert(kChunkLoads >= 1 && kChunkLoads <= 32, "a lane's chunks of a round sum below 2^32");
 
 // kmer_ids are ids in [0, kVocab); the Python wrapper checks the range.
-// R = kReads (a template, so that only the plan the widths take is built)
-template <int R>
+// R = kReads, G = kLaneGroup (templates, so that only the plan the widths
+// take is built)
+template <int R, int G>
 __global__ void __launch_bounds__(kReadThreads, kReadBlocks)
 read_prob_kernel(const float* __restrict__ features,
                  const KmerId* __restrict__ kmer_ids,
                  const float* __restrict__ weights, int64_t n_reads,
                  float* __restrict__ p_out) {
   static_assert(R > 0 && !kWide, "the wide plan runs read_prob_wide_kernel");
+  static_assert(G >= 1 && 32 % G == 0 && kH2Pad % (4 * G) == 0, "a group's lanes split H2 in float4s");
+  constexpr int kSlice = kH2Pad / G;  // the outputs of layer 2 a lane accumulates
+  constexpr unsigned kAll = 0xffffffffu;
+  const int place = threadIdx.x % G;  // in the lane's group: it holds outputs [place kSlice, (place + 1) kSlice)
   extern __shared__ __align__(16) float dynamic_w[];
   __shared__ __align__(16) float static_w[kWeightsDynamic ? 4 : kWeights];
   float* const w = kWeightsDynamic ? dynamic_w : static_w;
@@ -350,14 +392,18 @@ read_prob_kernel(const float* __restrict__ features,
       }
     }
 
-    float acc[R][kH2Pad];
+    // acc[d][j][i]: output place kSlice + i of read j of the group's lane place ^ d
+    float acc[G][R][kSlice];
 #pragma unroll
-    for (int j = 0; j < R; ++j) {
+    for (int d = 0; d < G; ++d) {
 #pragma unroll
-      for (int i = 0; i < kH2Pad; ++i) acc[j][i] = 0.f;
+      for (int j = 0; j < R; ++j) {
+#pragma unroll
+        for (int i = 0; i < kSlice; ++i) acc[d][j][i] = 0.f;
+      }
     }
 
-#pragma unroll (kReadUnroll)
+#pragma unroll (kUnitUnroll)
     for (int k = 0; k < kH1; ++k) {
       // W1'[k, i] . x[i] in input order (W1'[k, 0] x0, then fmaf), + b1'[k]
       // (the row's entry n_in), relu
@@ -382,17 +428,40 @@ read_prob_kernel(const float* __restrict__ features,
           }
         }
       }
-      const float4* fan = reinterpret_cast<const float4*>(w + kOffW2 + k * kH2Pad);
+      // the group's h1_k: hs[d][j] of lane place ^ d's read j, by shuffle
+      float hs[G][R];
 #pragma unroll
-      for (int q = 0; q < kH2Pad / 4; ++q) {
+      for (int d = 0; d < G; ++d) {
+#pragma unroll
+        for (int j = 0; j < R; ++j) hs[d][j] = d == 0 ? h[j] : __shfl_xor_sync(kAll, h[j], d);
+      }
+      // this lane's kSlice outputs of W2's fan-out of unit k, each float4
+      // into the G x R reads of the group
+      const float4* fan = reinterpret_cast<const float4*>(w + kOffW2 + k * kH2Pad + place * kSlice);
+#pragma unroll
+      for (int q = 0; q < kSlice / 4; ++q) {
         const float4 v = fan[q];
 #pragma unroll
-        for (int j = 0; j < R; ++j) {
-          acc[j][4 * q] = fmaf(v.x, h[j], acc[j][4 * q]);
-          acc[j][4 * q + 1] = fmaf(v.y, h[j], acc[j][4 * q + 1]);
-          acc[j][4 * q + 2] = fmaf(v.z, h[j], acc[j][4 * q + 2]);
-          acc[j][4 * q + 3] = fmaf(v.w, h[j], acc[j][4 * q + 3]);
+        for (int d = 0; d < G; ++d) {
+#pragma unroll
+          for (int j = 0; j < R; ++j) {
+            acc[d][j][4 * q] = fmaf(v.x, hs[d][j], acc[d][j][4 * q]);
+            acc[d][j][4 * q + 1] = fmaf(v.y, hs[d][j], acc[d][j][4 * q + 1]);
+            acc[d][j][4 * q + 2] = fmaf(v.z, hs[d][j], acc[d][j][4 * q + 2]);
+            acc[d][j][4 * q + 3] = fmaf(v.w, hs[d][j], acc[d][j][4 * q + 3]);
+          }
         }
+      }
+    }
+
+    // each lane's own reads whole: acc[d] of lane place ^ d holds its slice
+    // of this lane's reads, so after the swap acc[d] holds slice place ^ d
+#pragma unroll
+    for (int d = 1; d < G; ++d) {
+#pragma unroll
+      for (int j = 0; j < R; ++j) {
+#pragma unroll
+        for (int i = 0; i < kSlice; ++i) acc[d][j][i] = __shfl_xor_sync(kAll, acc[d][j][i], d);
       }
     }
 
@@ -401,7 +470,10 @@ read_prob_kernel(const float* __restrict__ features,
       float z = 0.f;
 #pragma unroll
       for (int i = 0; i < kH2; ++i) {
-        z = fmaf(w[kOffW3 + i], fmaxf(acc[j][i] + w[kOffB2 + i], 0.f), z);
+        float a = acc[0][j][i % kSlice];  // output i sits in slice i / kSlice: acc[place ^ (i / kSlice)]
+#pragma unroll
+        for (int d = 1; d < G; ++d) a = (place ^ (i / kSlice)) == d ? acc[d][j][i % kSlice] : a;
+        z = fmaf(w[kOffW3 + i], fmaxf(a + w[kOffB2 + i], 0.f), z);
       }
       z += w[kOffB3];
       const int64_t r = base + threadIdx.x + static_cast<int64_t>(j) * kReadThreads;
@@ -748,8 +820,9 @@ cudaError_t launch_read_prob(const float* features, const KmerId* kmer_ids,
     return launch_phase_a(read_prob_wide_kernel<kWideThreads>, kWideThreads, kWideReads, kWideSmem, features,
                           kmer_ids, weights, n_reads, p, stream);
   } else {
-    return launch_phase_a(read_prob_kernel<kReads>, kReadThreads, static_cast<int64_t>(kReadThreads) * kReads,
-                          kWeightsDynamic ? kWeights * 4 : 0, features, kmer_ids, weights, n_reads, p, stream);
+    return launch_phase_a(read_prob_kernel<kReads, kLaneGroup>, kReadThreads,
+                          static_cast<int64_t>(kReadThreads) * kReads, kWeightsDynamic ? kWeights * 4 : 0, features,
+                          kmer_ids, weights, n_reads, p, stream);
   }
 }
 
@@ -827,6 +900,10 @@ int read_prob_tile_reads(void) { return kWide ? kWideReads : kReadThreads * kRea
 
 // 1 where phase A takes the wide plan (read_prob_wide_kernel), else 0.
 int read_prob_wide(void) { return kWide ? 1 : 0; }
+
+// The lanes of a group that share their reads' h1 in phase A (G): 1 where
+// each lane keeps its own reads (the R plan alone, or the wide plan).
+int read_prob_lane_group(void) { return kWide ? 1 : kLaneGroup; }
 
 const char* fused_infer_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

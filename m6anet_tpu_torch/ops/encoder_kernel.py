@@ -54,6 +54,7 @@ from .fused_infer_kernel import (
     check_precision,
     check_read_inputs,
     check_tensor,
+    count_grouped,
     count_wide,
     declare_fused_infer,
     kernel_lib,
@@ -113,6 +114,7 @@ def fused_read_probability(
         if err != 0:
             raise launch_error(lib, err)
         count_wide("f32", fp.widths, kmer_ids)
+        count_grouped(lib, features.shape[0])
         launch_count += 1
         return p
 
@@ -240,6 +242,7 @@ def read_prob_tail(tp: TailParams, x: torch.Tensor) -> torch.Tensor:
                 err = lib.read_prob_launch(x.data_ptr(), None, tp.packed.data_ptr(), p.data_ptr(), n, stream)
         if err != 0:
             raise launch_error(lib, err)
+        count_grouped(lib, n)
         tail_launch_count += 1
         return p
 

@@ -36,7 +36,10 @@ memory; past them (a thread's registers or a block's shared memory) each
 phase A takes its wide plan, whose kernel stages the weights a step of
 hidden units at a time for a block's tile of reads (``phase_a_wide``; its
 launches counted in ``wide_launch_counts``, by precision, besides the
-wrapper's count).
+wrapper's count).  Within its fast plan the f32 phase A shares each read's
+h1 across a group of lanes where the widths allow it (the library's
+``read_prob_lane_group()``; its launches counted in
+``grouped_launch_count``).
 
 The k-mer ids must lie in [0, V) (the kernels read the embedding table
 with them unchecked).  The kernels read int8 ids where every id is below
@@ -98,6 +101,10 @@ tc_launch_counts = {"f32x3": 0, "bf16": 0}
 # read_prob_tc_wide_kernel in the reduced modes), by precision, by every
 # wrapper that launches one
 wide_launch_counts = {"f32": 0, "f32x3": 0, "bf16": 0}
+# launches of an f32 phase A whose plan shares h1 across lane groups
+# (read_prob_lane_group() > 1), by every wrapper that launches one, the
+# torch backend's per-read tail among them
+grouped_launch_count = 0
 
 VOCAB = 66  # the data's k-mer vocabulary (constants.KMER_TO_INT: 5-mers near a DRACH centre)
 PRECISIONS = ("f32", "f32x3", "bf16")
@@ -594,6 +601,8 @@ def declare_fused_infer(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.read_prob_tile_reads.argtypes = []
     lib.read_prob_wide.restype = ctypes.c_int
     lib.read_prob_wide.argtypes = []
+    lib.read_prob_lane_group.restype = ctypes.c_int
+    lib.read_prob_lane_group.argtypes = []
     lib.site_reduce_launch.restype = ctypes.c_int
     lib.site_reduce_launch.argtypes = SITE_REDUCE_ARGTYPES
     lib.fused_infer_error_string.restype = ctypes.c_char_p
@@ -691,6 +700,15 @@ def count_wide(precision: str, widths: Widths, kmer_ids: torch.Tensor) -> None:
     (no read, no launch)."""
     if kmer_ids.shape[0] > 0 and phase_a_wide(precision, widths, kmer_ids.element_size()):
         wide_launch_counts[precision] += 1
+
+
+def count_grouped(lib: ctypes.CDLL, n_reads: int) -> None:
+    """Count a launch of the f32 phase A of ``lib`` (a csrc/fused_infer.cu
+    library) over ``n_reads`` reads in ``grouped_launch_count`` where its
+    plan takes lane groups (no read, no launch)."""
+    global grouped_launch_count
+    if n_reads > 0 and lib.read_prob_lane_group() > 1:
+        grouped_launch_count += 1
 
 
 def ragged_tail_batches(tile: int, seed: int = 1, widths: Widths = PRODUCTION):
@@ -916,6 +934,7 @@ def _launch_fused(fp, features, kmer_ids, offsets, counts, threshold, n_samples,
     if err != 0:
         raise launch_error(lib, err)
     count_wide("f32", fp.widths, kmer_ids)
+    count_grouped(lib, n)
     if n_sites > 0:
         site_reduce_launch_count += 1
     return p, site_p, mod_ratio

@@ -990,6 +990,58 @@ def test_fused_tail_matches_the_modules_on_the_card(cuda_device, monkeypatch, na
             _assert_site_ops_bits(got, offsets, counts, X.shape[0])
 
 
+@pytest.mark.parametrize("name", ["signal", "one_position"])
+def test_lane_groups_at_every_residue_of_the_tile(cuda_device, name):
+    """The f32 phase A that shares h1 across lane groups (G > 1: the
+    signal-only model's tail, 9 -> 150 -> 32, and the production
+    architecture at one position, (1, 2, 150, 32), seeded) on 3 T seeded
+    reads, T its block's tile: against the plain version (the tail's
+    modules; read_probability_plain) at 1e-6, the f32 kernel-vs-plain
+    bound, and on every batch of the first 2 T + r of them, r in [0, T),
+    the same bits as there: the last tile cut at every residue, so also
+    every residue of a group's 2 G reads.  Each launch is counted in
+    grouped_launch_count."""
+    rng = np.random.default_rng(25)
+    if name == "signal":
+        model = _tail_model(name, cuda_device)
+        tp = encoder_kernel.tail_params(model)
+        lib = encoder_kernel.tail_lib(tp.widths)
+        n_in = tp.widths.n_in
+        l1, l2 = model.encoder[-2:]
+        pool = model.per_read_filter()
+
+        def kernel(x):
+            return encoder_kernel.read_prob_tail(tp, x)
+
+        def plain(x):
+            return pool.per_read_prob(l2(l1(x)))
+    else:
+        w = fik.Widths(1, 2, 150, 32)
+        model = MILModel(fik.widths_config(w)).init(torch.Generator().manual_seed(4)).eval()
+        fp = fik.prepare_fused_params_t(model.to(cuda_device))
+        lib = fik.kernel_lib(w)
+        n_in = w.features
+        K = rng.integers(0, w.vocab, size=(3 * lib.read_prob_tile_reads(), w.positions)).astype(np.int8)
+        K = torch.from_numpy(K).to(cuda_device)
+
+        def kernel(x):
+            return encoder_kernel.fused_read_probability(fp, x, K[: x.shape[0]])
+
+        def plain(x):
+            return fik.read_probability_plain(fp, x, K[: x.shape[0]])
+    assert lib.read_prob_lane_group() > 1 and not lib.read_prob_wide()
+    tile = lib.read_prob_tile_reads()
+    x = torch.from_numpy(rng.standard_normal(size=(3 * tile, n_in), dtype=np.float32)).to(cuda_device)
+    before = fik.grouped_launch_count
+    with torch.no_grad():
+        whole = kernel(x)
+        torch.testing.assert_close(whole, plain(x), rtol=0, atol=1e-6)
+        for r in range(tile):
+            n = 2 * tile + r
+            assert same_bits(kernel(x[:n]), whole[:n]), n
+    assert fik.grouped_launch_count == before + 1 + tile
+
+
 def _assert_site_ops_bits(out, offsets, counts, n_reads):
     """site_p and mod_ratio of a torch step on the card: the plain site
     ops' bits on the step's own p."""

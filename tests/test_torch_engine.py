@@ -370,7 +370,7 @@ def test_cli_subprocess_on_cpu(port_out, tmp_path):
     assert ('kernel launches: {"fused_inference_t": 0, "fused_read_probability": 0, "read_prob_tail": 0, '
             '"site_probability_mc": 0, "fused_inference": 0, "site_reduce": 0, "read_prob_tc_f32x3": 0, '
             '"read_prob_tc_bf16": 0, "read_prob_wide_f32": 0, "read_prob_wide_f32x3": 0, "read_prob_wide_bf16": 0, '
-            '"site_probability_mc_long": 0}') in proc.stderr
+            '"read_prob_grouped": 0, "site_probability_mc_long": 0}') in proc.stderr
     for name in ("data.site_proba.csv", "data.indiv_proba.csv"):
         assert (out / name).read_bytes() == (port_out / name).read_bytes()
 

@@ -302,6 +302,46 @@ def test_production_batch_is_the_one_every_sweep_times():
     assert fik.checked_kmer_ids(kmer_ids).ids is kmer_ids
 
 
+def test_sweep_rewrites_phase_as_tiling():
+    """scripts/sweep_read_tile.py rewrites each of its seven constants (R,
+    threads, blocks an SM, unroll, lanes a group G, the groups' unroll and
+    the most values a read keeps where lanes group) once in fused_infer.cu,
+    every variant keeps whole lane groups in a warp and whole warps in a
+    block, the tiling as checked in is one of them, and each ablation finds
+    each text it replaces once; its tail builds are the torch step's own
+    (encoder_kernel.tail_defines of the signal-only model's 9 -> 150 ->
+    32), where the source takes lane groups, and at the released widths
+    it does not."""
+    from m6anet_tpu_torch.ops import _build
+    from m6anet_tpu_torch.scripts import sweep_read_tile as sweep
+
+    path = os.path.join(os.path.dirname(fik.__file__), "csrc", "fused_infer.cu")
+    with open(path) as f:
+        text = f.read()
+    assert "kLaneGroupTile" in sweep.CONSTANTS and len(set(sweep.VARIANTS)) == len(sweep.VARIANTS)
+    for values in sweep.VARIANTS:
+        reads, threads, blocks, unroll, group, group_unroll, group_values = values
+        assert threads % 32 == 0 and group in (1, 2, 4) and min(reads, blocks, unroll, group_unroll) >= 1, values
+        assert group_values >= 1, values
+        rewritten = _sweep.variant_source(text, sweep.CONSTANTS, values, "fused_infer.cu")
+        for name, value in zip(sweep.CONSTANTS, values):
+            assert rewritten.count(f"constexpr int {name} = {value};") == 1
+    checked_in = tuple(_build.cu_constants("fused_infer")[name] for name in sweep.CONSTANTS)
+    assert checked_in in sweep.VARIANTS
+    for label, edits in sweep.ABLATIONS:
+        for old, new in edits:
+            assert text.count(old) == 1 and old != new, (label, old)
+        assert sweep.ablation_source(text, edits) != text
+    with pytest.raises(SystemExit, match="no single"):
+        sweep.ablation_source(text, [("this text is in no source", "")])
+    tail = encoder_kernel.tail_defines(encoder_kernel.TailWidths(9, 150, 32))
+    c = _build.cu_constants("fused_infer", tail)
+    assert c["kIn"] == 9 and c["kReadValues"] <= c["kLaneGroupValues"] <= c["kReleasedReadValues"]
+    assert c["kH2Pad"] % (4 * c["kLaneGroupTile"]) == 0
+    released = _build.cu_constants("fused_infer")
+    assert released["kReadValues"] > released["kLaneGroupValues"]
+
+
 def test_sweep_rewrites_phase_bs_constants():
     """scripts/sweep_site_reduce.py rewrites each of its constants once in
     fused_infer.cu and every ablation finds its line; every build keeps a

@@ -359,6 +359,15 @@ PLAN_KEYS = ("reads", "read_blocks", "f32x3_tiles", "f32x3_stages", "f32x3_x_sha
              "f32x3_wide_in_steps", "bf16_wide_smem", "bf16_wide_cols", "bf16_wide_in_steps")
 
 
+def _source_constants(name):
+    """What csrc/<name>.cu holds before its first device function: its
+    widths' macros used, its constants and plan, host C++ alone."""
+    with open(os.path.join(_build.CSRC_DIR, f"{name}.cu")) as f:
+        text = f.read()
+    body = text[text.index("namespace {") + len("namespace {") :]
+    return body[: re.search(r"^(template <.*>\n)?(__global__|__device__|// -{10})", body, re.M).start()]
+
+
 def _source_plans(widths, work):
     """The tiling that csrc/fused_infer.cu and csrc/read_prob_tc.cu derive
     at each of ``widths``, by ``PLAN_KEYS``: their constants (everything
@@ -368,13 +377,7 @@ def _source_plans(widths, work):
     ``*_wide`` is 1 where a phase A takes its wide plan."""
     import subprocess
 
-    def constants(name):
-        with open(os.path.join(_build.CSRC_DIR, f"{name}.cu")) as f:
-            text = f.read()
-        body = text[text.index("namespace {") + len("namespace {") :]
-        return body[: re.search(r"^(template <.*>\n)?(__global__|__device__|// -{10})", body, re.M).start()]
-
-    f32, tc = constants("fused_infer"), constants("read_prob_tc")
+    f32, tc = _source_constants("fused_infer"), _source_constants("read_prob_tc")
     parts, prints = ["#include <cstdint>\n#include <cstdio>\n"], []
     for i, w in enumerate(widths):
         defines = {"M6A_POS": w.positions, "M6A_EMB": w.emb, "M6A_VOCAB": w.vocab, "M6A_H1": w.hidden1,
@@ -474,6 +477,58 @@ def test_kernel_plan_keeps_the_sources_tuning_at_the_released_widths(tmp_path):
             _covers(plan[f"{mode}_wide_in_steps"], plan[f"{mode}_wide_cols"], columns)
         assert plan["f32_wide_l1_threads"] == plan["f32_wide_threads"] >= plan["f32_wide_l2_threads"] >= 32, w
         assert plan["f32_wide_reads"] == c["kWideReads"] and plan["tc_wide_reads"] == 16 * t["kTcWideWarps"]
+
+
+def _lane_groups(defines, work):
+    """(kReads, kLaneGroup) that csrc/fused_infer.cu derives at each of
+    ``defines`` (``-D`` macros; {} the released widths): its constants
+    compiled for the host with g++, one namespace a set, in one program."""
+    import subprocess
+
+    f32 = _source_constants("fused_infer")
+    parts, prints = ["#include <cstdint>\n#include <cstdio>\n"], []
+    names = sorted({k for d in defines for k in d})
+    for i, d in enumerate(defines):
+        parts += [f"#undef {k}\n" for k in names]
+        parts += [f"#define {k} {v}\n" for k, v in d.items()]
+        parts.append(f"namespace f{i} {{\n{f32}}}\n")
+        prints.append(f'  std::printf("%d %d\\n", f{i}::kReads, f{i}::kLaneGroup);')
+    parts.append("int main() {\n" + "\n".join(prints) + "\n}\n")
+    src, exe = os.path.join(work, "groups.cpp"), os.path.join(work, "groups")
+    with open(src, "w") as f:
+        f.write("".join(parts))
+    subprocess.run(["g++", "-std=c++17", "-O0", "-o", exe, src], check=True, capture_output=True)
+    out = subprocess.run([exe], check=True, capture_output=True, text=True).stdout.split("\n")
+    return [tuple(map(int, line.split())) for line in out[: len(defines)]]
+
+
+def test_f32_phase_a_takes_lane_groups_where_a_read_keeps_few_values(tmp_path):
+    """The f32 phase A shares h1 across groups of kLaneGroupTile lanes
+    (G > 1) wherever it takes the plan of kReadTile reads a thread, a read
+    keeps at most kLaneGroupValues values (its inputs and H2 to 4) and H2
+    (to 4) splits into G lanes' float4s, and nowhere else: the signal-only
+    model's tail (9 -> 150 -> 32, no k-mer input) and the production
+    architecture at one position (5 inputs) take it; the released widths
+    (47 values, and the production blocks' tail, 15 -> 150 -> 32) and every
+    width of phases 21 and 23 do not; so over the grid of widths of the
+    plan test, one position with H2 of 8 and 20 among them."""
+    c = _build.cu_constants("fused_infer")
+    g_tile = c["kLaneGroupTile"]
+    assert g_tile > 1 and 32 % g_tile == 0 and c["kLaneGroupValues"] < 47
+    tails = [encoder_kernel.tail_defines(encoder_kernel.TailWidths(n_in, 150, 32)) for n_in in (9, 15)]
+    card = [fik.Widths(*w) for w in WIDTHS.values()] + [fik.Widths(1, 2, 150, 32)]
+    grid = [fik.Widths(*w) for w in itertools.product((1, 3, 5, 11), (1, 4, 8), (1, 150, 256, 512),
+                                                      (1, 8, 20, 32, 64, 128), (66, 1024))]
+    widths = card + grid
+    plans = _lane_groups([{}] + tails + [fik.kernel_defines(w, 1 if w.vocab <= 128 else 2) for w in widths],
+                         str(tmp_path))
+    assert plans[:3] == [(c["kReadTile"], 1), (c["kReadTile"], g_tile), (c["kReadTile"], 1)]
+    assert [plan[1] for plan in plans[3 : 3 + len(card)]] == [1] * len(WIDTHS) + [g_tile]
+    for w, (reads, group) in zip(widths, plans[3:]):
+        h2_pad = -(-w.hidden2 // 4) * 4
+        values = w.n_in + h2_pad
+        takes = values <= c["kLaneGroupValues"] and h2_pad % (4 * g_tile) == 0
+        assert (reads, group) == (c["kReadTile"] if values <= 47 else 1, g_tile if takes else 1), w
 
 
 def _covers(steps, size, total):
