@@ -1420,7 +1420,7 @@ def time_read_prob_tail(full_batch, peak_flops, peak_bw):
         step_launches = {"read_prob_tail": enc.tail_launch_count - before[0],
                          "site_reduce": fik.site_reduce_launch_count - before[1],
                          "read_prob_grouped": fik.grouped_launch_count - before[2]}
-    lane_group = enc.tail_lib(tp.widths).read_prob_lane_group()
+    lane_group = enc.tail_lib(tp.widths).lane_group
     if step_launches != {"read_prob_tail": 1, "site_reduce": 1, "read_prob_grouped": 1} or lane_group < 2:
         fail(f"[tail] the torch step on the card launched {step_launches} a batch, the tail's lane groups "
              f"{lane_group} lanes")
@@ -2311,16 +2311,18 @@ def mc_through_long_kernel(mck, p, offsets, counts, u, n_iters):
     """site_p with every site of 1 read or more through mc_long_site_kernel:
     mc.cu's staged launch sized for count 0 (NaN at those sites), then its
     long-site launch from count 0 over every such site.  Counts no launch."""
-    lib = mck._kernel_lib()
+    from m6anet_tpu_torch.ops import _native
+
+    lib = mck.kernel_lib()
     n_sites = counts.shape[0]
     site_p = torch.empty(n_sites, dtype=torch.float32, device=p.device)
-    stream = torch.cuda.current_stream(p.device).cuda_stream
-    err = lib.mc_site_launch(p.data_ptr(), offsets.data_ptr(), counts.data_ptr(), u.data_ptr(), site_p.data_ptr(),
-                             n_sites, p.shape[0], n_iters, mck.SAMPLES, 0, stream)
-    err = err or mck.launch_long_sites(lib, p, offsets, counts, u, site_p, mck.long_sites(counts, 0), n_iters,
-                                       mck.SAMPLES, 0)
-    if err != 0:
-        fail(f"MC: a launch from count 0 failed: {lib.mc_error_string(err).decode()}")
+    try:
+        _native.launch(lib, "mc_site_launch", "ops.launch.mc_site", p.device, p.data_ptr(), offsets.data_ptr(),
+                       counts.data_ptr(), u.data_ptr(), site_p.data_ptr(), n_sites, p.shape[0], n_iters,
+                       mck.SAMPLES, 0)
+        mck.launch_long_sites(lib, p, offsets, counts, u, site_p, mck.long_sites(counts, 0), n_iters, mck.SAMPLES, 0)
+    except RuntimeError as exc:
+        fail(f"MC: a launch from count 0 failed: {exc}")
     return site_p
 
 
@@ -2427,9 +2429,7 @@ class ParentBuild:
         self.thread.start()
 
     def libs(self):
-        import ctypes
-
-        from m6anet_tpu_torch.ops import fused_infer_kernel as fik
+        from m6anet_tpu_torch.ops import _native
         from m6anet_tpu_torch.scripts import _sweep
 
         if self.thread is None:
@@ -2439,15 +2439,10 @@ class ParentBuild:
             fail(f"the older kernel sources under {PARENT_CSRC} did not build: {self.error}")
         out = {}
         for key, path in zip(self.keys, self.paths):
-            lib = out[key] = ctypes.CDLL(path)
-            if key[1] == "mc":
-                _sweep.bind_mc(lib, _sweep.mc_lists_sites(os.path.join(PARENT_CSRC, "mc.cu")))
-            elif key[1] == "fused_infer":
-                lib.fused_infer_launch.argtypes = fik.FUSED_ARGTYPES
-                lib.read_prob_launch.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64, ctypes.c_void_p]
-                lib.site_reduce_launch.argtypes = fik.SITE_REDUCE_ARGTYPES
+            if key[1] == "mc":  # a _native.Library, as mc_kernel.launch_long_sites takes it
+                out[key] = _sweep.bind_mc(path, _sweep.mc_lists_sites(os.path.join(PARENT_CSRC, "mc.cu")))
             else:
-                lib.read_prob_tc_launch.argtypes = fik.TC_ARGTYPES
+                out[key] = _native.declare(path, key[1])
         return out
 
 
@@ -2672,7 +2667,7 @@ def run_trained_widths(logs, work_dir, widths):
     # the torch step on the card runs the model's tail in the kernel where its plan is fast
     tail_lib = enc.tail_lib(enc.TailWidths(fik.Widths(*widths).n_in, widths[2], widths[3]))
     if "backend=torch" not in torch_path or not torch_launches(
-            launches_torch, torch_batches, not tail_lib.read_prob_wide(), tail_lib.read_prob_lane_group() > 1):
+            launches_torch, torch_batches, not tail_lib.plan["f32"]["wide"], tail_lib.lane_group > 1):
         fail(f"--backend torch at widths {widths} ran as {torch_path!r} with launches {launches_torch}")
     model = load_model(fik.widths_config(fik.Widths(*widths)), state)
     dataset = build_dataset(os.path.join(ROOT, "tests", "data"), min_reads=20, norm_path=DEFAULT_NORM_PATH,
@@ -2787,7 +2782,7 @@ def check_widths(logs, work_dir, full_batch, peak_flops):
         ptxas = {"read_prob_kernel": _build.ptxas_usage(f32_lib, "read_prob_kernel"),
                  **{f"read_prob_tc_kernel {mode}": _build.ptxas_usage(tc_lib, f"read_prob_tc_kernelILi{fik.TC_MODES[mode]}E")
                     for mode in MODES}}
-        configs = {mode: fik.tc_kernel_config(mode, w) for mode in MODES}
+        configs = fik.kernel_lib(w, precision="f32x3").plan
         for mode in MODES:
             if configs[mode]["dynamic_smem_bytes"] > fik.SHARED_LIMIT_BYTES:
                 fail(f"{name} {mode}: the kernel's shared memory {configs[mode]} passes a block's "
@@ -2948,7 +2943,7 @@ def check_past_envelope(logs, work_dir, full_batch, peak_flops, peak_bw):
         ptxas = {precision: {"kernel": kernel, **_build.ptxas_usage(libs["fused_infer" if precision == "f32" else
                                                                           "read_prob_tc"], kernel)}
                  for precision, kernel in kernels.items()}
-        configs = {mode: fik.tc_kernel_config(mode, w, id_bytes) for mode in MODES}
+        configs = fik.kernel_lib(w, id_bytes, "f32x3").plan
         small = make_batch(rng, 4096, 128, small_count(rng), widths)
         brng = np.random.default_rng(200 + k)
         n = full_batch[0].shape[0]
@@ -3146,7 +3141,7 @@ def check_long_sites(older, older_lists, same_as_parent, peak_flops, peak_bw):
 
     u_host = prng.shared_draws(0, MC_ITERS)
     u = torch.from_numpy(u_host).cuda()
-    lib, stream = mck._kernel_lib(), torch.cuda.current_stream().cuda_stream
+    lib, stream = mck.kernel_lib(), torch.cuda.current_stream().cuda_stream
     report, errs = {"n_iters": MC_ITERS, "shapes": {}}, []
     shapes = _sweep.long_site_shapes()
     # the wrapper at the 1,000,000-read site, as the engine calls it, and
@@ -3189,8 +3184,10 @@ def check_long_sites(older, older_lists, same_as_parent, peak_flops, peak_bw):
             launches["older"] = _sweep.long_site_launcher(older, older_lists, p, offsets, counts, u, out, MC_ITERS,
                                                           mck.MAX_STAGED_READS)
         for label, launch in launches.items():
-            if launch() != 0:
-                fail(f"MC {name}: the {label} long-site launch failed")
+            try:
+                launch()
+            except RuntimeError as exc:
+                fail(f"MC {name}: the {label} long-site launch failed: {exc}")
         order = list(launches)
         times, clocks = _sweep.time_interleaved([launches[k] for k in order], reps=30)
         ms = dict(zip(order, (statistics.median(t) for t in times)))
@@ -3239,9 +3236,9 @@ def check_long_sites(older, older_lists, same_as_parent, peak_flops, peak_bw):
         max_count = int(counts.max())
 
         def staged(which):
-            return lambda: which.mc_site_launch(p.data_ptr(), offsets.data_ptr(), counts.data_ptr(), u.data_ptr(),
-                                                out.data_ptr(), keep, p.shape[0], MC_ITERS, mck.SAMPLES, max_count,
-                                                stream)
+            return lambda: which.cdll.mc_site_launch(p.data_ptr(), offsets.data_ptr(), counts.data_ptr(),
+                                                     u.data_ptr(), out.data_ptr(), keep, p.shape[0], MC_ITERS,
+                                                     mck.SAMPLES, max_count, stream)
 
         times, clocks = _sweep.time_interleaved([staged(older), staged(lib)], reps=30)
         old_ms, new_ms = (statistics.median(t) for t in times)
@@ -3391,7 +3388,7 @@ def main():
         "device_ms": split,
         "phase_a_ptxas": phase_a,
         "sm_clock_after_timing": sm_clock,
-        "lane_group": fik.kernel_lib().read_prob_lane_group(),
+        "lane_group": fik.kernel_lib().lane_group,
         "grouped_launches_per_batch": f32_launches["read_prob_grouped"] / f32_batches,
     }]
 
@@ -3550,7 +3547,7 @@ def main():
     # of fused_infer.cu against the plain versions; 13. their timing
     tc_tails = {mode: fik.ragged_tail_batches(fik.read_tile_reads(mode), seed=2) for mode in MODES}
     log(f"[modes] the tensor-core phase A's launch in each mode: "
-        f"{ {mode: fik.tc_kernel_config(mode) for mode in MODES} }")
+        f"{fik.kernel_lib(precision='f32x3').plan}")
     for precision in ("f32", *MODES):
         check_span_fault(fik, fp, tc_tails["f32x3"][-1], precision)
     ragged = make_batch(rng, 4096, 128, small_count(rng))
@@ -3609,7 +3606,7 @@ def main():
             "phase_a_ms_device_check": mode_phase_a_device_check_ms,
             "device_ms": mode_split,
             "read_prob_tc_ptxas": tc_ptxas[mode],
-            "read_prob_tc_launch": fik.tc_kernel_config(mode),
+            "read_prob_tc_launch": fik.kernel_lib(precision=mode).plan[mode],
             "sm_clock_after_timing": mode_clock,
             "golden_max_errors": golden[mode],
         }

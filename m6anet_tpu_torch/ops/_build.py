@@ -123,8 +123,6 @@ def nvcc_path() -> str:
 
 
 _cuda_lock = threading.Lock()
-# library paths by (source name, sorted defines)
-_cuda_libs: Dict[Tuple[str, Tuple[Tuple[str, int], ...]], str] = {}
 
 
 def cuda_sources() -> List[str]:
@@ -159,20 +157,14 @@ def build_cuda(
     seconds = time.perf_counter() - start
     result = {}
     for i, ((name, defines), path) in enumerate(zip(jobs, paths)):
-        key = (name, _defines_key(defines))
-        _cuda_libs[key] = path
-        result[name if i < len(names) else key] = (path, seconds)
+        result[name if i < len(names) else (name, _defines_key(defines))] = (path, seconds)
     return result
 
 
 def cuda_library(name: str, defines: Optional[Mapping[str, int]] = None) -> str:
     """Path of the ``csrc/<name>.cu`` library built with ``defines``,
-    building it if needed."""
-    key = (name, _defines_key(defines))
-    path = _cuda_libs.get(key)
-    if path is None:
-        path = build_cuda(variants=[(name, defines or {})])[key][0]
-    return path
+    building it if needed (``_native.library`` loads each once)."""
+    return build_cuda(variants=[(name, defines or {})])[(name, _defines_key(defines))][0]
 
 
 def ptxas_usage(library: str, kernel: str) -> Dict[str, int]:

@@ -36,8 +36,6 @@ the modules (:func:`tail_params`).
 """
 from __future__ import annotations
 
-import ctypes
-import threading
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
@@ -46,20 +44,19 @@ from torch import nn
 from ..models.blocks import Linear
 from ..models.pooling import InstanceBasedPooling
 from ..utils.profiling import span
+from . import _native
 from .fused_infer_kernel import (
     CheckedKmerIds,
     FusedParamsT,
-    _pack,
     check_host_kmer_ids,
     check_precision,
     check_read_inputs,
     check_tensor,
     count_grouped,
     count_wide,
-    declare_fused_infer,
     kernel_lib,
-    launch_error,
     launch_read_prob_tc,
+    pack_f32,
 )
 # the kernel's parameter set: the packed image the fused step uses too
 from .fused_infer_kernel import prepare_fused_params_t as prepare_fused_params
@@ -97,24 +94,15 @@ def fused_read_probability(
         with span("ops.check"):
             kmer_ids = check_read_inputs(fp, features, kmer_ids, "fused_read_probability",
                                          host_kmer_ids=host_kmer_ids, precision=precision)
-        device = features.device
-        p = torch.empty(features.shape[0], dtype=torch.float32, device=device)
+        p = torch.empty(features.shape[0], dtype=torch.float32, device=features.device)
         if precision != "f32":
             launch_read_prob_tc(fp, features, kmer_ids, p, precision)
-            launch_count += 1
-            return p
-        lib = kernel_lib(fp.widths, kmer_ids.element_size())
-        with torch.cuda.device(device):
-            stream = torch.cuda.current_stream(device).cuda_stream
-            with span("ops.launch.read_prob"):
-                err = lib.read_prob_launch(
-                    features.data_ptr(), kmer_ids.data_ptr(), fp.packed.data_ptr(), p.data_ptr(),
-                    features.shape[0], stream,
-                )
-        if err != 0:
-            raise launch_error(lib, err)
-        count_wide("f32", fp.widths, kmer_ids)
-        count_grouped(lib, features.shape[0])
+        else:
+            lib = kernel_lib(fp.widths, kmer_ids.element_size())
+            _native.launch(lib, "read_prob_launch", "ops.launch.read_prob", features.device, features.data_ptr(),
+                           kmer_ids.data_ptr(), fp.packed.data_ptr(), p.data_ptr(), features.shape[0])
+            count_wide(lib, "f32", features.shape[0])
+            count_grouped(lib, features.shape[0])
         launch_count += 1
         return p
 
@@ -181,7 +169,7 @@ def prepare_tail_params(model: nn.Module) -> Optional[TailParams]:
     with torch.no_grad():
         (w1, b1), (w2, b2) = l1.folded(), l2.folded()
         widths = TailWidths(w1.shape[1], w1.shape[0], w2.shape[0])
-        packed = _pack(widths, w1, w1.new_zeros(0, 0), b1[:, None], w2, b2[:, None], head.weight, head.bias[:, None])
+        packed = pack_f32(widths, w1, w1.new_zeros(0, 0), b1[:, None], w2, b2[:, None], head.weight, head.bias[:, None])
     return TailParams(tuple(model.encoder[:-2]), widths, packed)
 
 
@@ -193,7 +181,7 @@ def tail_params(model: nn.Module) -> Optional[TailParams]:
     if first is None or first.device.type != "cuda":
         return None
     tp = prepare_tail_params(model)
-    return None if tp is None or tail_lib(tp.widths).read_prob_wide() else tp
+    return None if tp is None or tail_lib(tp.widths).plan["f32"]["wide"] else tp
 
 
 def tail_defines(w: TailWidths) -> Dict[str, int]:
@@ -204,20 +192,10 @@ def tail_defines(w: TailWidths) -> Dict[str, int]:
             "M6A_H2": w.hidden2}
 
 
-_tail_lock = threading.Lock()
-_tail_libs: Dict[TailWidths, ctypes.CDLL] = {}
-
-
-def tail_lib(w: TailWidths) -> ctypes.CDLL:
-    """csrc/fused_infer.cu built as the tail of widths ``w``, built if
-    needed."""
-    with _tail_lock:
-        lib = _tail_libs.get(w)
-        if lib is None:
-            from ._build import cuda_library
-
-            lib = _tail_libs[w] = declare_fused_infer(ctypes.CDLL(cuda_library("fused_infer", tail_defines(w))))
-    return lib
+def tail_lib(w: TailWidths) -> _native.Library:
+    """csrc/fused_infer.cu built as the tail of widths ``w``, loaded once
+    (``_native.library``)."""
+    return _native.library("fused_infer", tail_defines(w))
 
 
 def read_prob_tail(tp: TailParams, x: torch.Tensor) -> torch.Tensor:
@@ -236,12 +214,8 @@ def read_prob_tail(tp: TailParams, x: torch.Tensor) -> torch.Tensor:
                 raise ValueError(f"the tail's weights are on {tp.packed.device}, x on {device}")
         lib = tail_lib(tp.widths)
         p = torch.empty(n, dtype=torch.float32, device=device)
-        with torch.cuda.device(device):
-            stream = torch.cuda.current_stream(device).cuda_stream
-            with span("ops.launch.read_prob_f32"):
-                err = lib.read_prob_launch(x.data_ptr(), None, tp.packed.data_ptr(), p.data_ptr(), n, stream)
-        if err != 0:
-            raise launch_error(lib, err)
+        _native.launch(lib, "read_prob_launch", "ops.launch.read_prob_f32", device, x.data_ptr(), None,
+                       tp.packed.data_ptr(), p.data_ptr(), n)
         count_grouped(lib, n)
         tail_launch_count += 1
         return p

@@ -39,7 +39,9 @@ launches counted in ``wide_launch_counts``, by precision, besides the
 wrapper's count).  Within its fast plan the f32 phase A shares each read's
 h1 across a group of lanes where the widths allow it (the library's
 ``read_prob_lane_group()``; its launches counted in
-``grouped_launch_count``).
+``grouped_launch_count``).  Each library is loaded, and what it reports
+of its plan read, once per process (``_native.library``); the wrappers
+count and choose from that handle.
 
 The k-mer ids must lie in [0, V) (the kernels read the embedding table
 with them unchecked).  The kernels read int8 ids where every id is below
@@ -77,9 +79,9 @@ HEK293T_RNA004) turns into ~7e-6 of p (PERF.md section 6, PR 9).
 """
 from __future__ import annotations
 
-import ctypes
-import threading
-from typing import Dict, NamedTuple, Optional, Tuple
+import functools
+import types
+from typing import Dict, Mapping, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -87,7 +89,8 @@ from torch import nn
 
 from ..models.blocks import BN_EPS, KmerMultipleEmbedding, Linear
 from ..utils.profiling import span
-from . import site_ops
+from . import _native, site_ops
+from ._native import TC_CONFIG_KEYS, TC_MODES  # noqa: F401  (read_prob_tc.cu names fused_infer_kernel.TC_CONFIG_KEYS)
 
 # launches of the CUDA kernels in this process, by wrapper: one per
 # fused_inference_t / fused_inference call on CUDA tensors (any precision),
@@ -108,10 +111,6 @@ grouped_launch_count = 0
 
 VOCAB = 66  # the data's k-mer vocabulary (constants.KMER_TO_INT: 5-mers near a DRACH centre)
 PRECISIONS = ("f32", "f32x3", "bf16")
-# the tensor-core kernel's mode argument (kModeF32x3, kModeBf16 in the .cu)
-TC_MODES = {"f32x3": 1, "bf16": 2}
-# what read_prob_tc_config reports of the tensor-core kernel's launch
-TC_CONFIG_KEYS = ("threads", "consumer_warpgroups", "stages", "tile_reads", "dynamic_smem_bytes", "wide")
 # shared memory one block may opt into on sm_90 (bytes)
 SHARED_LIMIT_BYTES = 232448
 # the largest vocabulary of the int16 k-mer ids, and the most inputs a read
@@ -152,12 +151,13 @@ def _up(n: int, m: int) -> int:
     return -(-n // m) * m
 
 
-def f32_layout(w: Widths) -> Dict[str, int]:
+@functools.lru_cache(maxsize=None)
+def f32_layout(w: Widths) -> Mapping[str, int]:
     """The f32 weight image of csrc/fused_infer.cu (floats), by the .cu's
     constant names: W1B [H1][kW1Stride] (row k: W1'[k, :n_in], b1'[k],
     zeros), EMB [V][E] padded to kEmbWords, W2 [H1][kH2Pad] (row k: hidden
     unit k's fan-out, zero past H2), B2 and W3 [kH2Pad], B3 and zeros to a
-    multiple of 4."""
+    multiple of 4.  Made once per widths."""
     stride, h2_pad, emb_words = _up(w.n_in + 1, 4), _up(w.hidden2, 4), _up(w.vocab * w.emb, 4)
     lay = {"kW1Stride": stride, "kH2Pad": h2_pad, "kEmbWords": emb_words, "kOffW1B": 0}
     lay["kOffEmb"] = w.hidden1 * stride
@@ -166,16 +166,18 @@ def f32_layout(w: Widths) -> Dict[str, int]:
     lay["kOffW3"] = lay["kOffB2"] + h2_pad
     lay["kOffB3"] = lay["kOffW3"] + h2_pad
     lay["kWeights"] = lay["kOffB3"] + 4
-    return lay
+    return types.MappingProxyType(lay)
 
 
-def tc_layout(w: Widths) -> Dict[str, int]:
+@functools.lru_cache(maxsize=None)
+def tc_layout(w: Widths) -> Mapping[str, int]:
     """The tensor-core image of csrc/read_prob_tc.cu (32-bit words), by the
     .cu's constant names.  Hidden units are padded with zero weights and
     zero bias, H1 to a multiple of 16 (kH1Pad: layer 2's kKSteps k16 steps,
     layer 1's kTiles1 n8 tiles) and H2 to a multiple of 8 (kH2Pad, kTiles2);
     bf16's layer 1 takes kK1Steps k16 steps over the n_in inputs; W1T,
-    f32x3's layer 1 input-major for the wide plan, closes the image."""
+    f32x3's layer 1 input-major for the wide plan, closes the image.  Made
+    once per widths."""
     h1_pad, h2_pad = _up(w.hidden1, 16), _up(w.hidden2, 8)
     stride, emb_words = _up(w.n_in + 1, 4), _up(w.vocab * w.emb, 4)
     lay = {
@@ -195,7 +197,7 @@ def tc_layout(w: Widths) -> Dict[str, int]:
     lay["kTcOffEmbH"] = lay["kTcOffB1"] + h1_pad
     lay["kTcOffW1T"] = lay["kTcOffEmbH"] + emb_words
     lay["kTcWords"] = lay["kTcOffW1T"] + (w.n_in + 1) * h1_pad
-    return lay
+    return types.MappingProxyType(lay)
 
 
 def kernel_limit(w: Widths) -> Optional[str]:
@@ -265,7 +267,7 @@ class FusedParamsT(NamedTuple):
     widths: Widths = PRODUCTION
 
 
-def _pack(w: Widths, w1t, embt, b1t, w2t, b2t, w3t, b3t) -> torch.Tensor:
+def pack_f32(w: Widths, w1t, embt, b1t, w2t, b2t, w3t, b3t) -> torch.Tensor:
     lay = f32_layout(w)
     image = w1t.new_zeros(lay["kWeights"])
     w1b = image[: w.hidden1 * lay["kW1Stride"]].view(w.hidden1, lay["kW1Stride"])
@@ -407,7 +409,7 @@ def prepare_fused_params_t(model: nn.Module) -> FusedParamsT:
     engine checks before it launches."""
     widths, tensors = model_tensors(model)
     tc = _pack_tc(widths, **{name: t.cpu() for name, t in tensors.items()}).to(tensors["w1t"].device)
-    return FusedParamsT(**tensors, packed=_pack(widths, **tensors), tc=tc, widths=widths)
+    return FusedParamsT(**tensors, packed=pack_f32(widths, **tensors), tc=tc, widths=widths)
 
 
 def check_precision(precision: str) -> None:
@@ -550,76 +552,14 @@ def fused_inference_t_plain(
     return p, site_p, mod_ratio
 
 
-# the C interfaces of csrc/fused_infer.cu's launches (fused_infer_launch:
-# features, kmer_ids, offsets, counts, weights, p, site_p, mod_ratio,
-# n_reads, n_sites, threshold, n_samples, stream; site_reduce_launch: p,
-# offsets, counts, site_p, mod_ratio, n_reads, n_sites, threshold,
-# n_samples, stream) and of read_prob_tc.cu's (features, kmer_ids, image,
-# p, n_reads, mode, stream)
-FUSED_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int64, ctypes.c_int64, ctypes.c_float, ctypes.c_int,
-                                          ctypes.c_void_p]
-SITE_REDUCE_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int64, ctypes.c_int64, ctypes.c_float, ctypes.c_int,
-                                                ctypes.c_void_p]
-TC_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int64, ctypes.c_int, ctypes.c_void_p]
-_lib_lock = threading.Lock()
-# loaded libraries by (source, widths, bytes of a k-mer id)
-_libs: Dict[Tuple[str, Widths, int], ctypes.CDLL] = {}
-
-
-def _load(source: str, widths: Widths, id_bytes: int = 1) -> ctypes.CDLL:
-    """The ``csrc/<source>.cu`` library for ``widths`` and k-mer ids of
-    ``id_bytes`` bytes, built if needed, with its C interface declared;
-    raises (``check_widths``) for widths the kernels do not take, before
-    the first build."""
-    with _lib_lock:
-        lib = _libs.get((source, widths, id_bytes))
-        if lib is None:
-            from ._build import cuda_library
-
-            check_widths(widths)
-            lib = ctypes.CDLL(cuda_library(source, kernel_defines(widths, id_bytes)))
-            if source == "fused_infer":
-                declare_fused_infer(lib)
-            else:
-                lib.read_prob_tc_launch.restype = ctypes.c_int
-                lib.read_prob_tc_launch.argtypes = TC_ARGTYPES
-                lib.read_prob_tc_config.restype = ctypes.c_int
-                lib.read_prob_tc_config.argtypes = [ctypes.c_int, ctypes.c_void_p]
-                lib.read_prob_tc_error_string.restype = ctypes.c_char_p
-                lib.read_prob_tc_error_string.argtypes = [ctypes.c_int]
-            _libs[(source, widths, id_bytes)] = lib
-    return lib
-
-
-def declare_fused_infer(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """Declare the C interface of a csrc/fused_infer.cu library."""
-    lib.fused_infer_launch.restype = ctypes.c_int
-    lib.fused_infer_launch.argtypes = FUSED_ARGTYPES
-    lib.read_prob_launch.restype = ctypes.c_int
-    lib.read_prob_launch.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64, ctypes.c_void_p]
-    lib.read_prob_tile_reads.restype = ctypes.c_int
-    lib.read_prob_tile_reads.argtypes = []
-    lib.read_prob_wide.restype = ctypes.c_int
-    lib.read_prob_wide.argtypes = []
-    lib.read_prob_lane_group.restype = ctypes.c_int
-    lib.read_prob_lane_group.argtypes = []
-    lib.site_reduce_launch.restype = ctypes.c_int
-    lib.site_reduce_launch.argtypes = SITE_REDUCE_ARGTYPES
-    lib.fused_infer_error_string.restype = ctypes.c_char_p
-    lib.fused_infer_error_string.argtypes = [ctypes.c_int]
-    return lib
-
-
-def kernel_lib(widths: Widths = PRODUCTION, id_bytes: int = 1) -> ctypes.CDLL:
-    """csrc/fused_infer.cu built for ``widths`` and k-mer ids of
-    ``id_bytes`` bytes, built if needed."""
-    return _load("fused_infer", widths, id_bytes)
-
-
-def tc_kernel_lib(widths: Widths = PRODUCTION, id_bytes: int = 1) -> ctypes.CDLL:
-    """The tensor-core phase A of csrc/read_prob_tc.cu for ``widths`` and
-    k-mer ids of ``id_bytes`` bytes, built if needed."""
-    return _load("read_prob_tc", widths, id_bytes)
+def kernel_lib(widths: Widths = PRODUCTION, id_bytes: int = 1, precision: str = "f32") -> _native.Library:
+    """The library whose phase A ``precision`` launches (csrc/fused_infer.cu,
+    with phase B, in f32; csrc/read_prob_tc.cu in f32x3 and bf16) at
+    ``widths`` and ``id_bytes``-byte k-mer ids, loaded once; raises
+    (``check_widths``) for widths the kernels do not take."""
+    check_precision(precision)
+    check_widths(widths)
+    return _native.library("fused_infer" if precision == "f32" else "read_prob_tc", kernel_defines(widths, id_bytes))
 
 
 def phase_a_wide(precision: str, widths: Widths = PRODUCTION, id_bytes: int = 1) -> bool:
@@ -627,10 +567,7 @@ def phase_a_wide(precision: str, widths: Widths = PRODUCTION, id_bytes: int = 1)
     and k-mer ids of ``id_bytes`` bytes (read_prob_wide_kernel in f32,
     read_prob_tc_wide_kernel in f32x3 and bf16), as the source's plan
     decides it; builds the kernel if needed."""
-    check_precision(precision)
-    if precision == "f32":
-        return bool(kernel_lib(widths, id_bytes).read_prob_wide())
-    return bool(tc_kernel_config(precision, widths, id_bytes)["wide"])
+    return bool(kernel_lib(widths, id_bytes, precision).plan[precision]["wide"])
 
 
 def phase_a_kernel(precision: str, widths: Widths = PRODUCTION, id_bytes: int = 1) -> str:
@@ -659,20 +596,7 @@ def read_tile_reads(precision: str = "f32", widths: Widths = PRODUCTION) -> int:
     thread; the reduced modes: the 64-read tiles of one consumer
     warpgroup's item, which differ by mode, or a warp's 16 in the wide
     plan); builds the kernel if needed."""
-    check_precision(precision)
-    if precision == "f32":
-        return int(kernel_lib(widths).read_prob_tile_reads())
-    return tc_kernel_config(precision, widths)["tile_reads"]
-
-
-def tc_kernel_config(precision: str, widths: Widths = PRODUCTION, id_bytes: int = 1) -> dict:
-    """The tensor-core kernel's launch in ``precision`` ("f32x3" or "bf16")
-    with k-mer ids of ``id_bytes`` bytes, by ``TC_CONFIG_KEYS``; builds the
-    kernel if needed."""
-    out = (ctypes.c_int32 * len(TC_CONFIG_KEYS))()
-    if tc_kernel_lib(widths, id_bytes).read_prob_tc_config(TC_MODES[precision], out) != 0:
-        raise RuntimeError(f"read_prob_tc has no launch for precision {precision!r}")
-    return dict(zip(TC_CONFIG_KEYS, out))
+    return kernel_lib(widths, precision=precision).plan[precision]["tile_reads"]
 
 
 def launch_read_prob_tc(fp: FusedParamsT, features: torch.Tensor, kmer_ids: torch.Tensor,
@@ -680,34 +604,27 @@ def launch_read_prob_tc(fp: FusedParamsT, features: torch.Tensor, kmer_ids: torc
     """Launch the tensor-core phase A of ``precision`` ("f32x3" or "bf16")
     into ``p`` on the current stream, on inputs that check_read_inputs has
     checked for ``precision``, and count the launch."""
-    lib = tc_kernel_lib(fp.widths, kmer_ids.element_size())
-    with torch.cuda.device(features.device):
-        stream = torch.cuda.current_stream(features.device).cuda_stream
-        with span("ops.launch.read_prob_tc"):
-            err = lib.read_prob_tc_launch(
-                features.data_ptr(), kmer_ids.data_ptr(), fp.tc.data_ptr(), p.data_ptr(),
-                features.shape[0], TC_MODES[precision], stream,
-            )
-    if err != 0:
-        raise RuntimeError(f"read_prob_tc kernel launch failed: {lib.read_prob_tc_error_string(err).decode()}")
+    lib = kernel_lib(fp.widths, kmer_ids.element_size(), precision)
+    _native.launch(lib, "read_prob_tc_launch", "ops.launch.read_prob_tc", features.device, features.data_ptr(),
+                   kmer_ids.data_ptr(), fp.tc.data_ptr(), p.data_ptr(), features.shape[0], TC_MODES[precision])
     tc_launch_counts[precision] += 1
-    count_wide(precision, fp.widths, kmer_ids)
+    count_wide(lib, precision, features.shape[0])
 
 
-def count_wide(precision: str, widths: Widths, kmer_ids: torch.Tensor) -> None:
-    """Count a launch of phase A of ``precision`` on ``kmer_ids`` (as the
-    kernel read them) in ``wide_launch_counts`` where it took the wide plan
-    (no read, no launch)."""
-    if kmer_ids.shape[0] > 0 and phase_a_wide(precision, widths, kmer_ids.element_size()):
+def count_wide(lib: _native.Library, precision: str, n_reads: int) -> None:
+    """Count a launch of ``lib``'s phase A of ``precision`` over ``n_reads``
+    reads in ``wide_launch_counts`` where its plan is wide (no read, no
+    launch)."""
+    if n_reads > 0 and lib.plan[precision]["wide"]:
         wide_launch_counts[precision] += 1
 
 
-def count_grouped(lib: ctypes.CDLL, n_reads: int) -> None:
+def count_grouped(lib: _native.Library, n_reads: int) -> None:
     """Count a launch of the f32 phase A of ``lib`` (a csrc/fused_infer.cu
     library) over ``n_reads`` reads in ``grouped_launch_count`` where its
     plan takes lane groups (no read, no launch)."""
     global grouped_launch_count
-    if n_reads > 0 and lib.read_prob_lane_group() > 1:
+    if n_reads > 0 and lib.lane_group > 1:
         grouped_launch_count += 1
 
 
@@ -894,10 +811,6 @@ def check_read_inputs(
     return kmer_ids.to(torch.int16 if wide else torch.int8)
 
 
-def launch_error(lib: ctypes.CDLL, err: int) -> RuntimeError:
-    return RuntimeError(f"fused_infer kernel launch failed: {lib.fused_infer_error_string(err).decode()}")
-
-
 def _launch_fused(fp, features, kmer_ids, offsets, counts, threshold, n_samples, name, precision,
                   bad_site_ids=None, host_kmer_ids=None):
     """Check the inputs and launch both phases: fused_infer.cu's in f32; in
@@ -914,29 +827,21 @@ def _launch_fused(fp, features, kmer_ids, offsets, counts, threshold, n_samples,
             raise ValueError(f"n_samples must be >= 0, got {n_samples}")
         kmer_ids = check_read_inputs(fp, features, kmer_ids, name, bad_site_ids, host_kmer_ids, precision)
 
-    lib = kernel_lib(fp.widths, kmer_ids.element_size())
     p = torch.empty(n, dtype=torch.float32, device=device)
     site_p = torch.empty(n_sites, dtype=torch.float32, device=device)
     mod_ratio = torch.empty(n_sites, dtype=torch.float32, device=device)
     if precision != "f32":
         launch_read_prob_tc(fp, features, kmer_ids, p, precision)
         launch_site_reduce(p, offsets, counts, threshold, n_samples, site_p, mod_ratio)
-        return p, site_p, mod_ratio
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        with span("ops.launch.fused_infer"):
-            err = lib.fused_infer_launch(
-                features.data_ptr(), kmer_ids.data_ptr(),
-                offsets.data_ptr(), counts.data_ptr(), fp.packed.data_ptr(),
-                p.data_ptr(), site_p.data_ptr(), mod_ratio.data_ptr(),
-                n, n_sites, float(threshold), int(n_samples), stream,
-            )
-    if err != 0:
-        raise launch_error(lib, err)
-    count_wide("f32", fp.widths, kmer_ids)
-    count_grouped(lib, n)
-    if n_sites > 0:
-        site_reduce_launch_count += 1
+    else:
+        lib = kernel_lib(fp.widths, kmer_ids.element_size())
+        _native.launch(lib, "fused_infer_launch", "ops.launch.fused_infer", device, features.data_ptr(),
+                       kmer_ids.data_ptr(), offsets.data_ptr(), counts.data_ptr(), fp.packed.data_ptr(), p.data_ptr(),
+                       site_p.data_ptr(), mod_ratio.data_ptr(), n, n_sites, float(threshold), int(n_samples))
+        count_wide(lib, "f32", n)
+        count_grouped(lib, n)
+        if n_sites > 0:
+            site_reduce_launch_count += 1
     return p, site_p, mod_ratio
 
 
@@ -996,16 +901,9 @@ def launch_site_reduce(p, offsets, counts, threshold, n_samples, site_p, mod_rat
     n_sites = counts.shape[0]
     if n_sites == 0:
         return
-    lib = kernel_lib()
-    with torch.cuda.device(p.device):
-        stream = torch.cuda.current_stream(p.device).cuda_stream
-        with span("ops.launch.site_reduce"):
-            err = lib.site_reduce_launch(
-                p.data_ptr(), offsets.data_ptr(), counts.data_ptr(), site_p.data_ptr(), mod_ratio.data_ptr(),
-                p.shape[0], n_sites, float(threshold), int(n_samples), stream,
-            )
-    if err != 0:
-        raise launch_error(lib, err)
+    _native.launch(kernel_lib(), "site_reduce_launch", "ops.launch.site_reduce", p.device, p.data_ptr(),
+                   offsets.data_ptr(), counts.data_ptr(), site_p.data_ptr(), mod_ratio.data_ptr(), p.shape[0],
+                   n_sites, float(threshold), int(n_samples))
     site_reduce_launch_count += 1
 
 

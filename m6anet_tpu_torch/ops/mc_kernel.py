@@ -42,14 +42,13 @@ leaves ``p``, gives NaN.
 """
 from __future__ import annotations
 
-import ctypes
-import threading
 from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..utils.profiling import span
+from . import _native
 from .fused_infer_kernel import check_tensor
 
 # launches of the CUDA kernels in this process: mc_site_kernel, and
@@ -172,41 +171,16 @@ def ragged_mc_batch(seed: int = 5, long_sites: bool = False):
     return np.concatenate([p[:n_short], long_p, p[n_short:]]), offsets, counts
 
 
-# mc_site_launch(p, offsets, counts, u, site_p, n_sites, n_reads, n_iters,
-# n_samples, max_count, stream); mc_long_site_launch(p, offsets, counts, u,
-# long_sites, e_all, tickets, site_p, n_sites, n_reads, n_iters, n_samples,
-# n_long, long_from, stream)
-LAUNCH_ARGTYPES = [ctypes.c_void_p] * 5 + [
-    ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-]
-LONG_LAUNCH_ARGTYPES = [ctypes.c_void_p] * 8 + [
-    ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-]
-_lib_lock = threading.Lock()
-_libs: Dict[int, ctypes.CDLL] = {}
-
-
 def kernel_defines(n_samples: int) -> Dict[str, int]:
     """The ``-D`` defines that build mc.cu for ``n_samples`` draws an
     iteration: none at the default ``SAMPLES``."""
     return {} if n_samples == SAMPLES else {"M6A_SAMPLES": n_samples}
 
 
-def _kernel_lib(n_samples: int = SAMPLES) -> ctypes.CDLL:
-    with _lib_lock:
-        lib = _libs.get(n_samples)
-        if lib is None:
-            from ._build import cuda_library
-
-            lib = ctypes.CDLL(cuda_library("mc", kernel_defines(n_samples)))
-            lib.mc_site_launch.restype = ctypes.c_int
-            lib.mc_site_launch.argtypes = LAUNCH_ARGTYPES
-            lib.mc_long_site_launch.restype = ctypes.c_int
-            lib.mc_long_site_launch.argtypes = LONG_LAUNCH_ARGTYPES
-            lib.mc_error_string.restype = ctypes.c_char_p
-            lib.mc_error_string.argtypes = [ctypes.c_int]
-            _libs[n_samples] = lib
-    return lib
+def kernel_lib(n_samples: int = SAMPLES) -> _native.Library:
+    """csrc/mc.cu built for ``n_samples`` draws an iteration, loaded once
+    (``_native.library``)."""
+    return _native.library("mc", kernel_defines(n_samples))
 
 
 def long_sites(counts, long_from: int = MAX_STAGED_READS, n_long: Optional[int] = None):
@@ -232,21 +206,17 @@ def long_scratch(n_long: int, n_iters: int, device) -> Tuple[torch.Tensor, torch
             torch.zeros(n_long, dtype=torch.int32, device=device))
 
 
-def launch_long_sites(lib, p, offsets, counts, u, site_p, sites, n_iters, n_samples, long_from,
-                      scratch: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> int:
+def launch_long_sites(lib: _native.Library, p, offsets, counts, u, site_p, sites, n_iters, n_samples, long_from,
+                      scratch: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> None:
     """``lib``'s ``mc_long_site_launch`` over the int32 site list ``sites``
     (on the card), on the current stream, with ``scratch`` (from
-    :func:`long_scratch`; a new one by default): returns the CUDA error
-    code.  Counts no launch."""
+    :func:`long_scratch`; a new one by default); raises where the launch
+    fails.  Counts no launch."""
     n_long = sites.shape[0]
-    device = p.device
-    stream = torch.cuda.current_stream(device).cuda_stream
-    e_all, tickets = long_scratch(n_long, n_iters, device) if scratch is None else scratch
-    with span("ops.launch.mc_long_site"):
-        return lib.mc_long_site_launch(
-            p.data_ptr(), offsets.data_ptr(), counts.data_ptr(), u.data_ptr(), sites.data_ptr(), e_all.data_ptr(),
-            tickets.data_ptr(), site_p.data_ptr(), counts.shape[0], p.shape[0], int(n_iters), int(n_samples),
-            n_long, long_from, stream)
+    e_all, tickets = long_scratch(n_long, n_iters, p.device) if scratch is None else scratch
+    _native.launch(lib, "mc_long_site_launch", "ops.launch.mc_long_site", p.device, p.data_ptr(), offsets.data_ptr(),
+                   counts.data_ptr(), u.data_ptr(), sites.data_ptr(), e_all.data_ptr(), tickets.data_ptr(),
+                   site_p.data_ptr(), counts.shape[0], p.shape[0], int(n_iters), int(n_samples), n_long, long_from)
 
 
 def site_probability_mc_cuda(
@@ -297,27 +267,17 @@ def site_probability_mc_cuda(
             raise ValueError(f"site_probability_mc_cuda runs on cpu or cuda, got {device}")
         max_count, n_long = sites
 
-        lib = _kernel_lib(n_samples)
+        lib = kernel_lib(n_samples)
         site_p = torch.empty(n_sites, dtype=torch.float32, device=device)
-        with torch.cuda.device(device):
-            stream = torch.cuda.current_stream(device).cuda_stream
-            args = (p.data_ptr(), offsets.data_ptr(), counts.data_ptr(), u.data_ptr(), site_p.data_ptr(),
-                    n_sites, p.shape[0], int(n_iters), int(n_samples))
-            with span("ops.launch.mc_site"):
-                err = lib.mc_site_launch(*args, max_count, stream)
-            _raise_on(lib, err)
-            launch_count += 1
-            if n_long:
-                if host_sites is None:
-                    listed = long_sites(counts, n_long=n_long)
-                else:  # pinned, so the copy makes the host wait for nothing
-                    listed = torch.from_numpy(long_sites(host_sites[1])).pin_memory().to(device, non_blocking=True)
-                _raise_on(lib, launch_long_sites(lib, p, offsets, counts, u, site_p, listed, n_iters, n_samples,
-                                                 MAX_STAGED_READS))
-                long_launch_count += 1
+        _native.launch(lib, "mc_site_launch", "ops.launch.mc_site", device, p.data_ptr(), offsets.data_ptr(),
+                       counts.data_ptr(), u.data_ptr(), site_p.data_ptr(), n_sites, p.shape[0], int(n_iters),
+                       int(n_samples), max_count)
+        launch_count += 1
+        if n_long:
+            if host_sites is None:
+                listed = long_sites(counts, n_long=n_long)
+            else:  # pinned, so the copy makes the host wait for nothing
+                listed = torch.from_numpy(long_sites(host_sites[1])).pin_memory().to(device, non_blocking=True)
+            launch_long_sites(lib, p, offsets, counts, u, site_p, listed, n_iters, n_samples, MAX_STAGED_READS)
+            long_launch_count += 1
         return site_p
-
-
-def _raise_on(lib: ctypes.CDLL, err: int) -> None:
-    if err != 0:
-        raise RuntimeError(f"mc kernel launch failed: {lib.mc_error_string(err).decode()}")

@@ -20,7 +20,8 @@
   bound takes;
 * :func:`bind_mc`, :func:`long_site_launcher` and :func:`mc_site_p` call
   a library built from either version of ``mc.cu``: this one, or an older
-  one whose long-site launch scans the counts for the long sites.
+  one whose long-site launch scans the counts for the long sites (bound
+  through ``ops._native``, the one table of the sources' C interfaces).
 """
 from __future__ import annotations
 
@@ -29,12 +30,12 @@ import ctypes
 import os
 import re
 import subprocess
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
-from ..ops import _build
+from ..ops import _build, _native
 from ..ops import mc_kernel
 
 FLUSH_BYTES = 1 << 30  # zeroed before each timed launch: well past the 50 MB L2
@@ -251,21 +252,27 @@ def mc_lists_sites(source: str) -> bool:
         return "const int32_t* long_sites" in f.read()
 
 
-def bind_mc(lib: ctypes.CDLL, lists_sites: bool) -> ctypes.CDLL:
-    """Declare the two launches of a library built from an mc.cu (whose
-    long-site launch takes a list where ``lists_sites``)."""
-    lib.mc_site_launch.restype = lib.mc_long_site_launch.restype = ctypes.c_int
-    lib.mc_site_launch.argtypes = mc_kernel.LAUNCH_ARGTYPES
-    lib.mc_long_site_launch.argtypes = mc_kernel.LONG_LAUNCH_ARGTYPES if lists_sites else SCAN_LONG_LAUNCH_ARGTYPES
-    return lib
+def bind_mc(lib: Union[str, ctypes.CDLL], lists_sites: bool) -> _native.Library:
+    """A library built from an mc.cu (or its path), declared by
+    ``_native.open_library``, and its long-site launch by the older
+    interface where it scans the counts (not ``lists_sites``)."""
+    mc = _native.open_library(lib, "mc")
+    if not lists_sites:
+        mc.cdll.mc_long_site_launch.argtypes = SCAN_LONG_LAUNCH_ARGTYPES
+    return mc
 
 
-def long_site_launcher(lib, lists_sites, p, offsets, counts, u, site_p, n_iters, long_from) -> Callable[[], int]:
-    """A call of ``lib``'s long-site launch over the sites above
-    ``long_from`` (``u``'s rows the draws an iteration), into ``site_p`` on
-    the current stream; it returns the CUDA error code.  Its calls share
-    one scratch (the kernel leaves its tickets zero), so that a timed call
-    fills none."""
+def check_mc(err: int) -> None:
+    if err:
+        raise RuntimeError(f"an mc.cu launch failed with CUDA error {err}")
+
+
+def long_site_launcher(lib, lists_sites, p, offsets, counts, u, site_p, n_iters, long_from) -> Callable[[], None]:
+    """A call of ``lib``'s (:func:`bind_mc`) long-site launch over the sites
+    above ``long_from`` (``u``'s rows the draws an iteration), into
+    ``site_p`` on the current stream; it raises where the launch fails.
+    Its calls share one scratch (the kernel leaves its tickets zero), so
+    that a timed call fills none."""
     n_samples = u.shape[0]
     if lists_sites:
         listed = mc_kernel.long_sites(counts, long_from)
@@ -276,21 +283,18 @@ def long_site_launcher(lib, lists_sites, p, offsets, counts, u, site_p, n_iters,
     stream = torch.cuda.current_stream().cuda_stream
     # the tensors themselves, not their addresses, in the closure: they
     # live as long as the call does
-    return lambda: lib.mc_long_site_launch(p.data_ptr(), offsets.data_ptr(), counts.data_ptr(), u.data_ptr(),
-                                           site_p.data_ptr(), counts.shape[0], p.shape[0], n_iters, n_samples,
-                                           long_from, grid, stream)
+    return lambda: check_mc(lib.cdll.mc_long_site_launch(
+        p.data_ptr(), offsets.data_ptr(), counts.data_ptr(), u.data_ptr(), site_p.data_ptr(), counts.shape[0],
+        p.shape[0], n_iters, n_samples, long_from, grid, stream))
 
 
 def mc_site_p(lib, lists_sites, p, offsets, counts, u, n_iters) -> torch.Tensor:
-    """site_p from ``lib``: its staged launch, sized for the batch's
-    largest staged count, then its long-site launch after it."""
+    """site_p from ``lib`` (:func:`bind_mc`): its staged launch, sized for
+    the batch's largest staged count, then its long-site launch after it."""
     site_p = torch.empty(counts.shape[0], dtype=torch.float32, device=p.device)
     staged = torch.where(counts <= mc_kernel.MAX_STAGED_READS, counts, torch.zeros_like(counts))
-    err = lib.mc_site_launch(p.data_ptr(), offsets.data_ptr(), counts.data_ptr(), u.data_ptr(), site_p.data_ptr(),
-                             counts.shape[0], p.shape[0], n_iters, u.shape[0], int(staged.max()),
-                             torch.cuda.current_stream().cuda_stream)
-    err = err or long_site_launcher(lib, lists_sites, p, offsets, counts, u, site_p, n_iters,
-                                    mc_kernel.MAX_STAGED_READS)()
-    if err:
-        raise RuntimeError(f"an mc.cu launch failed with CUDA error {err}")
+    check_mc(lib.cdll.mc_site_launch(p.data_ptr(), offsets.data_ptr(), counts.data_ptr(), u.data_ptr(),
+                                     site_p.data_ptr(), counts.shape[0], p.shape[0], n_iters, u.shape[0],
+                                     int(staged.max()), torch.cuda.current_stream().cuda_stream))
+    long_site_launcher(lib, lists_sites, p, offsets, counts, u, site_p, n_iters, mc_kernel.MAX_STAGED_READS)()
     return site_p

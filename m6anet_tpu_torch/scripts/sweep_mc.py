@@ -53,7 +53,6 @@ a file.  Needs one NVIDIA card and nvcc.
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
 import os
 import shutil
@@ -66,7 +65,7 @@ import torch
 
 from ..constants import DEFAULT_MODEL_CONFIG, PRETRAINED_CONFIGS
 from ..models import load_model
-from ..ops import _build
+from ..ops import _build, _native
 from ..ops import fused_infer_kernel as fik
 from ..ops import mc_kernel
 from ..ops import random as prng
@@ -125,7 +124,7 @@ def sweep_long(long_builds, long_libs, card):
     rows, launches = [], {name: [] for name in shapes}
     for (label, source), lib_path in zip(long_builds, long_libs):
         lists = mc_lists_sites(source)
-        lib = bind_mc(ctypes.CDLL(lib_path), lists)
+        lib = bind_mc(lib_path, lists)
         row = {"build": label, "ptxas": _build.ptxas_usage(lib_path, "mc_long_site_kernel"), "site_p": {},
                "repeat_identical": True}
         for name, (p, o, c) in shapes.items():
@@ -219,15 +218,12 @@ def main(argv=None) -> int:
 
         rows = []
         for (label, source_path), lib_path in zip(builds, libs):
-            lib = ctypes.CDLL(lib_path)
-            lib.mc_site_launch.restype = ctypes.c_int
+            lib = _native.declare(lib_path, "mc")
             # an older source's launch takes no n_reads (the 7th argument)
             with open(source_path) as f:
                 takes_n_reads = "int64_t n_reads" in f.read()
-            argtypes = list(mc_kernel.LAUNCH_ARGTYPES)
             if not takes_n_reads:
-                del argtypes[6]
-            lib.mc_site_launch.argtypes = argtypes
+                lib.mc_site_launch.argtypes = [t for i, t in enumerate(lib.mc_site_launch.argtypes) if i != 6]
             out = {}
 
             def launcher(case, lib=lib, takes_n_reads=takes_n_reads):

@@ -42,9 +42,9 @@ and nvcc.
 from __future__ import annotations
 
 import argparse
-import ctypes
 import importlib
 import importlib.util
+import inspect
 import json
 import os
 import shutil
@@ -58,7 +58,7 @@ import torch
 
 from ..constants import DEFAULT_MODEL_CONFIG, PRETRAINED_CONFIGS
 from ..models import load_model
-from ..ops import _build
+from ..ops import _build, _native
 from ..ops import fused_infer_kernel as fik
 from ._sweep import READS, production_batch, smi, time_interleaved, variant_source
 
@@ -216,8 +216,10 @@ def reference_image(root: str, fp: fik.FusedParamsT) -> torch.Tensor:
     sys.modules[name] = package
     spec.loader.exec_module(package)
     pack = importlib.import_module(f"{name}.ops.fused_infer_kernel")._pack_tc
-    weights = ("w1t", "embt", "b1t", "w2t", "b2t", "w3t", "b3t")
-    return pack(**{k: getattr(fp, k).cpu() for k in weights}).to(fp.tc.device)
+    weights = {k: getattr(fp, k).cpu() for k in ("w1t", "embt", "b1t", "w2t", "b2t", "w3t", "b3t")}
+    if "w" in inspect.signature(pack).parameters:  # a copy since widths became build-time macros
+        weights["w"] = fp.widths
+    return pack(**weights).to(fp.tc.device)
 
 
 def ablation_builds(text: str):
@@ -330,9 +332,9 @@ def main(argv=None) -> int:
 
         rows = []
         for (label, _, ablation, image), lib_path in zip(builds, libs):
-            lib = ctypes.CDLL(lib_path)
-            lib.read_prob_tc_launch.restype = ctypes.c_int
-            lib.read_prob_tc_launch.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64, ctypes.c_int, ctypes.c_void_p]
+            lib = _native.declare(lib_path, "read_prob_tc")
+            # an older source may report no launch config
+            configs = _native.open_library(lib, "read_prob_tc").plan if hasattr(lib, "read_prob_tc_config") else {}
             with open(lib_path + ".log") as f:
                 serialized = [ln.strip() for ln in f if "wgmma" in ln and "serialized" in ln]
             for mode in MODES:
@@ -353,11 +355,7 @@ def main(argv=None) -> int:
                     tail_p.append(torch.empty(x.shape[0], dtype=torch.float32, device="cuda"))
                     launch(x=x, k=k, p=tail_p[-1])
                 torch.cuda.synchronize()
-                config = None
-                if hasattr(lib, "read_prob_tc_config"):
-                    out = (ctypes.c_int32 * len(fik.TC_CONFIG_KEYS))()
-                    lib.read_prob_tc_config(code, out)
-                    config = dict(zip(fik.TC_CONFIG_KEYS, out))
+                config = configs.get(mode)
                 rows.append({
                     "build": label, "ablation": ablation, "precision": mode, "launch": lambda f=launch, p=p: f(p=p),
                     "p": p, "tails": tail_p, "config": config, "wgmma_serialized": serialized,

@@ -43,7 +43,6 @@ file.  Needs one NVIDIA card and nvcc.
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
 import os
 import shutil
@@ -57,7 +56,7 @@ import torch
 from ..constants import DEFAULT_MODEL_CONFIG, PRETRAINED_CONFIGS, SIGNAL_MODEL_CONFIG
 from ..models import load_model
 from ..models.mil import MILModel
-from ..ops import _build
+from ..ops import _build, _native
 from ..ops import encoder_kernel as enc
 from ..ops import fused_infer_kernel as fik
 from ._sweep import (
@@ -188,9 +187,7 @@ def main(argv=None) -> int:
                 refused.append({"build": label, "build_failed": failed[lib_path][-2000:]})
                 print(json.dumps(refused[-1]), flush=True)
                 continue
-            lib = ctypes.CDLL(lib_path)
-            lib.read_prob_launch.restype = ctypes.c_int
-            lib.read_prob_launch.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64, ctypes.c_void_p]
+            lib = _native.declare(lib_path, "fused_infer")
             p = torch.empty(READS, dtype=torch.float32, device="cuda")
 
             def launch(lib=lib, p=p):

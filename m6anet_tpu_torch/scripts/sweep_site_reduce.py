@@ -55,7 +55,7 @@ import torch
 
 from ..constants import DEFAULT_MODEL_CONFIG, PRETRAINED_CONFIGS
 from ..models import load_model
-from ..ops import _build
+from ..ops import _build, _native
 from ..ops import fused_infer_kernel as fik
 from ._sweep import production_batch, same_bits, smi, time_interleaved, variant_source
 
@@ -85,16 +85,7 @@ PEAK_BYTES_PER_S = 3.35e12  # H100 SXM device memory (data sheet)
 def bind(lib_path: str, tc: bool = False) -> ctypes.CDLL:
     """A build of fused_infer.cu (or, with ``tc``, of read_prob_tc.cu) with
     its launches' C interfaces declared."""
-    lib = ctypes.CDLL(lib_path)
-    if tc:
-        lib.read_prob_tc_launch.restype = ctypes.c_int
-        lib.read_prob_tc_launch.argtypes = fik.TC_ARGTYPES
-        return lib
-    lib.fused_infer_launch.restype = ctypes.c_int
-    lib.fused_infer_launch.argtypes = fik.FUSED_ARGTYPES
-    lib.site_reduce_launch.restype = ctypes.c_int
-    lib.site_reduce_launch.argtypes = fik.SITE_REDUCE_ARGTYPES
-    return lib
+    return _native.declare(lib_path, "read_prob_tc" if tc else "fused_infer")
 
 
 def check(err: int, what: str) -> None:

@@ -40,7 +40,6 @@ that builds changes p.  Needs one NVIDIA card and nvcc.
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
 import os
 import re
@@ -53,7 +52,7 @@ import numpy as np
 import torch
 
 from ..models.mil import MILModel
-from ..ops import _build
+from ..ops import _build, _native
 from ..ops import fused_infer_kernel as fik
 from ._sweep import READS, same_bits, smi, time_interleaved
 
@@ -160,18 +159,14 @@ def main(argv=None) -> int:
                 p_plain = fik.read_probability_plain(fp, features, kmer, mode)
                 launches, outs, usage = [], [], []
                 for (_, source, _, _, _, _), lib_path in rows:
-                    lib = ctypes.CDLL(lib_path)
+                    lib = _native.declare(lib_path, source)
                     p = torch.empty(READS, dtype=torch.float32, device="cuda")
                     if source == "fused_infer":
-                        lib.read_prob_launch.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64, ctypes.c_void_p]
-
                         def launch(lib=lib, p=p):
                             return lib.read_prob_launch(features.data_ptr(), kmer.data_ptr(), fp.packed.data_ptr(),
                                                         p.data_ptr(), READS, stream)
                         kernel = "read_prob_wide_kernel"
                     else:
-                        lib.read_prob_tc_launch.argtypes = fik.TC_ARGTYPES
-
                         def launch(lib=lib, p=p):
                             return lib.read_prob_tc_launch(features.data_ptr(), kmer.data_ptr(), fp.tc.data_ptr(),
                                                            p.data_ptr(), READS, fik.TC_MODES[mode], stream)

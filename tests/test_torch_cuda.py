@@ -265,14 +265,14 @@ def _mc_through_long_kernel(p, offsets, counts, u, n_iters):
     mc.cu's staged launch sized for count 0 (NaN at those sites), then its
     long-site launch from count 0 over every such site.  No launch is
     counted."""
-    lib = mc_kernel._kernel_lib()
+    lib = mc_kernel.kernel_lib()
     n_sites = counts.shape[0]
     site_p = torch.empty(n_sites, dtype=torch.float32, device=p.device)
     stream = torch.cuda.current_stream(p.device).cuda_stream
-    assert lib.mc_site_launch(p.data_ptr(), offsets.data_ptr(), counts.data_ptr(), u.data_ptr(), site_p.data_ptr(),
-                              n_sites, p.shape[0], n_iters, mc_kernel.SAMPLES, 0, stream) == 0
-    assert mc_kernel.launch_long_sites(lib, p, offsets, counts, u, site_p, mc_kernel.long_sites(counts, 0), n_iters,
-                                       mc_kernel.SAMPLES, 0) == 0
+    assert lib.cdll.mc_site_launch(p.data_ptr(), offsets.data_ptr(), counts.data_ptr(), u.data_ptr(),
+                                   site_p.data_ptr(), n_sites, p.shape[0], n_iters, mc_kernel.SAMPLES, 0, stream) == 0
+    mc_kernel.launch_long_sites(lib, p, offsets, counts, u, site_p, mc_kernel.long_sites(counts, 0), n_iters,
+                                mc_kernel.SAMPLES, 0)
     return site_p
 
 
@@ -315,12 +315,12 @@ def test_mc_long_sites_on_the_card(cuda_device):
     torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
     assert torch.equal(got, again) and bool(torch.isfinite(got).all())
     # one scratch for two launches: the kernel leaves its tickets zero
-    lib, listed = mc_kernel._kernel_lib(), mc_kernel.long_sites(t[2])
+    lib, listed = mc_kernel.kernel_lib(), mc_kernel.long_sites(t[2])
     scratch = mc_kernel.long_scratch(len(counts), 1000, cuda_device)
     for _ in range(2):
         out = torch.full_like(got, float("nan"))
-        assert mc_kernel.launch_long_sites(lib, *t, u, out, listed, 1000, mc_kernel.SAMPLES,
-                                           mc_kernel.MAX_STAGED_READS, scratch) == 0
+        mc_kernel.launch_long_sites(lib, *t, u, out, listed, 1000, mc_kernel.SAMPLES, mc_kernel.MAX_STAGED_READS,
+                                    scratch)
         assert same_bits(out, got) and int(torch.count_nonzero(scratch[1])) == 0
     # 128 draws an iteration, which the long kernel issues in rounds
     u128 = torch.from_numpy(random.shared_draws(5, 300, 128)).to(cuda_device)
@@ -1021,7 +1021,7 @@ def test_lane_groups_at_every_residue_of_the_tile(cuda_device, name):
         fp = fik.prepare_fused_params_t(model.to(cuda_device))
         lib = fik.kernel_lib(w)
         n_in = w.features
-        K = rng.integers(0, w.vocab, size=(3 * lib.read_prob_tile_reads(), w.positions)).astype(np.int8)
+        K = rng.integers(0, w.vocab, size=(3 * lib.plan["f32"]["tile_reads"], w.positions)).astype(np.int8)
         K = torch.from_numpy(K).to(cuda_device)
 
         def kernel(x):
@@ -1029,8 +1029,8 @@ def test_lane_groups_at_every_residue_of_the_tile(cuda_device, name):
 
         def plain(x):
             return fik.read_probability_plain(fp, x, K[: x.shape[0]])
-    assert lib.read_prob_lane_group() > 1 and not lib.read_prob_wide()
-    tile = lib.read_prob_tile_reads()
+    assert lib.lane_group > 1 and not lib.plan["f32"]["wide"]
+    tile = lib.plan["f32"]["tile_reads"]
     x = torch.from_numpy(rng.standard_normal(size=(3 * tile, n_in), dtype=np.float32)).to(cuda_device)
     before = fik.grouped_launch_count
     with torch.no_grad():
@@ -1081,7 +1081,7 @@ def test_a_model_outside_the_tail_runs_the_modules_on_the_card(cuda_device, name
     assert encoder_kernel.tail_params(model) is None
     if name == "past_the_fast_plan":  # split and packed, but the kernel file plans these widths wide
         tp = encoder_kernel.prepare_tail_params(model)
-        assert tp is not None and encoder_kernel.tail_lib(tp.widths).read_prob_wide() == 1
+        assert tp is not None and encoder_kernel.tail_lib(tp.widths).plan["f32"]["wide"]
     X, K, offsets, counts = (torch.from_numpy(a).to(cuda_device) for a in _ragged_batch())
     before = encoder_kernel.tail_launch_count, fik.site_reduce_launch_count
     with torch.no_grad():
@@ -1222,3 +1222,59 @@ def test_wide_plans_at_every_tail_residue(cuda_device, widths):
             n = 2 * tile + r
             assert same_bits(encoder_kernel.fused_read_probability(fp, Xd[:n], Kd[:n], precision), whole[:n]), (
                 precision, n)
+
+
+def test_steps_ask_no_library_for_its_plan_after_it_loads(cuda_device, monkeypatch):
+    """The exact step of the released model (cuda_fused, every precision)
+    and of a model whose tensor-core phase A takes the wide plan (W9: H2 =
+    128; f32x3 and bf16), the MC step and the signal-only model's torch step (its tail's
+    lane groups) on the ragged batch, once; then again with every loaded
+    library's plan queries (read_prob_wide, read_prob_lane_group,
+    read_prob_tc_config) replaced by functions that fail: each launch
+    counter moves as it did the first time, and each output repeats bit for
+    bit.  The wrappers count from the plan each library reported when it
+    loaded (ops/_native.py)."""
+    from m6anet_tpu_torch.inference import engine
+    from m6anet_tpu_torch.ops import _native
+
+    X, K, offsets, counts = (torch.from_numpy(a).to(cuda_device) for a in _ragged_batch())
+    n_sites = counts.shape[0]
+    model = _model().to(cuda_device).eval()
+    wide = MILModel(fik.widths_config(fik.Widths(3, 2, 150, 128))).init(torch.Generator().manual_seed(3))
+    wide = wide.eval().to(cuda_device)
+    steps = [engine.make_infer_step(m, n_sites, DEFAULT_READ_THRESHOLD, 20, "exact", "cuda_fused", precision=p)
+             for m, precisions in ((model, ("f32", "f32x3", "bf16")), (wide, ("f32x3", "bf16"))) for p in precisions]
+    steps.append(engine.make_infer_step(model, n_sites, DEFAULT_READ_THRESHOLD, 20, "mc", "cuda_fused",
+                                        n_iterations=1000, seed=2))
+    steps.append(engine.make_infer_step(_tail_model("signal", cuda_device), n_sites, DEFAULT_READ_THRESHOLD,
+                                        method="exact", backend="torch"))
+
+    def counters():
+        return {"fused_inference_t": fik.launch_count, "site_reduce": fik.site_reduce_launch_count,
+                **{f"read_prob_tc_{m}": n for m, n in fik.tc_launch_counts.items()},
+                **{f"read_prob_wide_{m}": n for m, n in fik.wide_launch_counts.items()},
+                "read_prob_grouped": fik.grouped_launch_count, "read_prob_tail": encoder_kernel.tail_launch_count,
+                "mc": mc_kernel.launch_count, "mc_long": mc_kernel.long_launch_count}
+
+    def run():
+        before = counters()
+        with torch.no_grad():
+            out = [step(X, K, offsets, counts) for step in steps]
+        torch.cuda.synchronize()
+        return out, {k: v - before[k] for k, v in counters().items()}
+
+    first, moved = run()
+    assert moved["read_prob_wide_f32x3"] == moved["read_prob_wide_bf16"] == 1 and moved["read_prob_wide_f32"] == 0
+    assert moved["read_prob_grouped"] == moved["read_prob_tail"] == moved["mc"] == 1
+
+    def refuse(*args):
+        raise AssertionError("a library was asked for its plan after it loaded")
+
+    for lib in list(_native._libraries.values()):
+        for name in ("read_prob_wide", "read_prob_lane_group", "read_prob_tc_config"):
+            if hasattr(lib.cdll, name):
+                monkeypatch.setattr(lib.cdll, name, refuse)
+    again, moved_again = run()
+    assert moved_again == moved
+    for a, b in zip(first, again):
+        assert all(same_bits(x, y) for x, y in zip(a, b))

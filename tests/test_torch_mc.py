@@ -12,9 +12,7 @@ order); the kernel's plain version 1e-6 against the numpy oracle of
 tests/test_ops.py (the same arithmetic, the sum over iterations in another
 precision) and 2e-4 against the Pallas kernel (its bf16 hi/lo split, the
 bound tests/test_ops.py holds it to)."""
-import ctypes
 import os
-import re
 
 import jax
 import jax.numpy as jnp
@@ -322,14 +320,3 @@ def test_sweep_mc_rewrites_the_kernel_source():
     assert passes == gathers == 2 * 20 * 4
     passes, gathers = gather_passes(np.array([1000]), u)
     assert gathers == 20 * 4 and passes > 2 * gathers
-
-
-def test_mc_launch_argtypes_match_the_kernel_source():
-    """mc_kernel.LAUNCH_ARGTYPES, which the wrapper and the sweep bind
-    mc_site_launch with, against that function's parameters in mc.cu."""
-    with open(os.path.join(os.path.dirname(mc_kernel.__file__), "csrc", "mc.cu")) as f:
-        params = re.search(r"int mc_site_launch\(([^)]*)\)", f.read()).group(1).split(",")
-    scalars = {"int64_t": ctypes.c_int64, "int": ctypes.c_int}
-    want = [ctypes.c_void_p if "*" in param else scalars[param.split()[0]] for param in params]
-    assert mc_kernel.LAUNCH_ARGTYPES == want
-    assert [param.split()[-1] for param in params][5:8] == ["n_sites", "n_reads", "n_iters"]

@@ -8,7 +8,6 @@ draws, at PERF.md section 2's 2e-4 (the Pallas kernel's bf16 split); the
 CUDA kernels are held against the plain version on the card by
 tests/test_torch_cuda.py and ``chip_smoke.py`` phase 22.
 """
-import ctypes
 import os
 import re
 
@@ -101,20 +100,6 @@ def test_each_draw_count_builds_its_own_kernel():
         assert defines == {"M6A_SAMPLES": n_samples}
         assert _build.cu_constants("mc", defines)["kSamples"] == n_samples
     assert _build.cu_constants("mc")["kSamples"] == mc_kernel.SAMPLES == 20
-
-
-def test_mc_long_launch_argtypes_match_the_kernel_source():
-    """mc_kernel.LONG_LAUNCH_ARGTYPES against mc_long_site_launch's
-    parameters in mc.cu: the list of long sites, the scratch and the
-    tickets after the inputs, the list's length and long_from last."""
-    with open(os.path.join(os.path.dirname(mc_kernel.__file__), "csrc", "mc.cu")) as f:
-        params = re.search(r"int mc_long_site_launch\(([^)]*)\)", f.read()).group(1).split(",")
-    scalars = {"int64_t": ctypes.c_int64, "int": ctypes.c_int}
-    want = [ctypes.c_void_p if "*" in param else scalars[param.split()[0]] for param in params]
-    assert mc_kernel.LONG_LAUNCH_ARGTYPES == want
-    names = [param.split()[-1].lstrip("*") for param in params]
-    assert names[4:8] == ["long_sites", "e_all", "tickets", "site_p"]
-    assert names[-3:] == ["n_long", "long_from", "stream_ptr"]
 
 
 def test_long_site_lists_from_the_host_and_the_tensors_agree():
